@@ -1,0 +1,81 @@
+"""SegGPT architecture configuration (copy of
+``beach_seg_tpu/models/seggpt/config.py``).
+
+Mirrors the hyperparameters of ``BAAI/seggpt-vit-large`` (HF
+``transformers/models/seggpt/configuration_seggpt.py:93-140``).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+
+@dataclass(frozen=True)
+class SegGPTConfig:
+    hidden_size: int = 1024
+    num_hidden_layers: int = 24
+    num_attention_heads: int = 16
+    mlp_dim: int = 0  # 0 → 4 * hidden_size
+    hidden_dropout_prob: float = 0.0
+    layer_norm_eps: float = 1e-6
+    image_size: tuple[int, int] = (896, 448)  # prompt‖query canvas (H, W)
+    patch_size: int = 16
+    num_channels: int = 3
+    qkv_bias: bool = True
+    drop_path_rate: float = 0.1
+    pretrain_image_size: int = 224
+    decoder_hidden_size: int = 64
+    use_relative_position_embeddings: bool = True
+    merge_index: int = 2
+    intermediate_hidden_state_indices: tuple[int, ...] = (5, 11, 17, 23)
+    beta: float = 0.01
+    initializer_range: float = 0.02
+
+    def __post_init__(self):
+        if self.mlp_dim == 0:
+            object.__setattr__(self, "mlp_dim", 4 * self.hidden_size)
+        if self.merge_index > min(self.intermediate_hidden_state_indices):
+            raise ValueError("merge_index must precede the first intermediate index")
+
+    @property
+    def grid_size(self) -> tuple[int, int]:
+        return (self.image_size[0] // self.patch_size, self.image_size[1] // self.patch_size)
+
+    @property
+    def num_patches(self) -> int:
+        gh, gw = self.grid_size
+        return gh * gw
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+
+def tiny_config(**overrides) -> SegGPTConfig:
+    """A miniature config for fast tests/parity checks (same topology)."""
+    base = dict(
+        hidden_size=32,
+        num_hidden_layers=6,
+        num_attention_heads=4,
+        image_size=(64, 32),
+        patch_size=8,
+        pretrain_image_size=32,
+        decoder_hidden_size=16,
+        merge_index=1,
+        intermediate_hidden_state_indices=(2, 5),
+        drop_path_rate=0.1,
+    )
+    base.update(overrides)
+    return SegGPTConfig(**base)
+
+
+def huge_config(**overrides) -> SegGPTConfig:
+    """ViT-H-class scale-up (BeachSegConfig.backbone="huge")."""
+    base = dict(
+        hidden_size=1280,
+        num_hidden_layers=32,
+        num_attention_heads=16,
+        intermediate_hidden_state_indices=(7, 15, 23, 31),
+    )
+    base.update(overrides)
+    return SegGPTConfig(**base)

@@ -1,0 +1,360 @@
+"""Chip smoke test of the PyTorch/CUDA port (beach_seg_tpu_torch) on one
+NVIDIA Hopper card.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero before the result lines):
+  1. the card (nvidia-smi name and power limit), torch and CUDA versions;
+  2. build both CUDA kernels from ops/csrc with nvcc, in parallel; print the
+     build time and ptxas' register / shared-memory / spill lines;
+  3. at ViT-L shapes for a batch of 8 tiles (S=1568, C=1024, 16 heads,
+     M=4096): each kernel against its plain PyTorch version on the card, then
+     CUDA-event times of the kernel, the plain version and, for attention,
+     scaled_dot_product_attention with the materialized bias (a yardstick the
+     port never calls);
+  4. the main path: full-width ViT-L (24 layers, seeded random weights, bf16)
+     through PromptTuner.predict_step on 3 batches of 8 uint8 112×112 crops;
+     ids checked for shape, dtype and range; the launch counters must rise by
+     24 attention and 24 MLP launches per call; pred_masks of one batch held
+     against the same forward through the plain versions on the card;
+  5. one JSON line of per-kernel numbers, then the card's name and power
+     limit, then {"ok": true, "device": {...}} as the last line.
+
+It exits non-zero without a CUDA device, and needs nothing but this
+repository, torch, numpy and the CUDA toolkit.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+PEAK_BF16 = 989e12  # H100 SXM dense tensor-core FLOP/s (NVIDIA data sheet)
+HBM = 3.35e12  # bytes/s
+B = 8  # tiles per batch (the predict step's batch)
+GRID = (56, 28)  # ViT-L canvas 896×448 at 16-pixel patches
+C, HEADS, MLP = 1024, 16, 4096
+HD = C // HEADS
+BF16_EPS = 2.0**-8
+
+# tolerances, kernel against its plain version on the same inputs:
+# attention bf16/clamp: three bf16 steps at |out| ≤ ~1 (p and out are rounded
+# at the same points, fp32 sums in another order may round to the neighbour)
+ATTN_BF16_TOL = 3e-2
+# attention fp32/stable: the online softmax rescales partial sums, a few ulps
+ATTN_FP32_TOL = 1e-4
+# MLP bf16: four bf16 steps of the output's scale
+MLP_BF16_REL_TOL = 4 * BF16_EPS
+# main path, pred_masks through kernels vs plain versions after 24 layers of
+# bf16 rounding flips: 5% of the output's scale. Random weights paint many
+# pixels close to a palette decision boundary, so ids may differ there: ≥ 98%
+# equal, and every differing id within the error's reach of a boundary
+PRED_REL_TOL = 5e-2
+ID_AGREEMENT_MIN = 0.98
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return res.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, iters: int, warmup: int = 1) -> float:
+    """Mean CUDA-event time of ``fn`` over ``iters`` launches after warm-up."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
+    """Least time (ms) the card could take, and which of the two bounds it."""
+    t_ops, t_bytes = flops / peak, nbytes / HBM
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def attn_bound(b: int, itemsize: int, peak: float) -> tuple[float, str]:
+    gh, gw = GRID
+    s = gh * gw
+    flops = 4 * b * HEADS * s * s * HD + 2 * b * HEADS * s * (gh + gw) * HD  # QKᵀ, PV, rel terms
+    nbytes = itemsize * (b * s * 3 * C + b * s * C + 3 * C + (gh + gw) * 64 * HD)
+    return bound(flops, nbytes, peak)
+
+
+def mlp_bound(n: int) -> tuple[float, str]:
+    flops = 4 * n * C * MLP
+    nbytes = 2 * (2 * n * C + 2 * C * MLP + MLP + C) + 4 * 2 * C
+    return bound(flops, nbytes, PEAK_BF16)
+
+
+def attn_inputs(dtype, device, b=B, seed=0):
+    from beach_seg_tpu_torch.ops.attention import rel_tables_padded
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    gh, gw = GRID
+    qkv = torch.randn((b, gh * gw, 3, C), generator=g, device=device)
+    bias = 0.1 * torch.randn((3, C), generator=g, device=device)
+    rph = 0.1 * torch.randn((2 * gh - 1, HD), generator=g, device=device)
+    rpw = 0.1 * torch.randn((2 * gw - 1, HD), generator=g, device=device)
+    rh, rw = rel_tables_padded(rph, rpw, GRID, GRID)
+    return [t.to(dtype).contiguous() for t in (qkv, bias, rh, rw)]
+
+
+def sdpa_yardstick(qkv, bias, rh, rw):
+    """One PyTorch call computing the same attention: SDPA over head-split
+    q, k, v with the (B, H, S, S) rel-pos bias materialized. Returns a
+    closure over prepared inputs so only the SDPA call is timed."""
+    from torch.nn import functional as F
+
+    b, s, _, c = qkv.shape
+    gh, gw = GRID
+    x = qkv + bias
+    q, k, v = (x[:, :, i].reshape(b, s, HEADS, HD).transpose(1, 2) for i in range(3))
+    q5 = q.reshape(b, HEADS, gh, gw, HD)
+    rel_h = torch.einsum("bnyxc,ykc->bnyxk", q5, rh).reshape(b, HEADS, s, 64)
+    rel_w = torch.einsum("bnyxc,xkc->bnyxk", q5, rw).reshape(b, HEADS, s, 64)
+    kidx = torch.arange(s, device=qkv.device)
+    mask = (rel_h[..., kidx // gw] + rel_w[..., kidx % gw]).contiguous()
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=HD**-0.5)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def phase_kernels(device) -> dict:
+    """Kernels against their plain versions at ViT-L shapes, then times."""
+    from beach_seg_tpu_torch.ops import cuda_attn, cuda_mlp
+
+    res = {}
+    gw = GRID[1]
+    for dtype, softmax, tol in ((torch.float32, "stable", ATTN_FP32_TOL), (torch.bfloat16, "clamp", ATTN_BF16_TOL)):
+        args = (*attn_inputs(dtype, device), HD**-0.5, gw, HEADS, softmax)
+        got = cuda_attn.attn_qkv_rel(*args)
+        torch.cuda.synchronize()
+        want = cuda_attn.attn_qkv_rel_plain(*args)
+        err = (got.float() - want.float()).abs().max().item()
+        check(torch.isfinite(got).all().item(), f"attn {dtype} kernel output not finite")
+        log(f"attn_qkv_rel {dtype} {softmax}: max_abs_err {err:.3e} (tol {tol:.1e}), max|plain| {want.abs().max().item():.3f}")
+        check(err <= tol, f"attn {dtype} kernel disagrees with its plain version: {err} > {tol}")
+        res[f"attn_err_{softmax}"] = err
+        del got, want
+    # bf16 times at the main path's shapes (args still hold the bf16 inputs)
+    res["attn_ms"] = time_ms(lambda: cuda_attn.attn_qkv_rel(*args), iters=20, warmup=2)
+    res["attn_plain_ms"] = time_ms(lambda: cuda_attn.attn_qkv_rel_plain(*args), iters=3)
+    res["attn_library_ms"] = time_ms(sdpa_yardstick(*args[:4]), iters=20, warmup=2)
+    res["attn_bound"] = attn_bound(B, 2, PEAK_BF16)
+    torch.cuda.empty_cache()
+
+    g = torch.Generator(device=device).manual_seed(1)
+    n = B * GRID[0] * GRID[1]
+    rnd = lambda *shape: torch.randn(shape, generator=g, device=device)  # noqa: E731
+    bf = torch.bfloat16
+    margs = (
+        rnd(B, n // B, C).to(bf), 1 + 0.1 * rnd(C), 0.1 * rnd(C),
+        (rnd(C, MLP) / C**0.5).to(bf), (0.1 * rnd(MLP)).to(bf),
+        (rnd(MLP, C) / MLP**0.5).to(bf), (0.1 * rnd(C)).to(bf), 1e-6, True,
+    )
+    got = cuda_mlp.ln_mlp(*margs)
+    torch.cuda.synchronize()
+    want = cuda_mlp.ln_mlp_plain(*margs)
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    log(f"ln_mlp bf16: max_abs_err {err:.3e} (tol {MLP_BF16_REL_TOL * scale:.3e} = {MLP_BF16_REL_TOL:.4f}·max|plain| {scale:.3f})")
+    check(torch.isfinite(got).all().item(), "ln_mlp kernel output not finite")
+    check(err <= MLP_BF16_REL_TOL * scale, f"ln_mlp kernel disagrees with its plain version: {err}")
+    res["mlp_err"] = err
+    res["mlp_ms"] = time_ms(lambda: cuda_mlp.ln_mlp(*margs), iters=20, warmup=2)
+    res["mlp_plain_ms"] = time_ms(lambda: cuda_mlp.ln_mlp_plain(*margs), iters=5)
+    res["mlp_bound"] = mlp_bound(n)
+    log(
+        f"times (ms, B={B}): attn kernel {res['attn_ms']:.4f} plain {res['attn_plain_ms']:.4f} "
+        f"sdpa {res['attn_library_ms']:.4f} bound {res['attn_bound'][0]:.4f} ({res['attn_bound'][1]}); "
+        f"mlp kernel {res['mlp_ms']:.4f} plain {res['mlp_plain_ms']:.4f} bound {res['mlp_bound'][0]:.4f} ({res['mlp_bound'][1]})"
+    )
+    return res
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Route the model through the plain versions on the card, for the
+    reference forward only (the library itself never does this)."""
+    from beach_seg_tpu_torch.ops import cuda_attn, cuda_mlp
+
+    saved = cuda_attn.attn_qkv_rel, cuda_mlp.ln_mlp
+    cuda_attn.attn_qkv_rel, cuda_mlp.ln_mlp = cuda_attn.attn_qkv_rel_plain, cuda_mlp.ln_mlp_plain
+    try:
+        yield
+    finally:
+        cuda_attn.attn_qkv_rel, cuda_mlp.ln_mlp = saved
+
+
+def main_path_inputs(conf, n_prompts: int, n_batches: int, seed: int = 0):
+    rng = np.random.default_rng(seed)
+    size = conf.inpt_size
+    # blocky class maps (16-pixel cells) make the prompts look like masks
+    cells = rng.integers(0, len(conf.classes), (n_prompts, size // 16, size // 16))
+    prompts = (
+        rng.random((n_prompts, size, size, 3), dtype=np.float32),
+        np.repeat(np.repeat(cells, 16, axis=1), 16, axis=2).astype(np.int32),
+        np.zeros((n_prompts, size, size), bool),
+    )
+    batches = [
+        {
+            "image_u8": rng.integers(0, 256, (conf.batch_size, conf.crop_size, conf.crop_size, 3), dtype=np.uint8),
+            "crop_idx": rng.integers(0, n_prompts, (conf.batch_size,)).astype(np.int32),
+        }
+        for _ in range(n_batches)
+    ]
+    return prompts, batches
+
+
+def phase_main_path(device, config, n_batches: int = 3) -> dict:
+    from beach_seg_tpu_torch.config import BeachSegConfig
+    from beach_seg_tpu_torch.models.seggpt import build_model
+    from beach_seg_tpu_torch.ops import cuda_attn, cuda_mlp
+    from beach_seg_tpu_torch.train import PromptTuner
+    from beach_seg_tpu_torch.transforms import decode_by_palette
+
+    t0 = time.perf_counter()
+    model = build_model(config, torch.bfloat16, device=device, seed=0)
+    conf = BeachSegConfig(batch_size=B)
+    n_prompts = 4
+    tuner = PromptTuner(model, conf, device=device)
+    prompts, batches = main_path_inputs(conf, n_prompts, n_batches)
+    log(f"main path: ViT-L {config.num_hidden_layers} layers bf16 built in {time.perf_counter() - t0:.3f} s")
+
+    layers = config.num_hidden_layers
+    cuda_attn.attn_qkv_rel.launches = 0
+    cuda_mlp.ln_mlp.launches = 0
+    seconds, per_call = [], []
+    for batch in batches:
+        a0, m0 = cuda_attn.attn_qkv_rel.launches, cuda_mlp.ln_mlp.launches
+        t = time.perf_counter()
+        ids = tuner.predict_step(*prompts, batch, out_size=conf.crop_size)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t)
+        per_call.append((cuda_attn.attn_qkv_rel.launches - a0, cuda_mlp.ln_mlp.launches - m0))
+        check(tuple(ids.shape) == (B, conf.crop_size, conf.crop_size), f"ids shape {tuple(ids.shape)}")
+        check(ids.dtype == torch.uint8 and ids.device.type == "cuda", f"ids {ids.dtype} on {ids.device}")
+        check(int(ids.max()) < len(conf.classes), f"id {int(ids.max())} out of range")
+    launches = {"attn_qkv_rel": cuda_attn.attn_qkv_rel.launches, "ln_mlp": cuda_mlp.ln_mlp.launches}
+    log(f"main path: predict_step seconds per call {seconds}; launches per call (attn, mlp) {per_call}")
+    check(all(pc == (layers, layers) for pc in per_call), f"launches per call {per_call}, want ({layers}, {layers})")
+
+    pred, pal = tuner.predict_masks(*prompts, batches[0])
+    with plain_kernels():
+        want, _ = tuner.predict_masks(*prompts, batches[0])
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(pred).all()), "pred_masks not finite")
+    err = (pred - want).abs().max().item()
+    scale = want.abs().max().item()
+    h = pred.shape[1] // 2
+    differ = decode_by_palette(pred[:, h:], pal) != decode_by_palette(want[:, h:], pal)
+    agree = 1.0 - differ.float().mean().item()
+    # an id may flip only where the plain path's top-two palette scores
+    # (2x·p − |p|²) are closer than a per-channel change of `err` can move
+    # them: 2·err·max‖p_n − p_m‖₁
+    x = want[:, h:].reshape(B, -1, 3)
+    p = pal[0]
+    scores = torch.einsum("bqc,nc->bqn", x, p) * 2.0 - (p * p).sum(-1)
+    top2 = scores.topk(2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1]).reshape(differ.shape)
+    reach = 2 * err * (p[:, None] - p[None]).abs().sum(-1).max().item()
+    worst = margin[differ].max().item() if differ.any() else 0.0
+    log(
+        f"main path: pred_masks kernels vs plain on the card: max_abs_err {err:.4e} "
+        f"(tol {PRED_REL_TOL}·max|plain| {scale:.4f}), id agreement {agree:.6f} (min {ID_AGREEMENT_MIN}); "
+        f"largest score margin at a differing id {worst:.4e} (reach of the error {reach:.4e})"
+    )
+    check(err <= PRED_REL_TOL * scale, f"pred_masks disagree: {err} > {PRED_REL_TOL * scale}")
+    check(agree >= ID_AGREEMENT_MIN, f"id agreement {agree}")
+    check(worst <= reach, f"an id differs {worst} from a decision boundary, beyond the error's reach {reach}")
+    return {"launches": launches, "seconds": seconds, "pred_err": err, "id_agreement": agree}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from beach_seg_tpu_torch.models.seggpt import SegGPTConfig
+    from beach_seg_tpu_torch.ops import build
+    from beach_seg_tpu_torch.utils import resolve_device
+
+    t_start = time.perf_counter()
+    card = card_line()
+    log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+    device = resolve_device("cuda")
+
+    t = time.perf_counter()
+    info = build.build("attn_qkv_rel", "ln_mlp")
+    log(f"build: {time.perf_counter() - t:.3f} s wall")
+    for name in ("attn_qkv_rel", "ln_mlp"):
+        log(f"  {name}: {info[name]['seconds']:.3f} s")
+        for line in info[name]["log"].splitlines():
+            if "Compiling entry" in line or "Used" in line or "spill" in line:
+                log(f"    {line.strip()}")
+
+    t = time.perf_counter()
+    k = phase_kernels(device)
+    log(f"kernel phase: {time.perf_counter() - t:.3f} s")
+    t = time.perf_counter()
+    m = phase_main_path(device, SegGPTConfig())
+    log(f"main path phase: {time.perf_counter() - t:.3f} s")
+
+    kernels = [
+        {
+            "name": "attn_qkv_rel", "route": "cuda",
+            "source": "beach_seg_tpu_torch/ops/csrc/attn_qkv_rel.cu",
+            "replaces": "beach_seg_tpu/ops/pallas_attn.py:389",
+            "launches": m["launches"]["attn_qkv_rel"],
+            "max_abs_err": k["attn_err_clamp"], "max_abs_diff": k["attn_err_clamp"],
+            "max_abs_err_fp32_stable": k["attn_err_stable"],
+            "ms": k["attn_ms"], "plain_ms": k["attn_plain_ms"],
+            "bound_ms": k["attn_bound"][0], "bound_by": k["attn_bound"][1],
+            "library_ms": k["attn_library_ms"],
+            "shape": f"bf16 clamp, qkv ({B}, {GRID[0] * GRID[1]}, 3, {C}), {HEADS} heads",
+        },
+        {
+            "name": "ln_mlp", "route": "cuda",
+            "source": "beach_seg_tpu_torch/ops/csrc/ln_mlp.cu",
+            "replaces": "beach_seg_tpu/ops/pallas_mlp.py:37",
+            "launches": m["launches"]["ln_mlp"],
+            "max_abs_err": k["mlp_err"], "max_abs_diff": k["mlp_err"],
+            "ms": k["mlp_ms"], "plain_ms": k["mlp_plain_ms"],
+            "bound_ms": k["mlp_bound"][0], "bound_by": k["mlp_bound"][1],
+            "library_ms": None,
+            "shape": f"bf16, x ({B * GRID[0] * GRID[1]}, {C}), M={MLP}",
+        },
+    ]
+    log(f"total: {time.perf_counter() - t_start:.3f} s")
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,86 @@
+"""Where the time of the torch port's predict step goes, on one CUDA card.
+
+    python3 scripts/profile_torch_predict.py [--batch 8] [--layers 24] [--calls 3]
+
+Builds full-width ViT-L (seeded random weights, bf16), warms
+``PromptTuner.predict_step`` up on B uint8 112×112 crops, then traces
+``--calls`` calls with ``torch.profiler``. Prints the card, the host seconds
+per call, the device-busy share of the traced window, and the device time per
+kernel name (top 25) as JSON lines. Exits non-zero without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--layers", type=int, default=24)
+    ap.add_argument("--calls", type=int, default=3)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_torch_predict: no CUDA device", file=sys.stderr)
+        return 2
+    import chip_smoke
+    from beach_seg_tpu_torch.config import BeachSegConfig
+    from beach_seg_tpu_torch.models.seggpt import SegGPTConfig, build_model
+    from beach_seg_tpu_torch.train import PromptTuner
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    cfg = SegGPTConfig(num_hidden_layers=args.layers) if args.layers != 24 else SegGPTConfig()
+    model = build_model(cfg, torch.bfloat16, device="cuda", seed=0)
+    conf = BeachSegConfig(batch_size=args.batch)
+    tuner = PromptTuner(model, conf, device="cuda")
+    prompts, batches = chip_smoke.main_path_inputs(conf, 4, 1)
+    for _ in range(2):  # warm-up: kernel builds, cuBLAS/cuDNN plans
+        tuner.predict_step(*prompts, batches[0], out_size=conf.crop_size)
+    torch.cuda.synchronize()
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.calls):
+            tuner.predict_step(*prompts, batches[0], out_size=conf.crop_size)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = []
+    for ev in prof.key_averages():
+        # device activities only: operator entries (aten::…) repeat their
+        # kernels' time
+        if ev.key.startswith(("aten::", "cuda")):
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0)
+        if dev_us > 0:
+            rows.append((dev_us, ev.key, ev.count))
+    rows.sort(reverse=True)
+    busy_us = sum(r[0] for r in rows)
+    print(json.dumps({"card": card, "batch": args.batch, "layers": args.layers, "calls": args.calls}))
+    print(json.dumps({
+        "host_s_per_call": wall / args.calls,
+        "device_busy_ms_per_call": busy_us / 1e3 / args.calls,
+        "device_busy_share": busy_us / 1e6 / wall,
+    }))
+    for dev_us, key, count in rows[:25]:
+        print(json.dumps({"kernel": key[:120], "ms_per_call": dev_us / 1e3 / args.calls,
+                          "launches_per_call": count / args.calls, "share": dev_us / busy_us}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

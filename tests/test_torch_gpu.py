@@ -1,0 +1,95 @@
+"""The port's CUDA kernels against their plain versions on the card, at one
+ViT-L layer's shapes, and the tiny bf16 model through the kernels. Marked
+``gpu``: they skip where no CUDA device is present (run them on the card with
+``python -m pytest --noconftest -m gpu tests/test_torch_gpu.py``)."""
+
+import numpy as np
+import pytest
+import torch
+
+from beach_seg_tpu_torch.models.seggpt import build_model, tiny_config
+from beach_seg_tpu_torch.ops import cuda_attn, cuda_mlp
+from beach_seg_tpu_torch.ops.attention import rel_tables_padded
+
+pytestmark = pytest.mark.gpu
+
+S_GRID = (56, 28)  # ViT-L: 896×448 canvas, 16-pixel patches
+C, HEADS, MLP = 1024, 16, 4096
+BF16_EPS = 2.0**-8
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _attn_inputs(dtype, device, batch=1, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    gh, gw = S_GRID
+    hd = C // HEADS
+    qkv = torch.randn((batch, gh * gw, 3, C), generator=g)
+    bias = 0.1 * torch.randn((3, C), generator=g)
+    rph = 0.1 * torch.randn((2 * gh - 1, hd), generator=g)
+    rpw = 0.1 * torch.randn((2 * gw - 1, hd), generator=g)
+    rh, rw = rel_tables_padded(rph, rpw, S_GRID, S_GRID)
+    return [t.to(device=device, dtype=dtype).contiguous() for t in (qkv, bias, rh, rw)]
+
+
+@pytest.mark.parametrize("dtype,softmax,tol", [(torch.bfloat16, "clamp", 3e-2), (torch.float32, "stable", 1e-4)])
+def test_attn_kernel_matches_plain(cuda, dtype, softmax, tol):
+    qkv, bias, rh, rw = _attn_inputs(dtype, cuda)
+    args = (qkv, bias, rh, rw, 0.125, S_GRID[1], HEADS, softmax)
+    before = cuda_attn.attn_qkv_rel.launches
+    got = cuda_attn.attn_qkv_rel(*args)
+    torch.cuda.synchronize()
+    assert cuda_attn.attn_qkv_rel.launches == before + 1
+    want = cuda_attn.attn_qkv_rel_plain(*args)
+    assert got.shape == want.shape == (1, S_GRID[0] * S_GRID[1], C)
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("c", [256, C])  # the smallest width the kernel takes, and ViT-L's
+def test_mlp_kernel_matches_plain(cuda, c):
+    g = torch.Generator(device="cpu").manual_seed(0)
+    n, m = S_GRID[0] * S_GRID[1], 4 * c
+    x = torch.randn((1, n, c), generator=g)
+    ls, lb = 1 + 0.1 * torch.randn(c, generator=g), 0.1 * torch.randn(c, generator=g)
+    w1, b1 = torch.randn((c, m), generator=g) / c**0.5, 0.1 * torch.randn(m, generator=g)
+    w2, b2 = torch.randn((m, c), generator=g) / m**0.5, 0.1 * torch.randn(c, generator=g)
+    bf = lambda t: t.to(device=cuda, dtype=torch.bfloat16)  # noqa: E731
+    args = (bf(x), ls.to(cuda), lb.to(cuda), bf(w1), bf(b1), bf(w2), bf(b2), 1e-6, True)
+    before = cuda_mlp.ln_mlp.launches
+    got = cuda_mlp.ln_mlp(*args)
+    torch.cuda.synchronize()
+    assert cuda_mlp.ln_mlp.launches == before + 1
+    want = cuda_mlp.ln_mlp_plain(*args)
+    assert (got.float() - want.float()).abs().max().item() <= 4 * BF16_EPS * want.float().abs().max().item()
+
+
+def test_tiny_bf16_model_on_card_matches_cpu(cuda):
+    """head_dim 64, C=256: both kernels run, once per layer each; the card's
+    pred_masks agree with the CPU plain path within bf16 rounding (at the
+    default init range: larger random weights amplify rounding differences
+    layer over layer)."""
+    cfg = tiny_config(hidden_size=256, num_attention_heads=4)
+    rng = np.random.default_rng(0)
+    h, w = cfg.image_size[0] // 2, cfg.image_size[1]
+    inputs = [torch.from_numpy(rng.standard_normal((2, h, w, 3)).astype(np.float32)) for _ in range(3)]
+    cpu = build_model(cfg, torch.bfloat16, device="cpu", seed=1)
+    gpu = build_model(cfg, torch.bfloat16, device=cuda, seed=1)
+    a0, m0 = cuda_attn.attn_qkv_rel.launches, cuda_mlp.ln_mlp.launches
+    with torch.inference_mode():
+        want = cpu(*inputs, decode_query_only=True)["pred_masks"]
+        got = gpu(*(t.to(cuda) for t in inputs), decode_query_only=True)["pred_masks"].cpu()
+    assert cuda_attn.attn_qkv_rel.launches - a0 == cfg.num_hidden_layers
+    assert cuda_mlp.ln_mlp.launches - m0 == cfg.num_hidden_layers
+    assert (got - want).abs().max().item() <= 8 * BF16_EPS * want.abs().max().item()
+
+
+def test_unported_attention_raises_on_card(cuda):
+    model = build_model(tiny_config(), device=cuda)
+    x = torch.zeros((1, 32, 32, 3), device=cuda)
+    with pytest.raises(NotImplementedError, match="_kernel_packed"):
+        model(x, x, x)
