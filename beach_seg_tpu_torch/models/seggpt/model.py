@@ -7,17 +7,24 @@ and parameter names equal to the flax tree's paths joined by dots (see
 ``convert.from_jax_params``). Parameters stay fp32; every module casts them
 to the compute dtype at use, as the flax modules do.
 
-On the card the two hot ops run hand-written CUDA kernels: the qkv-rel
-attention (``ops.cuda_attn``) whenever head_dim is 64 and the grid fits
-64×64, and the fused LN→MLP (``ops.cuda_mlp``) under bf16. Other attention
-geometries (``tiny_config``'s head_dim 8, ViT-H's 80) take the TPU package's
-``_kernel_packed``, which is not ported yet: its plain version runs on CPU
-tensors and CUDA raises.
+On the card the two hot ops run hand-written CUDA kernels, forward and
+backward: the qkv-rel attention (``ops.cuda_attn.qkv_rel_attention``)
+whenever head_dim is 64 and the grid fits 64×64, and the fused LN→MLP
+(``ops.cuda_mlp.fused_ln_mlp``) under bf16. Other attention geometries
+(``tiny_config``'s head_dim 8, ViT-H's 80) take the TPU package's
+``_kernel_packed``, which is not ported yet: its plain version (with the JAX
+package's custom VJP) runs on CPU tensors and CUDA raises.
+
+Training runs the model with ``labels`` (the loss) and ``deterministic=False``
+(drop-path). Autograd saves the compute-dtype weight copies the frozen
+matmuls use (about 0.6 GB at ViT-L bf16), since a frozen weight's copy is
+still an operand of the input gradient.
 
 Input convention (HF semantics, axes transposed to NHWC):
   pixel_values        (B, H, W, 3)  query image
   prompt_pixel_values (B, H, W, 3)  prompt image
   prompt_masks        (B, H, W, 3)  colorized prompt mask
+  labels              (B, H, W, 3)  colorized target (training only)
 The model stacks prompt‖query along height into a (B, 2H, W, 3) canvas.
 """
 
@@ -31,7 +38,7 @@ from torch import nn
 from beach_seg_tpu_torch.models.seggpt.config import SegGPTConfig
 from beach_seg_tpu_torch.ops import cuda_attn, cuda_mlp
 from beach_seg_tpu_torch.ops.attention import (
-    attention_packed_plain,
+    PackedAttention,
     attention_reference,
     rel_pos_terms,
     rel_tables_padded,
@@ -145,7 +152,7 @@ class Attention(nn.Module):
         if use_qkv_rel_kernel:
             bias = self.qkv_bias.to(dt) if self.qkv_bias is not None else torch.zeros((3, c), dtype=dt, device=x.device)
             rh_tab, rw_tab = rel_tables_padded(*rel_params, (gh, gw), (gh, gw))
-            out = cuda_attn.attn_qkv_rel(qkv4, bias, rh_tab, rw_tab, hd**-0.5, gw, nh).reshape(b, gh, gw, c)
+            out = cuda_attn.qkv_rel_attention(qkv4, bias, rh_tab, rw_tab, hd**-0.5, gw, nh).reshape(b, gh, gw, c)
         else:
             # (B, S, 3, nH, hd) → (3, B·nH, S, hd)
             qkv = qkv4.reshape(b, s, 3, nh, hd).permute(2, 0, 3, 1, 4).reshape(3, b * nh, s, hd)
@@ -157,7 +164,7 @@ class Attention(nn.Module):
                         "(beach_seg_tpu/ops/pallas_attn.py:126), which has no CUDA port yet"
                     )
                 rel_h, rel_w = rel_pos_terms(q, *rel_params, (gh, gw), (gh, gw))
-                out = attention_packed_plain(
+                out = PackedAttention.apply(
                     q, k, v, rel_h.reshape(b * nh, s, gh), rel_w.reshape(b * nh, s, gw), hd**-0.5, nh
                 ).reshape(b, gh, gw, c)
             else:
@@ -183,7 +190,7 @@ class Mlp(nn.Module):
         if ln_params is not None:
             # LN+Lin1+GELU+Lin2 in one kernel; the LN params go in uncast (fp32)
             ln_scale, ln_bias = ln_params
-            return cuda_mlp.ln_mlp(
+            return cuda_mlp.fused_ln_mlp(
                 x, ln_scale, ln_bias, k1, b1, k2, b2, self.config.layer_norm_eps, dt == torch.bfloat16
             )
         h = _gelu(x @ k1 + b1, dt)
@@ -205,23 +212,46 @@ class LayerNorm(nn.Module):
         return F.layer_norm(x.float(), self.scale.shape, self.scale, self.bias, self.eps).to(x.dtype)
 
 
+def drop_path(x: torch.Tensor, rate: float, mask: torch.Tensor | None) -> torch.Tensor:
+    """Stochastic depth per sample (HF modeling_seggpt.py:368-385, JAX
+    ``_drop_path``): ``x / keep * mask`` with ``mask`` (B,) of 0/1 kept
+    samples, in that order; identity without a mask or at rate 0."""
+    if mask is None or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    return x / keep * mask.to(x.dtype).reshape(x.shape[0], *([1] * (x.ndim - 1)))
+
+
+def drop_path_rates(config: SegGPTConfig) -> list[float]:
+    """Per-layer rates, ``np.linspace`` in fp32 as the JAX package takes
+    them (torch.linspace parity, JAX model.py:406)."""
+    dpr = np.linspace(0.0, config.drop_path_rate, config.num_hidden_layers, dtype=np.float32)
+    return [float(r) for r in dpr]
+
+
 class Block(nn.Module):
     """Pre-LN transformer block (HF SegGptLayer, modeling_seggpt.py:403-447)."""
 
-    def __init__(self, config: SegGPTConfig, dtype: torch.dtype):
+    def __init__(self, config: SegGPTConfig, dtype: torch.dtype, drop_path_rate: float = 0.0):
         super().__init__()
         self.compute_dtype = dtype
+        self.drop_path_rate = drop_path_rate
         self.layernorm_before = LayerNorm(config.hidden_size, config.layer_norm_eps)
         self.attention = Attention(config, dtype)
         self.layernorm_after = LayerNorm(config.hidden_size, config.layer_norm_eps)
         self.mlp = Mlp(config, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attention(self.layernorm_before(x))
+    def forward(self, x: torch.Tensor, drop_masks=(None, None)) -> torch.Tensor:
+        """``drop_masks``: (B,) keep masks of the attention and MLP branches,
+        or None for no drop-path."""
+        rate = self.drop_path_rate
+        x = x + drop_path(self.attention(self.layernorm_before(x)), rate, drop_masks[0])
         if self.compute_dtype == torch.bfloat16:
             ln = self.layernorm_after
-            return x + self.mlp(x, ln_params=(ln.scale, ln.bias))
-        return x + self.mlp(self.layernorm_after(x))
+            mlp_out = self.mlp(x, ln_params=(ln.scale, ln.bias))
+        else:
+            mlp_out = self.mlp(self.layernorm_after(x))
+        return x + drop_path(mlp_out, rate, drop_masks[1])
 
 
 class Encoder(nn.Module):
@@ -232,14 +262,17 @@ class Encoder(nn.Module):
         super().__init__()
         self.config = config
         self.layernorm = LayerNorm(config.hidden_size, config.layer_norm_eps)
-        for i in range(config.num_hidden_layers):
-            self.add_module(f"layers_{i}", Block(config, dtype))
+        for i, rate in enumerate(drop_path_rates(config)):
+            self.add_module(f"layers_{i}", Block(config, dtype, rate))
 
-    def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
+    def forward(self, x: torch.Tensor, drop_masks: list | None = None) -> list[torch.Tensor]:
+        """``drop_masks``: one (attention, MLP) pair of keep masks per layer,
+        each of the batch size the layer sees (2B up to ``merge_index``), or
+        None for no drop-path."""
         cfg = self.config
         intermediates = []
         for i in range(cfg.num_hidden_layers):
-            x = getattr(self, f"layers_{i}")(x)
+            x = getattr(self, f"layers_{i}")(x, drop_masks[i] if drop_masks is not None else (None, None))
             if i == cfg.merge_index:
                 half = x.shape[0] // 2
                 x = (x[:half] + x[half:]) * 0.5
@@ -286,12 +319,37 @@ def default_bool_masked_pos(config: SegGPTConfig, batch: int, device=None) -> to
     return m.to(device)[None, :].expand(batch, n)
 
 
+def seggpt_loss(
+    config: SegGPTConfig,
+    prompt_masks: torch.Tensor,
+    pred_masks: torch.Tensor,
+    labels: torch.Tensor,
+    bool_masked_pos: torch.Tensor,
+    sample_weight: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Smooth-L1 on masked patches (HF SegGptLoss :804-843, JAX model.py:476-501).
+    ``sample_weight`` (B,) optionally down-weights rows."""
+    ground_truth = torch.cat([prompt_masks, labels], dim=1)
+    b, h2, w, c = ground_truth.shape
+    p = config.patch_size
+    gh, gw = h2 // p, w // p
+    mask = bool_masked_pos.reshape(b, gh, gw, 1, 1, 1).float()
+    mask = mask.expand(b, gh, gw, p, p, c).permute(0, 1, 3, 2, 4, 5).reshape(b, h2, w, c)
+    if sample_weight is not None:
+        mask = mask * sample_weight.float().reshape(b, 1, 1, 1)
+    diff = (pred_masks - ground_truth).float()
+    beta = config.beta
+    l1 = diff.abs()
+    loss = torch.where(l1 < beta, 0.5 * diff * diff / beta, l1 - 0.5 * beta)
+    return (loss * mask).sum() / mask.sum().clamp(min=1.0)
+
+
 class SegGPT(nn.Module):
     """Full model: canvas assembly → embeddings → encoder → decoder.
 
-    ``forward`` returns ``{"pred_masks": (B, 2H, W, 3) fp32}``, the painted
-    NHWC canvas. Labels/loss, feature ensembles and drop-path are not ported
-    yet and raise."""
+    ``forward`` returns ``{"pred_masks": (B, 2H, W, 3) fp32, "loss"}``: the
+    painted NHWC canvas, and the masked smooth-L1 when ``labels`` is given
+    (else None). Feature ensembles are not ported yet and raise."""
 
     def __init__(self, config: SegGPTConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -311,16 +369,24 @@ class SegGPT(nn.Module):
         embedding_type: str = "instance",
         deterministic: bool = True,
         decode_query_only: bool = False,
-    ) -> dict[str, torch.Tensor]:
-        if labels is not None or feature_ensemble or not deterministic:
-            raise NotImplementedError("labels/loss, feature ensembles and drop-path are not ported yet")
+        drop_masks: list | None = None,
+    ) -> dict[str, torch.Tensor | None]:
+        """``deterministic=False`` turns drop-path on: ``drop_masks`` as
+        ``Encoder.forward`` takes them (:meth:`sample_drop_masks` draws them),
+        required when the config's rate is positive."""
+        if feature_ensemble:
+            raise NotImplementedError("feature ensembles are not ported yet")
         cfg, dt = self.config, self.compute_dtype
         pixel_canvas = torch.cat([prompt_pixel_values, pixel_values], dim=1)
-        mask_canvas = torch.cat([prompt_masks, prompt_masks], dim=1)
+        mask_canvas = torch.cat([prompt_masks, labels if labels is not None else prompt_masks], dim=1)
         if bool_masked_pos is None:
             bool_masked_pos = default_bool_masked_pos(cfg, pixel_canvas.shape[0], pixel_canvas.device)
+        if deterministic:
+            drop_masks = None
+        elif drop_masks is None and cfg.drop_path_rate > 0.0:
+            raise ValueError("drop-path (deterministic=False) needs drop_masks")
         x = self.embeddings(pixel_canvas.to(dt), mask_canvas.to(dt), bool_masked_pos, embedding_type)
-        feats = torch.cat(self.encoder(x), dim=-1)
+        feats = torch.cat(self.encoder(x, drop_masks), dim=-1)
         if decode_query_only:
             # decode the query patch rows plus a one-row halo for the 3×3
             # conv, then drop the halo: equal to the bottom half of a full
@@ -329,8 +395,28 @@ class SegGPT(nn.Module):
             p = cfg.patch_size
             out = self.decoder(feats[:, half - 1 :].contiguous()).float()  # contiguous: one GEMM, not a batched one
             top = out.new_zeros((out.shape[0], half * p, out.shape[2], 3))
-            return {"pred_masks": torch.cat([top, out[:, p:]], dim=1)}
-        return {"pred_masks": self.decoder(feats).float()}
+            pred_masks = torch.cat([top, out[:, p:]], dim=1)
+        else:
+            pred_masks = self.decoder(feats).float()
+        loss = None
+        if labels is not None:
+            loss = seggpt_loss(cfg, prompt_masks, pred_masks, labels, bool_masked_pos)
+        return {"pred_masks": pred_masks, "loss": loss}
+
+    def sample_drop_masks(self, generator: torch.Generator, batch: int) -> list:
+        """Keep masks for every layer with a positive rate: Bernoulli(1 − rate)
+        per sample of the batch the layer sees (2·batch up to and including
+        ``merge_index``), attention branch first."""
+        cfg = self.config
+        masks = []
+        for i, rate in enumerate(drop_path_rates(cfg)):
+            n = 2 * batch if cfg.merge_index >= i else batch
+            if rate == 0.0:
+                masks.append((None, None))
+                continue
+            draw = torch.rand((2, n), generator=generator, device=generator.device) < 1.0 - rate
+            masks.append((draw[0], draw[1]))
+        return masks
 
 
 def random_state(config: SegGPTConfig, seed: int = 0) -> dict[str, torch.Tensor]:

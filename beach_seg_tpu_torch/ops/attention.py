@@ -9,7 +9,12 @@ attention kernel of the port. The bias decomposes as
 ``_kernel_packed`` (``beach_seg_tpu/ops/pallas_attn.py:126``), the
 attention the model takes when the qkv-rel kernel's preconditions fail (any
 head_dim other than 64). That kernel has no CUDA counterpart yet, so the
-model runs this function on CPU tensors only.
+model runs it (as ``PackedAttention``, with the JAX package's custom VJP) on
+CPU tensors only.
+
+``attention_bwd_plain`` is the plain version of the backward kernel
+``_bwd_kernel`` (``pallas_attn.py:722``), whose CUDA port is
+``ops.cuda_attn.attn_bwd``.
 """
 
 from __future__ import annotations
@@ -127,3 +132,62 @@ def attention_packed_plain(
     out = (p.to(v.dtype).float() @ v.float()) / p.sum(-1, keepdim=True)
     b = bh // num_heads
     return out.to(dt).reshape(b, num_heads, s, d).transpose(1, 2).reshape(b, s, num_heads * d)
+
+
+def attention_bwd_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    rel_h: torch.Tensor,
+    rel_w: torch.Tensor,
+    g: torch.Tensor,
+    scale: float,
+) -> tuple[torch.Tensor, ...]:
+    """Plain version of the TPU backward kernel ``_bwd_kernel``
+    (``beach_seg_tpu/ops/pallas_attn.py:722``): q/k/v/g (B·H, S, D), rel_h
+    (B·H, S, Hk), rel_w (B·H, S, Wk) with S = Hk·Wk → dq (q's dtype), dk, dv
+    (fp32), drh, drw (the rel terms' dtype).
+
+    Its math (``pallas_attn.py:743-786``), all in fp32: scores = (q·kᵀ)·scale
+    + rel_h[kh] + rel_w[kw]; a stable softmax (whatever mode the forward
+    took); dV = Pᵀg; dP = gVᵀ; dS = P∘(dP − rowsum(dP∘P)); dQ = dS·K·scale;
+    dK = dSᵀ·Q·scale; drh/drw sum dS over the keys of each row / column."""
+    bh, s, _ = q.shape
+    hk, wk = rel_h.shape[-1], rel_w.shape[-1]
+    kidx = torch.arange(s, device=q.device)
+    kf = k.float()
+    qf = q.float()
+    scores = (qf @ kf.transpose(-1, -2)) * scale
+    scores = scores + (rel_h.float()[..., kidx // wk] + rel_w.float()[..., kidx % wk])
+    u = torch.exp(scores - scores.amax(-1, keepdim=True))
+    p = u / u.sum(-1, keepdim=True)
+    gf = g.float()
+    dv = p.transpose(-1, -2) @ gf
+    dp = gf @ v.float().transpose(-1, -2)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    dq = ((ds @ kf) * scale).to(q.dtype)
+    dk = (ds.transpose(-1, -2) @ qf) * scale
+    ds4 = ds.reshape(bh, s, hk, wk)
+    return dq, dk, dv, ds4.sum(-1).to(rel_h.dtype), ds4.sum(-2).to(rel_w.dtype)
+
+
+class PackedAttention(torch.autograd.Function):
+    """:func:`attention_packed_plain` with the JAX package's custom VJP
+    (``fused_attention_merged``, ``pallas_attn.py:679-709``): the backward is
+    :func:`attention_bwd_plain` on the saved inputs, not autograd of the
+    forward's own arithmetic."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, rel_h, rel_w, scale: float, num_heads: int):
+        ctx.save_for_backward(q, k, v, rel_h, rel_w)
+        ctx.scale, ctx.num_heads = scale, num_heads
+        return attention_packed_plain(q, k, v, rel_h, rel_w, scale, num_heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, rel_h, rel_w = ctx.saved_tensors
+        bh, s, d = q.shape
+        nh = ctx.num_heads
+        g = g.reshape(bh // nh, s, nh, d).transpose(1, 2).reshape(bh, s, d)
+        dq, dk, dv, drh, drw = attention_bwd_plain(q, k, v, rel_h, rel_w, g, ctx.scale)
+        return dq, dk.to(k.dtype), dv.to(v.dtype), drh, drw, None, None

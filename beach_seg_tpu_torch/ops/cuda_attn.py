@@ -1,14 +1,21 @@
-"""qkv-rel attention: the CUDA kernel ``csrc/attn_qkv_rel.cu`` and its plain
-PyTorch version (counterpart of ``pallas_attn.fused_attention_qkv_rel``).
+"""qkv-rel attention and its gradient (counterpart of
+``pallas_attn.fused_attention_qkv_rel`` and its custom VJP).
 
-Replaces the TPU kernel ``_kernel_qkv_rel`` (``beach_seg_tpu/ops/pallas_attn.py:389``).
-It is compute-bound at ViT-L (two S×S×64 products per head against ~13 MB of
-qkv and output per image); the kernel keeps scores in shared memory and runs
-the products on the tensor cores (see the source's header).
+Two CUDA kernels, each with a plain PyTorch version:
 
-:func:`attn_qkv_rel` launches the kernel for CUDA tensors and takes
-:func:`attn_qkv_rel_plain` only for CPU tensors. ``attn_qkv_rel.launches``
-counts kernel launches.
+- :func:`attn_qkv_rel` (``csrc/attn_qkv_rel.cu``) replaces the TPU forward
+  kernel ``_kernel_qkv_rel`` (``beach_seg_tpu/ops/pallas_attn.py:389``).
+  It is compute-bound at ViT-L (two S×S×64 products per head against ~13 MB
+  of qkv and output per image).
+- :func:`attn_bwd` (``csrc/attn_bwd.cu``) replaces the TPU backward kernel
+  ``_bwd_kernel`` (``pallas_attn.py:722``); its plain version is
+  ``ops.attention.attention_bwd_plain``.
+
+Each wrapper launches its kernel for CUDA tensors and takes its plain version
+only for CPU tensors; ``<wrapper>.launches`` counts kernel launches.
+:func:`qkv_rel_attention` is the differentiable entry the model calls: the
+forward kernel, and in backward the port of ``_qkv_rel_bwd``
+(``pallas_attn.py:625-673``) around the backward kernel.
 """
 
 from __future__ import annotations
@@ -17,7 +24,10 @@ import ctypes
 
 import torch
 
+import torch.nn.functional as F
+
 from beach_seg_tpu_torch.ops import build
+from beach_seg_tpu_torch.ops.attention import attention_bwd_plain
 
 SOFTMAX_MODES = ("stable", "clamp", "fast")
 
@@ -25,6 +35,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _PROTO = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P]
 _ENTRY = {torch.bfloat16: "attn_qkv_rel_bf16", torch.float32: "attn_qkv_rel_f32"}
+_BWD_PROTO = {"attn_bwd_bf16": [_P] * 12 + [_I, _I, _I, _I, ctypes.c_float, _P]}
 
 
 def default_softmax(dtype: torch.dtype) -> str:
@@ -123,3 +134,107 @@ def attn_qkv_rel(
 
 
 attn_qkv_rel.launches = 0
+
+
+def attn_bwd(q, k, v, rel_h, rel_w, g, scale: float) -> tuple[torch.Tensor, ...]:
+    """Same contract as ``ops.attention.attention_bwd_plain``. CUDA tensors
+    launch the kernel (bf16, head_dim 64, S = Hk·Wk with Hk, Wk ≤ 64); CPU
+    tensors take the plain version."""
+    if q.device.type == "cpu":
+        return attention_bwd_plain(q, k, v, rel_h, rel_w, g, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"attn_bwd takes CPU or CUDA tensors, got {q.device}")
+    bh, s, d = q.shape
+    hk, wk = rel_h.shape[-1], rel_w.shape[-1]
+    if d != 64 or hk * wk != s or hk > 64 or wk > 64:
+        raise ValueError(f"attn_bwd kernel needs head_dim 64 and S = Hk·Wk with Hk, Wk <= 64: {tuple(q.shape)}, {hk=}, {wk=}")
+    for name, t, shape in (
+        ("q", q, (bh, s, d)), ("k", k, (bh, s, d)), ("v", v, (bh, s, d)), ("g", g, (bh, s, d)),
+        ("rel_h", rel_h, (bh, s, hk)), ("rel_w", rel_w, (bh, s, wk)),
+    ):
+        if t.device != q.device or t.dtype != torch.bfloat16 or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: want {shape} bf16 on {q.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"attn_bwd kernel needs contiguous, 16-byte aligned inputs ({name})")
+    lib = build.load("attn_bwd", _BWD_PROTO)
+    dq = torch.empty_like(q)
+    dk = torch.empty((bh, s, d), dtype=torch.float32, device=q.device)
+    dv = torch.empty_like(dk)
+    drh, drw = torch.empty_like(rel_h), torch.empty_like(rel_w)
+    stats = torch.empty((3, bh, s), dtype=torch.float32, device=q.device)  # row max, row sum, rowsum(dP∘P)
+    err = lib.attn_bwd_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(), g.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), drh.data_ptr(), drw.data_ptr(), stats.data_ptr(),
+        bh, s, hk, wk, float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    build.check(err, "attn_bwd launch")
+    attn_bwd.launches += 1
+    return dq, dk, dv, drh, drw
+
+
+attn_bwd.launches = 0
+
+
+def _qkv_rel_bwd(qkv4, qkv_bias, rh_tab, rw_tab, g, scale, gw, num_heads, need):
+    """``_qkv_rel_bwd`` (``pallas_attn.py:625-673``) around :func:`attn_bwd`:
+    head split of qkv + bias, the rel terms recomputed as einsums in the
+    dtype, the kernel, then the term cotangents folded onto q and (where
+    ``need`` asks) the tables; dbias is the (B, S) sum of dqkv4."""
+    b, s, _, c = qkv4.shape
+    dt = qkv4.dtype
+    hd = c // num_heads
+    gh = s // gw
+    bh = b * num_heads
+    hk, wk = rh_tab.shape[0], rw_tab.shape[0]
+    qkv = qkv4.reshape(b, s, 3 * c) + qkv_bias.reshape(3 * c).to(dt)
+    split = qkv.reshape(b, s, 3, num_heads, hd).permute(2, 0, 3, 1, 4).reshape(3, bh, s, hd)
+    q5 = qkv[..., :c].reshape(b, gh, gw, num_heads, hd)
+    slots = rh_tab.shape[1]
+    rel_h = torch.einsum("byxnc,ykc->bnyxk", q5, rh_tab).reshape(b, num_heads, s, slots)[..., :hk]
+    rel_w = torch.einsum("byxnc,xkc->bnyxk", q5, rw_tab).reshape(b, num_heads, s, slots)[..., :wk]
+    rel_h = rel_h.reshape(bh, s, hk).to(dt).contiguous()
+    rel_w = rel_w.reshape(bh, s, wk).to(dt).contiguous()
+    g2 = g.reshape(b, s, num_heads, hd).transpose(1, 2).reshape(bh, s, hd).to(dt).contiguous()
+    dq, dk, dv, drh, drw = attn_bwd(split[0], split[1], split[2], rel_h, rel_w, g2, scale)
+    drh5 = drh.reshape(b, num_heads, gh, gw, hk)
+    drw5 = drw.reshape(b, num_heads, gh, gw, wk)
+    dq_rel = torch.einsum("bnyxk,ykc->bnyxc", drh5, rh_tab[:, :hk]) + torch.einsum(
+        "bnyxk,xkc->bnyxc", drw5, rw_tab[:, :wk]
+    )
+    dq = dq + dq_rel.reshape(bh, s, hd).to(dq.dtype)
+    dqkv4 = (
+        torch.stack([dq.to(dt), dk.to(dt), dv.to(dt)])
+        .reshape(3, b, num_heads, s, hd)
+        .permute(1, 3, 0, 2, 4)
+        .reshape(b, s, 3, c)
+    )
+    dbias = dqkv4.float().sum((0, 1)).to(qkv_bias.dtype) if need[1] else None
+    drh_tab = drw_tab = None
+    if need[2]:
+        drh_tab = F.pad(torch.einsum("bnyxk,byxnc->ykc", drh5, q5), (0, 0, 0, slots - hk)).to(rh_tab.dtype)
+    if need[3]:
+        drw_tab = F.pad(torch.einsum("bnyxk,byxnc->xkc", drw5, q5), (0, 0, 0, slots - wk)).to(rw_tab.dtype)
+    return dqkv4 if need[0] else None, dbias, drh_tab, drw_tab
+
+
+class _QkvRelAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, qkv4, qkv_bias, rh_tab, rw_tab, scale, gw, num_heads, softmax):
+        # the JAX residuals: the kernel's inputs only (pallas_attn.py:620-622)
+        ctx.save_for_backward(qkv4, qkv_bias, rh_tab, rw_tab)
+        ctx.args = (scale, gw, num_heads)
+        return attn_qkv_rel(qkv4, qkv_bias, rh_tab, rw_tab, scale, gw, num_heads, softmax)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = _qkv_rel_bwd(*ctx.saved_tensors, g, *ctx.args, ctx.needs_input_grad[:4])
+        return (*grads, None, None, None, None)
+
+
+def qkv_rel_attention(qkv4, qkv_bias, rh_tab, rw_tab, scale: float, gw: int, num_heads: int, softmax: str | None = None):
+    """The model's differentiable attention: :func:`attn_qkv_rel` forward,
+    :func:`attn_bwd` backward (the wrappers are looked up when called, so
+    they can be swapped for their plain versions)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (qkv4, qkv_bias, rh_tab, rw_tab)):
+        return _QkvRelAttention.apply(qkv4, qkv_bias, rh_tab, rw_tab, scale, gw, num_heads, softmax)
+    return attn_qkv_rel(qkv4, qkv_bias, rh_tab, rw_tab, scale, gw, num_heads, softmax)

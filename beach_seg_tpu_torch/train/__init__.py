@@ -1,3 +1,3 @@
-from beach_seg_tpu_torch.train.prompt_tuner import PromptTuner
+from beach_seg_tpu_torch.train.prompt_tuner import PromptState, PromptTuner
 
-__all__ = ["PromptTuner"]
+__all__ = ["PromptState", "PromptTuner"]

@@ -1,4 +1,11 @@
-from beach_seg_tpu_torch.transforms.augment import center_crop, eval_augment, normalize_imagenet
+from beach_seg_tpu_torch.transforms.augment import (
+    AugmentParams,
+    center_crop,
+    eval_augment,
+    normalize_imagenet,
+    sample_draws,
+    train_augment,
+)
 from beach_seg_tpu_torch.transforms.palette import (
     IMAGENET_MEAN,
     IMAGENET_STD,
@@ -6,11 +13,13 @@ from beach_seg_tpu_torch.transforms.palette import (
     build_palette,
     decode_by_palette,
     normalize_palette,
+    random_palette,
 )
 
 __all__ = [
     "IMAGENET_MEAN",
     "IMAGENET_STD",
+    "AugmentParams",
     "apply_palette",
     "build_palette",
     "center_crop",
@@ -18,4 +27,7 @@ __all__ = [
     "eval_augment",
     "normalize_imagenet",
     "normalize_palette",
+    "random_palette",
+    "sample_draws",
+    "train_augment",
 ]

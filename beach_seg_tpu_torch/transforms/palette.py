@@ -2,8 +2,8 @@
 (counterpart of ``beach_seg_tpu/transforms/palette.py``).
 
 SegGPT paints segmentation as RGB images, so class ids round-trip through a
-color palette: ``build_palette`` (deterministic Painter palette),
-``apply_palette`` (ids → RGB), ``normalize_palette`` and
+color palette: ``build_palette`` (deterministic Painter palette), ``random_palette``
+(per-sample random LUT for prompt tuning), ``apply_palette`` (ids → RGB), ``normalize_palette`` and
 ``decode_by_palette`` (squared-distance argmin, first index on ties).
 """
 
@@ -29,6 +29,14 @@ def build_palette(num_labels: int) -> np.ndarray:
             (255 - num_seq_r * margin, 255 - num_seq_g * margin, 255 - num_seq_b * margin)
         )
     return np.array(colors, dtype=np.uint8)
+
+
+def random_palette(generator: torch.Generator, num_labels: int, batch_size: int) -> torch.Tensor:
+    """(B, num_labels, 3) uint8 random LUT on ``generator``'s device, entries
+    uniform in [0, 256), class 0 forced black (ref src/util/ml_util.py:99-111)."""
+    lut = torch.randint(0, 256, (batch_size, num_labels, 3), generator=generator, device=generator.device)
+    lut[:, 0] = 0
+    return lut.to(torch.uint8)
 
 
 def apply_palette(palette: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

@@ -5,19 +5,30 @@ NVIDIA Hopper card.
 
 Phases (any failure exits non-zero before the result lines):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. build both CUDA kernels from ops/csrc with nvcc, in parallel; print the
-     build time and ptxas' register / shared-memory / spill lines;
+  2. build the four CUDA kernels from ops/csrc with nvcc, in parallel; print
+     the build time and ptxas' register / shared-memory / spill lines;
   3. at ViT-L shapes for a batch of 8 tiles (S=1568, C=1024, 16 heads,
-     M=4096): each kernel against its plain PyTorch version on the card, then
-     CUDA-event times of the kernel, the plain version and, for attention,
-     scaled_dot_product_attention with the materialized bias (a yardstick the
-     port never calls);
-  4. the main path: full-width ViT-L (24 layers, seeded random weights, bf16)
-     through PromptTuner.predict_step on 3 batches of 8 uint8 112×112 crops;
-     ids checked for shape, dtype and range; the launch counters must rise by
-     24 attention and 24 MLP launches per call; pred_masks of one batch held
-     against the same forward through the plain versions on the card;
-  5. one JSON line of per-kernel numbers, then the card's name and power
+     M=4096): each forward kernel against its plain PyTorch version on the
+     card, then CUDA-event times of the kernel, the plain version and, for
+     attention, scaled_dot_product_attention with the materialized bias (a
+     yardstick the port never calls);
+  4. the same for the two backward kernels (attention backward at B·H=128,
+     LN→MLP dx at 12544 rows); the attention yardstick is SDPA's backward
+     with the bias as a mask that takes a gradient;
+  5. the predict path: full-width ViT-L (24 layers, seeded random weights,
+     bf16) through PromptTuner.predict_step on 3 batches of 8 uint8 112×112
+     crops; ids checked for shape, dtype and range; the launch counters must
+     rise by 24 attention and 24 MLP launches per call and the backward
+     kernels stay idle; pred_masks of one batch held against the same
+     forward through the plain versions on the card;
+  6. the train path: the same model through PromptTuner.train_step, 3 steps
+     on seeded batches of 8 448×448 tiles (default augmentations, drop-path
+     0.1, loss "nodata") against 4 prompts; the loss must be finite, the
+     prompt pixels must move, and each step must launch all four kernels 24
+     times; seconds per step and peak device memory; one step's prompt-pixel
+     gradient through the kernels held against the plain versions on the
+     same draws;
+  7. one JSON line of per-kernel numbers, then the card's name and power
      limit, then {"ok": true, "device": {...}} as the last line.
 
 It exits non-zero without a CUDA device, and needs nothing but this
@@ -28,6 +39,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -52,12 +64,49 @@ ATTN_BF16_TOL = 3e-2
 ATTN_FP32_TOL = 1e-4
 # MLP bf16: four bf16 steps of the output's scale
 MLP_BF16_REL_TOL = 4 * BF16_EPS
+# attention backward, kernel vs plain: p (for dV) and dS (for dQ, dK) are bf16
+# mma operands in the kernel (fp32 in the plain version), a relative 2^-9 per
+# term; dq is rounded to bf16 too: 1% of each output's scale. drh/drw are
+# fp32 sums of dS rounded once to bf16: two bf16 steps of their scale
+ATTN_BWD_REL_TOL = 1e-2
+ATTN_BWD_REL_DRHW = 2 * BF16_EPS
+# LN→MLP dx: LN, dh and dx rounded to bf16 at the same points; fp32 sums in
+# another order may round to the neighbour: four bf16 steps of the scale
+MLP_DX_REL_TOL = 4 * BF16_EPS
+# train path, one step's prompt-pixel gradient through the kernels vs the
+# plain versions on the same draws: 24 layers of bf16 forward and backward,
+# where the kernels round p and dS as bf16 mma operands and fp32 sums run in
+# other orders. Measured on an H100: 1 − cosine 3.7e-5, max error 1.24e-2
+# of max|grad| (a fifth of the median |grad|). Limits ~27× and ~4× above
+# those: a backward kernel wrong in a single layer or in the rel-term fold
+# turns the gradient's direction by more than the cosine limit allows
+GRAD_1MCOS_MAX = 1e-3
+GRAD_REL_TOL = 5e-2
 # main path, pred_masks through kernels vs plain versions after 24 layers of
 # bf16 rounding flips: 5% of the output's scale. Random weights paint many
 # pixels close to a palette decision boundary, so ids may differ there: ≥ 98%
 # equal, and every differing id within the error's reach of a boundary
 PRED_REL_TOL = 5e-2
 ID_AGREEMENT_MIN = 0.98
+
+
+def counters():
+    """The launch-counting wrappers, by kernel name."""
+    from beach_seg_tpu_torch.ops import cuda_attn, cuda_mlp
+
+    return {
+        "attn_qkv_rel": cuda_attn.attn_qkv_rel, "ln_mlp": cuda_mlp.ln_mlp,
+        "attn_bwd": cuda_attn.attn_bwd, "ln_mlp_dx": cuda_mlp.ln_mlp_dx,
+    }
+
+
+def reset_counts() -> None:
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in counters().items()}
 
 
 def log(msg: str) -> None:
@@ -195,18 +244,124 @@ def phase_kernels(device) -> dict:
     return res
 
 
+def attn_bwd_bound(bh: int, s: int, hk: int, wk: int) -> tuple[float, str]:
+    flops = 10 * bh * s * s * HD  # S, dP, dV, dQ, dK
+    nbytes = 2 * (4 * bh * s * HD + bh * s * (hk + wk)) + bh * s * HD * (2 + 4 + 4) + 2 * bh * s * (hk + wk)
+    return bound(flops, nbytes, PEAK_BF16)
+
+
+def mlp_dx_bound(n: int) -> tuple[float, str]:
+    flops = 6 * n * C * MLP
+    nbytes = 2 * (3 * n * C + 2 * C * MLP + MLP) + 4 * 2 * C
+    return bound(flops, nbytes, PEAK_BF16)
+
+
+def attn_bwd_inputs(device, bh: int, seed: int = 2):
+    """q, k, v, g (B·H, S, 64) and the rel terms at the scale the model's
+    rel-pos tables give them, bf16."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    gh, gw = GRID
+    s = gh * gw
+    r = lambda *shape, sc=1.0: (sc * torch.randn(shape, generator=g, device=device)).to(torch.bfloat16)  # noqa: E731
+    return r(bh, s, HD), r(bh, s, HD), r(bh, s, HD), r(bh, s, gh, sc=0.5), r(bh, s, gw, sc=0.5), r(bh, s, HD)
+
+
+def sdpa_bwd_yardstick(q, k, v, rel_h, rel_w, g):
+    """One PyTorch call computing the same gradients: the backward of SDPA
+    over (B, H, S, D) q, k, v with the rel bias materialized as a (B, H, S, S)
+    mask that takes a gradient (its gradient is dS, from which drh/drw are
+    sums). Returns a closure that times the backward alone."""
+    from torch.nn import functional as F
+
+    bh, s, d = q.shape
+    gw = GRID[1]
+    kidx = torch.arange(s, device=q.device)
+    mask = (rel_h[..., kidx // gw] + rel_w[..., kidx % gw]).reshape(bh // HEADS, HEADS, s, s).detach().requires_grad_(True)
+    qq, kk, vv = (t.reshape(bh // HEADS, HEADS, s, d).detach().requires_grad_(True) for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask, scale=HD**-0.5)
+    gg = g.reshape(bh // HEADS, HEADS, s, d)
+    return lambda: torch.autograd.grad(out, (qq, kk, vv, mask), gg, retain_graph=True)
+
+
+def phase_bwd_kernels(device) -> dict:
+    """The two backward kernels against their plain versions at the train
+    path's B=8 shapes, then times."""
+    from beach_seg_tpu_torch.ops import cuda_attn, cuda_mlp
+    from beach_seg_tpu_torch.ops.attention import attention_bwd_plain
+
+    res = {}
+    gh, gw = GRID
+    bh = B * HEADS
+    args = (*attn_bwd_inputs(device, bh), HD**-0.5)
+    got = cuda_attn.attn_bwd(*args)
+    torch.cuda.synchronize()
+    want = attention_bwd_plain(*args)
+    errs = {}
+    for name, a, w in zip(("dq", "dk", "dv", "drh", "drw"), got, want):
+        check(bool(torch.isfinite(a).all()), f"attn_bwd {name} not finite")
+        err = (a.float() - w.float()).abs().max().item()
+        scale = w.float().abs().max().item()
+        tol = (ATTN_BWD_REL_DRHW if name in ("drh", "drw") else ATTN_BWD_REL_TOL) * scale
+        log(f"attn_bwd {name}: max_abs_err {err:.3e} (tol {tol:.3e}), max|plain| {scale:.3f}")
+        check(err <= tol, f"attn_bwd {name} disagrees with its plain version: {err} > {tol}")
+        errs[name] = err
+    del got, want
+    torch.cuda.empty_cache()
+    res["attn_bwd_err"] = max(errs.values())
+    res["attn_bwd_errs"] = errs
+    res["attn_bwd_ms"] = time_ms(lambda: cuda_attn.attn_bwd(*args), iters=10, warmup=2)
+    res["attn_bwd_plain_ms"] = time_ms(lambda: attention_bwd_plain(*args), iters=2)
+    torch.cuda.empty_cache()
+    res["attn_bwd_library_ms"] = time_ms(sdpa_bwd_yardstick(*args[:6]), iters=10, warmup=2)
+    res["attn_bwd_bound"] = attn_bwd_bound(bh, gh * gw, gh, gw)
+    torch.cuda.empty_cache()
+
+    g = torch.Generator(device=device).manual_seed(3)
+    n = B * gh * gw
+    rnd = lambda *shape: torch.randn(shape, generator=g, device=device)  # noqa: E731
+    bf = torch.bfloat16
+    margs = (
+        rnd(B, n // B, C).to(bf), 1 + 0.1 * rnd(C), 0.1 * rnd(C), (rnd(C, MLP) / C**0.5).to(bf),
+        (0.1 * rnd(MLP)).to(bf), (rnd(MLP, C) / MLP**0.5).to(bf), rnd(B, n // B, C).to(bf), 1e-6, True,
+    )
+    got = cuda_mlp.ln_mlp_dx(*margs)
+    torch.cuda.synchronize()
+    want = cuda_mlp.ln_mlp_dx_plain(*margs)
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    log(f"ln_mlp_dx bf16: max_abs_err {err:.3e} (tol {MLP_DX_REL_TOL * scale:.3e} = {MLP_DX_REL_TOL:.4f}·max|plain| {scale:.3f})")
+    check(bool(torch.isfinite(got).all()), "ln_mlp_dx kernel output not finite")
+    check(err <= MLP_DX_REL_TOL * scale, f"ln_mlp_dx kernel disagrees with its plain version: {err}")
+    res["mlp_dx_err"] = err
+    res["mlp_dx_ms"] = time_ms(lambda: cuda_mlp.ln_mlp_dx(*margs), iters=10, warmup=2)
+    res["mlp_dx_plain_ms"] = time_ms(lambda: cuda_mlp.ln_mlp_dx_plain(*margs), iters=3)
+    res["mlp_dx_bound"] = mlp_dx_bound(n)
+    log(
+        f"times (ms, B={B}): attn_bwd kernel {res['attn_bwd_ms']:.4f} plain {res['attn_bwd_plain_ms']:.4f} "
+        f"sdpa bwd {res['attn_bwd_library_ms']:.4f} bound {res['attn_bwd_bound'][0]:.4f} ({res['attn_bwd_bound'][1]}); "
+        f"ln_mlp_dx kernel {res['mlp_dx_ms']:.4f} plain {res['mlp_dx_plain_ms']:.4f} "
+        f"bound {res['mlp_dx_bound'][0]:.4f} ({res['mlp_dx_bound'][1]})"
+    )
+    return res
+
+
 @contextlib.contextmanager
 def plain_kernels():
-    """Route the model through the plain versions on the card, for the
-    reference forward only (the library itself never does this)."""
-    from beach_seg_tpu_torch.ops import cuda_attn, cuda_mlp
+    """Route the model through the plain versions on the card, forward and
+    backward, for the reference runs only (the library itself never does
+    this)."""
+    from beach_seg_tpu_torch.ops import attention, cuda_attn, cuda_mlp
 
-    saved = cuda_attn.attn_qkv_rel, cuda_mlp.ln_mlp
-    cuda_attn.attn_qkv_rel, cuda_mlp.ln_mlp = cuda_attn.attn_qkv_rel_plain, cuda_mlp.ln_mlp_plain
+    names = ((cuda_attn, "attn_qkv_rel", cuda_attn.attn_qkv_rel_plain), (cuda_attn, "attn_bwd", attention.attention_bwd_plain),
+             (cuda_mlp, "ln_mlp", cuda_mlp.ln_mlp_plain), (cuda_mlp, "ln_mlp_dx", cuda_mlp.ln_mlp_dx_plain))
+    saved = [getattr(mod, name) for mod, name, _ in names]
+    for mod, name, plain in names:
+        setattr(mod, name, plain)
     try:
         yield
     finally:
-        cuda_attn.attn_qkv_rel, cuda_mlp.ln_mlp = saved
+        for (mod, name, _), fn in zip(names, saved):
+            setattr(mod, name, fn)
 
 
 def main_path_inputs(conf, n_prompts: int, n_batches: int, seed: int = 0):
@@ -245,8 +400,7 @@ def phase_main_path(device, config, n_batches: int = 3) -> dict:
     log(f"main path: ViT-L {config.num_hidden_layers} layers bf16 built in {time.perf_counter() - t0:.3f} s")
 
     layers = config.num_hidden_layers
-    cuda_attn.attn_qkv_rel.launches = 0
-    cuda_mlp.ln_mlp.launches = 0
+    reset_counts()
     seconds, per_call = [], []
     for batch in batches:
         a0, m0 = cuda_attn.attn_qkv_rel.launches, cuda_mlp.ln_mlp.launches
@@ -258,9 +412,10 @@ def phase_main_path(device, config, n_batches: int = 3) -> dict:
         check(tuple(ids.shape) == (B, conf.crop_size, conf.crop_size), f"ids shape {tuple(ids.shape)}")
         check(ids.dtype == torch.uint8 and ids.device.type == "cuda", f"ids {ids.dtype} on {ids.device}")
         check(int(ids.max()) < len(conf.classes), f"id {int(ids.max())} out of range")
-    launches = {"attn_qkv_rel": cuda_attn.attn_qkv_rel.launches, "ln_mlp": cuda_mlp.ln_mlp.launches}
+    launches = read_counts()
     log(f"main path: predict_step seconds per call {seconds}; launches per call (attn, mlp) {per_call}")
     check(all(pc == (layers, layers) for pc in per_call), f"launches per call {per_call}, want ({layers}, {layers})")
+    check(launches["attn_bwd"] == launches["ln_mlp_dx"] == 0, f"backward kernels ran in predict: {launches}")
 
     pred, pal = tuner.predict_masks(*prompts, batches[0])
     with plain_kernels():
@@ -290,7 +445,90 @@ def phase_main_path(device, config, n_batches: int = 3) -> dict:
     check(err <= PRED_REL_TOL * scale, f"pred_masks disagree: {err} > {PRED_REL_TOL * scale}")
     check(agree >= ID_AGREEMENT_MIN, f"id agreement {agree}")
     check(worst <= reach, f"an id differs {worst} from a decision boundary, beyond the error's reach {reach}")
-    return {"launches": launches, "seconds": seconds, "pred_err": err, "id_agreement": agree}
+    return {"launches": launches, "seconds": seconds, "pred_err": err, "id_agreement": agree, "model": model}
+
+
+def train_path_inputs(conf, n_prompts: int, n_steps: int, seed: int = 1):
+    """Seeded prompts (blocky class maps, some nodata) and train batches of
+    conf.batch_size inpt_size tiles shaped like scripts/bench_train.py's."""
+    rng = np.random.default_rng(seed)
+    s = conf.inpt_size
+    cells = rng.integers(0, len(conf.classes), (n_prompts, s // 16, s // 16))
+    prompts = (
+        rng.random((n_prompts, s, s, 3), dtype=np.float32),
+        np.repeat(np.repeat(cells, 16, axis=1), 16, axis=2).astype(np.int32),
+        rng.random((n_prompts, s, s)) < 0.05,
+    )
+    b = conf.batch_size
+    batches = [
+        {
+            "image": rng.random((b, s, s, 3), dtype=np.float32),
+            "mask": rng.integers(0, len(conf.classes), (b, s, s)).astype(np.int32),
+            "nodata": np.zeros((b, s, s), bool),
+            "crop_idx": rng.integers(0, n_prompts, (b,)).astype(np.int32),
+            "valid": np.ones((b,), bool),
+        }
+        for _ in range(n_steps)
+    ]
+    return prompts, batches
+
+
+def phase_train_path(device, model, n_steps: int = 3, conf=None) -> dict:
+    """PromptTuner.train_step at full width (the predict phase's model, now
+    with gradients through it); then one step's prompt gradient through the
+    kernels and through the plain versions on the same draws."""
+    from beach_seg_tpu_torch.config import BeachSegConfig
+    from beach_seg_tpu_torch.train import PromptTuner
+
+    layers = model.config.num_hidden_layers
+    conf = conf or BeachSegConfig(batch_size=B)
+    tuner = PromptTuner(model, conf, device=device)
+    prompts, batches = train_path_inputs(conf, 4, n_steps)
+    state = tuner.init_state(prompts[0])
+    start = state.prompt_pixels.clone()
+    gen = torch.Generator(device=device).manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    seconds, losses, per_step = [], [], []
+    for batch in batches:
+        before = read_counts()
+        t = time.perf_counter()
+        state, metrics = tuner.train_step(state, prompts[1], prompts[2], batch, generator=gen)
+        loss = metrics["loss"].item()  # syncs
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t)
+        losses.append(loss)
+        now = read_counts()
+        per_step.append({k: now[k] - before[k] for k in now})
+        check(math.isfinite(loss), f"train loss {loss}")
+        check(int(metrics["confusion"].sum()) > 0, "empty confusion matrix")
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"train path: train_step seconds per step {seconds}; losses {losses}; launches per step {per_step}; "
+        f"peak memory {peak / 2**30:.3f} GiB")
+    check(all(all(v == layers for v in ps.values()) for ps in per_step), f"launches per step {per_step}, want {layers} each")
+    moved = (state.prompt_pixels - start).abs().max().item()
+    check(moved > 0, "prompt pixels did not move")
+    check(bool(torch.isfinite(state.prompt_pixels).all() and torch.isfinite(state.ema_pixels).all()), "state not finite")
+
+    batch = batches[0]
+    draws = tuner.step_draws(batch, 4, torch.Generator(device=device).manual_seed(7))
+    _, grad, _, _, _ = tuner.loss_and_grad(state.prompt_pixels, prompts[1], prompts[2], batch, draws)
+    with plain_kernels():
+        _, want, _, _, _ = tuner.loss_and_grad(state.prompt_pixels, prompts[1], prompts[2], batch, draws)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(grad).all()), "prompt gradient not finite")
+    scale = want.abs().max().item()
+    median = want.abs().median().item()
+    err = (grad - want).abs().max().item()
+    cos = (torch.nn.functional.cosine_similarity(grad.flatten(), want.flatten(), dim=0)).item()
+    log(f"train path: prompt gradient kernels vs plain on the card: 1 - cosine {1 - cos:.4e} (max {GRAD_1MCOS_MAX}), "
+        f"max_abs_err {err:.4e} (tol {GRAD_REL_TOL}·max|plain| {scale:.4e} = {GRAD_REL_TOL * scale:.4e}; "
+        f"median |plain| {median:.4e})")
+    check(scale > 0, "plain prompt gradient is zero")
+    check(1 - cos <= GRAD_1MCOS_MAX, f"prompt gradient direction disagrees: cosine {cos}")
+    check(err <= GRAD_REL_TOL * scale, f"prompt gradient disagrees: {err} > {GRAD_REL_TOL * scale}")
+    return {"launches": launches, "seconds": seconds, "losses": losses, "peak_bytes": peak, "grad_cos": cos, "grad_err": err}
 
 
 def main() -> int:
@@ -308,9 +546,9 @@ def main() -> int:
     device = resolve_device("cuda")
 
     t = time.perf_counter()
-    info = build.build("attn_qkv_rel", "ln_mlp")
+    info = build.build(*build.KERNELS)
     log(f"build: {time.perf_counter() - t:.3f} s wall")
-    for name in ("attn_qkv_rel", "ln_mlp"):
+    for name in build.KERNELS:
         log(f"  {name}: {info[name]['seconds']:.3f} s")
         for line in info[name]["log"].splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
@@ -320,15 +558,21 @@ def main() -> int:
     k = phase_kernels(device)
     log(f"kernel phase: {time.perf_counter() - t:.3f} s")
     t = time.perf_counter()
+    kb = phase_bwd_kernels(device)
+    log(f"backward kernel phase: {time.perf_counter() - t:.3f} s")
+    t = time.perf_counter()
     m = phase_main_path(device, SegGPTConfig())
     log(f"main path phase: {time.perf_counter() - t:.3f} s")
+    t = time.perf_counter()
+    tr = phase_train_path(device, m.pop("model"))
+    log(f"train path phase: {time.perf_counter() - t:.3f} s")
 
     kernels = [
         {
             "name": "attn_qkv_rel", "route": "cuda",
             "source": "beach_seg_tpu_torch/ops/csrc/attn_qkv_rel.cu",
             "replaces": "beach_seg_tpu/ops/pallas_attn.py:389",
-            "launches": m["launches"]["attn_qkv_rel"],
+            "launches": m["launches"]["attn_qkv_rel"], "launches_train": tr["launches"]["attn_qkv_rel"],
             "max_abs_err": k["attn_err_clamp"], "max_abs_diff": k["attn_err_clamp"],
             "max_abs_err_fp32_stable": k["attn_err_stable"],
             "ms": k["attn_ms"], "plain_ms": k["attn_plain_ms"],
@@ -340,14 +584,38 @@ def main() -> int:
             "name": "ln_mlp", "route": "cuda",
             "source": "beach_seg_tpu_torch/ops/csrc/ln_mlp.cu",
             "replaces": "beach_seg_tpu/ops/pallas_mlp.py:37",
-            "launches": m["launches"]["ln_mlp"],
+            "launches": m["launches"]["ln_mlp"], "launches_train": tr["launches"]["ln_mlp"],
             "max_abs_err": k["mlp_err"], "max_abs_diff": k["mlp_err"],
             "ms": k["mlp_ms"], "plain_ms": k["mlp_plain_ms"],
             "bound_ms": k["mlp_bound"][0], "bound_by": k["mlp_bound"][1],
             "library_ms": None,
             "shape": f"bf16, x ({B * GRID[0] * GRID[1]}, {C}), M={MLP}",
         },
+        {
+            "name": "attn_bwd", "route": "cuda",
+            "source": "beach_seg_tpu_torch/ops/csrc/attn_bwd.cu",
+            "replaces": "beach_seg_tpu/ops/pallas_attn.py:722",
+            "launches": tr["launches"]["attn_bwd"], "launches_predict": m["launches"]["attn_bwd"],
+            "max_abs_err": kb["attn_bwd_err"], "max_abs_err_by_output": kb["attn_bwd_errs"],
+            "ms": kb["attn_bwd_ms"], "plain_ms": kb["attn_bwd_plain_ms"],
+            "bound_ms": kb["attn_bwd_bound"][0], "bound_by": kb["attn_bwd_bound"][1],
+            "library_ms": kb["attn_bwd_library_ms"],
+            "shape": f"bf16, q/k/v/g ({B * HEADS}, {GRID[0] * GRID[1]}, {HD}), rel ({GRID[0]}, {GRID[1]})",
+        },
+        {
+            "name": "ln_mlp_dx", "route": "cuda",
+            "source": "beach_seg_tpu_torch/ops/csrc/ln_mlp_dx.cu",
+            "replaces": "beach_seg_tpu/ops/pallas_mlp.py:167",
+            "launches": tr["launches"]["ln_mlp_dx"], "launches_predict": m["launches"]["ln_mlp_dx"],
+            "max_abs_err": kb["mlp_dx_err"],
+            "ms": kb["mlp_dx_ms"], "plain_ms": kb["mlp_dx_plain_ms"],
+            "bound_ms": kb["mlp_dx_bound"][0], "bound_by": kb["mlp_dx_bound"][1],
+            "library_ms": None,
+            "shape": f"bf16, x/g ({B * GRID[0] * GRID[1]}, {C}), M={MLP}",
+        },
     ]
+    log(f"train_step: seconds per step {tr['seconds']}, peak memory {tr['peak_bytes']} bytes, "
+        f"prompt gradient cosine kernels vs plain {tr['grad_cos']:.6f}")
     log(f"total: {time.perf_counter() - t_start:.3f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

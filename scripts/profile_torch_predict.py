@@ -1,12 +1,15 @@
-"""Where the time of the torch port's predict step goes, on one CUDA card.
+"""Where the time of the torch port's predict step (or train step) goes, on
+one CUDA card.
 
-    python3 scripts/profile_torch_predict.py [--batch 8] [--layers 24] [--calls 3]
+    python3 scripts/profile_torch_predict.py [--batch 8] [--layers 24] [--calls 3] [--train]
 
 Builds full-width ViT-L (seeded random weights, bf16), warms
-``PromptTuner.predict_step`` up on B uint8 112×112 crops, then traces
-``--calls`` calls with ``torch.profiler``. Prints the card, the host seconds
-per call, the device-busy share of the traced window, and the device time per
-kernel name (top 25) as JSON lines. Exits non-zero without a CUDA device.
+``PromptTuner.predict_step`` up on B uint8 112×112 crops (with ``--train``:
+``PromptTuner.train_step`` on B 448×448 tiles, as chip_smoke.py drives it),
+then traces ``--calls`` calls with ``torch.profiler``. Prints the card, the
+host seconds per call, the device-busy share of the traced window, and the
+device time per kernel name (top 25) as JSON lines. Exits non-zero without a
+CUDA device.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--layers", type=int, default=24)
     ap.add_argument("--calls", type=int, default=3)
+    ap.add_argument("--train", action="store_true", help="profile train_step instead of predict_step")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_predict: no CUDA device", file=sys.stderr)
@@ -45,23 +49,35 @@ def main() -> int:
     model = build_model(cfg, torch.bfloat16, device="cuda", seed=0)
     conf = BeachSegConfig(batch_size=args.batch)
     tuner = PromptTuner(model, conf, device="cuda")
-    prompts, batches = chip_smoke.main_path_inputs(conf, 4, 1)
+    if args.train:
+        prompts, batches = chip_smoke.train_path_inputs(conf, 4, 1)
+        state = tuner.init_state(prompts[0])
+        gen = torch.Generator(device="cuda").manual_seed(0)
+
+        def call():
+            tuner.train_step(state, prompts[1], prompts[2], batches[0], generator=gen)
+    else:
+        prompts, batches = chip_smoke.main_path_inputs(conf, 4, 1)
+
+        def call():
+            tuner.predict_step(*prompts, batches[0], out_size=conf.crop_size)
+
     for _ in range(2):  # warm-up: kernel builds, cuBLAS/cuDNN plans
-        tuner.predict_step(*prompts, batches[0], out_size=conf.crop_size)
+        call()
     torch.cuda.synchronize()
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(args.calls):
-            tuner.predict_step(*prompts, batches[0], out_size=conf.crop_size)
+            call()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = []
     for ev in prof.key_averages():
-        # device activities only: operator entries (aten::…) repeat their
-        # kernels' time
-        if ev.key.startswith(("aten::", "cuda")):
+        # device activities only: operator entries (aten::…, the autograd
+        # Functions' ranges) repeat their kernels' time
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
@@ -70,7 +86,8 @@ def main() -> int:
             rows.append((dev_us, ev.key, ev.count))
     rows.sort(reverse=True)
     busy_us = sum(r[0] for r in rows)
-    print(json.dumps({"card": card, "batch": args.batch, "layers": args.layers, "calls": args.calls}))
+    step = "train_step" if args.train else "predict_step"
+    print(json.dumps({"card": card, "step": step, "batch": args.batch, "layers": args.layers, "calls": args.calls}))
     print(json.dumps({
         "host_s_per_call": wall / args.calls,
         "device_busy_ms_per_call": busy_us / 1e3 / args.calls,

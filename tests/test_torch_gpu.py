@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain versions on the card, at one
-ViT-L layer's shapes, and the tiny bf16 model through the kernels. Marked
+ViT-L layer's shapes and at ragged small ones, the tiny bf16 model through
+the kernels forward and backward, and the shapes the kernels refuse. Marked
 ``gpu``: they skip where no CUDA device is present (run them on the card with
 ``python -m pytest --noconftest -m gpu tests/test_torch_gpu.py``)."""
 
@@ -9,7 +10,7 @@ import torch
 
 from beach_seg_tpu_torch.models.seggpt import build_model, tiny_config
 from beach_seg_tpu_torch.ops import cuda_attn, cuda_mlp
-from beach_seg_tpu_torch.ops.attention import rel_tables_padded
+from beach_seg_tpu_torch.ops.attention import attention_bwd_plain, rel_tables_padded
 
 pytestmark = pytest.mark.gpu
 
@@ -93,3 +94,85 @@ def test_unported_attention_raises_on_card(cuda):
     x = torch.zeros((1, 32, 32, 3), device=cuda)
     with pytest.raises(NotImplementedError, match="_kernel_packed"):
         model(x, x, x)
+
+
+def _bwd_inputs(device, bh, hk, wk, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    s = hk * wk
+    r = lambda *sh, sc=1.0: (sc * torch.randn(sh, generator=g)).to(device=device, dtype=torch.bfloat16)  # noqa: E731
+    return r(bh, s, 64), r(bh, s, 64), r(bh, s, 64), r(bh, s, hk, sc=0.5), r(bh, s, wk, sc=0.5), r(bh, s, 64)
+
+
+@pytest.mark.parametrize("bh,hk,wk", [(16, 56, 28), (3, 5, 7), (2, 9, 64)])  # one ViT-L image; ragged tiles
+def test_attn_bwd_kernel_matches_plain(cuda, bh, hk, wk):
+    """p and dS are bf16 mma operands in the kernel: 1% of each output's
+    scale for dq/dk/dv; drh/drw sum fp32 dS and round once: 2 bf16 steps."""
+    args = (*_bwd_inputs(cuda, bh, hk, wk), 0.125)
+    before = cuda_attn.attn_bwd.launches
+    got = cuda_attn.attn_bwd(*args)
+    torch.cuda.synchronize()
+    assert cuda_attn.attn_bwd.launches == before + 1
+    want = attention_bwd_plain(*args)
+    for name, a, w in zip(("dq", "dk", "dv", "drh", "drw"), got, want):
+        assert a.dtype == w.dtype and a.shape == w.shape, name
+        tol = (2 * BF16_EPS if name in ("drh", "drw") else 1e-2) * w.float().abs().max().item()
+        assert (a.float() - w.float()).abs().max().item() <= tol, name
+
+
+@pytest.mark.parametrize("n,c", [(S_GRID[0] * S_GRID[1], C), (77, 256), (100, 768)])
+def test_mlp_dx_kernel_matches_plain(cuda, n, c):
+    g = torch.Generator(device="cpu").manual_seed(0)
+    m = 4 * c
+    x = torch.randn((1, n, c), generator=g)
+    ls, lb = 1 + 0.1 * torch.randn(c, generator=g), 0.1 * torch.randn(c, generator=g)
+    w1, b1 = torch.randn((c, m), generator=g) / c**0.5, 0.1 * torch.randn(m, generator=g)
+    w2 = torch.randn((m, c), generator=g) / m**0.5
+    gy = torch.randn((1, n, c), generator=g)
+    bf = lambda t: t.to(device=cuda, dtype=torch.bfloat16)  # noqa: E731
+    for approx in (True, False):
+        args = (bf(x), ls.to(cuda), lb.to(cuda), bf(w1), bf(b1), bf(w2), bf(gy), 1e-6, approx)
+        before = cuda_mlp.ln_mlp_dx.launches
+        got = cuda_mlp.ln_mlp_dx(*args)
+        torch.cuda.synchronize()
+        assert cuda_mlp.ln_mlp_dx.launches == before + 1
+        want = cuda_mlp.ln_mlp_dx_plain(*args)
+        assert (got.float() - want.float()).abs().max().item() <= 4 * BF16_EPS * want.float().abs().max().item()
+
+
+def test_tiny_bf16_backward_on_card_launches_kernels(cuda):
+    """head_dim 64, C=256, labels and drop-path: the input gradient runs the
+    two backward kernels once per layer each and agrees in direction with
+    the CPU plain path."""
+    cfg = tiny_config(hidden_size=256, num_attention_heads=4)
+    rng = np.random.default_rng(0)
+    h, w = cfg.image_size[0] // 2, cfg.image_size[1]
+    x, px, pm, lab = (torch.from_numpy(rng.standard_normal((2, h, w, 3)).astype(np.float32)) for _ in range(4))
+    grads = []
+    for dev in ("cpu", cuda):
+        model = build_model(cfg, torch.bfloat16, device=dev, seed=1)
+        masks = model.sample_drop_masks(torch.Generator(device="cpu").manual_seed(0), 2)
+        masks = [tuple(None if m is None else m.to(dev) for m in pair) for pair in masks]
+        leaf = px.to(dev).requires_grad_(True)
+        a0, m0 = cuda_attn.attn_bwd.launches, cuda_mlp.ln_mlp_dx.launches
+        out = model(x.to(dev), leaf, pm.to(dev), labels=lab.to(dev), deterministic=False, drop_masks=masks, decode_query_only=True)
+        (gr,) = torch.autograd.grad(out["loss"], leaf)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert cuda_attn.attn_bwd.launches - a0 == cfg.num_hidden_layers
+            assert cuda_mlp.ln_mlp_dx.launches - m0 == cfg.num_hidden_layers
+        grads.append(gr.float().cpu().flatten())
+    assert torch.isfinite(grads[1]).all()
+    assert torch.nn.functional.cosine_similarity(grads[0], grads[1], dim=0).item() >= 0.99
+
+
+def test_backward_kernels_raise_on_shapes_they_do_not_take(cuda):
+    q, k, v, rh, rw, g = _bwd_inputs(cuda, 2, 4, 8)
+    with pytest.raises(ValueError, match="head_dim 64"):
+        cuda_attn.attn_bwd(q[..., :32], k[..., :32], v[..., :32], rh, rw, g[..., :32], 0.1)
+    with pytest.raises(ValueError, match="bf16"):
+        cuda_attn.attn_bwd(q.float(), k, v, rh, rw, g, 0.1)
+    x = torch.zeros((4, 200), device=cuda, dtype=torch.bfloat16)
+    w1 = torch.zeros((200, 800), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="C % 256"):
+        cuda_mlp.ln_mlp_dx(x, torch.ones(200, device=cuda), torch.zeros(200, device=cuda), w1,
+                           torch.zeros(800, device=cuda, dtype=torch.bfloat16), w1.T.contiguous(), x, 1e-6, True)

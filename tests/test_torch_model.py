@@ -92,12 +92,86 @@ def test_kernel_routing(setup, monkeypatch):
 
 
 def test_unported_options_raise(setup):
+    """Feature ensembles are not ported yet; drop-path needs its keep masks
+    passed in."""
     _, over, _, params, inputs = setup
     model = build_model(tiny_config(**over), device="cpu", state=from_jax_params(params, device="cpu"))
     args = [torch.from_numpy(a) for a in inputs]
-    for kw in (dict(feature_ensemble=True), dict(deterministic=False), dict(labels=args[0])):
-        with pytest.raises(NotImplementedError):
-            model(*args, **kw)
+    with pytest.raises(NotImplementedError):
+        model(*args, feature_ensemble=True)
+    with pytest.raises(ValueError, match="drop_masks"):
+        model(*args, deterministic=False)
+
+
+def test_labels_loss_matches_jax(setup):
+    """With labels the mask canvas is [prompt_masks ‖ labels] and the model
+    returns seggpt_loss; fp32 pred within 2e-4, loss within 1e-5 relative.
+    The full decode with head_dim 8, the query-only decode (the train
+    step's) with head_dim 64."""
+    name, over, jcfg, params, (x, px, pm) = setup
+    decode_query_only = name == "hd64"
+    labels = np.random.default_rng(3).standard_normal(x.shape).astype(np.float32)
+    jout = JSegGPT(jcfg).apply({"params": params}, x, px, pm, labels=labels, decode_query_only=decode_query_only)
+    model = build_model(tiny_config(**over), device="cpu", state=from_jax_params(params, device="cpu"))
+    with torch.inference_mode():
+        out = model(*(torch.from_numpy(a) for a in (x, px, pm)), labels=torch.from_numpy(labels), decode_query_only=decode_query_only)
+    assert np.abs(out["pred_masks"].numpy() - np.asarray(jout["pred_masks"])).max() < 2e-4
+    want = float(jout["loss"])
+    assert abs(float(out["loss"]) - want) <= 1e-5 * abs(want)
+    assert model(*(torch.from_numpy(a) for a in (x, px, pm)))["loss"] is None
+
+
+def test_drop_path_function_matches_jax():
+    """drop_path as a function of its mask: x / keep * mask, with the mask
+    JAX's _drop_path draws from its key."""
+    from beach_seg_tpu.models.seggpt.model import _drop_path as jdrop
+    from beach_seg_tpu_torch.models.seggpt.model import drop_path
+
+    x = np.random.default_rng(0).standard_normal((6, 4, 4, 8)).astype(np.float32)
+    key = jax.random.PRNGKey(1)
+    for rate in (0.0, 0.3, 0.9):
+        want = np.asarray(jdrop(jnp.asarray(x), rate, False, key))
+        mask = np.array(jax.random.bernoulli(key, 1.0 - rate, (6, 1, 1, 1))).reshape(6)
+        got = drop_path(torch.from_numpy(x), rate, torch.from_numpy(mask)).numpy()
+        np.testing.assert_array_equal(got, want)
+
+
+def test_drop_path_model_matches_jax(setup, monkeypatch):
+    """The whole model with drop-path on, both sides on the same keep masks:
+    JAX's _drop_path is swapped (in this test process) for one that takes
+    the masks in call order, as the port's Encoder takes them (attention
+    branch, then MLP branch, layer by layer, 2B rows up to merge_index)."""
+    import beach_seg_tpu.models.seggpt.model as jmodel_mod
+    from beach_seg_tpu_torch.models.seggpt.model import drop_path_rates
+
+    _, over, jcfg, params, (x, px, pm) = setup
+    over = dict(over, drop_path_rate=0.4)
+    jcfg = jtiny_config(**over)
+    model = build_model(tiny_config(**over), device="cpu", state=from_jax_params(params, device="cpu"))
+    rng = np.random.default_rng(7)
+    b = x.shape[0]
+    masks = []
+    for i, rate in enumerate(drop_path_rates(model.config)):
+        n = 2 * b if jcfg.merge_index >= i else b
+        masks.append(tuple(rng.random(n) < 1.0 - rate for _ in range(2)) if rate > 0 else (None, None))
+    order = iter([m for pair in masks for m in pair if m is not None])
+
+    def fixed_drop(xx, rate, deterministic, rng_key):
+        if deterministic or rate == 0.0:
+            return xx
+        m = jnp.asarray(next(order)).astype(xx.dtype).reshape((xx.shape[0],) + (1,) * (xx.ndim - 1))
+        return xx / (1.0 - rate) * m
+
+    monkeypatch.setattr(jmodel_mod, "_drop_path", fixed_drop)
+    want = JSegGPT(jcfg).apply(
+        {"params": params}, x, px, pm, deterministic=False, rngs={"droppath": jax.random.PRNGKey(0)}, decode_query_only=True
+    )["pred_masks"]
+    tmasks = [tuple(None if m is None else torch.from_numpy(m) for m in pair) for pair in masks]
+    with torch.inference_mode():
+        got = model(*(torch.from_numpy(a) for a in (x, px, pm)), deterministic=False, drop_masks=tmasks, decode_query_only=True)
+        plain = model(*(torch.from_numpy(a) for a in (x, px, pm)), decode_query_only=True)
+    assert np.abs(got["pred_masks"].numpy() - np.asarray(want)).max() < 2e-4
+    assert np.abs(got["pred_masks"].numpy() - plain["pred_masks"].numpy()).max() > 1e-3  # the masks did something
 
 
 def test_load_npz_equals_from_jax_params(setup, tmp_path):
