@@ -21,6 +21,8 @@ class BeachSegConfig:
     compute_dtype: str = "float32"  # "float32" | "bfloat16"
 
     epochs: int = 1
+    # miniature topology for smoke runs (train.loop.model_for_config)
+    debug: bool = False
     world_size: int = 1
     grad_accum_steps: int = 1
     batch_size: int = 1
@@ -63,3 +65,6 @@ class BeachSegConfig:
     prompt_dropout: float = 0.0
     # "nodata" | "nodata_ref" | "hf" | "dice_bce" (see train.prompt_tuner)
     loss_variant: str = "nodata"
+    # backbone preset: "large" = ViT-L (BAAI/seggpt-vit-large topology);
+    # "huge" = ViT-H-class scale-up for 8-band SuperDove work
+    backbone: str = "large"

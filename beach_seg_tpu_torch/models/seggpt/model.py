@@ -9,11 +9,12 @@ to the compute dtype at use, as the flax modules do.
 
 On the card the two hot ops run hand-written CUDA kernels, forward and
 backward: the qkv-rel attention (``ops.cuda_attn.qkv_rel_attention``)
-whenever head_dim is 64 and the grid fits 64×64, and the fused LN→MLP
-(``ops.cuda_mlp.fused_ln_mlp``) under bf16. Other attention geometries
-(``tiny_config``'s head_dim 8, ViT-H's 80) take the TPU package's
-``_kernel_packed``, which is not ported yet: its plain version (with the JAX
-package's custom VJP) runs on CPU tensors and CUDA raises.
+whenever head_dim is 64 and the grid fits 64×64, the packed attention over
+head-split q, k, v (``ops.cuda_attn.packed_attention``, the port of the TPU
+package's ``_kernel_packed`` path) for other head dims, and the fused LN→MLP
+(``ops.cuda_mlp.fused_ln_mlp``) under bf16. The packed kernel takes head
+dims 64 and 80 (ViT-H); others (``tiny_config``'s 8) run on CPU tensors
+through the plain versions and raise in ``attn_packed`` on CUDA.
 
 Training runs the model with ``labels`` (the loss) and ``deterministic=False``
 (drop-path). Autograd saves the compute-dtype weight copies the frozen
@@ -37,12 +38,7 @@ from torch import nn
 
 from beach_seg_tpu_torch.models.seggpt.config import SegGPTConfig
 from beach_seg_tpu_torch.ops import cuda_attn, cuda_mlp
-from beach_seg_tpu_torch.ops.attention import (
-    PackedAttention,
-    attention_reference,
-    rel_pos_terms,
-    rel_tables_padded,
-)
+from beach_seg_tpu_torch.ops.attention import attention_reference, rel_pos_terms, rel_tables_padded
 from beach_seg_tpu_torch.ops.resize import resize_2d
 from beach_seg_tpu_torch.utils.device import resolve_device
 
@@ -158,13 +154,8 @@ class Attention(nn.Module):
             qkv = qkv4.reshape(b, s, 3, nh, hd).permute(2, 0, 3, 1, 4).reshape(3, b * nh, s, hd)
             q, k, v = qkv[0], qkv[1], qkv[2]
             if rel_params is not None:
-                if x.device.type == "cuda":
-                    raise NotImplementedError(
-                        "attention with head_dim != 64 needs the TPU kernel _kernel_packed "
-                        "(beach_seg_tpu/ops/pallas_attn.py:126), which has no CUDA port yet"
-                    )
                 rel_h, rel_w = rel_pos_terms(q, *rel_params, (gh, gw), (gh, gw))
-                out = PackedAttention.apply(
+                out = cuda_attn.packed_attention(
                     q, k, v, rel_h.reshape(b * nh, s, gh), rel_w.reshape(b * nh, s, gw), hd**-0.5, nh
                 ).reshape(b, gh, gw, c)
             else:
@@ -449,9 +440,11 @@ def build_model(
 ) -> SegGPT:
     """The model builder: a SegGPT on ``device`` (None → CUDA, raising if
     absent) with ``state`` (from ``convert``) or seeded random weights, in
-    eval mode without gradients."""
+    eval mode without gradients. On the ``meta`` device it has shapes and
+    no weights."""
     dev = resolve_device(device)
     with torch.device(dev):
         model = SegGPT(config, dtype)
-    model.load_state_dict(state if state is not None else random_state(config, seed))
+    if dev.type != "meta":
+        model.load_state_dict(state if state is not None else random_state(config, seed))
     return model.eval().requires_grad_(False)

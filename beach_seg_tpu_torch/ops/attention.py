@@ -8,9 +8,9 @@ attention kernel of the port. The bias decomposes as
 ``attention_packed_plain`` is the plain version of the JAX package's
 ``_kernel_packed`` (``beach_seg_tpu/ops/pallas_attn.py:126``), the
 attention the model takes when the qkv-rel kernel's preconditions fail (any
-head_dim other than 64). That kernel has no CUDA counterpart yet, so the
-model runs it (as ``PackedAttention``, with the JAX package's custom VJP) on
-CPU tensors only.
+head_dim other than 64, such as ViT-H's 80). Its CUDA port is
+``ops.cuda_attn.attn_packed``; the model reaches both through
+``ops.cuda_attn.packed_attention``, with the JAX package's custom VJP.
 
 ``attention_bwd_plain`` is the plain version of the backward kernel
 ``_bwd_kernel`` (``pallas_attn.py:722``), whose CUDA port is
@@ -170,24 +170,3 @@ def attention_bwd_plain(
     ds4 = ds.reshape(bh, s, hk, wk)
     return dq, dk, dv, ds4.sum(-1).to(rel_h.dtype), ds4.sum(-2).to(rel_w.dtype)
 
-
-class PackedAttention(torch.autograd.Function):
-    """:func:`attention_packed_plain` with the JAX package's custom VJP
-    (``fused_attention_merged``, ``pallas_attn.py:679-709``): the backward is
-    :func:`attention_bwd_plain` on the saved inputs, not autograd of the
-    forward's own arithmetic."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, rel_h, rel_w, scale: float, num_heads: int):
-        ctx.save_for_backward(q, k, v, rel_h, rel_w)
-        ctx.scale, ctx.num_heads = scale, num_heads
-        return attention_packed_plain(q, k, v, rel_h, rel_w, scale, num_heads)
-
-    @staticmethod
-    def backward(ctx, g):
-        q, k, v, rel_h, rel_w = ctx.saved_tensors
-        bh, s, d = q.shape
-        nh = ctx.num_heads
-        g = g.reshape(bh // nh, s, nh, d).transpose(1, 2).reshape(bh, s, d)
-        dq, dk, dv, drh, drw = attention_bwd_plain(q, k, v, rel_h, rel_w, g, ctx.scale)
-        return dq, dk.to(k.dtype), dv.to(v.dtype), drh, drw, None, None

@@ -1,8 +1,8 @@
 // Attention backward with the decomposed rel-pos terms, for Hopper (sm_90a),
-// bf16, head_dim 64.
+// bf16, head_dim 64 (ViT-L) or 80 (ViT-H) as template instances.
 //
 // Replaces the TPU kernel `_bwd_kernel` (beach_seg_tpu/ops/pallas_attn.py:722,
-// wrapper `_pallas_attention_bwd`). Per (batch·head), with q, k, v, g (S, 64)
+// wrapper `_pallas_attention_bwd`). Per (batch·head), with q, k, v, g (S, D)
 // and rel_h (S, Hk), rel_w (S, Wk), S = Hk·Wk, all in fp32 from bf16 inputs:
 //
 //   s[r,k]  = (q[r]·k[k])·scale + (rel_h[r, k / Wk] + rel_w[r, k % Wk])
@@ -11,7 +11,7 @@
 //   dQ = dS·k·scale (bf16)   dK = dSᵀ·q·scale (fp32)   dV (fp32)
 //   drh[r,kh] = Σ_{k / Wk = kh} dS[r,k]   drw[r,kw] = Σ_{k % Wk = kw} dS[r,k]   (bf16)
 //
-// What bounds it: five S×S×64 products per head (10·S²·64 FLOP) against
+// What bounds it: five S×S×D products per head (10·S²·D FLOP) against
 // ~1 MB of inputs and outputs, so at ViT-L it is compute-bound on the tensor
 // cores. The TPU kernel walks q-blocks in grid order and accumulates dK/dV by
 // revisiting the output block; Hopper blocks run in parallel, so this file
@@ -27,6 +27,11 @@
 //   2. k-major, one block per (64-key tile, batch·head): recomputes pᵀ and
 //      dPᵀ from those statistics for every q tile and accumulates dV = pᵀg
 //      and dK = dSᵀq in registers.
+// At head_dim 80 the head dim is five 16-wide k-steps (two ldmatrix.x4 and
+// one .x2 per 8-key tile) and ten 8-wide output tiles. The q-major kernel's
+// Q and G tiles are needed only until their mma fragments are in registers,
+// so the drh/drw histograms reuse their shared memory: that keeps both
+// kernels at two blocks per SM at head_dim 80.
 // That is nine products where five would do (the statistics pass and the
 // recompute of S and dP in both kernels), traded for no atomics and no
 // S×S storage.
@@ -48,11 +53,9 @@ typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int HD = 64;        // head dim (the only one the kernels take)
 constexpr int BT = 64;        // rows per block tile and per step (queries or keys)
 constexpr int NW = 4;         // warps per block, 16 rows each
 constexpr int NT = NW * 32;
-constexpr int LDT = HD + 8;   // bf16 tile row stride: 144 B, conflict-free ldmatrix
 constexpr int RLD = 64 + 2;   // bf16 rel-term row stride
 constexpr int LDS = 64 + 1;   // fp32 histogram row stride
 
@@ -68,6 +71,10 @@ __device__ __forceinline__ uint32_t pack(float lo, float hi) {
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(smem_addr(p)));
 }
 __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
@@ -99,10 +106,20 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// rows [r0, r0 + BT) of an (S, 64) tensor into a bf16 tile (zero past S)
+// the tile shapes of one head dim
+template <int HD>
+struct Dim {
+  static constexpr int LDT = HD + 8;  // bf16 tile row stride: 144 B (64) / 176 B (80), conflict-free ldmatrix
+  static constexpr int KS = HD / 16;  // 16-wide k-steps over the head dim
+  static constexpr int NO = HD / 8;   // 8-wide output tiles of a (·, HD) product
+};
+
+// rows [r0, r0 + BT) of an (S, HD) tensor into a bf16 tile (zero past S)
+template <int HD>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int S, int r0, int tid) {
-  for (int i = tid; i < BT * 8; i += NT) {
-    const int r = i / 8, c8 = (i % 8) * 8, row = r0 + r;
+  constexpr int LDT = Dim<HD>::LDT, CH = HD / 8;
+  for (int i = tid; i < BT * CH; i += NT) {
+    const int r = i / CH, c8 = (i % CH) * 8, row = r0 + r;
     const bool valid = row < S;
     cp_async16(dst + r * LDT + c8, valid ? src + (size_t)row * HD + c8 : src, valid);
   }
@@ -122,17 +139,26 @@ __device__ __forceinline__ void load_rel(bf16* sRh, bf16* sRw, const bf16* rh, c
 }
 
 // acc[8][4] = A (this warp's 16 rows, registers) · Bᵀ, B = 64 rows of a
-// bf16 tile (64 output columns, 8 tiles of 8)
-__device__ __forceinline__ void mma_abt(float (&acc)[8][4], const uint32_t (&a)[4][4], const bf16* tile, int lane) {
+// bf16 tile (64 output columns, 8 tiles of 8); the head dim in pairs of
+// k-steps (ldmatrix.x4) and, for an odd count, one more (ldmatrix.x2)
+template <int HD>
+__device__ __forceinline__ void mma_abt(float (&acc)[8][4], const uint32_t (&a)[Dim<HD>::KS][4], const bf16* tile,
+                                        int lane) {
+  constexpr int LDT = Dim<HD>::LDT, KS = Dim<HD>::KS;
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
+    for (int kk = 0; kk + 1 < KS; kk += 2) {
       uint32_t b[4];
-      ldsm_x4(b, tile + (8 * j + (lane % 8)) * LDT + half * 32 + (lane / 8) * 8);
-      mma(acc[j], a[2 * half], b[0], b[1]);
-      mma(acc[j], a[2 * half + 1], b[2], b[3]);
+      ldsm_x4(b, tile + (8 * j + (lane % 8)) * LDT + kk * 16 + (lane / 8) * 8);
+      mma(acc[j], a[kk], b[0], b[1]);
+      mma(acc[j], a[kk + 1], b[2], b[3]);
+    }
+    if (KS % 2) {
+      uint32_t b[2];
+      ldsm_x2(b, tile + (8 * j + (lane % 8)) * LDT + (KS - 1) * 16 + ((lane / 8) % 2) * 8);
+      mma(acc[j], a[KS - 1], b[0], b[1]);
     }
   }
 }
@@ -158,12 +184,15 @@ __device__ __forceinline__ void to_a_residue(uint32_t (&la)[4][4], const float (
   }
 }
 
-// acc[8][4] += P · B, P as A fragments (to_a), B = a 64×64 bf16 tile [k][n]
-__device__ __forceinline__ void mma_pb(float (&acc)[8][4], const uint32_t (&pa)[4][4], const bf16* tile, int lane) {
+// acc[NO][4] += P · B, P as A fragments (to_a), B = a 64×HD bf16 tile [k][n]
+template <int HD>
+__device__ __forceinline__ void mma_pb(float (&acc)[Dim<HD>::NO][4], const uint32_t (&pa)[4][4], const bf16* tile,
+                                       int lane) {
+  constexpr int LDT = Dim<HD>::LDT;
 #pragma unroll
   for (int t = 0; t < 4; ++t) {
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
+    for (int jj = 0; jj < Dim<HD>::NO / 2; ++jj) {
       uint32_t b[4];
       ldsm_x4_t(b, tile + (16 * t + (lane % 16)) * LDT + 16 * jj + (lane / 16) * 8);
       mma(acc[2 * jj], pa[t], b[0], b[1]);
@@ -173,55 +202,68 @@ __device__ __forceinline__ void mma_pb(float (&acc)[8][4], const uint32_t (&pa)[
 }
 
 // this warp's 16 rows of a bf16 tile as mma A fragments
-__device__ __forceinline__ void load_a(uint32_t (&a)[4][4], const bf16* tile, int warp, int lane) {
+template <int HD>
+__device__ __forceinline__ void load_a(uint32_t (&a)[Dim<HD>::KS][4], const bf16* tile, int warp, int lane) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) ldsm_x4(a[kk], tile + (warp * 16 + (lane % 16)) * LDT + kk * 16 + (lane / 16) * 8);
+  for (int kk = 0; kk < Dim<HD>::KS; ++kk)
+    ldsm_x4(a[kk], tile + (warp * 16 + (lane % 16)) * Dim<HD>::LDT + kk * 16 + (lane / 16) * 8);
 }
 
 // ============================ 1. q-major: dQ, drh, drw ============================
 
+// bytes of the fp32 drh/drw histograms, which first hold the Q and G tiles
+template <int HD>
+struct Hist {
+  static constexpr size_t HB = (size_t)2 * BT * LDS * sizeof(float);
+  static constexpr size_t QG = (size_t)2 * BT * Dim<HD>::LDT * sizeof(bf16);
+  static constexpr size_t bytes = HB > QG ? HB : QG;
+};
+template <int HD>
 constexpr size_t smem_q() {
-  return (size_t)(2 * BT * LDT + 4 * BT * LDT + 2 * BT * RLD) * sizeof(bf16) + (size_t)2 * BT * LDS * sizeof(float);
+  return Hist<HD>::bytes + (size_t)(4 * BT * Dim<HD>::LDT + 2 * BT * RLD) * sizeof(bf16);
 }
 
+template <int HD>
 __global__ void __launch_bounds__(NT, 2) bwd_q_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ rh, const bf16* __restrict__ rw, const bf16* __restrict__ g,
     bf16* __restrict__ dq, bf16* __restrict__ drh, bf16* __restrict__ drw, float* __restrict__ stats,
     int BH, int S, int hk, int wk, float scale) {
+  constexpr int LDT = Dim<HD>::LDT, KS = Dim<HD>::KS, NO = Dim<HD>::NO;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  float* sHh = reinterpret_cast<float*>(smem);  // drh histograms, one row per query
+  float* sHw = sHh + BT * LDS;
+  bf16* sQ = reinterpret_cast<bf16*>(smem);  // Q and G tiles, until their fragments are loaded
   bf16* sG = sQ + BT * LDT;
-  bf16* sK = sG + BT * LDT;   // 2 stages
+  bf16* sK = reinterpret_cast<bf16*>(smem + Hist<HD>::bytes);  // 2 stages
   bf16* sV = sK + 2 * BT * LDT;  // 2 stages
   bf16* sRh = sV + 2 * BT * LDT;
   bf16* sRw = sRh + BT * RLD;
-  float* sHh = reinterpret_cast<float*>(sRw + BT * RLD);  // drh histograms, one row per query
-  float* sHw = sHh + BT * LDS;
 
   const int q0 = blockIdx.x * BT, bh = blockIdx.y;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, gr = lane >> 2, tig = lane & 3;
   const size_t off = (size_t)bh * S * HD;
   const bf16 *qp = q + off, *kp = k + off, *vp = v + off, *gp = g + off;
 
-  load_tile(sQ, qp, S, q0, tid);
-  load_tile(sG, gp, S, q0, tid);
-  load_tile(sK, kp, S, 0, tid);
-  load_tile(sV, vp, S, 0, tid);
+  load_tile<HD>(sQ, qp, S, q0, tid);
+  load_tile<HD>(sG, gp, S, q0, tid);
+  load_tile<HD>(sK, kp, S, 0, tid);
+  load_tile<HD>(sV, vp, S, 0, tid);
   cp_async_commit();
   load_rel(sRh, sRw, rh + (size_t)bh * S * hk, rw + (size_t)bh * S * wk, S, hk, wk, q0, tid);
-  for (int i = tid; i < 2 * BT * LDS; i += NT) sHh[i] = 0.0f;  // sHh and sHw
   cp_async_wait<0>();
   __syncthreads();
-  uint32_t qa[4][4], ga[4][4];
-  load_a(qa, sQ, warp, lane);
-  load_a(ga, sG, warp, lane);
+  uint32_t qa[KS][4], ga[KS][4];
+  load_a<HD>(qa, sQ, warp, lane);
+  load_a<HD>(ga, sG, warp, lane);
+  __syncthreads();  // every warp holds its fragments before the histograms overwrite the tiles
+  for (int i = tid; i < 2 * BT * LDS; i += NT) sHh[i] = 0.0f;  // sHh and sHw
 
   const int rA = warp * 16 + gr, rB = rA + 8;  // this thread's two rows (local)
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f}, dd[2] = {0.0f, 0.0f}, linv[2];
-  float dqa[8][4];
+  float dqa[NO][4];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) dqa[j][0] = dqa[j][1] = dqa[j][2] = dqa[j][3] = 0.0f;
+  for (int j = 0; j < NO; ++j) dqa[j][0] = dqa[j][1] = dqa[j][2] = dqa[j][3] = 0.0f;
 
   const int nk = (S + BT - 1) / BT;
   // step it walks the keys twice: pass 0 gathers the row statistics, pass 1
@@ -233,8 +275,8 @@ __global__ void __launch_bounds__(NT, 2) bwd_q_kernel(
     __syncthreads();  // every warp is done with the stage the next prefetch overwrites
     if (it + 1 < 2 * nk) {
       const int kn = ((it + 1) % nk) * BT;
-      load_tile(sK + ((it + 1) & 1) * BT * LDT, kp, S, kn, tid);
-      load_tile(sV + ((it + 1) & 1) * BT * LDT, vp, S, kn, tid);
+      load_tile<HD>(sK + ((it + 1) & 1) * BT * LDT, kp, S, kn, tid);
+      load_tile<HD>(sV + ((it + 1) & 1) * BT * LDT, vp, S, kn, tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -243,8 +285,8 @@ __global__ void __launch_bounds__(NT, 2) bwd_q_kernel(
     __syncthreads();
 
     float s[8][4], dp[8][4];
-    mma_abt(s, qa, cK, lane);
-    mma_abt(dp, ga, cV, lane);
+    mma_abt<HD>(s, qa, cK, lane);
+    mma_abt<HD>(dp, ga, cV, lane);
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -349,7 +391,7 @@ __global__ void __launch_bounds__(NT, 2) bwd_q_kernel(
         }
       }
     }
-    mma_pb(dqa, dsa, cK, lane);  // dQ += dS·k
+    mma_pb<HD>(dqa, dsa, cK, lane);  // dQ += dS·k
   }
   // the histogram cells of this warp's rows were added to by other lanes
   // than those that write them out below (the loop's barriers order the
@@ -369,7 +411,7 @@ __global__ void __launch_bounds__(NT, 2) bwd_q_kernel(
     }
     bf16* dst = dq + off + (size_t)row * HD + 2 * tig;
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < NO; ++j)
       *reinterpret_cast<uint32_t*>(dst + 8 * j) = pack(dqa[j][2 * i] * scale, dqa[j][2 * i + 1] * scale);
   }
   for (int i = lane; i < 16 * hk; i += 32) {
@@ -384,15 +426,18 @@ __global__ void __launch_bounds__(NT, 2) bwd_q_kernel(
 
 // ============================ 2. k-major: dK, dV ============================
 
+template <int HD>
 constexpr size_t smem_k() {
-  return (size_t)(2 * BT * LDT + 4 * BT * LDT + 2 * BT * RLD) * sizeof(bf16) + (size_t)3 * BT * sizeof(float);
+  return (size_t)(6 * BT * Dim<HD>::LDT + 2 * BT * RLD) * sizeof(bf16) + (size_t)3 * BT * sizeof(float);
 }
 
+template <int HD>
 __global__ void __launch_bounds__(NT, 2) bwd_k_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ rh, const bf16* __restrict__ rw, const bf16* __restrict__ g,
     float* __restrict__ dk, float* __restrict__ dv, const float* __restrict__ stats,
     int BH, int S, int hk, int wk, float scale) {
+  constexpr int LDT = Dim<HD>::LDT, KS = Dim<HD>::KS, NO = Dim<HD>::NO;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sK = reinterpret_cast<bf16*>(smem);
   bf16* sV = sK + BT * LDT;
@@ -411,16 +456,16 @@ __global__ void __launch_bounds__(NT, 2) bwd_k_kernel(
   const bf16* rhp = rh + (size_t)bh * S * hk;
   const bf16* rwp = rw + (size_t)bh * S * wk;
 
-  load_tile(sK, kp, S, k0, tid);
-  load_tile(sV, vp, S, k0, tid);
-  load_tile(sQ, qp, S, 0, tid);
-  load_tile(sG, gp, S, 0, tid);
+  load_tile<HD>(sK, kp, S, k0, tid);
+  load_tile<HD>(sV, vp, S, k0, tid);
+  load_tile<HD>(sQ, qp, S, 0, tid);
+  load_tile<HD>(sG, gp, S, 0, tid);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  uint32_t ka[4][4], va[4][4];
-  load_a(ka, sK, warp, lane);
-  load_a(va, sV, warp, lane);
+  uint32_t ka[KS][4], va[KS][4];
+  load_a<HD>(ka, sK, warp, lane);
+  load_a<HD>(va, sV, warp, lane);
 
   // this thread's two keys (rows of the transposed scores); keys past S
   // read table slot 0 and are never stored
@@ -431,9 +476,9 @@ __global__ void __launch_bounds__(NT, 2) bwd_k_kernel(
     kh[i] = key / wk;
     kw[i] = key - kh[i] * wk;
   }
-  float dka[8][4], dva[8][4];
+  float dka[NO][4], dva[NO][4];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < NO; ++j) {
     dka[j][0] = dka[j][1] = dka[j][2] = dka[j][3] = 0.0f;
     dva[j][0] = dva[j][1] = dva[j][2] = dva[j][3] = 0.0f;
   }
@@ -445,8 +490,8 @@ __global__ void __launch_bounds__(NT, 2) bwd_k_kernel(
     const bf16* cG = sG + (qt & 1) * BT * LDT;
     __syncthreads();  // every warp is done with the previous stage, rel rows and statistics
     if (qt + 1 < nq) {
-      load_tile(sQ + ((qt + 1) & 1) * BT * LDT, qp, S, q0 + BT, tid);
-      load_tile(sG + ((qt + 1) & 1) * BT * LDT, gp, S, q0 + BT, tid);
+      load_tile<HD>(sQ + ((qt + 1) & 1) * BT * LDT, qp, S, q0 + BT, tid);
+      load_tile<HD>(sG + ((qt + 1) & 1) * BT * LDT, gp, S, q0 + BT, tid);
       cp_async_commit();
     }
     load_rel(sRh, sRw, rhp, rwp, S, hk, wk, q0, tid);
@@ -465,8 +510,8 @@ __global__ void __launch_bounds__(NT, 2) bwd_k_kernel(
     __syncthreads();
 
     float st[8][4], dpt[8][4];  // sᵀ and dPᵀ: this warp's 16 keys × 64 queries
-    mma_abt(st, ka, cQ, lane);
-    mma_abt(dpt, va, cG, lane);
+    mma_abt<HD>(st, ka, cQ, lane);
+    mma_abt<HD>(dpt, va, cG, lane);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
 #pragma unroll
@@ -484,9 +529,9 @@ __global__ void __launch_bounds__(NT, 2) bwd_k_kernel(
     }
     uint32_t pa[4][4];
     to_a(pa, st);
-    mma_pb(dva, pa, cG, lane);  // dV += pᵀ·g
+    mma_pb<HD>(dva, pa, cG, lane);  // dV += pᵀ·g
     to_a(pa, dpt);
-    mma_pb(dka, pa, cQ, lane);  // dK += dSᵀ·q
+    mma_pb<HD>(dka, pa, cQ, lane);  // dK += dSᵀ·q
   }
 
 #pragma unroll
@@ -496,34 +541,50 @@ __global__ void __launch_bounds__(NT, 2) bwd_k_kernel(
     float* dkr = dk + off + (size_t)key * HD + 2 * tig;
     float* dvr = dv + off + (size_t)key * HD + 2 * tig;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < NO; ++j) {
       *reinterpret_cast<float2*>(dkr + 8 * j) = make_float2(dka[j][2 * i] * scale, dka[j][2 * i + 1] * scale);
       *reinterpret_cast<float2*>(dvr + 8 * j) = make_float2(dva[j][2 * i], dva[j][2 * i + 1]);
     }
   }
 }
 
-}  // namespace
-
-// q, k, v, g (BH, S, 64), rel_h (BH, S, hk), rel_w (BH, S, wk) bf16, S = hk·wk,
-// hk, wk <= 64 → dq, drh, drw bf16, dk, dv fp32; stats: (3, BH, S) fp32 scratch
-extern "C" int attn_bwd_bf16(const void* q, const void* k, const void* v, const void* rh, const void* rw,
-                             const void* g, void* dq, void* dk, void* dv, void* drh, void* drw, void* stats,
-                             int BH, int S, int hk, int wk, float scale, void* stream) {
-  if (hk * wk != S || hk > 64 || wk > 64) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(bwd_q_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_q());
+template <int HD>
+int launch(const void* q, const void* k, const void* v, const void* rh, const void* rw, const void* g, void* dq,
+           void* dk, void* dv, void* drh, void* drw, void* stats, int BH, int S, int hk, int wk, float scale,
+           void* stream) {
+  cudaError_t err =
+      cudaFuncSetAttribute(bwd_q_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_q<HD>());
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(bwd_k_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_k());
+  err = cudaFuncSetAttribute(bwd_k_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_k<HD>());
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((S + BT - 1) / BT, BH);
   cudaStream_t st = (cudaStream_t)stream;
-  bwd_q_kernel<<<grid, NT, smem_q(), st>>>((const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)rh,
-                                           (const bf16*)rw, (const bf16*)g, (bf16*)dq, (bf16*)drh, (bf16*)drw,
-                                           (float*)stats, BH, S, hk, wk, scale);
+  bwd_q_kernel<HD><<<grid, NT, smem_q<HD>(), st>>>((const bf16*)q, (const bf16*)k, (const bf16*)v,
+                                                   (const bf16*)rh, (const bf16*)rw, (const bf16*)g, (bf16*)dq,
+                                                   (bf16*)drh, (bf16*)drw, (float*)stats, BH, S, hk, wk, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  bwd_k_kernel<<<grid, NT, smem_k(), st>>>((const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)rh,
-                                           (const bf16*)rw, (const bf16*)g, (float*)dk, (float*)dv,
-                                           (const float*)stats, BH, S, hk, wk, scale);
+  bwd_k_kernel<HD><<<grid, NT, smem_k<HD>(), st>>>((const bf16*)q, (const bf16*)k, (const bf16*)v,
+                                                   (const bf16*)rh, (const bf16*)rw, (const bf16*)g, (float*)dk,
+                                                   (float*)dv, (const float*)stats, BH, S, hk, wk, scale);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// q, k, v, g (BH, S, D) with D 64 or 80, rel_h (BH, S, hk), rel_w (BH, S, wk)
+// bf16, S = hk·wk, hk, wk <= 64 → dq, drh, drw bf16, dk, dv fp32; stats:
+// (3, BH, S) fp32 scratch
+extern "C" int attn_bwd_bf16(const void* q, const void* k, const void* v, const void* rh, const void* rw,
+                             const void* g, void* dq, void* dk, void* dv, void* drh, void* drw, void* stats,
+                             int BH, int S, int D, int hk, int wk, float scale, void* stream) {
+  if (hk * wk != S || hk > 64 || wk > 64) return (int)cudaErrorInvalidValue;
+  switch (D) {
+    case 64:
+      return launch<64>(q, k, v, rh, rw, g, dq, dk, dv, drh, drw, stats, BH, S, hk, wk, scale, stream);
+    case 80:
+      return launch<80>(q, k, v, rh, rw, g, dq, dk, dv, drh, drw, stats, BH, S, hk, wk, scale, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

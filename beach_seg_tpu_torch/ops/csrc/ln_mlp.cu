@@ -29,6 +29,11 @@
 // cp.async ring, so it waits on its own loads alone. Products are mma.sync
 // m16n8k16 (bf16 in, fp32 accumulate) from ldmatrix fragments. wgmma and TMA
 // multicast are the later steps.
+// At ViT-H's C=1280 a 64-row tile does not fit: its output accumulator
+// would be 160 registers a thread and its shared memory 241,664 B (232,448
+// available). So above C=1024 a cluster takes 32 rows (80 accumulator
+// registers, 157,696 B), at twice the weight bytes per row; the C <= 1024
+// instances keep 64.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -42,7 +47,6 @@ typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int BR = 64;   // rows per cluster (both CTAs)
 constexpr int BM = 128;  // hidden units per tile
 constexpr int KC = 64;   // W1 rows (channels) per step
 constexpr int HC = 16;   // W2 rows (hidden units) per step
@@ -105,9 +109,12 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint3
 }
 
 // C = 256·NCF: each CTA owns CH = C/2 channels (partial h) and C/2 output
-// columns, each warp WC = CH/8 = 16·NCF of those columns
+// columns, each warp WC = CH/8 = 16·NCF of those columns, for BR rows
+// (MR tiles of 16) per cluster
 template <int NCF>
 struct Shape {
+  static constexpr int BR = NCF <= 4 ? 64 : 32;  // rows per cluster (both CTAs)
+  static constexpr int MR = BR / 16;
   static constexpr int C = 256 * NCF;
   static constexpr int CH = C / 2;
   static constexpr int WC = CH / NW;
@@ -124,7 +131,7 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(NT, 1) ln_mlp_kernel
     const bf16* __restrict__ w1, const bf16* __restrict__ b1, const bf16* __restrict__ w2,
     const bf16* __restrict__ b2, bf16* __restrict__ out, int N, int M, float eps, int approx) {
   using Sh = Shape<NCF>;
-  constexpr int C = Sh::C, CH = Sh::CH, WC = Sh::WC, LDX = Sh::LDX, LDB2 = Sh::LDB2;
+  constexpr int C = Sh::C, CH = Sh::CH, WC = Sh::WC, LDX = Sh::LDX, LDB2 = Sh::LDB2, BR = Sh::BR, MR = Sh::MR;
   constexpr int N1 = CH / KC, N2 = BM / HC, STEPS = N1 + N2;  // steps per hidden tile
   extern __shared__ __align__(128) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -190,10 +197,10 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(NT, 1) ln_mlp_kernel
 
   // accumulators: out rows 16·m + {g, g+8} × this warp's columns 8·n + 2·tig + {0,1};
   // partial h rows likewise × this warp's hidden units 8·n + 2·tig + {0,1}
-  float yacc[4][WC / 8][4];
-  float hacc[4][2][4];
+  float yacc[MR][WC / 8][4];
+  float hacc[MR][2][4];
 #pragma unroll
-  for (int m = 0; m < 4; ++m) {
+  for (int m = 0; m < MR; ++m) {
 #pragma unroll
     for (int n = 0; n < WC / 8; ++n) yacc[m][n][0] = yacc[m][n][1] = yacc[m][n][2] = yacc[m][n][3] = 0.0f;
 #pragma unroll
@@ -215,7 +222,7 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(NT, 1) ln_mlp_kernel
         uint32_t b[4];
         ldsm_b(b, st + kk * 16 * LDB1, LDB1, lane);
 #pragma unroll
-        for (int m = 0; m < 4; ++m) {
+        for (int m = 0; m < MR; ++m) {
           uint32_t a[4];
           ldsm_a(a, sLn + m * 16 * LDX + w * KC + kk * 16, LDX, lane);
           mma(hacc[m][0], a, b[0], b[1]);
@@ -230,7 +237,7 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(NT, 1) ln_mlp_kernel
         float* px = peerX + (t & 1) * BR * LDP;
         const float* mx = sX + (t & 1) * BR * LDP;
 #pragma unroll
-        for (int m = 0; m < 4; ++m)
+        for (int m = 0; m < MR; ++m)
 #pragma unroll
           for (int n = 0; n < 2; ++n) {
             const int col = warp * HW + 8 * n + 2 * tig;
@@ -243,7 +250,7 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(NT, 1) ln_mlp_kernel
           const int col = warp * HW + 8 * n + 2 * tig;
           const float bl = __bfloat162float(b1[t * BM + col]), bh = __bfloat162float(b1[t * BM + col + 1]);
 #pragma unroll
-          for (int m = 0; m < 4; ++m) {
+          for (int m = 0; m < MR; ++m) {
             float* c = hacc[m][n];
             const float2 lo = *reinterpret_cast<const float2*>(mx + (16 * m + g) * LDP + col);
             const float2 hi = *reinterpret_cast<const float2*>(mx + (16 * m + g + 8) * LDP + col);
@@ -262,15 +269,15 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(NT, 1) ln_mlp_kernel
       }
     } else {
       // out[:, this CTA's half] += h[:, (w-N1)·HC : +HC] · W2 slice, this warp's columns
-      uint32_t a[4][4];
+      uint32_t a[MR][4];
 #pragma unroll
-      for (int m = 0; m < 4; ++m) ldsm_a(a[m], sH + m * 16 * LDH + (w - N1) * HC, LDH, lane);
+      for (int m = 0; m < MR; ++m) ldsm_a(a[m], sH + m * 16 * LDH + (w - N1) * HC, LDH, lane);
 #pragma unroll
       for (int cf = 0; cf < WC / 16; ++cf) {
         uint32_t b[4];
         ldsm_b(b, st + cf * 16, LDB2, lane);
 #pragma unroll
-        for (int m = 0; m < 4; ++m) {
+        for (int m = 0; m < MR; ++m) {
           mma(yacc[m][2 * cf], a[m], b[0], b[1]);
           mma(yacc[m][2 * cf + 1], a[m], b[2], b[3]);
         }
@@ -285,7 +292,7 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(NT, 1) ln_mlp_kernel
     const int col = rank * CH + warp * WC + 8 * n + 2 * tig;
     const float bl = __bfloat162float(b2[col]), bh = __bfloat162float(b2[col + 1]);
 #pragma unroll
-    for (int m = 0; m < 4; ++m) {
+    for (int m = 0; m < MR; ++m) {
       const int row = r0 + 16 * m + g;
       if (row < N) *reinterpret_cast<uint32_t*>(out + (size_t)row * C + col) = pack(yacc[m][n][0] + bl, yacc[m][n][1] + bh);
       if (row + 8 < N)
@@ -301,7 +308,7 @@ int launch(const void* x, const void* ln_scale, const void* ln_bias, const void*
   cudaError_t err =
       cudaFuncSetAttribute(ln_mlp_kernel<NCF>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int clusters = (N + BR - 1) / BR;
+  const int clusters = (N + Shape<NCF>::BR - 1) / Shape<NCF>::BR;
   ln_mlp_kernel<NCF><<<2 * clusters, NT, smem, (cudaStream_t)stream>>>(
       (const bf16*)x, (const float*)ln_scale, (const float*)ln_bias, (const bf16*)w1, (const bf16*)b1,
       (const bf16*)w2, (const bf16*)b2, (bf16*)out, N, M, eps, approx);
@@ -310,7 +317,7 @@ int launch(const void* x, const void* ln_scale, const void* ln_bias, const void*
 
 }  // namespace
 
-// C must be a multiple of 256 up to 1024, M a multiple of 128
+// C must be a multiple of 256 up to 1280, M a multiple of 128
 extern "C" int ln_mlp_bf16(const void* x, const void* ln_scale, const void* ln_bias, const void* w1,
                            const void* b1, const void* w2, const void* b2, void* out, int N, int C,
                            int M, float eps, int approx, void* stream) {
@@ -323,6 +330,8 @@ extern "C" int ln_mlp_bf16(const void* x, const void* ln_scale, const void* ln_b
       return launch<3>(x, ln_scale, ln_bias, w1, b1, w2, b2, out, N, M, eps, approx, stream);
     case 4:
       return launch<4>(x, ln_scale, ln_bias, w1, b1, w2, b2, out, N, M, eps, approx, stream);
+    case 5:
+      return launch<5>(x, ln_scale, ln_bias, w1, b1, w2, b2, out, N, M, eps, approx, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -29,6 +29,11 @@
 // W1 twice and W2 once from L2; the 2-CTA cluster that halves this in
 // ln_mlp.cu, and wgmma with TMA, are later steps. The LN VJP's two row sums
 // over C are reduced across the warps through shared memory at the end.
+// At ViT-H's C=1280 32 rows do not fit: the dln accumulator would be 160
+// registers a thread and the block's shared memory 243,456 B (232,448
+// available). So above C=1024 a block takes 16 rows (80 accumulator
+// registers, 155,520 B), at twice the weight bytes per row; the C <= 1024
+// instances keep 32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -40,7 +45,6 @@ typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int BR = 32;   // rows per block
 constexpr int BM = 128;  // hidden units per tile
 constexpr int NT = 256;  // threads per block (8 warps)
 constexpr int NW = NT / 32;
@@ -114,9 +118,11 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint3
 }
 
 // C = 256·NCF: each warp owns CW = C/8 columns of dln, streamed in phase 2
-// as NCC chunks of CC columns
+// as NCC chunks of CC columns, for BR rows (MR tiles of 16) per block
 template <int NCF>
 struct Shape {
+  static constexpr int BR = NCF <= 4 ? 32 : 16;  // rows per block
+  static constexpr int MR = BR / 16;
   static constexpr int C = 256 * NCF;
   static constexpr int CW = C / NW;
   static constexpr int CC = CW % 64 == 0 ? 64 : 32;  // CW is a multiple of 32
@@ -138,7 +144,7 @@ __global__ void __launch_bounds__(NT, 1) ln_mlp_dx_kernel(
     const bf16* __restrict__ g, bf16* __restrict__ dx, int N, int M, float eps, int approx) {
   using Sh = Shape<NCF>;
   constexpr int C = Sh::C, CW = Sh::CW, CC = Sh::CC, NCC = Sh::NCC, LDX = Sh::LDX, N1 = Sh::N1;
-  constexpr int STEPS = Sh::STEPS;
+  constexpr int STEPS = Sh::STEPS, BR = Sh::BR, MR = Sh::MR;
   extern __shared__ __align__(128) unsigned char smem[];
   const int r0 = blockIdx.x * BR;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, gr = lane >> 2, tig = lane & 3;
@@ -215,10 +221,10 @@ __global__ void __launch_bounds__(NT, 1) ln_mlp_dx_kernel(
 
   // accumulators: dln rows 16·m + {gr, gr+8} × this warp's columns
   // 8·n + 2·tig + {0,1}; hpre and g·W2ᵀ rows likewise × its 16 units
-  float dacc[2][CW / 8][4];
-  float hacc[2][2][4], gacc[2][2][4];
+  float dacc[MR][CW / 8][4];
+  float hacc[MR][2][4], gacc[MR][2][4];
 #pragma unroll
-  for (int m = 0; m < 2; ++m) {
+  for (int m = 0; m < MR; ++m) {
 #pragma unroll
     for (int n = 0; n < CW / 8; ++n) dacc[m][n][0] = dacc[m][n][1] = dacc[m][n][2] = dacc[m][n][3] = 0.0f;
 #pragma unroll
@@ -252,7 +258,7 @@ __global__ void __launch_bounds__(NT, 1) ln_mlp_dx_kernel(
         ldsm_b_kn(b1f, st + kk * 16 * LDW1, LDW1, lane);
         ldsm_b_nk(b2f, st + KC * LDW1 + kk * 16, LDW2, lane);
 #pragma unroll
-        for (int m = 0; m < 2; ++m) {
+        for (int m = 0; m < MR; ++m) {
           uint32_t a[4];
           ldsm_a(a, sLn + m * 16 * LDX + k1 * KC + kk * 16, LDX, lane);
           mma(hacc[m][0], a, b1f[0], b1f[1]);
@@ -272,7 +278,7 @@ __global__ void __launch_bounds__(NT, 1) ln_mlp_dx_kernel(
       const int col = warp * HW + 8 * n + 2 * tig;
       const float bl = __bfloat162float(b1[t * BM + col]), bh = __bfloat162float(b1[t * BM + col + 1]);
 #pragma unroll
-      for (int m = 0; m < 2; ++m) {
+      for (int m = 0; m < MR; ++m) {
         float* h = hacc[m][n];
         float* gw = gacc[m][n];
         *reinterpret_cast<uint32_t*>(sDh + (16 * m + gr) * LDH + col) =
@@ -285,9 +291,9 @@ __global__ void __launch_bounds__(NT, 1) ln_mlp_dx_kernel(
     __syncthreads();
     // phase 2: dln[:, this warp's columns] += dh · W1[those columns, tile]ᵀ
     for (int uc = 0; uc < BM / HC; ++uc) {
-      uint32_t a[2][4];
+      uint32_t a[MR][4];
 #pragma unroll
-      for (int m = 0; m < 2; ++m) ldsm_a(a[m], sDh + m * 16 * LDH + uc * HC, LDH, lane);
+      for (int m = 0; m < MR; ++m) ldsm_a(a[m], sDh + m * 16 * LDH + uc * HC, LDH, lane);
 #pragma unroll
       for (int cc = 0; cc < NCC; ++cc) {
         const bf16* st = begin();
@@ -296,7 +302,7 @@ __global__ void __launch_bounds__(NT, 1) ln_mlp_dx_kernel(
           uint32_t b[4];
           ldsm_b_nk(b, st + cf * 16 * LDP2, LDP2, lane);
 #pragma unroll
-          for (int m = 0; m < 2; ++m) {
+          for (int m = 0; m < MR; ++m) {
             mma(dacc[m][cc * (CC / 8) + 2 * cf], a[m], b[0], b[1]);
             mma(dacc[m][cc * (CC / 8) + 2 * cf + 1], a[m], b[2], b[3]);
           }
@@ -308,9 +314,9 @@ __global__ void __launch_bounds__(NT, 1) ln_mlp_dx_kernel(
 
   // LN VJP: dxh = dln·ln_scale; per-row Σ dxh and Σ dxh·xhat over C, reduced
   // over each quad, then over the warps in warp order
-  float s1[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}}, s2[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+  float s1[MR][2] = {}, s2[MR][2] = {};
 #pragma unroll
-  for (int m = 0; m < 2; ++m) {
+  for (int m = 0; m < MR; ++m) {
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
       const int r = 16 * m + gr + 8 * hf, row = r0 + r;
@@ -337,7 +343,7 @@ __global__ void __launch_bounds__(NT, 1) ln_mlp_dx_kernel(
   }
   __syncthreads();
 #pragma unroll
-  for (int m = 0; m < 2; ++m) {
+  for (int m = 0; m < MR; ++m) {
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
       const int r = 16 * m + gr + 8 * hf, row = r0 + r;
@@ -368,6 +374,7 @@ int launch(const void* x, const void* ln_scale, const void* ln_bias, const void*
   cudaError_t err =
       cudaFuncSetAttribute(ln_mlp_dx_kernel<NCF>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
+  constexpr int BR = Shape<NCF>::BR;
   ln_mlp_dx_kernel<NCF><<<(N + BR - 1) / BR, NT, smem, (cudaStream_t)stream>>>(
       (const bf16*)x, (const float*)ln_scale, (const float*)ln_bias, (const bf16*)w1, (const bf16*)b1,
       (const bf16*)w2, (const bf16*)g, (bf16*)dx, N, M, eps, approx);
@@ -376,7 +383,7 @@ int launch(const void* x, const void* ln_scale, const void* ln_bias, const void*
 
 }  // namespace
 
-// C must be a multiple of 256 up to 1024, M a multiple of 128
+// C must be a multiple of 256 up to 1280, M a multiple of 128
 extern "C" int ln_mlp_dx_bf16(const void* x, const void* ln_scale, const void* ln_bias, const void* w1,
                               const void* b1, const void* w2, const void* g, void* dx, int N, int C, int M,
                               float eps, int approx, void* stream) {
@@ -389,6 +396,8 @@ extern "C" int ln_mlp_dx_bf16(const void* x, const void* ln_scale, const void* l
       return launch<3>(x, ln_scale, ln_bias, w1, b1, w2, g, dx, N, M, eps, approx, stream);
     case 4:
       return launch<4>(x, ln_scale, ln_bias, w1, b1, w2, g, dx, N, M, eps, approx, stream);
+    case 5:
+      return launch<5>(x, ln_scale, ln_bias, w1, b1, w2, g, dx, N, M, eps, approx, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

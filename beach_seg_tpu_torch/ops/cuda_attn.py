@@ -1,21 +1,27 @@
-"""qkv-rel attention and its gradient (counterpart of
-``pallas_attn.fused_attention_qkv_rel`` and its custom VJP).
+"""The model's attention and its gradient (counterparts of
+``pallas_attn.fused_attention_qkv_rel`` and ``fused_attention_merged`` with
+their custom VJPs).
 
-Two CUDA kernels, each with a plain PyTorch version:
+Three CUDA kernels, each with a plain PyTorch version:
 
 - :func:`attn_qkv_rel` (``csrc/attn_qkv_rel.cu``) replaces the TPU forward
   kernel ``_kernel_qkv_rel`` (``beach_seg_tpu/ops/pallas_attn.py:389``).
   It is compute-bound at ViT-L (two S×S×64 products per head against ~13 MB
   of qkv and output per image).
+- :func:`attn_packed` (``csrc/attn_packed.cu``) replaces ``_kernel_packed``
+  (``pallas_attn.py:126``): attention over head-split q, k, v with
+  precomputed rel terms, merged-head output; head_dim 64 or 80 (ViT-H). Its
+  plain version is ``ops.attention.attention_packed_plain``.
 - :func:`attn_bwd` (``csrc/attn_bwd.cu``) replaces the TPU backward kernel
-  ``_bwd_kernel`` (``pallas_attn.py:722``); its plain version is
-  ``ops.attention.attention_bwd_plain``.
+  ``_bwd_kernel`` (``pallas_attn.py:722``), head_dim 64 or 80; its plain
+  version is ``ops.attention.attention_bwd_plain``.
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain version
 only for CPU tensors; ``<wrapper>.launches`` counts kernel launches.
-:func:`qkv_rel_attention` is the differentiable entry the model calls: the
-forward kernel, and in backward the port of ``_qkv_rel_bwd``
-(``pallas_attn.py:625-673``) around the backward kernel.
+:func:`qkv_rel_attention` (head_dim 64) and :func:`packed_attention` (other
+head dims) are the differentiable entries the model calls: a forward kernel,
+and in backward the port of ``_qkv_rel_bwd`` (``pallas_attn.py:625-673``)
+or of ``_merged_bwd`` (``:696-706``) around the backward kernel.
 """
 
 from __future__ import annotations
@@ -27,7 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from beach_seg_tpu_torch.ops import build
-from beach_seg_tpu_torch.ops.attention import attention_bwd_plain
+from beach_seg_tpu_torch.ops.attention import attention_bwd_plain, attention_packed_plain
 
 SOFTMAX_MODES = ("stable", "clamp", "fast")
 
@@ -35,7 +41,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _PROTO = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P]
 _ENTRY = {torch.bfloat16: "attn_qkv_rel_bf16", torch.float32: "attn_qkv_rel_f32"}
-_BWD_PROTO = {"attn_bwd_bf16": [_P] * 12 + [_I, _I, _I, _I, ctypes.c_float, _P]}
+_BWD_PROTO = {"attn_bwd_bf16": [_P] * 12 + [_I, _I, _I, _I, _I, ctypes.c_float, _P]}
+_PACKED_ENTRY = {torch.bfloat16: "attn_packed_bf16", torch.float32: "attn_packed_f32"}
+_PACKED_PROTO = [_P] * 6 + [_I] * 6 + [ctypes.c_float, _P]
+# head dims the packed attention and backward kernels are instantiated for
+HEAD_DIMS = (64, 80)
 
 
 def default_softmax(dtype: torch.dtype) -> str:
@@ -136,18 +146,64 @@ def attn_qkv_rel(
 attn_qkv_rel.launches = 0
 
 
+def attn_packed(q, k, v, rel_h, rel_w, scale: float, num_heads: int) -> torch.Tensor:
+    """Same contract as ``ops.attention.attention_packed_plain``: q/k/v
+    (B·H, S, D), rel_h (B·H, S, Hk), rel_w (B·H, S, Wk) → (B, S, H·D). CUDA
+    tensors launch the kernel (bf16 or fp32, head_dim 64 or 80, S = Hk·Wk
+    with Hk, Wk ≤ 64; the rel terms are cast to q's dtype, the kernel's
+    rounding point); CPU tensors take the plain version."""
+    if q.device.type == "cpu":
+        return attention_packed_plain(q, k, v, rel_h, rel_w, scale, num_heads)
+    if q.device.type != "cuda":
+        raise ValueError(f"attn_packed takes CPU or CUDA tensors, got {q.device}")
+    bh, s, d = q.shape
+    hk, wk = rel_h.shape[-1], rel_w.shape[-1]
+    dt = q.dtype
+    if d not in HEAD_DIMS or hk * wk != s or hk > 64 or wk > 64 or bh % num_heads:
+        raise ValueError(
+            f"attn_packed kernel (port of _kernel_packed) takes head_dim {' or '.join(map(str, HEAD_DIMS))} and "
+            f"S = Hk·Wk with Hk, Wk <= 64: q {tuple(q.shape)}, {hk=}, {wk=}, {num_heads=}"
+        )
+    if dt not in _PACKED_ENTRY:
+        raise TypeError(f"attn_packed kernel takes bf16 or fp32, got {dt}")
+    for name, t in (("k", k), ("v", v)):
+        if t.device != q.device or t.dtype != dt or t.shape != q.shape:
+            raise ValueError(f"{name}: want {tuple(q.shape)} {dt} on {q.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+    for name, t, shape in (("rel_h", rel_h, (bh, s, hk)), ("rel_w", rel_w, (bh, s, wk))):
+        if t.device != q.device or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: want {shape} on {q.device}, got {tuple(t.shape)} on {t.device}")
+    rel_h, rel_w = rel_h.to(dt).contiguous(), rel_w.to(dt).contiguous()
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in (q, k, v)):
+        raise ValueError("attn_packed kernel needs contiguous, 16-byte aligned q, k, v")
+    lib = build.load("attn_packed", {fn: _PACKED_PROTO for fn in _PACKED_ENTRY.values()})
+    out = torch.empty((bh // num_heads, s, num_heads * d), dtype=dt, device=q.device)
+    err = getattr(lib, _PACKED_ENTRY[dt])(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(), out.data_ptr(),
+        bh, s, d, num_heads, hk, wk, float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    build.check(err, "attn_packed launch")
+    attn_packed.launches += 1
+    return out
+
+
+attn_packed.launches = 0
+
+
 def attn_bwd(q, k, v, rel_h, rel_w, g, scale: float) -> tuple[torch.Tensor, ...]:
     """Same contract as ``ops.attention.attention_bwd_plain``. CUDA tensors
-    launch the kernel (bf16, head_dim 64, S = Hk·Wk with Hk, Wk ≤ 64); CPU
-    tensors take the plain version."""
+    launch the kernel (bf16, head_dim 64 or 80, S = Hk·Wk with Hk, Wk ≤ 64);
+    CPU tensors take the plain version."""
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, rel_h, rel_w, g, scale)
     if q.device.type != "cuda":
         raise ValueError(f"attn_bwd takes CPU or CUDA tensors, got {q.device}")
     bh, s, d = q.shape
     hk, wk = rel_h.shape[-1], rel_w.shape[-1]
-    if d != 64 or hk * wk != s or hk > 64 or wk > 64:
-        raise ValueError(f"attn_bwd kernel needs head_dim 64 and S = Hk·Wk with Hk, Wk <= 64: {tuple(q.shape)}, {hk=}, {wk=}")
+    if d not in HEAD_DIMS or hk * wk != s or hk > 64 or wk > 64:
+        raise ValueError(
+            f"attn_bwd kernel needs head_dim {' or '.join(map(str, HEAD_DIMS))} and S = Hk·Wk with Hk, Wk <= 64: "
+            f"{tuple(q.shape)}, {hk=}, {wk=}"
+        )
     for name, t, shape in (
         ("q", q, (bh, s, d)), ("k", k, (bh, s, d)), ("v", v, (bh, s, d)), ("g", g, (bh, s, d)),
         ("rel_h", rel_h, (bh, s, hk)), ("rel_w", rel_w, (bh, s, wk)),
@@ -165,7 +221,7 @@ def attn_bwd(q, k, v, rel_h, rel_w, g, scale: float) -> tuple[torch.Tensor, ...]
     err = lib.attn_bwd_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(), g.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), drh.data_ptr(), drw.data_ptr(), stats.data_ptr(),
-        bh, s, hk, wk, float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+        bh, s, d, hk, wk, float(scale), torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(err, "attn_bwd launch")
     attn_bwd.launches += 1
@@ -238,3 +294,35 @@ def qkv_rel_attention(qkv4, qkv_bias, rh_tab, rw_tab, scale: float, gw: int, num
     if torch.is_grad_enabled() and any(t.requires_grad for t in (qkv4, qkv_bias, rh_tab, rw_tab)):
         return _QkvRelAttention.apply(qkv4, qkv_bias, rh_tab, rw_tab, scale, gw, num_heads, softmax)
     return attn_qkv_rel(qkv4, qkv_bias, rh_tab, rw_tab, scale, gw, num_heads, softmax)
+
+
+class PackedAttention(torch.autograd.Function):
+    """``fused_attention_merged`` with its custom VJP (``pallas_attn.py:679-709``):
+    :func:`attn_packed` forward; the residuals are the kernel's inputs only;
+    the backward un-merges the cotangent and runs :func:`attn_bwd`, with dk
+    and dv cast to the inputs' dtype (``_merged_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, rel_h, rel_w, scale: float, num_heads: int):
+        ctx.save_for_backward(q, k, v, rel_h, rel_w)
+        ctx.scale, ctx.num_heads = scale, num_heads
+        return attn_packed(q, k, v, rel_h, rel_w, scale, num_heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, rel_h, rel_w = ctx.saved_tensors
+        bh, s, d = q.shape
+        nh = ctx.num_heads
+        g = g.reshape(bh // nh, s, nh, d).transpose(1, 2).reshape(bh, s, d).contiguous()
+        dq, dk, dv, drh, drw = attn_bwd(q, k, v, rel_h, rel_w, g, ctx.scale)
+        return dq, dk.to(k.dtype), dv.to(v.dtype), drh, drw, None, None
+
+
+def packed_attention(q, k, v, rel_h, rel_w, scale: float, num_heads: int):
+    """The model's differentiable attention for head dims other than 64:
+    :func:`attn_packed` forward, :func:`attn_bwd` backward (the wrappers are
+    looked up when called, so they can be swapped for their plain
+    versions)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, rel_h, rel_w)):
+        return PackedAttention.apply(q, k, v, rel_h, rel_w, scale, num_heads)
+    return attn_packed(q, k, v, rel_h, rel_w, scale, num_heads)

@@ -5,8 +5,8 @@ Two CUDA kernels, each with a plain PyTorch version:
 
 - :func:`ln_mlp` (``csrc/ln_mlp.cu``) replaces the TPU kernel ``_kernel``
   (``beach_seg_tpu/ops/pallas_mlp.py:37``). It is compute-bound at ViT-L
-  (4·C·M FLOP per row); the hidden dimension streams through shared memory
-  so the (rows, 4C) activations never reach device memory.
+  and ViT-H (4·C·M FLOP per row); the hidden dimension streams through
+  shared memory so the (rows, 4C) activations never reach device memory.
 - :func:`ln_mlp_dx` (``csrc/ln_mlp_dx.cu``) replaces ``_kernel_dx``
   (``pallas_mlp.py:167``): dx only, 6·C·M FLOP per row.
 
@@ -57,8 +57,8 @@ def _check_kernel_args(what, x, ln_scale, ln_bias, w1, b1, w2, last):
     shape) of the seventh argument (b2 or g)."""
     c = x.shape[-1]
     m = w1.shape[-1]
-    if c % 256 or c > 1024 or m % 128:
-        raise ValueError(f"{what} kernel needs C % 256 == 0, C <= 1024 and M % 128 == 0, got C={c}, M={m}")
+    if c % 256 or c > 1280 or m % 128:
+        raise ValueError(f"{what} kernel needs C % 256 == 0, C <= 1280 and M % 128 == 0, got C={c}, M={m}")
     want = (
         ("x", x, torch.bfloat16, None), ("ln_scale", ln_scale, torch.float32, (c,)),
         ("ln_bias", ln_bias, torch.float32, (c,)), ("w1", w1, torch.bfloat16, (c, m)),
@@ -75,7 +75,7 @@ def _check_kernel_args(what, x, ln_scale, ln_bias, w1, b1, w2, last):
 def ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float, approx: bool) -> torch.Tensor:
     """LN → Lin1 → GELU → Lin2 on (..., C) input; returns the MLP output (no
     residual). CUDA tensors launch the kernel (bf16 x and weights, fp32 LN
-    params, C % 256 == 0, C ≤ 1024, M % 128 == 0); CPU tensors take the
+    params, C % 256 == 0, C ≤ 1280, M % 128 == 0); CPU tensors take the
     plain version."""
     if x.device.type == "cpu":
         return ln_mlp_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, eps, approx)

@@ -1,0 +1,50 @@
+"""The model half of the training runtime (counterpart of
+``beach_seg_tpu/train/loop.py``): which SegGPT a ``BeachSegConfig`` trains.
+
+Only :func:`model_for_config` is ported so far; the epoch loop, checkpoints
+and loggers are still to come.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from beach_seg_tpu_torch.config import BeachSegConfig
+from beach_seg_tpu_torch.models.seggpt.config import SegGPTConfig, huge_config
+from beach_seg_tpu_torch.models.seggpt.model import SegGPT, build_model
+
+BACKBONES = ("large", "huge")
+
+
+def model_for_config(conf: BeachSegConfig, device=None, state: dict | None = None, seed: int = 0) -> tuple[SegGPT, SegGPTConfig]:
+    """The SegGPT (``build_model``: on CUDA unless ``device`` says otherwise,
+    ``state`` or seeded random weights, bf16 when ``conf.compute_dtype`` is
+    ``"bfloat16"``) and its config for ``conf``: the ``debug`` miniature,
+    else ``conf.backbone`` — ``"large"`` (ViT-L) or ``"huge"`` (ViT-H:
+    C=1280, 32 layers, 16 heads of 80) — on a (2·inpt_size, inpt_size)
+    canvas. Any other backbone raises.
+
+    The JAX package also lets a converted npz checkpoint that stores its own
+    topology override these presets; that waits for the port's checkpoint
+    loader, so the weights come from ``state`` here."""
+    dtype = torch.bfloat16 if conf.compute_dtype == "bfloat16" else torch.float32
+    image_size = (2 * conf.inpt_size, conf.inpt_size)
+    if conf.debug:
+        # miniature topology for smoke runs, same control flow
+        cfg = SegGPTConfig(
+            hidden_size=64,
+            num_hidden_layers=4,
+            num_attention_heads=4,
+            image_size=image_size,
+            pretrain_image_size=64,
+            decoder_hidden_size=16,
+            merge_index=1,
+            intermediate_hidden_state_indices=(1, 3),
+        )
+    elif conf.backbone == "huge":
+        cfg = huge_config(image_size=image_size)
+    elif conf.backbone == "large":
+        cfg = SegGPTConfig(image_size=image_size)
+    else:
+        raise ValueError(f"backbone must be one of {BACKBONES}, got {conf.backbone!r}")
+    return build_model(cfg, dtype, device=device, state=state, seed=seed), cfg

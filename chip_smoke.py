@@ -5,7 +5,7 @@ NVIDIA Hopper card.
 
 Phases (any failure exits non-zero before the result lines):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. build the four CUDA kernels from ops/csrc with nvcc, in parallel; print
+  2. build the five CUDA kernels from ops/csrc with nvcc, in parallel; print
      the build time and ptxas' register / shared-memory / spill lines;
   3. at ViT-L shapes for a batch of 8 tiles (S=1568, C=1024, 16 heads,
      M=4096): each forward kernel against its plain PyTorch version on the
@@ -28,8 +28,23 @@ Phases (any failure exits non-zero before the result lines):
      times; seconds per step and peak device memory; one step's prompt-pixel
      gradient through the kernels held against the plain versions on the
      same draws;
-  7. one JSON line of per-kernel numbers, then the card's name and power
-     limit, then {"ok": true, "device": {...}} as the last line.
+  7. at ViT-H shapes for a batch of 8 tiles (S=1568, C=1280, 16 heads of
+     80, M=5120): the packed attention (bf16 and fp32, yardstick SDPA with
+     the materialized bias), the attention backward at head_dim 80
+     (yardstick SDPA's backward), the LN→MLP and its dx at C=1280, each
+     against its plain version on the card, then timed;
+  8. the ViT-H predict path: model_for_config(backbone="huge", bf16) at full
+     width (32 layers, seeded random weights) through predict_step on 3
+     batches of 8 crops, 32 packed-attention and 32 MLP launches per call,
+     the qkv-rel and backward kernels idle, pred_masks held against the
+     plain versions with phase 5's limits;
+  9. the ViT-H train path: 3 train_steps as in phase 6, all four of its
+     kernels (packed attention, MLP, attention backward, MLP dx) 32 times
+     per step, the prompt gradient held against the plain versions with
+     phase 6's limits;
+ 10. one JSON line of per-kernel numbers (one entry per kernel and
+     geometry), then the card's name and power limit, then
+     {"ok": true, "device": {...}} as the last line.
 
 It exits non-zero without a CUDA device, and needs nothing but this
 repository, torch, numpy and the CUDA toolkit.
@@ -49,11 +64,14 @@ import numpy as np
 import torch
 
 PEAK_BF16 = 989e12  # H100 SXM dense tensor-core FLOP/s (NVIDIA data sheet)
+PEAK_FP32 = 67e12  # H100 SXM fp32 FLOP/s outside the tensor cores
 HBM = 3.35e12  # bytes/s
 B = 8  # tiles per batch (the predict step's batch)
-GRID = (56, 28)  # ViT-L canvas 896×448 at 16-pixel patches
+GRID = (56, 28)  # ViT-L and ViT-H canvas 896×448 at 16-pixel patches
 C, HEADS, MLP = 1024, 16, 4096
 HD = C // HEADS
+C_H, MLP_H = 1280, 5120  # ViT-H (huge_config): 16 heads of 80
+HD_H = C_H // HEADS
 BF16_EPS = 2.0**-8
 
 # tolerances, kernel against its plain version on the same inputs:
@@ -97,6 +115,7 @@ def counters():
     return {
         "attn_qkv_rel": cuda_attn.attn_qkv_rel, "ln_mlp": cuda_mlp.ln_mlp,
         "attn_bwd": cuda_attn.attn_bwd, "ln_mlp_dx": cuda_mlp.ln_mlp_dx,
+        "attn_packed": cuda_attn.attn_packed,
     }
 
 
@@ -149,9 +168,9 @@ def attn_bound(b: int, itemsize: int, peak: float) -> tuple[float, str]:
     return bound(flops, nbytes, peak)
 
 
-def mlp_bound(n: int) -> tuple[float, str]:
-    flops = 4 * n * C * MLP
-    nbytes = 2 * (2 * n * C + 2 * C * MLP + MLP + C) + 4 * 2 * C
+def mlp_bound(n: int, c: int = C, m: int = MLP) -> tuple[float, str]:
+    flops = 4 * n * c * m
+    nbytes = 2 * (2 * n * c + 2 * c * m + m + c) + 4 * 2 * c
     return bound(flops, nbytes, PEAK_BF16)
 
 
@@ -191,6 +210,34 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
+def mlp_inputs(device, seed: int, n: int, c: int, m: int):
+    """x, LN scale and bias, W1, b1, W2, b2 and an output cotangent g for n
+    rows of width c and m hidden units, seeded."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    rnd = lambda *shape: torch.randn(shape, generator=g, device=device)  # noqa: E731
+    bf = torch.bfloat16
+    return (
+        rnd(B, n // B, c).to(bf), 1 + 0.1 * rnd(c), 0.1 * rnd(c), (rnd(c, m) / c**0.5).to(bf),
+        (0.1 * rnd(m)).to(bf), (rnd(m, c) / m**0.5).to(bf), (0.1 * rnd(c)).to(bf), rnd(B, n // B, c).to(bf),
+    )
+
+
+def mlp_check(key: str, fn, plain, args, tol_rel: float, where: str) -> dict:
+    """An MLP kernel (``ln_mlp`` or ``ln_mlp_dx``) against its plain version
+    within ``tol_rel`` of the output's scale, then both timed."""
+    got = fn(*args)
+    torch.cuda.synchronize()
+    want = plain(*args)
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    log(f"{fn.__name__} bf16{where}: max_abs_err {err:.3e} (tol {tol_rel * scale:.3e} = {tol_rel:.4f}·max|plain| {scale:.3f})")
+    check(bool(torch.isfinite(got).all()), f"{fn.__name__}{where} kernel output not finite")
+    check(err <= tol_rel * scale, f"{fn.__name__}{where} kernel disagrees with its plain version: {err}")
+    del got, want
+    return {f"{key}_err": err, f"{key}_ms": time_ms(lambda: fn(*args), iters=10, warmup=2),
+            f"{key}_plain_ms": time_ms(lambda: plain(*args), iters=3)}
+
+
 def phase_kernels(device) -> dict:
     """Kernels against their plain versions at ViT-L shapes, then times."""
     from beach_seg_tpu_torch.ops import cuda_attn, cuda_mlp
@@ -215,26 +262,9 @@ def phase_kernels(device) -> dict:
     res["attn_bound"] = attn_bound(B, 2, PEAK_BF16)
     torch.cuda.empty_cache()
 
-    g = torch.Generator(device=device).manual_seed(1)
     n = B * GRID[0] * GRID[1]
-    rnd = lambda *shape: torch.randn(shape, generator=g, device=device)  # noqa: E731
-    bf = torch.bfloat16
-    margs = (
-        rnd(B, n // B, C).to(bf), 1 + 0.1 * rnd(C), 0.1 * rnd(C),
-        (rnd(C, MLP) / C**0.5).to(bf), (0.1 * rnd(MLP)).to(bf),
-        (rnd(MLP, C) / MLP**0.5).to(bf), (0.1 * rnd(C)).to(bf), 1e-6, True,
-    )
-    got = cuda_mlp.ln_mlp(*margs)
-    torch.cuda.synchronize()
-    want = cuda_mlp.ln_mlp_plain(*margs)
-    err = (got.float() - want.float()).abs().max().item()
-    scale = want.float().abs().max().item()
-    log(f"ln_mlp bf16: max_abs_err {err:.3e} (tol {MLP_BF16_REL_TOL * scale:.3e} = {MLP_BF16_REL_TOL:.4f}·max|plain| {scale:.3f})")
-    check(torch.isfinite(got).all().item(), "ln_mlp kernel output not finite")
-    check(err <= MLP_BF16_REL_TOL * scale, f"ln_mlp kernel disagrees with its plain version: {err}")
-    res["mlp_err"] = err
-    res["mlp_ms"] = time_ms(lambda: cuda_mlp.ln_mlp(*margs), iters=20, warmup=2)
-    res["mlp_plain_ms"] = time_ms(lambda: cuda_mlp.ln_mlp_plain(*margs), iters=5)
+    *head, b2, _ = mlp_inputs(device, 1, n, C, MLP)
+    res.update(mlp_check("mlp", cuda_mlp.ln_mlp, cuda_mlp.ln_mlp_plain, (*head, b2, 1e-6, True), MLP_BF16_REL_TOL, ""))
     res["mlp_bound"] = mlp_bound(n)
     log(
         f"times (ms, B={B}): attn kernel {res['attn_ms']:.4f} plain {res['attn_plain_ms']:.4f} "
@@ -244,26 +274,26 @@ def phase_kernels(device) -> dict:
     return res
 
 
-def attn_bwd_bound(bh: int, s: int, hk: int, wk: int) -> tuple[float, str]:
-    flops = 10 * bh * s * s * HD  # S, dP, dV, dQ, dK
-    nbytes = 2 * (4 * bh * s * HD + bh * s * (hk + wk)) + bh * s * HD * (2 + 4 + 4) + 2 * bh * s * (hk + wk)
+def attn_bwd_bound(bh: int, s: int, hk: int, wk: int, hd: int = HD) -> tuple[float, str]:
+    flops = 10 * bh * s * s * hd  # S, dP, dV, dQ, dK
+    nbytes = 2 * (4 * bh * s * hd + bh * s * (hk + wk)) + bh * s * hd * (2 + 4 + 4) + 2 * bh * s * (hk + wk)
     return bound(flops, nbytes, PEAK_BF16)
 
 
-def mlp_dx_bound(n: int) -> tuple[float, str]:
-    flops = 6 * n * C * MLP
-    nbytes = 2 * (3 * n * C + 2 * C * MLP + MLP) + 4 * 2 * C
+def mlp_dx_bound(n: int, c: int = C, m: int = MLP) -> tuple[float, str]:
+    flops = 6 * n * c * m
+    nbytes = 2 * (3 * n * c + 2 * c * m + m) + 4 * 2 * c
     return bound(flops, nbytes, PEAK_BF16)
 
 
-def attn_bwd_inputs(device, bh: int, seed: int = 2):
-    """q, k, v, g (B·H, S, 64) and the rel terms at the scale the model's
+def attn_bwd_inputs(device, bh: int, seed: int = 2, hd: int = HD):
+    """q, k, v, g (B·H, S, hd) and the rel terms at the scale the model's
     rel-pos tables give them, bf16."""
     g = torch.Generator(device=device).manual_seed(seed)
     gh, gw = GRID
     s = gh * gw
     r = lambda *shape, sc=1.0: (sc * torch.randn(shape, generator=g, device=device)).to(torch.bfloat16)  # noqa: E731
-    return r(bh, s, HD), r(bh, s, HD), r(bh, s, HD), r(bh, s, gh, sc=0.5), r(bh, s, gw, sc=0.5), r(bh, s, HD)
+    return r(bh, s, hd), r(bh, s, hd), r(bh, s, hd), r(bh, s, gh, sc=0.5), r(bh, s, gw, sc=0.5), r(bh, s, hd)
 
 
 def sdpa_bwd_yardstick(q, k, v, rel_h, rel_w, g):
@@ -278,63 +308,55 @@ def sdpa_bwd_yardstick(q, k, v, rel_h, rel_w, g):
     kidx = torch.arange(s, device=q.device)
     mask = (rel_h[..., kidx // gw] + rel_w[..., kidx % gw]).reshape(bh // HEADS, HEADS, s, s).detach().requires_grad_(True)
     qq, kk, vv = (t.reshape(bh // HEADS, HEADS, s, d).detach().requires_grad_(True) for t in (q, k, v))
-    out = F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask, scale=HD**-0.5)
+    out = F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask, scale=d**-0.5)
     gg = g.reshape(bh // HEADS, HEADS, s, d)
     return lambda: torch.autograd.grad(out, (qq, kk, vv, mask), gg, retain_graph=True)
 
 
-def phase_bwd_kernels(device) -> dict:
-    """The two backward kernels against their plain versions at the train
-    path's B=8 shapes, then times."""
-    from beach_seg_tpu_torch.ops import cuda_attn, cuda_mlp
+def attn_bwd_check(device, hd: int, where: str) -> dict:
+    """The attention backward at B·H = B·HEADS and head_dim ``hd`` against
+    its plain version (1% of each output's scale for dq/dk/dv, two bf16
+    steps for drh/drw), then it, its plain version and SDPA's backward timed."""
+    from beach_seg_tpu_torch.ops import cuda_attn
     from beach_seg_tpu_torch.ops.attention import attention_bwd_plain
 
-    res = {}
     gh, gw = GRID
     bh = B * HEADS
-    args = (*attn_bwd_inputs(device, bh), HD**-0.5)
+    args = (*attn_bwd_inputs(device, bh, hd=hd), hd**-0.5)
     got = cuda_attn.attn_bwd(*args)
     torch.cuda.synchronize()
     want = attention_bwd_plain(*args)
     errs = {}
     for name, a, w in zip(("dq", "dk", "dv", "drh", "drw"), got, want):
-        check(bool(torch.isfinite(a).all()), f"attn_bwd {name} not finite")
+        check(bool(torch.isfinite(a).all()), f"attn_bwd{where} {name} not finite")
         err = (a.float() - w.float()).abs().max().item()
         scale = w.float().abs().max().item()
         tol = (ATTN_BWD_REL_DRHW if name in ("drh", "drw") else ATTN_BWD_REL_TOL) * scale
-        log(f"attn_bwd {name}: max_abs_err {err:.3e} (tol {tol:.3e}), max|plain| {scale:.3f}")
-        check(err <= tol, f"attn_bwd {name} disagrees with its plain version: {err} > {tol}")
+        log(f"attn_bwd {name}{where}: max_abs_err {err:.3e} (tol {tol:.3e}), max|plain| {scale:.3f}")
+        check(err <= tol, f"attn_bwd{where} {name} disagrees with its plain version: {err} > {tol}")
         errs[name] = err
     del got, want
     torch.cuda.empty_cache()
-    res["attn_bwd_err"] = max(errs.values())
-    res["attn_bwd_errs"] = errs
+    res = {"attn_bwd_err": max(errs.values()), "attn_bwd_errs": errs}
     res["attn_bwd_ms"] = time_ms(lambda: cuda_attn.attn_bwd(*args), iters=10, warmup=2)
     res["attn_bwd_plain_ms"] = time_ms(lambda: attention_bwd_plain(*args), iters=2)
     torch.cuda.empty_cache()
     res["attn_bwd_library_ms"] = time_ms(sdpa_bwd_yardstick(*args[:6]), iters=10, warmup=2)
-    res["attn_bwd_bound"] = attn_bwd_bound(bh, gh * gw, gh, gw)
+    res["attn_bwd_bound"] = attn_bwd_bound(bh, gh * gw, gh, gw, hd)
+    del args
     torch.cuda.empty_cache()
+    return res
 
-    g = torch.Generator(device=device).manual_seed(3)
-    n = B * gh * gw
-    rnd = lambda *shape: torch.randn(shape, generator=g, device=device)  # noqa: E731
-    bf = torch.bfloat16
-    margs = (
-        rnd(B, n // B, C).to(bf), 1 + 0.1 * rnd(C), 0.1 * rnd(C), (rnd(C, MLP) / C**0.5).to(bf),
-        (0.1 * rnd(MLP)).to(bf), (rnd(MLP, C) / MLP**0.5).to(bf), rnd(B, n // B, C).to(bf), 1e-6, True,
-    )
-    got = cuda_mlp.ln_mlp_dx(*margs)
-    torch.cuda.synchronize()
-    want = cuda_mlp.ln_mlp_dx_plain(*margs)
-    err = (got.float() - want.float()).abs().max().item()
-    scale = want.float().abs().max().item()
-    log(f"ln_mlp_dx bf16: max_abs_err {err:.3e} (tol {MLP_DX_REL_TOL * scale:.3e} = {MLP_DX_REL_TOL:.4f}·max|plain| {scale:.3f})")
-    check(bool(torch.isfinite(got).all()), "ln_mlp_dx kernel output not finite")
-    check(err <= MLP_DX_REL_TOL * scale, f"ln_mlp_dx kernel disagrees with its plain version: {err}")
-    res["mlp_dx_err"] = err
-    res["mlp_dx_ms"] = time_ms(lambda: cuda_mlp.ln_mlp_dx(*margs), iters=10, warmup=2)
-    res["mlp_dx_plain_ms"] = time_ms(lambda: cuda_mlp.ln_mlp_dx_plain(*margs), iters=3)
+
+def phase_bwd_kernels(device) -> dict:
+    """The two backward kernels against their plain versions at the train
+    path's B=8 shapes, then times."""
+    from beach_seg_tpu_torch.ops import cuda_mlp
+
+    res = attn_bwd_check(device, HD, "")
+    n = B * GRID[0] * GRID[1]
+    *head, _, gy = mlp_inputs(device, 3, n, C, MLP)
+    res.update(mlp_check("mlp_dx", cuda_mlp.ln_mlp_dx, cuda_mlp.ln_mlp_dx_plain, (*head, gy, 1e-6, True), MLP_DX_REL_TOL, ""))
     res["mlp_dx_bound"] = mlp_dx_bound(n)
     log(
         f"times (ms, B={B}): attn_bwd kernel {res['attn_bwd_ms']:.4f} plain {res['attn_bwd_plain_ms']:.4f} "
@@ -342,6 +364,90 @@ def phase_bwd_kernels(device) -> dict:
         f"ln_mlp_dx kernel {res['mlp_dx_ms']:.4f} plain {res['mlp_dx_plain_ms']:.4f} "
         f"bound {res['mlp_dx_bound'][0]:.4f} ({res['mlp_dx_bound'][1]})"
     )
+    return res
+
+
+def packed_bound(bh: int, s: int, hk: int, wk: int, hd: int, itemsize: int, peak: float) -> tuple[float, str]:
+    flops = 4 * bh * s * s * hd  # QKᵀ, PV
+    nbytes = itemsize * (4 * bh * s * hd + bh * s * (hk + wk))  # q, k, v, rel terms in; out
+    return bound(flops, nbytes, peak)
+
+
+def packed_inputs(device, dtype, bh: int, hd: int, seed: int = 4):
+    """q, k, v (B·H, S, hd) and the rel terms at the scale the model's
+    rel-pos tables give them."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    gh, gw = GRID
+    s = gh * gw
+    r = lambda *shape, sc=1.0: (sc * torch.randn(shape, generator=g, device=device)).to(dtype)  # noqa: E731
+    return r(bh, s, hd), r(bh, s, hd), r(bh, s, hd), r(bh, s, gh, sc=0.5), r(bh, s, gw, sc=0.5)
+
+
+def sdpa_packed_yardstick(q, k, v, rel_h, rel_w):
+    """One PyTorch call computing the same attention: SDPA over (B, H, S, D)
+    q, k, v with the (B, H, S, S) rel-pos bias materialized."""
+    from torch.nn import functional as F
+
+    bh, s, d = q.shape
+    gw = GRID[1]
+    kidx = torch.arange(s, device=q.device)
+    mask = (rel_h[..., kidx // gw] + rel_w[..., kidx % gw]).reshape(bh // HEADS, HEADS, s, s).contiguous()
+    qq, kk, vv = (t.reshape(bh // HEADS, HEADS, s, d) for t in (q, k, v))
+    return lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask, scale=d**-0.5)
+
+
+def phase_kernels_vit_h(device) -> dict:
+    """The kernels of the ViT-H path against their plain versions at its
+    B=8 shapes, then times: the packed attention (bf16, the path, and
+    fp32), the attention backward at head_dim 80, the LN→MLP and its dx at
+    C=1280."""
+    from beach_seg_tpu_torch.ops import cuda_attn, cuda_mlp
+    from beach_seg_tpu_torch.ops.attention import attention_packed_plain
+
+    res = {}
+    gh, gw = GRID
+    s, bh = gh * gw, B * HEADS
+    for dtype, tol, name in ((torch.float32, ATTN_FP32_TOL, "fp32"), (torch.bfloat16, ATTN_BF16_TOL, "bf16")):
+        args = (*packed_inputs(device, dtype, bh, HD_H), HD_H**-0.5, HEADS)
+        got = cuda_attn.attn_packed(*args)
+        torch.cuda.synchronize()
+        want = attention_packed_plain(*args)
+        check(tuple(got.shape) == tuple(want.shape) == (B, s, C_H), f"attn_packed shape {tuple(got.shape)}")
+        check(bool(torch.isfinite(got).all()), f"attn_packed {name} output not finite")
+        err = (got.float() - want.float()).abs().max().item()
+        log(f"attn_packed {name} (ViT-H): max_abs_err {err:.3e} (tol {tol:.1e}), max|plain| {want.abs().max().item():.3f}")
+        check(err <= tol, f"attn_packed {name} disagrees with its plain version: {err} > {tol}")
+        res[f"packed_err_{name}"] = err
+        del got, want
+        torch.cuda.empty_cache()
+        res[f"packed_ms_{name}"] = time_ms(lambda: cuda_attn.attn_packed(*args), iters=20 if name == "bf16" else 3, warmup=2)
+        res[f"packed_plain_ms_{name}"] = time_ms(lambda: attention_packed_plain(*args), iters=2)
+        res[f"packed_bound_{name}"] = packed_bound(bh, s, gh, gw, HD_H, dtype.itemsize, PEAK_BF16 if name == "bf16" else PEAK_FP32)
+        torch.cuda.empty_cache()
+    # SDPA yardstick on the bf16 inputs (args still hold them)
+    res["packed_library_ms"] = time_ms(sdpa_packed_yardstick(*args[:5]), iters=20, warmup=2)
+    del args
+    torch.cuda.empty_cache()
+
+    res.update(attn_bwd_check(device, HD_H, " (head_dim 80)"))
+    n = B * s
+    *head, b2, gy = mlp_inputs(device, 5, n, C_H, MLP_H)
+    where = f" (C={C_H})"
+    res.update(mlp_check("mlp", cuda_mlp.ln_mlp, cuda_mlp.ln_mlp_plain, (*head, b2, 1e-6, True), MLP_BF16_REL_TOL, where))
+    res.update(mlp_check("mlp_dx", cuda_mlp.ln_mlp_dx, cuda_mlp.ln_mlp_dx_plain, (*head, gy, 1e-6, True), MLP_DX_REL_TOL, where))
+    res["mlp_bound"] = mlp_bound(n, C_H, MLP_H)
+    res["mlp_dx_bound"] = mlp_dx_bound(n, C_H, MLP_H)
+    log(
+        f"times (ms, ViT-H, B={B}): attn_packed bf16 {res['packed_ms_bf16']:.4f} plain {res['packed_plain_ms_bf16']:.4f} "
+        f"sdpa {res['packed_library_ms']:.4f} bound {res['packed_bound_bf16'][0]:.4f} ({res['packed_bound_bf16'][1]}); "
+        f"attn_packed fp32 {res['packed_ms_fp32']:.4f} plain {res['packed_plain_ms_fp32']:.4f} "
+        f"bound {res['packed_bound_fp32'][0]:.4f} ({res['packed_bound_fp32'][1]}); "
+        f"attn_bwd {res['attn_bwd_ms']:.4f} plain {res['attn_bwd_plain_ms']:.4f} sdpa bwd {res['attn_bwd_library_ms']:.4f} "
+        f"bound {res['attn_bwd_bound'][0]:.4f}; ln_mlp {res['mlp_ms']:.4f} plain {res['mlp_plain_ms']:.4f} "
+        f"bound {res['mlp_bound'][0]:.4f}; ln_mlp_dx {res['mlp_dx_ms']:.4f} plain {res['mlp_dx_plain_ms']:.4f} "
+        f"bound {res['mlp_dx_bound'][0]:.4f}"
+    )
+    torch.cuda.empty_cache()
     return res
 
 
@@ -353,7 +459,8 @@ def plain_kernels():
     from beach_seg_tpu_torch.ops import attention, cuda_attn, cuda_mlp
 
     names = ((cuda_attn, "attn_qkv_rel", cuda_attn.attn_qkv_rel_plain), (cuda_attn, "attn_bwd", attention.attention_bwd_plain),
-             (cuda_mlp, "ln_mlp", cuda_mlp.ln_mlp_plain), (cuda_mlp, "ln_mlp_dx", cuda_mlp.ln_mlp_dx_plain))
+             (cuda_mlp, "ln_mlp", cuda_mlp.ln_mlp_plain), (cuda_mlp, "ln_mlp_dx", cuda_mlp.ln_mlp_dx_plain),
+             (cuda_attn, "attn_packed", attention.attention_packed_plain))
     saved = [getattr(mod, name) for mod, name, _ in names]
     for mod, name, plain in names:
         setattr(mod, name, plain)
@@ -384,38 +491,35 @@ def main_path_inputs(conf, n_prompts: int, n_batches: int, seed: int = 0):
     return prompts, batches
 
 
-def phase_main_path(device, config, n_batches: int = 3) -> dict:
-    from beach_seg_tpu_torch.config import BeachSegConfig
-    from beach_seg_tpu_torch.models.seggpt import build_model
-    from beach_seg_tpu_torch.ops import cuda_attn, cuda_mlp
+def phase_main_path(device, model, conf, expect: dict, n_batches: int = 3) -> dict:
+    """PromptTuner.predict_step on ``n_batches`` batches of B crops; each
+    call must launch the kernels ``expect`` names that many times and the
+    others not at all; one batch's pred_masks held against the plain
+    versions."""
     from beach_seg_tpu_torch.train import PromptTuner
     from beach_seg_tpu_torch.transforms import decode_by_palette
 
-    t0 = time.perf_counter()
-    model = build_model(config, torch.bfloat16, device=device, seed=0)
-    conf = BeachSegConfig(batch_size=B)
     n_prompts = 4
     tuner = PromptTuner(model, conf, device=device)
     prompts, batches = main_path_inputs(conf, n_prompts, n_batches)
-    log(f"main path: ViT-L {config.num_hidden_layers} layers bf16 built in {time.perf_counter() - t0:.3f} s")
+    want_calls = {name: expect.get(name, 0) for name in counters()}
 
-    layers = config.num_hidden_layers
     reset_counts()
     seconds, per_call = [], []
     for batch in batches:
-        a0, m0 = cuda_attn.attn_qkv_rel.launches, cuda_mlp.ln_mlp.launches
+        before = read_counts()
         t = time.perf_counter()
         ids = tuner.predict_step(*prompts, batch, out_size=conf.crop_size)
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t)
-        per_call.append((cuda_attn.attn_qkv_rel.launches - a0, cuda_mlp.ln_mlp.launches - m0))
+        now = read_counts()
+        per_call.append({k: now[k] - before[k] for k in now})
         check(tuple(ids.shape) == (B, conf.crop_size, conf.crop_size), f"ids shape {tuple(ids.shape)}")
         check(ids.dtype == torch.uint8 and ids.device.type == "cuda", f"ids {ids.dtype} on {ids.device}")
         check(int(ids.max()) < len(conf.classes), f"id {int(ids.max())} out of range")
     launches = read_counts()
-    log(f"main path: predict_step seconds per call {seconds}; launches per call (attn, mlp) {per_call}")
-    check(all(pc == (layers, layers) for pc in per_call), f"launches per call {per_call}, want ({layers}, {layers})")
-    check(launches["attn_bwd"] == launches["ln_mlp_dx"] == 0, f"backward kernels ran in predict: {launches}")
+    log(f"main path: predict_step seconds per call {seconds}; launches per call {per_call}")
+    check(all(pc == want_calls for pc in per_call), f"launches per call {per_call}, want {want_calls}")
 
     pred, pal = tuner.predict_masks(*prompts, batches[0])
     with plain_kernels():
@@ -445,7 +549,7 @@ def phase_main_path(device, config, n_batches: int = 3) -> dict:
     check(err <= PRED_REL_TOL * scale, f"pred_masks disagree: {err} > {PRED_REL_TOL * scale}")
     check(agree >= ID_AGREEMENT_MIN, f"id agreement {agree}")
     check(worst <= reach, f"an id differs {worst} from a decision boundary, beyond the error's reach {reach}")
-    return {"launches": launches, "seconds": seconds, "pred_err": err, "id_agreement": agree, "model": model}
+    return {"launches": launches, "seconds": seconds, "pred_err": err, "id_agreement": agree}
 
 
 def train_path_inputs(conf, n_prompts: int, n_steps: int, seed: int = 1):
@@ -473,15 +577,15 @@ def train_path_inputs(conf, n_prompts: int, n_steps: int, seed: int = 1):
     return prompts, batches
 
 
-def phase_train_path(device, model, n_steps: int = 3, conf=None) -> dict:
+def phase_train_path(device, model, conf, expect: dict, n_steps: int = 3) -> dict:
     """PromptTuner.train_step at full width (the predict phase's model, now
-    with gradients through it); then one step's prompt gradient through the
-    kernels and through the plain versions on the same draws."""
-    from beach_seg_tpu_torch.config import BeachSegConfig
+    with gradients through it), each step launching the kernels ``expect``
+    names that many times and the others not at all; then one step's prompt
+    gradient through the kernels and through the plain versions on the same
+    draws."""
     from beach_seg_tpu_torch.train import PromptTuner
 
-    layers = model.config.num_hidden_layers
-    conf = conf or BeachSegConfig(batch_size=B)
+    want_steps = {name: expect.get(name, 0) for name in counters()}
     tuner = PromptTuner(model, conf, device=device)
     prompts, batches = train_path_inputs(conf, 4, n_steps)
     state = tuner.init_state(prompts[0])
@@ -506,7 +610,7 @@ def phase_train_path(device, model, n_steps: int = 3, conf=None) -> dict:
     peak = torch.cuda.max_memory_allocated()
     log(f"train path: train_step seconds per step {seconds}; losses {losses}; launches per step {per_step}; "
         f"peak memory {peak / 2**30:.3f} GiB")
-    check(all(all(v == layers for v in ps.values()) for ps in per_step), f"launches per step {per_step}, want {layers} each")
+    check(all(ps == want_steps for ps in per_step), f"launches per step {per_step}, want {want_steps}")
     moved = (state.prompt_pixels - start).abs().max().item()
     check(moved > 0, "prompt pixels did not move")
     check(bool(torch.isfinite(state.prompt_pixels).all() and torch.isfinite(state.ema_pixels).all()), "state not finite")
@@ -536,8 +640,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent))
-    from beach_seg_tpu_torch.models.seggpt import SegGPTConfig
+    from beach_seg_tpu_torch.config import BeachSegConfig
+    from beach_seg_tpu_torch.models.seggpt import SegGPTConfig, build_model
     from beach_seg_tpu_torch.ops import build
+    from beach_seg_tpu_torch.train.loop import model_for_config
     from beach_seg_tpu_torch.utils import resolve_device
 
     t_start = time.perf_counter()
@@ -561,15 +667,41 @@ def main() -> int:
     kb = phase_bwd_kernels(device)
     log(f"backward kernel phase: {time.perf_counter() - t:.3f} s")
     t = time.perf_counter()
-    m = phase_main_path(device, SegGPTConfig())
+    kh = phase_kernels_vit_h(device)
+    log(f"ViT-H kernel phase: {time.perf_counter() - t:.3f} s")
+
+    large = {"attn_qkv_rel": 24, "ln_mlp": 24}
+    huge = {"attn_packed": 32, "ln_mlp": 32}
+    backward = ("attn_bwd", "ln_mlp_dx")
+    t = time.perf_counter()
+    conf = BeachSegConfig(batch_size=B)
+    model = build_model(SegGPTConfig(), torch.bfloat16, device=device, seed=0)
+    log(f"main path: ViT-L {model.config.num_hidden_layers} layers bf16 built in {time.perf_counter() - t:.3f} s")
+    m = phase_main_path(device, model, conf, large)
     log(f"main path phase: {time.perf_counter() - t:.3f} s")
     t = time.perf_counter()
-    tr = phase_train_path(device, m.pop("model"))
+    tr = phase_train_path(device, model, conf, dict(large, **{k: 24 for k in backward}))
     log(f"train path phase: {time.perf_counter() - t:.3f} s")
+    del model
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    conf_h = BeachSegConfig(batch_size=B, backbone="huge", compute_dtype="bfloat16")
+    model, cfg_h = model_for_config(conf_h, device=device, seed=0)
+    check(cfg_h.head_dim == HD_H and cfg_h.hidden_size == C_H and cfg_h.num_hidden_layers == 32, f"ViT-H config {cfg_h}")
+    log(f"ViT-H predict path: {cfg_h.num_hidden_layers} layers, C={cfg_h.hidden_size}, head_dim {cfg_h.head_dim}, "
+        f"bf16, built in {time.perf_counter() - t:.3f} s")
+    mh = phase_main_path(device, model, conf_h, huge)
+    log(f"ViT-H predict path phase: {time.perf_counter() - t:.3f} s")
+    t = time.perf_counter()
+    trh = phase_train_path(device, model, conf_h, dict(huge, **{k: 32 for k in backward}))
+    log(f"ViT-H train path phase: {time.perf_counter() - t:.3f} s")
+    del model
+    torch.cuda.empty_cache()
 
     kernels = [
         {
-            "name": "attn_qkv_rel", "route": "cuda",
+            "name": "attn_qkv_rel", "geometry": "vit_l", "route": "cuda",
             "source": "beach_seg_tpu_torch/ops/csrc/attn_qkv_rel.cu",
             "replaces": "beach_seg_tpu/ops/pallas_attn.py:389",
             "launches": m["launches"]["attn_qkv_rel"], "launches_train": tr["launches"]["attn_qkv_rel"],
@@ -581,39 +713,48 @@ def main() -> int:
             "shape": f"bf16 clamp, qkv ({B}, {GRID[0] * GRID[1]}, 3, {C}), {HEADS} heads",
         },
         {
-            "name": "ln_mlp", "route": "cuda",
-            "source": "beach_seg_tpu_torch/ops/csrc/ln_mlp.cu",
-            "replaces": "beach_seg_tpu/ops/pallas_mlp.py:37",
-            "launches": m["launches"]["ln_mlp"], "launches_train": tr["launches"]["ln_mlp"],
-            "max_abs_err": k["mlp_err"], "max_abs_diff": k["mlp_err"],
-            "ms": k["mlp_ms"], "plain_ms": k["mlp_plain_ms"],
-            "bound_ms": k["mlp_bound"][0], "bound_by": k["mlp_bound"][1],
-            "library_ms": None,
-            "shape": f"bf16, x ({B * GRID[0] * GRID[1]}, {C}), M={MLP}",
-        },
-        {
-            "name": "attn_bwd", "route": "cuda",
-            "source": "beach_seg_tpu_torch/ops/csrc/attn_bwd.cu",
-            "replaces": "beach_seg_tpu/ops/pallas_attn.py:722",
-            "launches": tr["launches"]["attn_bwd"], "launches_predict": m["launches"]["attn_bwd"],
-            "max_abs_err": kb["attn_bwd_err"], "max_abs_err_by_output": kb["attn_bwd_errs"],
-            "ms": kb["attn_bwd_ms"], "plain_ms": kb["attn_bwd_plain_ms"],
-            "bound_ms": kb["attn_bwd_bound"][0], "bound_by": kb["attn_bwd_bound"][1],
-            "library_ms": kb["attn_bwd_library_ms"],
-            "shape": f"bf16, q/k/v/g ({B * HEADS}, {GRID[0] * GRID[1]}, {HD}), rel ({GRID[0]}, {GRID[1]})",
-        },
-        {
-            "name": "ln_mlp_dx", "route": "cuda",
-            "source": "beach_seg_tpu_torch/ops/csrc/ln_mlp_dx.cu",
-            "replaces": "beach_seg_tpu/ops/pallas_mlp.py:167",
-            "launches": tr["launches"]["ln_mlp_dx"], "launches_predict": m["launches"]["ln_mlp_dx"],
-            "max_abs_err": kb["mlp_dx_err"],
-            "ms": kb["mlp_dx_ms"], "plain_ms": kb["mlp_dx_plain_ms"],
-            "bound_ms": kb["mlp_dx_bound"][0], "bound_by": kb["mlp_dx_bound"][1],
-            "library_ms": None,
-            "shape": f"bf16, x/g ({B * GRID[0] * GRID[1]}, {C}), M={MLP}",
+            "name": "attn_packed", "geometry": "vit_h", "route": "cuda",
+            "source": "beach_seg_tpu_torch/ops/csrc/attn_packed.cu",
+            "replaces": "beach_seg_tpu/ops/pallas_attn.py:126",
+            "launches": mh["launches"]["attn_packed"], "launches_train": trh["launches"]["attn_packed"],
+            "max_abs_err": kh["packed_err_bf16"], "max_abs_err_fp32": kh["packed_err_fp32"],
+            "ms": kh["packed_ms_bf16"], "plain_ms": kh["packed_plain_ms_bf16"],
+            "bound_ms": kh["packed_bound_bf16"][0], "bound_by": kh["packed_bound_bf16"][1],
+            "library_ms": kh["packed_library_ms"],
+            "fp32_ms": kh["packed_ms_fp32"], "fp32_plain_ms": kh["packed_plain_ms_fp32"],
+            "fp32_bound_ms": kh["packed_bound_fp32"][0],
+            "shape": f"bf16, q/k/v ({B * HEADS}, {GRID[0] * GRID[1]}, {HD_H}), rel ({GRID[0]}, {GRID[1]})",
         },
     ]
+    for name, src, tpu, geo, res, pred, train, c in (
+        ("ln_mlp", "ln_mlp.cu", "pallas_mlp.py:37", "vit_l", k, m, tr, C),
+        ("ln_mlp", "ln_mlp.cu", "pallas_mlp.py:37", "vit_h", kh, mh, trh, C_H),
+        ("attn_bwd", "attn_bwd.cu", "pallas_attn.py:722", "vit_l", kb, m, tr, C),
+        ("attn_bwd", "attn_bwd.cu", "pallas_attn.py:722", "vit_h", kh, mh, trh, C_H),
+        ("ln_mlp_dx", "ln_mlp_dx.cu", "pallas_mlp.py:167", "vit_l", kb, m, tr, C),
+        ("ln_mlp_dx", "ln_mlp_dx.cu", "pallas_mlp.py:167", "vit_h", kh, mh, trh, C_H),
+    ):
+        key = {"ln_mlp": "mlp", "attn_bwd": "attn_bwd", "ln_mlp_dx": "mlp_dx"}[name]
+        fwd = name == "ln_mlp"
+        entry = {
+            "name": name, "geometry": geo, "route": "cuda",
+            "source": f"beach_seg_tpu_torch/ops/csrc/{src}", "replaces": f"beach_seg_tpu/ops/{tpu}",
+            "launches": (pred if fwd else train)["launches"][name],
+            ("launches_train" if fwd else "launches_predict"): (train if fwd else pred)["launches"][name],
+            "max_abs_err": res[f"{key}_err"],
+            "ms": res[f"{key}_ms"], "plain_ms": res[f"{key}_plain_ms"],
+            "bound_ms": res[f"{key}_bound"][0], "bound_by": res[f"{key}_bound"][1],
+            "library_ms": res.get(f"{key}_library_ms"),
+        }
+        if name == "attn_bwd":
+            hd = c // HEADS
+            entry["max_abs_err_by_output"] = res["attn_bwd_errs"]
+            entry["shape"] = f"bf16, q/k/v/g ({B * HEADS}, {GRID[0] * GRID[1]}, {hd}), rel ({GRID[0]}, {GRID[1]})"
+        else:
+            entry["shape"] = f"bf16, x ({B * GRID[0] * GRID[1]}, {c}), M={4 * c}"
+        kernels.append(entry)
+    log(f"ViT-H: predict_step seconds per call {mh['seconds']}; train_step seconds per step {trh['seconds']}, "
+        f"peak memory {trh['peak_bytes']} bytes, prompt gradient cosine kernels vs plain {trh['grad_cos']:.6f}")
     log(f"train_step: seconds per step {tr['seconds']}, peak memory {tr['peak_bytes']} bytes, "
         f"prompt gradient cosine kernels vs plain {tr['grad_cos']:.6f}")
     log(f"total: {time.perf_counter() - t_start:.3f} s")

@@ -1,13 +1,18 @@
-"""Where the time of the torch port's two CUDA kernels goes: each kernel is
-rebuilt with one phase removed and timed beside the intact one, on one CUDA
-card, at the main path's shapes (B=8 tiles of ViT-L).
+"""Where the time of the torch port's CUDA kernels goes: the two ViT-L
+forward kernels are rebuilt with one phase removed and timed beside the
+intact ones at the main path's shapes (B=8 tiles of ViT-L); the two ViT-H
+attention kernels (packed forward, backward at head_dim 80), whose
+instances spill registers, are rebuilt with one block per SM in their
+launch bounds and timed beside the intact ones at ViT-H's shapes. One CUDA
+card.
 
     python3 scripts/ablate_torch_kernels.py
 
 The variants are text edits of ``beach_seg_tpu_torch/ops/csrc/*.cu`` compiled
-into a temporary directory; their outputs are wrong by construction and only
-their times mean anything. Prints the card, then one JSON line per variant.
-Exits non-zero without a CUDA device.
+into a temporary directory; the phase-removed outputs are wrong by
+construction and only their times mean anything. Prints the card, ptxas'
+register and spill lines of the launch-bound variants, then one JSON line per
+variant. Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -41,9 +46,13 @@ MLP = {  # variant → (text in ln_mlp.cu, replacement)
     "no_lin2_products": ("      for (int cf = 0; cf < WC / 16; ++cf) {\n        uint32_t b[4];",
                          "      for (int cf = 0; cf < 0; ++cf) {\n        uint32_t b[4];"),
 }
+PACKED = {"one_block_per_sm": ("__global__ void __launch_bounds__(NT, 2) attn_kernel(",  # attn_packed.cu
+                               "__global__ void __launch_bounds__(NT, 1) attn_kernel(")}
+BWD = {"one_block_per_sm": ("__global__ void __launch_bounds__(NT, 2) bwd_k_kernel(",  # attn_bwd.cu
+                            "__global__ void __launch_bounds__(NT, 1) bwd_k_kernel(")}
 
 
-def build_variants(name: str, edits: dict, out: Path) -> dict[str, ctypes.CDLL]:
+def build_variants(name: str, edits: dict, out: Path, show_ptxas: bool = False) -> dict[str, ctypes.CDLL]:
     from beach_seg_tpu_torch.ops import build
 
     src = (build.CSRC / f"{name}.cu").read_text()
@@ -63,6 +72,9 @@ def build_variants(name: str, edits: dict, out: Path) -> dict[str, ctypes.CDLL]:
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {name} {variant}:\n{log}")
+        for line in log.splitlines() if show_ptxas else ():
+            if "Compiling entry" in line or "Used" in line or "spill" in line:
+                print(f"{name} {variant}: {line.strip()}")
         libs[variant] = ctypes.CDLL(str(out / f"{name}_{variant}.so"))
     return libs
 
@@ -82,6 +94,14 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         attn = build_variants("attn_qkv_rel", ATTN, Path(tmp))
         mlp = build_variants("ln_mlp", MLP, Path(tmp))
+        packed = build_variants("attn_packed", PACKED, Path(tmp), show_ptxas=True)
+        bwd = build_variants("attn_bwd", BWD, Path(tmp), show_ptxas=True)
+        # ViT-H: (B·H, S, 80) q, k, v, g and the rel terms, bf16
+        bh, hd = b * chip_smoke.HEADS, chip_smoke.HD_H
+        hq, hk_, hv, hrh, hrw, hg = chip_smoke.attn_bwd_inputs(dev, bh, hd=hd)
+        hout = torch.empty((b, s, chip_smoke.C_H), dtype=torch.bfloat16, device=dev)
+        dq, dk, dv = torch.empty_like(hq), torch.empty(hq.shape, device=dev), torch.empty(hq.shape, device=dev)
+        drh, drw, stats = torch.empty_like(hrh), torch.empty_like(hrw), torch.empty((3, bh, s), device=dev)
         qkv, bias, rh, rw = chip_smoke.attn_inputs(torch.bfloat16, dev)
         out = torch.empty((b, s, c), dtype=torch.bfloat16, device=dev)
         g = torch.Generator(device=dev).manual_seed(1)
@@ -107,6 +127,21 @@ def main() -> int:
                                                    b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), y.data_ptr(),
                                                    b * s, c, m, 1e-6, 1, stream), iters=20, warmup=2)
                 print(json.dumps({"kernel": "ln_mlp", "variant": variant, "pass": rep, "ms": ms}))
+            for variant, lib in packed.items():
+                fn = getattr(lib, "attn_packed_bf16")
+                fn.argtypes, fn.restype = cuda_attn._PACKED_PROTO, ctypes.c_int
+                ms = chip_smoke.time_ms(lambda: fn(hq.data_ptr(), hk_.data_ptr(), hv.data_ptr(), hrh.data_ptr(),
+                                                   hrw.data_ptr(), hout.data_ptr(), bh, s, hd, chip_smoke.HEADS, gh, gw,
+                                                   hd**-0.5, stream), iters=20, warmup=2)
+                print(json.dumps({"kernel": "attn_packed", "variant": variant, "pass": rep, "ms": ms}))
+            for variant, lib in bwd.items():
+                fn = getattr(lib, "attn_bwd_bf16")
+                fn.argtypes, fn.restype = cuda_attn._BWD_PROTO["attn_bwd_bf16"], ctypes.c_int
+                ms = chip_smoke.time_ms(lambda: fn(hq.data_ptr(), hk_.data_ptr(), hv.data_ptr(), hrh.data_ptr(),
+                                                   hrw.data_ptr(), hg.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                                                   dv.data_ptr(), drh.data_ptr(), drw.data_ptr(), stats.data_ptr(),
+                                                   bh, s, hd, gh, gw, hd**-0.5, stream), iters=10, warmup=2)
+                print(json.dumps({"kernel": "attn_bwd", "variant": variant, "pass": rep, "ms": ms}))
     return 0
 
 

@@ -1,15 +1,16 @@
 """Where the time of the torch port's predict step (or train step) goes, on
 one CUDA card.
 
-    python3 scripts/profile_torch_predict.py [--batch 8] [--layers 24] [--calls 3] [--train]
+    python3 scripts/profile_torch_predict.py [--backbone large|huge] [--batch 8] [--calls 3] [--train]
 
-Builds full-width ViT-L (seeded random weights, bf16), warms
-``PromptTuner.predict_step`` up on B uint8 112×112 crops (with ``--train``:
-``PromptTuner.train_step`` on B 448×448 tiles, as chip_smoke.py drives it),
-then traces ``--calls`` calls with ``torch.profiler``. Prints the card, the
-host seconds per call, the device-busy share of the traced window, and the
-device time per kernel name (top 25) as JSON lines. Exits non-zero without a
-CUDA device.
+Builds the backbone at full width and depth (``train.loop.model_for_config``:
+ViT-L, or ViT-H with ``--backbone huge``; seeded random weights, bf16),
+warms ``PromptTuner.predict_step`` up on B uint8 112×112 crops (with
+``--train``: ``PromptTuner.train_step`` on B 448×448 tiles, as
+chip_smoke.py drives it), then traces ``--calls`` calls with
+``torch.profiler``. Prints the card, the host seconds per call, the
+device-busy share of the traced window, and the device time per kernel name
+(top 25) as JSON lines. Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -28,8 +29,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--backbone", choices=("large", "huge"), default="large")
     ap.add_argument("--batch", type=int, default=8)
-    ap.add_argument("--layers", type=int, default=24)
     ap.add_argument("--calls", type=int, default=3)
     ap.add_argument("--train", action="store_true", help="profile train_step instead of predict_step")
     args = ap.parse_args()
@@ -38,16 +39,15 @@ def main() -> int:
         return 2
     import chip_smoke
     from beach_seg_tpu_torch.config import BeachSegConfig
-    from beach_seg_tpu_torch.models.seggpt import SegGPTConfig, build_model
     from beach_seg_tpu_torch.train import PromptTuner
+    from beach_seg_tpu_torch.train.loop import model_for_config
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
-    cfg = SegGPTConfig(num_hidden_layers=args.layers) if args.layers != 24 else SegGPTConfig()
-    model = build_model(cfg, torch.bfloat16, device="cuda", seed=0)
-    conf = BeachSegConfig(batch_size=args.batch)
+    conf = BeachSegConfig(batch_size=args.batch, backbone=args.backbone, compute_dtype="bfloat16")
+    model, cfg = model_for_config(conf, device="cuda", seed=0)
     tuner = PromptTuner(model, conf, device="cuda")
     if args.train:
         prompts, batches = chip_smoke.train_path_inputs(conf, 4, 1)
@@ -87,7 +87,8 @@ def main() -> int:
     rows.sort(reverse=True)
     busy_us = sum(r[0] for r in rows)
     step = "train_step" if args.train else "predict_step"
-    print(json.dumps({"card": card, "step": step, "batch": args.batch, "layers": args.layers, "calls": args.calls}))
+    print(json.dumps({"card": card, "step": step, "backbone": args.backbone, "batch": args.batch,
+                      "layers": cfg.num_hidden_layers, "calls": args.calls}))
     print(json.dumps({
         "host_s_per_call": wall / args.calls,
         "device_busy_ms_per_call": busy_us / 1e3 / args.calls,

@@ -167,8 +167,10 @@ def test_qkv_rel_attention_bf16_grad_matches_jax(qkv_inputs):
 
 
 def test_packed_attention_grads_match_jax(qkv_inputs):
-    """PackedAttention (head_dim ≠ 64 in the model) against jax.grad of
-    fused_attention_merged, whose backward is the same Pallas _bwd_kernel."""
+    """cuda_attn.packed_attention (head_dim ≠ 64 in the model; on CPU tensors
+    the plain versions of the packed and backward kernels) against jax.grad
+    of fused_attention_merged, whose backward is the same Pallas
+    _bwd_kernel."""
     qkv, _, rph, rpw, nh, hd, gh, gw = qkv_inputs
     b, s = qkv.shape[:2]
     split = qkv.reshape(b, s, 3, nh, hd).transpose(2, 0, 3, 1, 4).reshape(3, b * nh, s, hd)
@@ -183,7 +185,7 @@ def test_packed_attention_grads_match_jax(qkv_inputs):
 
     want = jax.grad(jloss, argnums=tuple(range(5)))(*(jnp.asarray(a) for a in args))
     leaves = [torch.from_numpy(np.array(a)).requires_grad_(True) for a in args]
-    out = tattn.PackedAttention.apply(*leaves, hd**-0.5, nh)
+    out = cuda_attn.packed_attention(*leaves, hd**-0.5, nh)
     got = torch.autograd.grad((out * torch.from_numpy(wts)).sum(), leaves)
     for gg, w in zip(got, want):
         _close(gg, w, 1e-5)

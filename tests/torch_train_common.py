@@ -18,7 +18,8 @@ from beach_seg_tpu_torch.config import BeachSegConfig
 from beach_seg_tpu_torch.models.seggpt import build_model, from_jax_params, tiny_config
 from beach_seg_tpu_torch.train import PromptTuner
 
-GEOMETRIES = {"hd8": {}, "hd64": dict(hidden_size=128, num_attention_heads=2)}
+# head_dim 8, 64 (ViT-L's) and 80 (ViT-H's)
+GEOMETRIES = {"hd8": {}, "hd64": dict(hidden_size=128, num_attention_heads=2), "hd80": dict(hidden_size=160, num_attention_heads=2)}
 # three layers keep the JAX compile (Pallas in interpret mode) to a few seconds
 LAYERS = dict(num_hidden_layers=3, merge_index=1, intermediate_hidden_state_indices=(1, 2))
 IDENTITY_AUG = dict(
@@ -34,6 +35,7 @@ PADDED = [True, True, True, False]  # batch["valid"]: the last row is padding
 CASES = {
     "hd8": [(v, PADDED if i % 2 else None) for i, v in enumerate(LOSS_VARIANTS)],
     "hd64": [(v, None if i % 2 else PADDED) for i, v in enumerate(LOSS_VARIANTS)],
+    "hd80": [(v, PADDED if i % 2 else None) for i, v in enumerate(LOSS_VARIANTS)],
 }
 # the gradient's bar per loss, (max error / scale, 1 - cosine): dice_bce
 # takes log(1 - p) of a softmax at tau = 0.05, saturated here (p ≈ 0.9999),
