@@ -15,6 +15,14 @@ head_dim other than 64, such as ViT-H's 80). Its CUDA port is
 ``attention_bwd_plain`` is the plain version of the backward kernel
 ``_bwd_kernel`` (``pallas_attn.py:722``), whose CUDA port is
 ``ops.cuda_attn.attn_bwd``.
+
+``attention_fused_plain`` and ``attention_qkv_plain`` are the plain versions
+of the library's other two attention kernels, ``_kernel`` (``:53``, behind
+``fused_attention``) and ``_kernel_qkv`` (``:224``, behind
+``fused_attention_qkv``); their CUDA ports are ``ops.cuda_attn.attn_fused``
+and ``ops.cuda_attn.attn_qkv``. ``rel_pos_terms_heads``,
+``rel_pos_terms_split`` and ``pack_rel_terms`` produce the rel-term layouts
+those entries take.
 """
 
 from __future__ import annotations
@@ -59,6 +67,61 @@ def rel_pos_terms(
     rel_h = torch.einsum("bhwc,hkc->bhwk", qr, rh.to(dt))
     rel_w = torch.einsum("bhwc,wkc->bhwk", qr, rw.to(dt))
     return rel_h, rel_w
+
+
+def rel_pos_terms_heads(
+    q4: torch.Tensor,
+    rel_pos_h: torch.Tensor,
+    rel_pos_w: torch.Tensor,
+    q_hw: tuple[int, int],
+    k_hw: tuple[int, int],
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The rel terms straight from the fused qkv layout: q4 (B, Hq, Wq, nH,
+    head_dim), a reshape of the qkv product's q columns with no head
+    transpose → rel_h (B, nH, S, Hk), rel_w (B, nH, S, Wk)."""
+    hq, wq = q_hw
+    hk, wk = k_hw
+    b, _, _, nh, _ = q4.shape
+    rh = get_rel_pos(hq, hk, rel_pos_h)
+    rw = get_rel_pos(wq, wk, rel_pos_w)
+    dt = torch.promote_types(q4.dtype, rh.dtype)
+    q4 = q4.to(dt)
+    rel_h = torch.einsum("byxnc,ykc->bnyxk", q4, rh.to(dt))
+    rel_w = torch.einsum("byxnc,xkc->bnyxk", q4, rw.to(dt))
+    return rel_h.reshape(b, nh, hq * wq, hk), rel_w.reshape(b, nh, hq * wq, wk)
+
+
+def rel_pos_terms_split(
+    q4: torch.Tensor,
+    rel_pos_h: torch.Tensor,
+    rel_pos_w: torch.Tensor,
+    q_hw: tuple[int, int],
+    k_hw: tuple[int, int],
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The rel terms in ``fused_attention_qkv``'s per-head 64-slot layout:
+    q4 (B, Hq, Wq, nH, head_dim) → ``rel_h64``, ``rel_w64``, each
+    (B, S, nH·64), head n's slot holding its Hk (Wk) terms zero-padded to
+    64. The padding rides the lookup tables, so each einsum writes its
+    output once, in (b, y, x, n, k) order."""
+    hq, wq = q_hw
+    hk, wk = k_hw
+    b, _, _, nh, _ = q4.shape
+    rh, rw = rel_tables_padded(rel_pos_h, rel_pos_w, q_hw, k_hw)
+    dt = torch.promote_types(q4.dtype, rh.dtype)
+    q4 = q4.to(dt)
+    rel_h = torch.einsum("byxnc,ykc->byxnk", q4, rh.to(dt))
+    rel_w = torch.einsum("byxnc,xkc->byxnk", q4, rw.to(dt))
+    return rel_h.reshape(b, hq * wq, nh * 64), rel_w.reshape(b, hq * wq, nh * 64)
+
+
+def pack_rel_terms(rel_h: torch.Tensor, rel_w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, nH, S, Hk) and (B, nH, S, Wk) → the two (B, S, nH·64) slot
+    arrays of :func:`rel_pos_terms_split`."""
+    b, nh, s, hk = rel_h.shape
+    wk = rel_w.shape[-1]
+    rh = F.pad(rel_h, (0, 64 - hk)).transpose(1, 2)
+    rw = F.pad(rel_w, (0, 64 - wk)).transpose(1, 2)
+    return rh.reshape(b, s, nh * 64), rw.reshape(b, s, nh * 64)
 
 
 def rel_tables_padded(
@@ -132,6 +195,67 @@ def attention_packed_plain(
     out = (p.to(v.dtype).float() @ v.float()) / p.sum(-1, keepdim=True)
     b = bh // num_heads
     return out.to(dt).reshape(b, num_heads, s, d).transpose(1, 2).reshape(b, s, num_heads * d)
+
+
+def attention_fused_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    rel_h: torch.Tensor,
+    rel_w: torch.Tensor,
+    scale: float,
+) -> torch.Tensor:
+    """Plain version of ``_kernel`` (``pallas_attn.py:53-77``): q/k/v
+    (B·H, S, D), rel_h (B·H, S, Hk), rel_w (B·H, S, Wk) → (B·H, S, D).
+
+    Rounding points of the TPU kernel: scores (q·kᵀ)·scale in fp32 (q·scale
+    is not rounded first), the rel terms summed and added in fp32, a stable
+    softmax normalized before PV with the probabilities rounded to v's
+    dtype, PV summed in fp32 and rounded to q's dtype."""
+    s = q.shape[1]
+    wk = rel_w.shape[-1]
+    kidx = torch.arange(s, device=q.device)
+    scores = (q.float() @ k.float().transpose(-1, -2)) * scale
+    scores = scores + (rel_h.float()[..., kidx // wk] + rel_w.float()[..., kidx % wk])
+    p = torch.softmax(scores, dim=-1)
+    return (p.to(v.dtype).float() @ v.float()).to(q.dtype)
+
+
+def split_qkv(qkv: torch.Tensor, num_heads: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(B, S, 3C) → q, k, v, each (B·nH, S, head_dim)."""
+    b, s, c3 = qkv.shape
+    hd = c3 // 3 // num_heads
+    split = qkv.reshape(b, s, 3, num_heads, hd).permute(2, 0, 3, 1, 4).reshape(3, b * num_heads, s, hd)
+    return split[0], split[1], split[2]
+
+
+def unpack_rel_slots(rel64: torch.Tensor, num_heads: int, n: int) -> torch.Tensor:
+    """(B, S, nH·64) slot array → (B·nH, S, n): each head's first n terms."""
+    b, s, _ = rel64.shape
+    return rel64.reshape(b, s, num_heads, 64)[..., :n].transpose(1, 2).reshape(b * num_heads, s, n)
+
+
+def attention_qkv_plain(
+    qkv: torch.Tensor,
+    rel_h64: torch.Tensor,
+    rel_w64: torch.Tensor,
+    scale: float,
+    hk: int,
+    wk: int,
+    num_heads: int,
+) -> torch.Tensor:
+    """Plain version of ``_kernel_qkv`` (``pallas_attn.py:224-273``): qkv
+    (B, S, 3C) with no bias, rel_h64 / rel_w64 (B, S, nH·64) from
+    :func:`rel_pos_terms_split` → merged (B, S, C).
+
+    Its rounding points are ``_kernel_packed``'s (q·scale in the dtype, the
+    slot terms cast to it, fp32 scores, a stable softmax with p rounded to
+    v's dtype before PV and the row-sum division after), so it is
+    :func:`attention_packed_plain` of the unpacked heads."""
+    q, k, v = split_qkv(qkv, num_heads)
+    rel_h = unpack_rel_slots(rel_h64, num_heads, hk)
+    rel_w = unpack_rel_slots(rel_w64, num_heads, wk)
+    return attention_packed_plain(q, k, v, rel_h, rel_w, scale, num_heads)
 
 
 def attention_bwd_plain(

@@ -1,7 +1,8 @@
 """Builds the port's CUDA sources (``ops/csrc/*.cu``) on first use.
 
 Each source has a plain C interface and is compiled by ``nvcc`` into its own
-shared library for ``sm_90a``, then loaded with ``ctypes``: every pointer and
+shared library for ``sm_90a`` (device code that several sources share lives
+in ``csrc/*.cuh``), then loaded with ``ctypes``: every pointer and
 the stream pass as ``c_void_p``, every entry returns its ``cudaError_t``.
 Libraries go into ``beach_seg_tpu_torch/_build/`` (git-ignored), named by a
 hash of the source and the flags, so an edited source is rebuilt and a fresh
@@ -23,7 +24,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 # every source in csrc/, one shared library each
-KERNELS = ("attn_qkv_rel", "ln_mlp", "attn_bwd", "ln_mlp_dx", "attn_packed")
+KERNELS = ("attn_qkv_rel", "ln_mlp", "attn_bwd", "ln_mlp_dx", "attn_packed", "attn_fused", "attn_qkv")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
@@ -52,7 +53,8 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the headers a source may include are hashed with it
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -1,15 +1,16 @@
 // Attention backward with the decomposed rel-pos terms, for Hopper (sm_90a),
-// bf16, head_dim 64 (ViT-L) or 80 (ViT-H) as template instances.
+// bf16 (tensor cores) or fp32 (FP32 units, at the end of this file),
+// head_dim 64 (ViT-L) or 80 (ViT-H) as template instances.
 //
 // Replaces the TPU kernel `_bwd_kernel` (beach_seg_tpu/ops/pallas_attn.py:722,
 // wrapper `_pallas_attention_bwd`). Per (batch·head), with q, k, v, g (S, D)
-// and rel_h (S, Hk), rel_w (S, Wk), S = Hk·Wk, all in fp32 from bf16 inputs:
+// and rel_h (S, Hk), rel_w (S, Wk), S = Hk·Wk, all in fp32 from the inputs:
 //
 //   s[r,k]  = (q[r]·k[k])·scale + (rel_h[r, k / Wk] + rel_w[r, k % Wk])
 //   p       = exp(s - rowmax) · (1 / rowsum)      (stable, whatever the forward took)
 //   dV = pᵀg    dP = g·vᵀ    dS = p∘(dP - D),  D[r] = Σ_k dP[r,k]·p[r,k]
-//   dQ = dS·k·scale (bf16)   dK = dSᵀ·q·scale (fp32)   dV (fp32)
-//   drh[r,kh] = Σ_{k / Wk = kh} dS[r,k]   drw[r,kw] = Σ_{k % Wk = kw} dS[r,k]   (bf16)
+//   dQ = dS·k·scale (q's type)   dK = dSᵀ·q·scale (fp32)   dV (fp32)
+//   drh[r,kh] = Σ_{k / Wk = kh} dS[r,k]   drw[r,kw] = Σ_{k % Wk = kw} dS[r,k]   (the rel terms' type)
 //
 // What bounds it: five S×S×D products per head (10·S²·D FLOP) against
 // ~1 MB of inputs and outputs, so at ViT-L it is compute-bound on the tensor
@@ -35,7 +36,7 @@
 // That is nine products where five would do (the statistics pass and the
 // recompute of S and dP in both kernels), traded for no atomics and no
 // S×S storage.
-// Rounding: every product is mma.sync m16n8k16 with bf16 operands and fp32
+// Rounding (bf16): every product is mma.sync m16n8k16 with bf16 operands and fp32
 // accumulation. q, k, v and g are bf16 already, so S and dP are exact
 // products summed in fp32; p (for dV) and dS (for dQ and dK) are rounded to
 // bf16 as operands, where the TPU kernel keeps them in fp32. drh and drw sum
@@ -570,6 +571,370 @@ int launch(const void* q, const void* k, const void* v, const void* rh, const vo
   return (int)cudaGetLastError();
 }
 
+// ============================ fp32: SIMT ============================
+//
+// The same two kernels in full fp32, every product on the FP32 units (no
+// TF32), so the math is the TPU kernel's at fp32 up to the order of sums:
+// 64-row tiles, 256 threads. Each product is a 64 × 64 (or 64 × D) tile in
+// which a thread owns a 4 × 4 block (4 × D/16 for the head dim) and reads
+// both operands as 128-bit shared-memory loads: the contraction dim runs
+// along rows of "d-major" copies of the tiles (q, k, v, g transposed on
+// their way into shared memory, dS transposed when it is formed), so one
+// 16-byte load feeds four FMAs. Scores, dP and dS go through shared memory;
+// dQ, dK and dV accumulate in registers. The q-major kernel's drh/drw: each
+// (row, slot) cell is owned by one thread, which adds the tile's dS over
+// that slot's keys, so the sums are deterministic and need no atomics.
+
+namespace simt {
+
+constexpr int NTS = 256;     // threads per block: 16 × 16, each a 4 × 4 block of a 64 × 64 tile
+constexpr int LDD = BT + 4;  // row stride of d-major tiles and of 64 × 64 score tiles (floats, 16-byte rows)
+constexpr int HLD = 64 + 1;  // row stride of the rel-row and histogram tiles
+
+template <int HD>
+struct Dim32 {
+  static constexpr int LD = HD + 4;         // row stride of row-major (64, HD) tiles
+  static constexpr int NE = (HD - 64) / 16;  // head-dim columns a thread owns past the first 64 (0 or 1)
+  static constexpr int NJ = 4 + NE;          // columns 4·tx + j (j < 4), then 64 + tx + 16·e
+};
+
+// rows [r0, r0 + BT) of an (S, HD) tensor (zero past S) into a row-major
+// tile and / or a d-major tile [d][row]
+template <int HD, bool ROW, bool COL>
+__device__ __forceinline__ void load32(float* row, float* colT, const float* src, int S, int r0, int tid) {
+  constexpr int V = HD / 4;
+  for (int i = tid; i < BT * V; i += NTS) {
+    const int r = i / V, d = (i % V) * 4, gr = r0 + r;
+    const float4 x = gr < S ? *reinterpret_cast<const float4*>(src + (size_t)gr * HD + d) : make_float4(0.f, 0.f, 0.f, 0.f);
+    if (ROW) *reinterpret_cast<float4*>(row + r * Dim32<HD>::LD + d) = x;
+    if (COL) {
+      colT[d * LDD + r] = x.x;
+      colT[(d + 1) * LDD + r] = x.y;
+      colT[(d + 2) * LDD + r] = x.z;
+      colT[(d + 3) * LDD + r] = x.w;
+    }
+  }
+}
+__device__ __forceinline__ void load_rel32(float* sRh, float* sRw, const float* rh, const float* rw, int S, int hk,
+                                           int wk, int r0, int tid) {
+  for (int i = tid; i < BT * hk; i += NTS) {
+    const int r = i / hk, j = i % hk;
+    sRh[r * HLD + j] = r0 + r < S ? rh[(size_t)(r0 + r) * hk + j] : 0.0f;
+  }
+  for (int i = tid; i < BT * wk; i += NTS) {
+    const int r = i / wk, j = i % wk;
+    sRw[r * HLD + j] = r0 + r < S ? rw[(size_t)(r0 + r) * wk + j] : 0.0f;
+  }
+}
+
+// C[r][c] (64 × 64, row-major) = Σ_d At[d][r] · Bt[d][c], At and Bt
+// d-major (HD, 64) tiles: thread (ty, tx) owns rows 4ty.., columns 4tx..
+template <int HD>
+__device__ __forceinline__ void gemm_abt32(const float* At, const float* Bt, float* C, int tid) {
+  const int ty = tid / 16, tx = tid % 16;
+  float acc[4][4] = {};
+#pragma unroll 4
+  for (int d = 0; d < HD; ++d) {
+    const float4 a = *reinterpret_cast<const float4*>(At + d * LDD + 4 * ty);
+    const float4 b = *reinterpret_cast<const float4*>(Bt + d * LDD + 4 * tx);
+    const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    *reinterpret_cast<float4*>(C + (4 * ty + i) * LDD + 4 * tx) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+}
+
+// head-dim column of a thread's j-th accumulator
+template <int HD>
+__device__ __forceinline__ int col32(int j, int tx) {
+  return j < 4 ? 4 * tx + j : 64 + tx + 16 * (j - 4);
+}
+
+// acc[i][j] (rows 4ty + i, head-dim columns col32(j)) += Σ_c At[c][r] · B[c][d],
+// At a 64 × 64 tile stored [c][r], B a row-major (64, HD) tile
+template <int HD>
+__device__ __forceinline__ void gemm_pb32(float (&acc)[4][Dim32<HD>::NJ], const float* At, const float* B, int tid) {
+  constexpr int LD = Dim32<HD>::LD, NE = Dim32<HD>::NE;
+  const int ty = tid / 16, tx = tid % 16;
+#pragma unroll 4
+  for (int c = 0; c < BT; ++c) {
+    const float4 a = *reinterpret_cast<const float4*>(At + c * LDD + 4 * ty);
+    const float4 b = *reinterpret_cast<const float4*>(B + c * LD + 4 * tx);
+    float bv[4 + NE] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int e = 0; e < NE; ++e) bv[4 + e] = B[c * LD + 64 + tx + 16 * e];
+    const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4 + NE; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  }
+}
+
+template <int HD>
+constexpr size_t smem_q32() {
+  return (size_t)(4 * HD * LDD + BT * Dim32<HD>::LD + 2 * BT * LDD + 4 * BT * HLD) * sizeof(float);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(NTS) bwd_q_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ rh, const float* __restrict__ rw, const float* __restrict__ g,
+    float* __restrict__ dq, float* __restrict__ drh, float* __restrict__ drw, float* __restrict__ stats,
+    int BH, int S, int hk, int wk, float scale) {
+  constexpr int NJ = Dim32<HD>::NJ;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* sQt = reinterpret_cast<float*>(smem);  // d-major q, g, k, v tiles
+  float* sGt = sQt + HD * LDD;
+  float* sKt = sGt + HD * LDD;
+  float* sVt = sKt + HD * LDD;
+  float* sK = sVt + HD * LDD;       // row-major k, for dQ
+  float* sS = sK + BT * Dim32<HD>::LD;  // scores [q][key]
+  float* sP = sS + BT * LDD;        // dP [q][key], then dS transposed [key][q]
+  float* sRh = sP + BT * LDD;
+  float* sRw = sRh + BT * HLD;
+  float* sHh = sRw + BT * HLD;  // drh histograms, one row per query
+  float* sHw = sHh + BT * HLD;
+
+  const int q0 = blockIdx.x * BT, bh = blockIdx.y, tid = threadIdx.x;
+  const size_t off = (size_t)bh * S * HD;
+  const float *qp = q + off, *kp = k + off, *vp = v + off, *gp = g + off;
+  load32<HD, false, true>(nullptr, sQt, qp, S, q0, tid);
+  load32<HD, false, true>(nullptr, sGt, gp, S, q0, tid);
+  load_rel32(sRh, sRw, rh + (size_t)bh * S * hk, rw + (size_t)bh * S * wk, S, hk, wk, q0, tid);
+  for (int i = tid; i < 2 * BT * HLD; i += NTS) sHh[i] = 0.0f;  // sHh and sHw
+
+  // the row step's thread layout: four lanes per query row, keys part + 4j
+  const int r = tid / 4, part = tid % 4;
+  float m = -INFINITY, l = 0.0f, dd = 0.0f, linv = 0.0f;
+  float dqa[4][NJ] = {};
+
+  const int nk = (S + BT - 1) / BT;
+  for (int it = 0; it < 2 * nk; ++it) {
+    const int kt = it % nk, pass = it / nk, k0 = kt * BT;
+    __syncthreads();  // the previous step is done with the k / v tiles, sS and sP
+    load32<HD, true, true>(sK, sKt, kp, S, k0, tid);
+    load32<HD, false, true>(nullptr, sVt, vp, S, k0, tid);
+    __syncthreads();
+    gemm_abt32<HD>(sQt, sKt, sS, tid);  // q·kᵀ
+    gemm_abt32<HD>(sGt, sVt, sP, tid);  // dP = g·vᵀ
+    __syncthreads();
+
+    float s[16], dp[16];
+    float mloc = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int c = part + 4 * j, key = k0 + c;
+      dp[j] = sP[r * LDD + c];
+      if (key < S) {
+        const int kh = key / wk, kw = key - kh * wk;
+        s[j] = sS[r * LDD + c] * scale + (sRh[r * HLD + kh] + sRw[r * HLD + kw]);
+      } else {
+        s[j] = -INFINITY;
+      }
+      mloc = fmaxf(mloc, s[j]);
+    }
+    if (pass == 0) {
+      // online row max, row sum of u = exp(s - max) and Σ u·dP
+      const float mnew = fmaxf(m, quad_max(mloc));
+      const float alpha = expf(m - mnew);  // 0 on the first step (m = -inf)
+      float ls = 0.0f, ds = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const float u = expf(s[j] - mnew);
+        ls += u;
+        ds += u * dp[j];
+      }
+      l = l * alpha + quad_sum(ls);
+      dd = dd * alpha + quad_sum(ds);
+      m = mnew;
+      if (it == nk - 1) {
+        dd /= l;  // D = rowsum(dP∘p)
+        linv = 1.0f / l;
+      }
+      continue;
+    }
+
+    // pass 1: dS = p∘(dP - D), 0 for keys past S, stored transposed over dP
+    __syncthreads();  // every thread holds its dP values
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int c = part + 4 * j;
+      sP[c * LDD + r] = k0 + c < S ? expf(s[j] - m) * linv * (dp[j] - dd) : 0.0f;
+    }
+    __syncthreads();
+    gemm_pb32<HD>(dqa, sP, sK, tid);  // dQ += dS·k
+    // drh/drw: this thread's cells are row r's slots part, part + 4, ...
+    const int kend = min(k0 + BT, S);
+    const int kh0 = k0 / wk, kh1 = (kend - 1) / wk;
+    for (int kh = kh0 + part; kh <= kh1; kh += 4) {
+      float acc = 0.0f;
+      for (int key = max(kh * wk, k0); key < min((kh + 1) * wk, kend); ++key) acc += sP[(key - k0) * LDD + r];
+      sHh[r * HLD + kh] += acc;
+    }
+    for (int kw = part; kw < wk; kw += 4) {
+      float acc = 0.0f;
+      for (int key = k0 + (kw - k0 % wk + wk) % wk; key < kend; key += wk) acc += sP[(key - k0) * LDD + r];
+      sHw[r * HLD + kw] += acc;
+    }
+  }
+  __syncthreads();  // the histograms are written out by other threads than their owners
+
+  if (part == 0 && q0 + r < S) {
+    const size_t o = (size_t)bh * S + q0 + r;
+    stats[o] = m;
+    stats[(size_t)BH * S + o] = l;
+    stats[(size_t)2 * BH * S + o] = dd;
+  }
+  const int ty = tid / 16, tx = tid % 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + 4 * ty + i;
+    if (row >= S) continue;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) dq[off + (size_t)row * HD + col32<HD>(j, tx)] = dqa[i][j] * scale;
+  }
+  for (int i = tid; i < BT * hk; i += NTS) {
+    const int rr = i / hk, j = i % hk, row = q0 + rr;
+    if (row < S) drh[((size_t)bh * S + row) * hk + j] = sHh[rr * HLD + j];
+  }
+  for (int i = tid; i < BT * wk; i += NTS) {
+    const int rr = i / wk, j = i % wk, row = q0 + rr;
+    if (row < S) drw[((size_t)bh * S + row) * wk + j] = sHw[rr * HLD + j];
+  }
+}
+
+template <int HD>
+constexpr size_t smem_k32() {
+  return (size_t)(4 * HD * LDD + 2 * BT * Dim32<HD>::LD + 2 * BT * LDD + 2 * BT * HLD + 3 * BT) * sizeof(float);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(NTS) bwd_k_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ rh, const float* __restrict__ rw, const float* __restrict__ g,
+    float* __restrict__ dk, float* __restrict__ dv, const float* __restrict__ stats,
+    int BH, int S, int hk, int wk, float scale) {
+  constexpr int NJ = Dim32<HD>::NJ;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* sKt = reinterpret_cast<float*>(smem);  // d-major k, v, q, g tiles
+  float* sVt = sKt + HD * LDD;
+  float* sQt = sVt + HD * LDD;
+  float* sGt = sQt + HD * LDD;
+  float* sQ = sGt + HD * LDD;  // row-major q and g, for dK and dV
+  float* sG = sQ + BT * Dim32<HD>::LD;
+  float* sS = sG + BT * Dim32<HD>::LD;  // s, then p: [q][key]
+  float* sP = sS + BT * LDD;            // dP, then dS: [q][key]
+  float* sRh = sP + BT * LDD;
+  float* sRw = sRh + BT * HLD;
+  float* sM = sRw + BT * HLD;
+  float* sLinv = sM + BT;  // 1 / row sum
+  float* sD = sLinv + BT;
+
+  const int k0 = blockIdx.x * BT, bh = blockIdx.y, tid = threadIdx.x;
+  const size_t off = (size_t)bh * S * HD;
+  const float *qp = q + off, *kp = k + off, *vp = v + off, *gp = g + off;
+  const float* rhp = rh + (size_t)bh * S * hk;
+  const float* rwp = rw + (size_t)bh * S * wk;
+  load32<HD, false, true>(nullptr, sKt, kp, S, k0, tid);
+  load32<HD, false, true>(nullptr, sVt, vp, S, k0, tid);
+  float dka[4][NJ] = {}, dva[4][NJ] = {};
+
+  const int nq = (S + BT - 1) / BT;
+  for (int qt = 0; qt < nq; ++qt) {
+    const int q0 = qt * BT;
+    __syncthreads();  // the previous step is done with the q / g tiles, sS, sP, the rel rows and statistics
+    load32<HD, true, true>(sQ, sQt, qp, S, q0, tid);
+    load32<HD, true, true>(sG, sGt, gp, S, q0, tid);
+    load_rel32(sRh, sRw, rhp, rwp, S, hk, wk, q0, tid);
+    for (int i = tid; i < BT; i += NTS) {
+      const bool valid = q0 + i < S;
+      const size_t o = (size_t)bh * S + q0 + i;
+      sM[i] = valid ? stats[o] : 0.0f;
+      sLinv[i] = valid ? 1.0f / stats[(size_t)BH * S + o] : 1.0f;
+      sD[i] = valid ? stats[(size_t)2 * BH * S + o] : 0.0f;
+    }
+    __syncthreads();
+    gemm_abt32<HD>(sQt, sKt, sS, tid);  // s = q·kᵀ
+    gemm_abt32<HD>(sGt, sVt, sP, tid);  // dP = g·vᵀ
+    __syncthreads();
+    // consecutive threads take consecutive keys of one query
+    for (int i = tid; i < BT * BT; i += NTS) {
+      const int qr = i / BT, kc = i % BT, key = k0 + kc;
+      float p = 0.0f;
+      if (key < S && q0 + qr < S) {
+        const int kh = key / wk, kw = key - kh * wk;
+        const float s = sS[qr * LDD + kc] * scale + (sRh[qr * HLD + kh] + sRw[qr * HLD + kw]);
+        p = expf(s - sM[qr]) * sLinv[qr];
+      }
+      sS[qr * LDD + kc] = p;
+      sP[qr * LDD + kc] = p * (sP[qr * LDD + kc] - sD[qr]);  // dS
+    }
+    __syncthreads();
+    gemm_pb32<HD>(dva, sS, sG, tid);  // dV += pᵀ·g
+    gemm_pb32<HD>(dka, sP, sQ, tid);  // dK += dSᵀ·q
+  }
+
+  const int ty = tid / 16, tx = tid % 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int key = k0 + 4 * ty + i;
+    if (key >= S) continue;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      dk[off + (size_t)key * HD + col32<HD>(j, tx)] = dka[i][j] * scale;
+      dv[off + (size_t)key * HD + col32<HD>(j, tx)] = dva[i][j];
+    }
+  }
+}
+
+template <int HD>
+int launch(const void* q, const void* k, const void* v, const void* rh, const void* rw, const void* g, void* dq,
+           void* dk, void* dv, void* drh, void* drw, void* stats, int BH, int S, int hk, int wk, float scale,
+           void* stream) {
+  cudaError_t err =
+      cudaFuncSetAttribute(bwd_q_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_q32<HD>());
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(bwd_k_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_k32<HD>());
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((S + BT - 1) / BT, BH);
+  cudaStream_t st = (cudaStream_t)stream;
+  bwd_q_kernel<HD><<<grid, NTS, smem_q32<HD>(), st>>>((const float*)q, (const float*)k, (const float*)v,
+                                                      (const float*)rh, (const float*)rw, (const float*)g,
+                                                      (float*)dq, (float*)drh, (float*)drw, (float*)stats, BH, S,
+                                                      hk, wk, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  bwd_k_kernel<HD><<<grid, NTS, smem_k32<HD>(), st>>>((const float*)q, (const float*)k, (const float*)v,
+                                                      (const float*)rh, (const float*)rw, (const float*)g,
+                                                      (float*)dk, (float*)dv, (const float*)stats, BH, S, hk, wk,
+                                                      scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace simt
+
+typedef int (*Launch)(const void*, const void*, const void*, const void*, const void*, const void*, void*, void*,
+                      void*, void*, void*, void*, int, int, int, int, float, void*);
+
+int dispatch(Launch l64, Launch l80, const void* q, const void* k, const void* v, const void* rh, const void* rw,
+             const void* g, void* dq, void* dk, void* dv, void* drh, void* drw, void* stats, int BH, int S, int D,
+             int hk, int wk, float scale, void* stream) {
+  if (hk * wk != S || hk > 64 || wk > 64) return (int)cudaErrorInvalidValue;
+  switch (D) {
+    case 64:
+      return l64(q, k, v, rh, rw, g, dq, dk, dv, drh, drw, stats, BH, S, hk, wk, scale, stream);
+    case 80:
+      return l80(q, k, v, rh, rw, g, dq, dk, dv, drh, drw, stats, BH, S, hk, wk, scale, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // q, k, v, g (BH, S, D) with D 64 or 80, rel_h (BH, S, hk), rel_w (BH, S, wk)
@@ -578,13 +943,14 @@ int launch(const void* q, const void* k, const void* v, const void* rh, const vo
 extern "C" int attn_bwd_bf16(const void* q, const void* k, const void* v, const void* rh, const void* rw,
                              const void* g, void* dq, void* dk, void* dv, void* drh, void* drw, void* stats,
                              int BH, int S, int D, int hk, int wk, float scale, void* stream) {
-  if (hk * wk != S || hk > 64 || wk > 64) return (int)cudaErrorInvalidValue;
-  switch (D) {
-    case 64:
-      return launch<64>(q, k, v, rh, rw, g, dq, dk, dv, drh, drw, stats, BH, S, hk, wk, scale, stream);
-    case 80:
-      return launch<80>(q, k, v, rh, rw, g, dq, dk, dv, drh, drw, stats, BH, S, hk, wk, scale, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return dispatch(launch<64>, launch<80>, q, k, v, rh, rw, g, dq, dk, dv, drh, drw, stats, BH, S, D, hk, wk, scale,
+                  stream);
+}
+
+// the same contract with every input and output in fp32
+extern "C" int attn_bwd_f32(const void* q, const void* k, const void* v, const void* rh, const void* rw,
+                            const void* g, void* dq, void* dk, void* dv, void* drh, void* drw, void* stats, int BH,
+                            int S, int D, int hk, int wk, float scale, void* stream) {
+  return dispatch(simt::launch<64>, simt::launch<80>, q, k, v, rh, rw, g, dq, dk, dv, drh, drw, stats, BH, S, D, hk,
+                  wk, scale, stream);
 }

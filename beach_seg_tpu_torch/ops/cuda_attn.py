@@ -1,8 +1,9 @@
-"""The model's attention and its gradient (counterparts of
-``pallas_attn.fused_attention_qkv_rel`` and ``fused_attention_merged`` with
-their custom VJPs).
+"""The attention entries and their gradients (counterparts of
+``pallas_attn.fused_attention_qkv_rel`` and ``fused_attention_merged``, which
+the model calls, and of the library's ``fused_attention`` and
+``fused_attention_qkv``, with their custom VJPs).
 
-Three CUDA kernels, each with a plain PyTorch version:
+Five CUDA kernels, each with a plain PyTorch version:
 
 - :func:`attn_qkv_rel` (``csrc/attn_qkv_rel.cu``) replaces the TPU forward
   kernel ``_kernel_qkv_rel`` (``beach_seg_tpu/ops/pallas_attn.py:389``).
@@ -13,8 +14,15 @@ Three CUDA kernels, each with a plain PyTorch version:
   precomputed rel terms, merged-head output; head_dim 64 or 80 (ViT-H). Its
   plain version is ``ops.attention.attention_packed_plain``.
 - :func:`attn_bwd` (``csrc/attn_bwd.cu``) replaces the TPU backward kernel
-  ``_bwd_kernel`` (``pallas_attn.py:722``), head_dim 64 or 80; its plain
-  version is ``ops.attention.attention_bwd_plain``.
+  ``_bwd_kernel`` (``pallas_attn.py:722``), bf16 or fp32, head_dim 64 or
+  80; its plain version is ``ops.attention.attention_bwd_plain``.
+- :func:`attn_fused` (``csrc/attn_fused.cu``) replaces ``_kernel``
+  (``pallas_attn.py:53``): head-split in and out, the scale on the fp32
+  scores; plain version ``ops.attention.attention_fused_plain``.
+- :func:`attn_qkv` (``csrc/attn_qkv.cu``) replaces ``_kernel_qkv``
+  (``pallas_attn.py:224``): q, k, v read in place from the (B, S, 3C) qkv
+  tensor, the rel terms in per-head 64-slot layout, merged output; plain
+  version ``ops.attention.attention_qkv_plain``.
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain version
 only for CPU tensors; ``<wrapper>.launches`` counts kernel launches.
@@ -22,6 +30,11 @@ only for CPU tensors; ``<wrapper>.launches`` counts kernel launches.
 head dims) are the differentiable entries the model calls: a forward kernel,
 and in backward the port of ``_qkv_rel_bwd`` (``pallas_attn.py:625-673``)
 or of ``_merged_bwd`` (``:696-706``) around the backward kernel.
+:func:`fused_attention` and :func:`fused_attention_qkv` are the library's
+entries with the JAX signatures: :func:`attn_fused` or :func:`attn_qkv`
+forward, :func:`attn_bwd` backward (``pallas_attn.py:840-850`` and
+``_qkv_bwd`` ``:356-383``). Every entry looks its wrappers up when called,
+so they can be swapped for their plain versions.
 """
 
 from __future__ import annotations
@@ -33,7 +46,14 @@ import torch
 import torch.nn.functional as F
 
 from beach_seg_tpu_torch.ops import build
-from beach_seg_tpu_torch.ops.attention import attention_bwd_plain, attention_packed_plain
+from beach_seg_tpu_torch.ops.attention import (
+    attention_bwd_plain,
+    attention_fused_plain,
+    attention_packed_plain,
+    attention_qkv_plain,
+    split_qkv,
+    unpack_rel_slots,
+)
 
 SOFTMAX_MODES = ("stable", "clamp", "fast")
 
@@ -41,9 +61,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _PROTO = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P]
 _ENTRY = {torch.bfloat16: "attn_qkv_rel_bf16", torch.float32: "attn_qkv_rel_f32"}
-_BWD_PROTO = {"attn_bwd_bf16": [_P] * 12 + [_I, _I, _I, _I, _I, ctypes.c_float, _P]}
+_BWD_ENTRY = {torch.bfloat16: "attn_bwd_bf16", torch.float32: "attn_bwd_f32"}
+_BWD_PROTO = [_P] * 12 + [_I, _I, _I, _I, _I, ctypes.c_float, _P]
 _PACKED_ENTRY = {torch.bfloat16: "attn_packed_bf16", torch.float32: "attn_packed_f32"}
 _PACKED_PROTO = [_P] * 6 + [_I] * 6 + [ctypes.c_float, _P]
+_FUSED_ENTRY = {torch.bfloat16: "attn_fused_bf16", torch.float32: "attn_fused_f32"}
+_FUSED_PROTO = [_P] * 6 + [_I] * 5 + [ctypes.c_float, _P]
+_QKV_ENTRY = {torch.bfloat16: "attn_qkv_bf16", torch.float32: "attn_qkv_f32"}
+_QKV_PROTO = [_P] * 4 + [_I] * 6 + [ctypes.c_float, _P]
 # head dims the packed attention and backward kernels are instantiated for
 HEAD_DIMS = (64, 80)
 
@@ -146,6 +171,32 @@ def attn_qkv_rel(
 attn_qkv_rel.launches = 0
 
 
+def _check_grid(name: str, tpu: str, d: int, head_dims, s: int, hk: int, wk: int, shape) -> None:
+    if d not in head_dims or hk * wk != s or hk > 64 or wk > 64:
+        raise ValueError(
+            f"{name} kernel (port of {tpu}) takes head_dim {' or '.join(map(str, head_dims))} and "
+            f"S = Hk·Wk with Hk, Wk <= 64: {tuple(shape)}, {hk=}, {wk=}"
+        )
+
+
+def _heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """(B, S, nH·D) merged heads → (B·nH, S, D), contiguous."""
+    b, s, c = x.shape
+    hd = c // num_heads
+    return x.reshape(b, s, num_heads, hd).transpose(1, 2).reshape(b * num_heads, s, hd).contiguous()
+
+
+def _merge_qkv_grads(dq, dk, dv, b: int, num_heads: int, dt: torch.dtype) -> torch.Tensor:
+    """dq, dk, dv (B·nH, S, D) → (B, S, 3, nH·D) in dt, the qkv layout."""
+    _, s, hd = dq.shape
+    return (
+        torch.stack([dq.to(dt), dk.to(dt), dv.to(dt)])
+        .reshape(3, b, num_heads, s, hd)
+        .permute(1, 3, 0, 2, 4)
+        .reshape(b, s, 3, num_heads * hd)
+    )
+
+
 def attn_packed(q, k, v, rel_h, rel_w, scale: float, num_heads: int) -> torch.Tensor:
     """Same contract as ``ops.attention.attention_packed_plain``: q/k/v
     (B·H, S, D), rel_h (B·H, S, Hk), rel_w (B·H, S, Wk) → (B, S, H·D). CUDA
@@ -159,11 +210,9 @@ def attn_packed(q, k, v, rel_h, rel_w, scale: float, num_heads: int) -> torch.Te
     bh, s, d = q.shape
     hk, wk = rel_h.shape[-1], rel_w.shape[-1]
     dt = q.dtype
-    if d not in HEAD_DIMS or hk * wk != s or hk > 64 or wk > 64 or bh % num_heads:
-        raise ValueError(
-            f"attn_packed kernel (port of _kernel_packed) takes head_dim {' or '.join(map(str, HEAD_DIMS))} and "
-            f"S = Hk·Wk with Hk, Wk <= 64: q {tuple(q.shape)}, {hk=}, {wk=}, {num_heads=}"
-        )
+    _check_grid("attn_packed", "_kernel_packed", d, HEAD_DIMS, s, hk, wk, q.shape)
+    if bh % num_heads:
+        raise ValueError(f"attn_packed: B·H = {bh} is not a multiple of {num_heads=}")
     if dt not in _PACKED_ENTRY:
         raise TypeError(f"attn_packed kernel takes bf16 or fp32, got {dt}")
     for name, t in (("k", k), ("v", v)):
@@ -191,34 +240,36 @@ attn_packed.launches = 0
 
 def attn_bwd(q, k, v, rel_h, rel_w, g, scale: float) -> tuple[torch.Tensor, ...]:
     """Same contract as ``ops.attention.attention_bwd_plain``. CUDA tensors
-    launch the kernel (bf16, head_dim 64 or 80, S = Hk·Wk with Hk, Wk ≤ 64);
-    CPU tensors take the plain version."""
+    launch the kernel (all six inputs bf16, or all fp32; head_dim 64 or 80,
+    S = Hk·Wk with Hk, Wk ≤ 64); CPU tensors take the plain version."""
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, rel_h, rel_w, g, scale)
     if q.device.type != "cuda":
         raise ValueError(f"attn_bwd takes CPU or CUDA tensors, got {q.device}")
     bh, s, d = q.shape
     hk, wk = rel_h.shape[-1], rel_w.shape[-1]
-    if d not in HEAD_DIMS or hk * wk != s or hk > 64 or wk > 64:
-        raise ValueError(
-            f"attn_bwd kernel needs head_dim {' or '.join(map(str, HEAD_DIMS))} and S = Hk·Wk with Hk, Wk <= 64: "
-            f"{tuple(q.shape)}, {hk=}, {wk=}"
-        )
+    _check_grid("attn_bwd", "_bwd_kernel", d, HEAD_DIMS, s, hk, wk, q.shape)
+    dt = q.dtype
+    if dt not in _BWD_ENTRY:
+        raise TypeError(f"attn_bwd kernel takes bf16 or fp32, got {dt}")
     for name, t, shape in (
         ("q", q, (bh, s, d)), ("k", k, (bh, s, d)), ("v", v, (bh, s, d)), ("g", g, (bh, s, d)),
         ("rel_h", rel_h, (bh, s, hk)), ("rel_w", rel_w, (bh, s, wk)),
     ):
-        if t.device != q.device or t.dtype != torch.bfloat16 or tuple(t.shape) != shape:
-            raise ValueError(f"{name}: want {shape} bf16 on {q.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+        if t.device != q.device or t.dtype != dt or tuple(t.shape) != shape:
+            raise ValueError(
+                f"attn_bwd kernel takes six bf16 or six fp32 inputs; {name}: want {shape} {dt} on {q.device}, "
+                f"got {tuple(t.shape)} {t.dtype} on {t.device}"
+            )
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"attn_bwd kernel needs contiguous, 16-byte aligned inputs ({name})")
-    lib = build.load("attn_bwd", _BWD_PROTO)
+    lib = build.load("attn_bwd", {fn: _BWD_PROTO for fn in _BWD_ENTRY.values()})
     dq = torch.empty_like(q)
     dk = torch.empty((bh, s, d), dtype=torch.float32, device=q.device)
     dv = torch.empty_like(dk)
     drh, drw = torch.empty_like(rel_h), torch.empty_like(rel_w)
     stats = torch.empty((3, bh, s), dtype=torch.float32, device=q.device)  # row max, row sum, rowsum(dP∘P)
-    err = lib.attn_bwd_bf16(
+    err = getattr(lib, _BWD_ENTRY[dt])(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(), g.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), drh.data_ptr(), drw.data_ptr(), stats.data_ptr(),
         bh, s, d, hk, wk, float(scale), torch.cuda.current_stream(q.device).cuda_stream,
@@ -229,6 +280,79 @@ def attn_bwd(q, k, v, rel_h, rel_w, g, scale: float) -> tuple[torch.Tensor, ...]
 
 
 attn_bwd.launches = 0
+
+
+def attn_fused(q, k, v, rel_h, rel_w, scale: float) -> torch.Tensor:
+    """Same contract as ``ops.attention.attention_fused_plain``: q/k/v
+    (B·H, S, D), rel_h (B·H, S, Hk), rel_w (B·H, S, Wk) → (B·H, S, D). CUDA
+    tensors launch the kernel (bf16 or fp32, the rel terms in q's dtype,
+    head_dim 64 or 80, S = Hk·Wk with Hk, Wk ≤ 64); CPU tensors take the
+    plain version."""
+    if q.device.type == "cpu":
+        return attention_fused_plain(q, k, v, rel_h, rel_w, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"attn_fused takes CPU or CUDA tensors, got {q.device}")
+    bh, s, d = q.shape
+    hk, wk = rel_h.shape[-1], rel_w.shape[-1]
+    dt = q.dtype
+    _check_grid("attn_fused", "_kernel", d, HEAD_DIMS, s, hk, wk, q.shape)
+    if dt not in _FUSED_ENTRY:
+        raise TypeError(f"attn_fused kernel takes bf16 or fp32, got {dt}")
+    for name, t, shape in (("k", k, (bh, s, d)), ("v", v, (bh, s, d)), ("rel_h", rel_h, (bh, s, hk)), ("rel_w", rel_w, (bh, s, wk))):
+        if t.device != q.device or t.dtype != dt or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: want {shape} {dt} on {q.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in (q, k, v, rel_h, rel_w)):
+        raise ValueError("attn_fused kernel needs contiguous, 16-byte aligned inputs")
+    lib = build.load("attn_fused", {fn: _FUSED_PROTO for fn in _FUSED_ENTRY.values()})
+    out = torch.empty_like(q)
+    err = getattr(lib, _FUSED_ENTRY[dt])(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(), out.data_ptr(),
+        bh, s, d, hk, wk, float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    build.check(err, "attn_fused launch")
+    attn_fused.launches += 1
+    return out
+
+
+attn_fused.launches = 0
+
+
+def attn_qkv(qkv, rel_h64, rel_w64, scale: float, hk: int, wk: int, num_heads: int) -> torch.Tensor:
+    """Same contract as ``ops.attention.attention_qkv_plain``: qkv (B, S, 3C),
+    rel_h64 / rel_w64 (B, S, nH·64) → (B, S, C). CUDA tensors launch the
+    kernel (bf16 or fp32, head_dim 64, S = Hk·Wk with Hk, Wk ≤ 64; the slot
+    terms are cast to qkv's dtype, the kernel's rounding point); CPU tensors
+    take the plain version."""
+    if qkv.device.type == "cpu":
+        return attention_qkv_plain(qkv, rel_h64, rel_w64, scale, hk, wk, num_heads)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"attn_qkv takes CPU or CUDA tensors, got {qkv.device}")
+    b, s, c3 = qkv.shape
+    c = c3 // 3
+    dt = qkv.dtype
+    if c3 != 3 * c or c % num_heads:
+        raise ValueError(f"attn_qkv: qkv {tuple(qkv.shape)} is not (B, S, 3·{num_heads}·head_dim)")
+    _check_grid("attn_qkv", "_kernel_qkv", c // num_heads, (64,), s, hk, wk, qkv.shape)
+    if dt not in _QKV_ENTRY:
+        raise TypeError(f"attn_qkv kernel takes bf16 or fp32, got {dt}")
+    for name, t in (("rel_h64", rel_h64), ("rel_w64", rel_w64)):
+        if t.device != qkv.device or tuple(t.shape) != (b, s, num_heads * 64):
+            raise ValueError(f"{name}: want {(b, s, num_heads * 64)} on {qkv.device}, got {tuple(t.shape)} on {t.device}")
+    rel_h64, rel_w64 = rel_h64.to(dt).contiguous(), rel_w64.to(dt).contiguous()
+    if not (qkv.is_contiguous() and qkv.data_ptr() % 16 == 0):
+        raise ValueError("attn_qkv kernel needs a contiguous, 16-byte aligned qkv")
+    lib = build.load("attn_qkv", {fn: _QKV_PROTO for fn in _QKV_ENTRY.values()})
+    out = torch.empty((b, s, c), dtype=dt, device=qkv.device)
+    err = getattr(lib, _QKV_ENTRY[dt])(
+        qkv.data_ptr(), rel_h64.data_ptr(), rel_w64.data_ptr(), out.data_ptr(),
+        b, s, c // num_heads, num_heads, hk, wk, float(scale), torch.cuda.current_stream(qkv.device).cuda_stream,
+    )
+    build.check(err, "attn_qkv launch")
+    attn_qkv.launches += 1
+    return out
+
+
+attn_qkv.launches = 0
 
 
 def _qkv_rel_bwd(qkv4, qkv_bias, rh_tab, rw_tab, g, scale, gw, num_heads, need):
@@ -243,27 +367,21 @@ def _qkv_rel_bwd(qkv4, qkv_bias, rh_tab, rw_tab, g, scale, gw, num_heads, need):
     bh = b * num_heads
     hk, wk = rh_tab.shape[0], rw_tab.shape[0]
     qkv = qkv4.reshape(b, s, 3 * c) + qkv_bias.reshape(3 * c).to(dt)
-    split = qkv.reshape(b, s, 3, num_heads, hd).permute(2, 0, 3, 1, 4).reshape(3, bh, s, hd)
     q5 = qkv[..., :c].reshape(b, gh, gw, num_heads, hd)
     slots = rh_tab.shape[1]
     rel_h = torch.einsum("byxnc,ykc->bnyxk", q5, rh_tab).reshape(b, num_heads, s, slots)[..., :hk]
     rel_w = torch.einsum("byxnc,xkc->bnyxk", q5, rw_tab).reshape(b, num_heads, s, slots)[..., :wk]
     rel_h = rel_h.reshape(bh, s, hk).to(dt).contiguous()
     rel_w = rel_w.reshape(bh, s, wk).to(dt).contiguous()
-    g2 = g.reshape(b, s, num_heads, hd).transpose(1, 2).reshape(bh, s, hd).to(dt).contiguous()
-    dq, dk, dv, drh, drw = attn_bwd(split[0], split[1], split[2], rel_h, rel_w, g2, scale)
+    q, k, v = (t.contiguous() for t in split_qkv(qkv, num_heads))
+    dq, dk, dv, drh, drw = attn_bwd(q, k, v, rel_h, rel_w, _heads(g.to(dt), num_heads), scale)
     drh5 = drh.reshape(b, num_heads, gh, gw, hk)
     drw5 = drw.reshape(b, num_heads, gh, gw, wk)
     dq_rel = torch.einsum("bnyxk,ykc->bnyxc", drh5, rh_tab[:, :hk]) + torch.einsum(
         "bnyxk,xkc->bnyxc", drw5, rw_tab[:, :wk]
     )
     dq = dq + dq_rel.reshape(bh, s, hd).to(dq.dtype)
-    dqkv4 = (
-        torch.stack([dq.to(dt), dk.to(dt), dv.to(dt)])
-        .reshape(3, b, num_heads, s, hd)
-        .permute(1, 3, 0, 2, 4)
-        .reshape(b, s, 3, c)
-    )
+    dqkv4 = _merge_qkv_grads(dq, dk, dv, b, num_heads, dt)
     dbias = dqkv4.float().sum((0, 1)).to(qkv_bias.dtype) if need[1] else None
     drh_tab = drw_tab = None
     if need[2]:
@@ -311,10 +429,7 @@ class PackedAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, rel_h, rel_w = ctx.saved_tensors
-        bh, s, d = q.shape
-        nh = ctx.num_heads
-        g = g.reshape(bh // nh, s, nh, d).transpose(1, 2).reshape(bh, s, d).contiguous()
-        dq, dk, dv, drh, drw = attn_bwd(q, k, v, rel_h, rel_w, g, ctx.scale)
+        dq, dk, dv, drh, drw = attn_bwd(q, k, v, rel_h, rel_w, _heads(g, ctx.num_heads), ctx.scale)
         return dq, dk.to(k.dtype), dv.to(v.dtype), drh, drw, None, None
 
 
@@ -326,3 +441,76 @@ def packed_attention(q, k, v, rel_h, rel_w, scale: float, num_heads: int):
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, rel_h, rel_w)):
         return PackedAttention.apply(q, k, v, rel_h, rel_w, scale, num_heads)
     return attn_packed(q, k, v, rel_h, rel_w, scale, num_heads)
+
+
+class FusedAttention(torch.autograd.Function):
+    """``fused_attention`` with its custom VJP (``pallas_attn.py:833-853``):
+    :func:`attn_fused` forward; the residuals are the inputs only; the
+    backward runs :func:`attn_bwd`, with dk and dv cast to the inputs'
+    dtype."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, rel_h, rel_w, scale: float):
+        ctx.save_for_backward(q, k, v, rel_h, rel_w)
+        ctx.scale = scale
+        return attn_fused(q, k, v, rel_h, rel_w, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, rel_h, rel_w = ctx.saved_tensors
+        dq, dk, dv, drh, drw = attn_bwd(q, k, v, rel_h, rel_w, g.contiguous(), ctx.scale)
+        return dq, dk.to(k.dtype), dv.to(v.dtype), drh, drw, None
+
+
+def fused_attention(q, k, v, rel_h, rel_w, scale: float, hk: int, wk: int):
+    """The library's fused attention with the JAX signature: q/k/v
+    (B·H, S, D), rel_h (B·H, S, hk), rel_w (B·H, S, wk) → (B·H, S, D);
+    :func:`attn_fused` forward, :func:`attn_bwd` backward."""
+    if (rel_h.shape[-1], rel_w.shape[-1]) != (hk, wk):
+        raise ValueError(f"rel terms {tuple(rel_h.shape)}, {tuple(rel_w.shape)} do not match {hk=}, {wk=}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, rel_h, rel_w)):
+        return FusedAttention.apply(q, k, v, rel_h, rel_w, scale)
+    return attn_fused(q, k, v, rel_h, rel_w, scale)
+
+
+def _qkv_bwd(qkv, rel_h64, rel_w64, g, scale, hk, wk, num_heads):
+    """``_qkv_bwd`` (``pallas_attn.py:356-383``) around :func:`attn_bwd`:
+    unpack q, k, v, the rel terms and the cotangent to (B·H, S, ·) once, run
+    the kernel, restack dqkv and pad drh, drw back to the 64-slot layout.
+    The rel terms enter in qkv's dtype, the forward kernel's rounding point
+    (one dtype for all six kernel inputs)."""
+    b, s, c3 = qkv.shape
+    dt = qkv.dtype
+    rel_h = unpack_rel_slots(rel_h64, num_heads, hk).to(dt).contiguous()
+    rel_w = unpack_rel_slots(rel_w64, num_heads, wk).to(dt).contiguous()
+    q, k, v = (t.contiguous() for t in split_qkv(qkv, num_heads))
+    dq, dk, dv, drh, drw = attn_bwd(q, k, v, rel_h, rel_w, _heads(g.to(dt), num_heads), scale)
+    dqkv = _merge_qkv_grads(dq, dk, dv, b, num_heads, dt).reshape(b, s, c3)
+    drh64 = F.pad(drh.reshape(b, num_heads, s, hk).transpose(1, 2), (0, 64 - hk)).reshape(b, s, num_heads * 64)
+    drw64 = F.pad(drw.reshape(b, num_heads, s, wk).transpose(1, 2), (0, 64 - wk)).reshape(b, s, num_heads * 64)
+    return dqkv, drh64.to(rel_h64.dtype), drw64.to(rel_w64.dtype)
+
+
+class FusedAttentionQkv(torch.autograd.Function):
+    """``fused_attention_qkv`` with its custom VJP (``pallas_attn.py:339-386``):
+    :func:`attn_qkv` forward; the residuals are the inputs only."""
+
+    @staticmethod
+    def forward(ctx, qkv, rel_h64, rel_w64, scale: float, hk: int, wk: int, num_heads: int):
+        ctx.save_for_backward(qkv, rel_h64, rel_w64)
+        ctx.args = (scale, hk, wk, num_heads)
+        return attn_qkv(qkv, rel_h64, rel_w64, scale, hk, wk, num_heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*_qkv_bwd(*ctx.saved_tensors, g, *ctx.args), None, None, None, None)
+
+
+def fused_attention_qkv(qkv, rel_h64, rel_w64, scale: float, hk: int, wk: int, num_heads: int):
+    """The library's transpose-free attention with the JAX signature: qkv
+    (B, S, 3C) and the (B, S, nH·64) slot terms of
+    ``ops.attention.rel_pos_terms_split`` → (B, S, C); :func:`attn_qkv`
+    forward, :func:`attn_bwd` backward."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (qkv, rel_h64, rel_w64)):
+        return FusedAttentionQkv.apply(qkv, rel_h64, rel_w64, scale, hk, wk, num_heads)
+    return attn_qkv(qkv, rel_h64, rel_w64, scale, hk, wk, num_heads)

@@ -165,6 +165,27 @@ def resize_2d(x: torch.Tensor, out_hw: tuple[int, int], method: str = "bicubic_t
     return y.to(orig_dtype) if method.startswith("nearest") else y
 
 
+def resize_pil_uint8(img: np.ndarray, out_hw: tuple[int, int], method: str = "bicubic_pil") -> np.ndarray:
+    """PIL's uint8 resize pipeline on the host, pass by pass: horizontal pass
+    → round and clip to uint8 → vertical pass → round and clip (PIL
+    resamples into an 8-bit image between its two passes). Pillow itself,
+    where it is installed and the method is its default BICUBIC, is exact by
+    definition and is used instead. (H, W[, C]) uint8 → (h, w[, C]) uint8."""
+    if method == "bicubic_pil" and img.dtype == np.uint8 and img.ndim in (2, 3):
+        try:
+            from PIL import Image
+        except ImportError:
+            pass
+        else:
+            return np.asarray(Image.fromarray(img).resize((out_hw[1], out_hw[0]), Image.BICUBIC))
+    mw = resize_matrix(img.shape[1], out_hw[1], method)
+    mh = resize_matrix(img.shape[0], out_hw[0], method)
+    x = np.einsum("pw,hw...->hp...", mw, img.astype(np.float64))
+    x = np.clip(np.round(x), 0, 255)
+    x = np.einsum("oh,hw...->ow...", mh, x)
+    return np.clip(np.round(x), 0, 255).astype(np.uint8)
+
+
 def resize_pil_uint8_device(
     img: torch.Tensor, out_hw: tuple[int, int], method: str = "bicubic_pil"
 ) -> torch.Tensor:

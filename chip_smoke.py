@@ -5,13 +5,14 @@ NVIDIA Hopper card.
 
 Phases (any failure exits non-zero before the result lines):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. build the five CUDA kernels from ops/csrc with nvcc, in parallel; print
+  2. build the seven CUDA sources of ops/csrc with nvcc, in parallel; print
      the build time and ptxas' register / shared-memory / spill lines;
   3. at ViT-L shapes for a batch of 8 tiles (S=1568, C=1024, 16 heads,
      M=4096): each forward kernel against its plain PyTorch version on the
      card, then CUDA-event times of the kernel, the plain version and, for
      attention, scaled_dot_product_attention with the materialized bias (a
-     yardstick the port never calls);
+     yardstick the port never calls); the qkv-rel attention in bf16 and in
+     fp32 (the instance phase 12 runs);
   4. the same for the two backward kernels (attention backward at B·H=128,
      LN→MLP dx at 12544 rows); the attention yardstick is SDPA's backward
      with the bias as a mask that takes a gradient;
@@ -42,8 +43,24 @@ Phases (any failure exits non-zero before the result lines):
      kernels (packed attention, MLP, attention backward, MLP dx) 32 times
      per step, the prompt gradient held against the plain versions with
      phase 6's limits;
- 10. one JSON line of per-kernel numbers (one entry per kernel and
-     geometry), then the card's name and power limit, then
+ 10. the kernels behind the library's attention entries at B=8 ViT-L
+     shapes, bf16 and fp32, each against its plain version, then timed
+     beside SDPA with the materialized bias: the fused attention (#7,
+     attn_fused) and the qkv-layout attention (#6, attn_qkv); then the
+     attention backward in fp32 at head dims 64 and 80 (yardstick SDPA's
+     fp32 backward);
+ 11. the entry path: fused_attention (head dims 64 and 80) and
+     fused_attention_qkv (rel terms from rel_pos_terms_split) forward and
+     backward at B=8 in bf16 and fp32, each call launching its forward
+     kernel once and the attention backward once, output and gradients held
+     against the plain versions;
+ 12. the default BeachSegConfig (fp32 ViT-L, model_for_config): 1
+     predict_step call (24 qkv-rel attention launches) and 2 train_steps (24
+     qkv-rel and 24 fp32 attention-backward launches each, the MLP plain
+     torch), the prompt gradient held against the plain versions with fp32
+     limits;
+ 13. one JSON line of per-kernel numbers (one entry per kernel, geometry
+     and dtype), then the card's name and power limit, then
      {"ok": true, "device": {...}} as the last line.
 
 It exits non-zero without a CUDA device, and needs nothing but this
@@ -88,6 +105,11 @@ MLP_BF16_REL_TOL = 4 * BF16_EPS
 # fp32 sums of dS rounded once to bf16: two bf16 steps of their scale
 ATTN_BWD_REL_TOL = 1e-2
 ATTN_BWD_REL_DRHW = 2 * BF16_EPS
+# attention backward in fp32, kernel vs plain: every product in fp32 on both
+# sides (FP32 units, no TF32), so the two differ only in the order of the
+# sums over S=1568 keys or queries and in expf's last bit: a few fp32 ulps of
+# the largest terms, ~1e-6 of each output's scale; 1e-4 of it
+ATTN_BWD_FP32_REL_TOL = 1e-4
 # LN→MLP dx: LN, dh and dx rounded to bf16 at the same points; fp32 sums in
 # another order may round to the neighbour: four bf16 steps of the scale
 MLP_DX_REL_TOL = 4 * BF16_EPS
@@ -100,6 +122,12 @@ MLP_DX_REL_TOL = 4 * BF16_EPS
 # turns the gradient's direction by more than the cosine limit allows
 GRAD_1MCOS_MAX = 1e-3
 GRAD_REL_TOL = 5e-2
+# the same at fp32 (the default BeachSegConfig): every product in fp32 in
+# both runs, the kernels summing in other orders, so a layer's outputs
+# differ by ~1e-6 of their scale and 24 layers forward and backward grow
+# that at most tenfold; a kernel wrong anywhere moves the gradient by far more
+GRAD32_1MCOS_MAX = 1e-5
+GRAD32_REL_TOL = 1e-3
 # main path, pred_masks through kernels vs plain versions after 24 layers of
 # bf16 rounding flips: 5% of the output's scale. Random weights paint many
 # pixels close to a palette decision boundary, so ids may differ there: ≥ 98%
@@ -115,7 +143,8 @@ def counters():
     return {
         "attn_qkv_rel": cuda_attn.attn_qkv_rel, "ln_mlp": cuda_mlp.ln_mlp,
         "attn_bwd": cuda_attn.attn_bwd, "ln_mlp_dx": cuda_mlp.ln_mlp_dx,
-        "attn_packed": cuda_attn.attn_packed,
+        "attn_packed": cuda_attn.attn_packed, "attn_fused": cuda_attn.attn_fused,
+        "attn_qkv": cuda_attn.attn_qkv,
     }
 
 
@@ -255,6 +284,12 @@ def phase_kernels(device) -> dict:
         check(err <= tol, f"attn {dtype} kernel disagrees with its plain version: {err} > {tol}")
         res[f"attn_err_{softmax}"] = err
         del got, want
+        if dtype == torch.float32:  # the instance the default (fp32) configuration runs
+            res["attn32_ms"] = time_ms(lambda: cuda_attn.attn_qkv_rel(*args), iters=3, warmup=1)
+            res["attn32_plain_ms"] = time_ms(lambda: cuda_attn.attn_qkv_rel_plain(*args), iters=2)
+            res["attn32_library_ms"] = time_ms(sdpa_yardstick(*args[:4]), iters=3, warmup=1)
+            res["attn32_bound"] = attn_bound(B, 4, PEAK_FP32)
+            torch.cuda.empty_cache()
     # bf16 times at the main path's shapes (args still hold the bf16 inputs)
     res["attn_ms"] = time_ms(lambda: cuda_attn.attn_qkv_rel(*args), iters=20, warmup=2)
     res["attn_plain_ms"] = time_ms(lambda: cuda_attn.attn_qkv_rel_plain(*args), iters=3)
@@ -269,15 +304,18 @@ def phase_kernels(device) -> dict:
     log(
         f"times (ms, B={B}): attn kernel {res['attn_ms']:.4f} plain {res['attn_plain_ms']:.4f} "
         f"sdpa {res['attn_library_ms']:.4f} bound {res['attn_bound'][0]:.4f} ({res['attn_bound'][1]}); "
-        f"mlp kernel {res['mlp_ms']:.4f} plain {res['mlp_plain_ms']:.4f} bound {res['mlp_bound'][0]:.4f} ({res['mlp_bound'][1]})"
+        f"attn fp32 {res['attn32_ms']:.4f} plain {res['attn32_plain_ms']:.4f} sdpa {res['attn32_library_ms']:.4f} "
+        f"bound {res['attn32_bound'][0]:.4f}; mlp kernel {res['mlp_ms']:.4f} plain {res['mlp_plain_ms']:.4f} bound {res['mlp_bound'][0]:.4f} ({res['mlp_bound'][1]})"
     )
     return res
 
 
-def attn_bwd_bound(bh: int, s: int, hk: int, wk: int, hd: int = HD) -> tuple[float, str]:
+def attn_bwd_bound(bh: int, s: int, hk: int, wk: int, hd: int = HD, itemsize: int = 2,
+                   peak: float = PEAK_BF16) -> tuple[float, str]:
     flops = 10 * bh * s * s * hd  # S, dP, dV, dQ, dK
-    nbytes = 2 * (4 * bh * s * hd + bh * s * (hk + wk)) + bh * s * hd * (2 + 4 + 4) + 2 * bh * s * (hk + wk)
-    return bound(flops, nbytes, PEAK_BF16)
+    # q, k, v, g and the rel terms in; dq, drh, drw in their dtype and dk, dv in fp32 out
+    nbytes = itemsize * (4 * bh * s * hd + bh * s * (hk + wk)) + bh * s * hd * (itemsize + 4 + 4) + itemsize * bh * s * (hk + wk)
+    return bound(flops, nbytes, peak)
 
 
 def mlp_dx_bound(n: int, c: int = C, m: int = MLP) -> tuple[float, str]:
@@ -286,13 +324,13 @@ def mlp_dx_bound(n: int, c: int = C, m: int = MLP) -> tuple[float, str]:
     return bound(flops, nbytes, PEAK_BF16)
 
 
-def attn_bwd_inputs(device, bh: int, seed: int = 2, hd: int = HD):
+def attn_bwd_inputs(device, bh: int, seed: int = 2, hd: int = HD, dtype=torch.bfloat16):
     """q, k, v, g (B·H, S, hd) and the rel terms at the scale the model's
-    rel-pos tables give them, bf16."""
+    rel-pos tables give them."""
     g = torch.Generator(device=device).manual_seed(seed)
     gh, gw = GRID
     s = gh * gw
-    r = lambda *shape, sc=1.0: (sc * torch.randn(shape, generator=g, device=device)).to(torch.bfloat16)  # noqa: E731
+    r = lambda *shape, sc=1.0: (sc * torch.randn(shape, generator=g, device=device)).to(dtype)  # noqa: E731
     return r(bh, s, hd), r(bh, s, hd), r(bh, s, hd), r(bh, s, gh, sc=0.5), r(bh, s, gw, sc=0.5), r(bh, s, hd)
 
 
@@ -313,16 +351,18 @@ def sdpa_bwd_yardstick(q, k, v, rel_h, rel_w, g):
     return lambda: torch.autograd.grad(out, (qq, kk, vv, mask), gg, retain_graph=True)
 
 
-def attn_bwd_check(device, hd: int, where: str) -> dict:
+def attn_bwd_check(device, hd: int, where: str, dtype=torch.bfloat16) -> dict:
     """The attention backward at B·H = B·HEADS and head_dim ``hd`` against
-    its plain version (1% of each output's scale for dq/dk/dv, two bf16
-    steps for drh/drw), then it, its plain version and SDPA's backward timed."""
+    its plain version (bf16: 1% of each output's scale for dq/dk/dv, two
+    bf16 steps for drh/drw; fp32: ATTN_BWD_FP32_REL_TOL of each), then it,
+    its plain version and SDPA's backward timed."""
     from beach_seg_tpu_torch.ops import cuda_attn
     from beach_seg_tpu_torch.ops.attention import attention_bwd_plain
 
     gh, gw = GRID
     bh = B * HEADS
-    args = (*attn_bwd_inputs(device, bh, hd=hd), hd**-0.5)
+    fp32 = dtype == torch.float32
+    args = (*attn_bwd_inputs(device, bh, hd=hd, dtype=dtype), hd**-0.5)
     got = cuda_attn.attn_bwd(*args)
     torch.cuda.synchronize()
     want = attention_bwd_plain(*args)
@@ -331,18 +371,18 @@ def attn_bwd_check(device, hd: int, where: str) -> dict:
         check(bool(torch.isfinite(a).all()), f"attn_bwd{where} {name} not finite")
         err = (a.float() - w.float()).abs().max().item()
         scale = w.float().abs().max().item()
-        tol = (ATTN_BWD_REL_DRHW if name in ("drh", "drw") else ATTN_BWD_REL_TOL) * scale
+        tol = (ATTN_BWD_FP32_REL_TOL if fp32 else ATTN_BWD_REL_DRHW if name in ("drh", "drw") else ATTN_BWD_REL_TOL) * scale
         log(f"attn_bwd {name}{where}: max_abs_err {err:.3e} (tol {tol:.3e}), max|plain| {scale:.3f}")
         check(err <= tol, f"attn_bwd{where} {name} disagrees with its plain version: {err} > {tol}")
         errs[name] = err
     del got, want
     torch.cuda.empty_cache()
     res = {"attn_bwd_err": max(errs.values()), "attn_bwd_errs": errs}
-    res["attn_bwd_ms"] = time_ms(lambda: cuda_attn.attn_bwd(*args), iters=10, warmup=2)
+    res["attn_bwd_ms"] = time_ms(lambda: cuda_attn.attn_bwd(*args), iters=3 if fp32 else 10, warmup=1 if fp32 else 2)
     res["attn_bwd_plain_ms"] = time_ms(lambda: attention_bwd_plain(*args), iters=2)
     torch.cuda.empty_cache()
-    res["attn_bwd_library_ms"] = time_ms(sdpa_bwd_yardstick(*args[:6]), iters=10, warmup=2)
-    res["attn_bwd_bound"] = attn_bwd_bound(bh, gh * gw, gh, gw, hd)
+    res["attn_bwd_library_ms"] = time_ms(sdpa_bwd_yardstick(*args[:6]), iters=3 if fp32 else 10, warmup=2)
+    res["attn_bwd_bound"] = attn_bwd_bound(bh, gh * gw, gh, gw, hd, dtype.itemsize, PEAK_FP32 if fp32 else PEAK_BF16)
     del args
     torch.cuda.empty_cache()
     return res
@@ -422,6 +462,8 @@ def phase_kernels_vit_h(device) -> dict:
         torch.cuda.empty_cache()
         res[f"packed_ms_{name}"] = time_ms(lambda: cuda_attn.attn_packed(*args), iters=20 if name == "bf16" else 3, warmup=2)
         res[f"packed_plain_ms_{name}"] = time_ms(lambda: attention_packed_plain(*args), iters=2)
+        if name == "fp32":
+            res["packed_library_ms_fp32"] = time_ms(sdpa_packed_yardstick(*args[:5]), iters=3, warmup=1)
         res[f"packed_bound_{name}"] = packed_bound(bh, s, gh, gw, HD_H, dtype.itemsize, PEAK_BF16 if name == "bf16" else PEAK_FP32)
         torch.cuda.empty_cache()
     # SDPA yardstick on the bf16 inputs (args still hold them)
@@ -441,13 +483,179 @@ def phase_kernels_vit_h(device) -> dict:
         f"times (ms, ViT-H, B={B}): attn_packed bf16 {res['packed_ms_bf16']:.4f} plain {res['packed_plain_ms_bf16']:.4f} "
         f"sdpa {res['packed_library_ms']:.4f} bound {res['packed_bound_bf16'][0]:.4f} ({res['packed_bound_bf16'][1]}); "
         f"attn_packed fp32 {res['packed_ms_fp32']:.4f} plain {res['packed_plain_ms_fp32']:.4f} "
-        f"bound {res['packed_bound_fp32'][0]:.4f} ({res['packed_bound_fp32'][1]}); "
+        f"sdpa {res['packed_library_ms_fp32']:.4f} bound {res['packed_bound_fp32'][0]:.4f} ({res['packed_bound_fp32'][1]}); "
         f"attn_bwd {res['attn_bwd_ms']:.4f} plain {res['attn_bwd_plain_ms']:.4f} sdpa bwd {res['attn_bwd_library_ms']:.4f} "
         f"bound {res['attn_bwd_bound'][0]:.4f}; ln_mlp {res['mlp_ms']:.4f} plain {res['mlp_plain_ms']:.4f} "
         f"bound {res['mlp_bound'][0]:.4f}; ln_mlp_dx {res['mlp_dx_ms']:.4f} plain {res['mlp_dx_plain_ms']:.4f} "
         f"bound {res['mlp_dx_bound'][0]:.4f}"
     )
     torch.cuda.empty_cache()
+    return res
+
+
+def qkv_slot_inputs(device, dtype, seed: int = 6):
+    """qkv (B, S, 3C) and its rel terms in the 64-slot layout, made by the
+    port's ``rel_pos_terms_split`` from qkv's q columns and seeded rel-pos
+    tables, as ``scripts/bench_torch_attn_parts.py`` makes them."""
+    from beach_seg_tpu_torch.ops.attention import rel_pos_terms_split
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    gh, gw = GRID
+    qkv = torch.randn((B, gh * gw, 3 * C), generator=g, device=device).to(dtype)
+    rph = (0.1 * torch.randn((2 * gh - 1, HD), generator=g, device=device)).to(dtype)
+    rpw = (0.1 * torch.randn((2 * gw - 1, HD), generator=g, device=device)).to(dtype)
+    return qkv, rph, rpw, rel_pos_terms_split(qkv[..., :C].reshape(B, gh, gw, HEADS, HD), rph, rpw, GRID, GRID)
+
+
+def sdpa_qkv_yardstick(qkv, rel_h64, rel_w64):
+    """SDPA with the materialized bias over the heads of the qkv tensor and
+    the slot terms (the head split is made before the timed call)."""
+    from beach_seg_tpu_torch.ops.attention import split_qkv, unpack_rel_slots
+
+    q, k, v = split_qkv(qkv, HEADS)
+    return sdpa_packed_yardstick(q, k, v, unpack_rel_slots(rel_h64, HEADS, GRID[0]), unpack_rel_slots(rel_w64, HEADS, GRID[1]))
+
+
+def fwd_check(name: str, fn, plain, args, tol: float, shape) -> float:
+    """A forward attention kernel against its plain version on the same
+    inputs, within ``tol`` absolute (the outputs are ≤ ~1)."""
+    got = fn(*args)
+    torch.cuda.synchronize()
+    want = plain(*args)
+    check(tuple(got.shape) == tuple(want.shape) == shape, f"{name} shape {tuple(got.shape)}, want {shape}")
+    check(bool(torch.isfinite(got).all()), f"{name} output not finite")
+    err = (got.float() - want.float()).abs().max().item()
+    log(f"{name}: max_abs_err {err:.3e} (tol {tol:.1e}), max|plain| {want.abs().max().item():.3f}")
+    check(err <= tol, f"{name} disagrees with its plain version: {err} > {tol}")
+    del got, want
+    torch.cuda.empty_cache()
+    return err
+
+
+def phase_library_kernels(device) -> dict:
+    """The kernels behind the library's attention entries against their
+    plain versions at B=8 ViT-L shapes, bf16 and fp32, then times: the fused
+    attention (#7, head-split in and out) and the qkv-layout attention (#6),
+    beside SDPA with the materialized bias; then the attention backward
+    (#4) in fp32 at head dims 64 and 80, beside SDPA's fp32 backward."""
+    from beach_seg_tpu_torch.ops import cuda_attn
+    from beach_seg_tpu_torch.ops.attention import attention_fused_plain, attention_qkv_plain
+
+    res = {}
+    gh, gw = GRID
+    s, bh = gh * gw, B * HEADS
+    for dtype, tol, name in ((torch.float32, ATTN_FP32_TOL, "fp32"), (torch.bfloat16, ATTN_BF16_TOL, "bf16")):
+        fp32 = name == "fp32"
+        peak = PEAK_FP32 if fp32 else PEAK_BF16
+        iters = 3 if fp32 else 20
+        q, k, v, rel_h, rel_w = packed_inputs(device, dtype, bh, HD, seed=8)
+        args = (q, k, v, rel_h, rel_w, HD**-0.5)
+        res[f"fused_err_{name}"] = fwd_check(f"attn_fused {name}", cuda_attn.attn_fused, attention_fused_plain, args, tol, (bh, s, HD))
+        res[f"fused_ms_{name}"] = time_ms(lambda: cuda_attn.attn_fused(*args), iters=iters, warmup=2)
+        res[f"fused_plain_ms_{name}"] = time_ms(lambda: attention_fused_plain(*args), iters=2)
+        res[f"fused_library_ms_{name}"] = time_ms(sdpa_packed_yardstick(q, k, v, rel_h, rel_w), iters=iters, warmup=2)
+        res[f"fused_bound_{name}"] = packed_bound(bh, s, gh, gw, HD, dtype.itemsize, peak)
+        del q, k, v, rel_h, rel_w, args
+        torch.cuda.empty_cache()
+
+        qkv, _, _, (rh64, rw64) = qkv_slot_inputs(device, dtype)
+        args = (qkv, rh64, rw64, HD**-0.5, gh, gw, HEADS)
+        res[f"qkv_err_{name}"] = fwd_check(f"attn_qkv {name}", cuda_attn.attn_qkv, attention_qkv_plain, args, tol, (B, s, C))
+        res[f"qkv_ms_{name}"] = time_ms(lambda: cuda_attn.attn_qkv(*args), iters=iters, warmup=2)
+        res[f"qkv_plain_ms_{name}"] = time_ms(lambda: attention_qkv_plain(*args), iters=2)
+        res[f"qkv_library_ms_{name}"] = time_ms(sdpa_qkv_yardstick(qkv, rh64, rw64), iters=iters, warmup=2)
+        # the kernel reads qkv, the Hk + Wk used slots of each head's 64, and writes out
+        flops = 4 * bh * s * s * HD
+        nbytes = dtype.itemsize * (B * s * 3 * C + bh * s * (gh + gw) + B * s * C)
+        res[f"qkv_bound_{name}"] = bound(flops, nbytes, peak)
+        del qkv, rh64, rw64, args
+        torch.cuda.empty_cache()
+    for hd in (HD, HD_H):
+        r = attn_bwd_check(device, hd, f" fp32 (head_dim {hd})", torch.float32)
+        res[f"bwd32_{hd}"] = r
+    log(
+        f"times (ms, B={B}): attn_fused bf16 {res['fused_ms_bf16']:.4f} plain {res['fused_plain_ms_bf16']:.4f} "
+        f"sdpa {res['fused_library_ms_bf16']:.4f} bound {res['fused_bound_bf16'][0]:.4f}; fp32 {res['fused_ms_fp32']:.4f} "
+        f"plain {res['fused_plain_ms_fp32']:.4f} sdpa {res['fused_library_ms_fp32']:.4f} bound {res['fused_bound_fp32'][0]:.4f}; "
+        f"attn_qkv bf16 {res['qkv_ms_bf16']:.4f} plain {res['qkv_plain_ms_bf16']:.4f} sdpa {res['qkv_library_ms_bf16']:.4f} "
+        f"bound {res['qkv_bound_bf16'][0]:.4f}; fp32 {res['qkv_ms_fp32']:.4f} plain {res['qkv_plain_ms_fp32']:.4f} "
+        f"sdpa {res['qkv_library_ms_fp32']:.4f} bound {res['qkv_bound_fp32'][0]:.4f}; "
+        + "; ".join(
+            f"attn_bwd fp32 head_dim {hd} {r['attn_bwd_ms']:.4f} plain {r['attn_bwd_plain_ms']:.4f} "
+            f"sdpa bwd {r['attn_bwd_library_ms']:.4f} bound {r['attn_bwd_bound'][0]:.4f}"
+            for hd, r in ((hd, res[f"bwd32_{hd}"]) for hd in (HD, HD_H))
+        )
+    )
+    return res
+
+
+def phase_entries(device) -> dict:
+    """The library's attention entries forward and backward at B=8, bf16 and
+    fp32: ``fused_attention`` at head dims 64 and 80 with rel terms from
+    ``rel_pos_terms``, and ``fused_attention_qkv`` with rel terms from
+    ``rel_pos_terms_split`` inside the graph. Each call must launch its
+    forward kernel once and the attention backward once, nothing else; the
+    output and the input gradients of a seeded cotangent are held against
+    the same call through the plain versions (the phases' kernel
+    tolerances: bf16 forward ATTN_BF16_TOL and gradients ATTN_BWD_REL_TOL of
+    their scale; fp32 ATTN_FP32_TOL and ATTN_BWD_FP32_REL_TOL)."""
+    from beach_seg_tpu_torch.ops import cuda_attn
+    from beach_seg_tpu_torch.ops.attention import rel_pos_terms, rel_pos_terms_split
+
+    gh, gw = GRID
+    s, bh = gh * gw, B * HEADS
+    res = {}
+    cases = [("fused_attention", hd, dt) for hd in (HD, HD_H) for dt in (torch.bfloat16, torch.float32)]
+    cases += [("fused_attention_qkv", HD, dt) for dt in (torch.bfloat16, torch.float32)]
+    for entry, hd, dtype in cases:
+        fp32 = dtype == torch.float32
+        key = f"{entry} {'fp32' if fp32 else 'bf16'} head_dim {hd}"
+        gen = torch.Generator(device=device).manual_seed(9)
+        if entry == "fused_attention":
+            q, k, v = (torch.randn((bh, s, hd), generator=gen, device=device).to(dtype) for _ in range(3))
+            rph = (0.1 * torch.randn((2 * gh - 1, hd), generator=gen, device=device)).to(dtype)
+            rpw = (0.1 * torch.randn((2 * gw - 1, hd), generator=gen, device=device)).to(dtype)
+            leaves = [t.requires_grad_(True) for t in (q, k, v)]
+
+            def call(q, k, v):
+                rel_h, rel_w = rel_pos_terms(q, rph, rpw, GRID, GRID)
+                return cuda_attn.fused_attention(q, k, v, rel_h.reshape(bh, s, gh), rel_w.reshape(bh, s, gw), hd**-0.5, gh, gw)
+
+            fwd_name, out_shape = "attn_fused", (bh, s, hd)
+        else:
+            qkv, rph, rpw, _ = qkv_slot_inputs(device, dtype)
+            leaves = [qkv.requires_grad_(True)]
+
+            def call(qkv):
+                rh64, rw64 = rel_pos_terms_split(qkv[..., :C].reshape(B, gh, gw, HEADS, HD), rph, rpw, GRID, GRID)
+                return cuda_attn.fused_attention_qkv(qkv, rh64, rw64, HD**-0.5, gh, gw, HEADS)
+
+            fwd_name, out_shape = "attn_qkv", (B, s, C)
+        cot = torch.randn(out_shape, generator=gen, device=device).to(dtype)
+        reset_counts()
+        out = call(*leaves)
+        grads = torch.autograd.grad(out, leaves, cot)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        want_launches = {n: int(n in (fwd_name, "attn_bwd")) for n in launches}
+        check(launches == want_launches, f"{key}: launches {launches}, want {want_launches}")
+        with plain_kernels():
+            out_p = call(*leaves)
+            grads_p = torch.autograd.grad(out_p, leaves, cot)
+        torch.cuda.synchronize()
+        errs = {"out": (out.float() - out_p.float()).abs().max().item()}
+        check(tuple(out.shape) == out_shape and bool(torch.isfinite(out).all()), f"{key}: output {tuple(out.shape)}")
+        check(errs["out"] <= (ATTN_FP32_TOL if fp32 else ATTN_BF16_TOL), f"{key}: output disagrees with plain: {errs['out']}")
+        rel = ATTN_BWD_FP32_REL_TOL if fp32 else ATTN_BWD_REL_TOL
+        for name, a, w in zip(("dq", "dk", "dv") if len(leaves) == 3 else ("dqkv",), grads, grads_p):
+            scale = w.float().abs().max().item()
+            errs[name] = (a.float() - w.float()).abs().max().item()
+            check(bool(torch.isfinite(a).all()), f"{key}: {name} not finite")
+            check(errs[name] <= rel * scale, f"{key}: {name} disagrees with plain: {errs[name]} > {rel} x {scale}")
+        log(f"entry {key}: launches {launches}; max_abs_err vs plain {errs}")
+        res[key] = {"launches": launches, "errs": errs}
+        del out, grads, out_p, grads_p, leaves
+        torch.cuda.empty_cache()
     return res
 
 
@@ -460,7 +668,9 @@ def plain_kernels():
 
     names = ((cuda_attn, "attn_qkv_rel", cuda_attn.attn_qkv_rel_plain), (cuda_attn, "attn_bwd", attention.attention_bwd_plain),
              (cuda_mlp, "ln_mlp", cuda_mlp.ln_mlp_plain), (cuda_mlp, "ln_mlp_dx", cuda_mlp.ln_mlp_dx_plain),
-             (cuda_attn, "attn_packed", attention.attention_packed_plain))
+             (cuda_attn, "attn_packed", attention.attention_packed_plain),
+             (cuda_attn, "attn_fused", attention.attention_fused_plain),
+             (cuda_attn, "attn_qkv", attention.attention_qkv_plain))
     saved = [getattr(mod, name) for mod, name, _ in names]
     for mod, name, plain in names:
         setattr(mod, name, plain)
@@ -577,12 +787,13 @@ def train_path_inputs(conf, n_prompts: int, n_steps: int, seed: int = 1):
     return prompts, batches
 
 
-def phase_train_path(device, model, conf, expect: dict, n_steps: int = 3) -> dict:
+def phase_train_path(device, model, conf, expect: dict, n_steps: int = 3,
+                     grad_limits: tuple[float, float] = (GRAD_1MCOS_MAX, GRAD_REL_TOL)) -> dict:
     """PromptTuner.train_step at full width (the predict phase's model, now
     with gradients through it), each step launching the kernels ``expect``
     names that many times and the others not at all; then one step's prompt
     gradient through the kernels and through the plain versions on the same
-    draws."""
+    draws, within ``grad_limits`` (1 − cosine, max error / max|plain|)."""
     from beach_seg_tpu_torch.train import PromptTuner
 
     want_steps = {name: expect.get(name, 0) for name in counters()}
@@ -626,12 +837,13 @@ def phase_train_path(device, model, conf, expect: dict, n_steps: int = 3) -> dic
     median = want.abs().median().item()
     err = (grad - want).abs().max().item()
     cos = (torch.nn.functional.cosine_similarity(grad.flatten(), want.flatten(), dim=0)).item()
-    log(f"train path: prompt gradient kernels vs plain on the card: 1 - cosine {1 - cos:.4e} (max {GRAD_1MCOS_MAX}), "
-        f"max_abs_err {err:.4e} (tol {GRAD_REL_TOL}·max|plain| {scale:.4e} = {GRAD_REL_TOL * scale:.4e}; "
+    cos_max, rel_tol = grad_limits
+    log(f"train path: prompt gradient kernels vs plain on the card: 1 - cosine {1 - cos:.4e} (max {cos_max}), "
+        f"max_abs_err {err:.4e} (tol {rel_tol}·max|plain| {scale:.4e} = {rel_tol * scale:.4e}; "
         f"median |plain| {median:.4e})")
     check(scale > 0, "plain prompt gradient is zero")
-    check(1 - cos <= GRAD_1MCOS_MAX, f"prompt gradient direction disagrees: cosine {cos}")
-    check(err <= GRAD_REL_TOL * scale, f"prompt gradient disagrees: {err} > {GRAD_REL_TOL * scale}")
+    check(1 - cos <= cos_max, f"prompt gradient direction disagrees: cosine {cos}")
+    check(err <= rel_tol * scale, f"prompt gradient disagrees: {err} > {rel_tol * scale}")
     return {"launches": launches, "seconds": seconds, "losses": losses, "peak_bytes": peak, "grad_cos": cos, "grad_err": err}
 
 
@@ -669,6 +881,12 @@ def main() -> int:
     t = time.perf_counter()
     kh = phase_kernels_vit_h(device)
     log(f"ViT-H kernel phase: {time.perf_counter() - t:.3f} s")
+    t = time.perf_counter()
+    kl = phase_library_kernels(device)
+    log(f"library kernel phase: {time.perf_counter() - t:.3f} s")
+    t = time.perf_counter()
+    ke = phase_entries(device)
+    log(f"entry path phase: {time.perf_counter() - t:.3f} s")
 
     large = {"attn_qkv_rel": 24, "ln_mlp": 24}
     huge = {"attn_packed": 32, "ln_mlp": 32}
@@ -699,6 +917,22 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
 
+    # the default BeachSegConfig: fp32 ViT-L (the MLP stays plain torch under fp32)
+    t = time.perf_counter()
+    conf32 = BeachSegConfig(batch_size=B)
+    check(conf32.compute_dtype == "float32" and conf32.backbone == "large", f"default config {conf32}")
+    model, cfg32 = model_for_config(conf32, device=device, seed=0)
+    check(cfg32.head_dim == HD and cfg32.num_hidden_layers == 24, f"fp32 ViT-L config {cfg32}")
+    log(f"fp32 predict path: ViT-L from the default BeachSegConfig, built in {time.perf_counter() - t:.3f} s")
+    m32 = phase_main_path(device, model, conf32, {"attn_qkv_rel": 24}, n_batches=1)
+    log(f"fp32 predict path phase: {time.perf_counter() - t:.3f} s")
+    t = time.perf_counter()
+    tr32 = phase_train_path(device, model, conf32, {"attn_qkv_rel": 24, "attn_bwd": 24}, n_steps=2,
+                            grad_limits=(GRAD32_1MCOS_MAX, GRAD32_REL_TOL))
+    log(f"fp32 train path phase: {time.perf_counter() - t:.3f} s")
+    del model
+    torch.cuda.empty_cache()
+
     kernels = [
         {
             "name": "attn_qkv_rel", "geometry": "vit_l", "route": "cuda",
@@ -707,10 +941,22 @@ def main() -> int:
             "launches": m["launches"]["attn_qkv_rel"], "launches_train": tr["launches"]["attn_qkv_rel"],
             "max_abs_err": k["attn_err_clamp"], "max_abs_diff": k["attn_err_clamp"],
             "max_abs_err_fp32_stable": k["attn_err_stable"],
+            "launches_fp32_predict": m32["launches"]["attn_qkv_rel"], "launches_fp32_train": tr32["launches"]["attn_qkv_rel"],
             "ms": k["attn_ms"], "plain_ms": k["attn_plain_ms"],
             "bound_ms": k["attn_bound"][0], "bound_by": k["attn_bound"][1],
             "library_ms": k["attn_library_ms"],
             "shape": f"bf16 clamp, qkv ({B}, {GRID[0] * GRID[1]}, 3, {C}), {HEADS} heads",
+        },
+        {
+            "name": "attn_qkv_rel", "geometry": "vit_l", "dtype": "fp32", "route": "cuda",
+            "source": "beach_seg_tpu_torch/ops/csrc/attn_qkv_rel.cu",
+            "replaces": "beach_seg_tpu/ops/pallas_attn.py:389",
+            "launches": m32["launches"]["attn_qkv_rel"], "launches_train": tr32["launches"]["attn_qkv_rel"],
+            "max_abs_err": k["attn_err_stable"],
+            "ms": k["attn32_ms"], "plain_ms": k["attn32_plain_ms"],
+            "bound_ms": k["attn32_bound"][0], "bound_by": k["attn32_bound"][1],
+            "library_ms": k["attn32_library_ms"],
+            "shape": f"fp32 stable, qkv ({B}, {GRID[0] * GRID[1]}, 3, {C}), {HEADS} heads",
         },
         {
             "name": "attn_packed", "geometry": "vit_h", "route": "cuda",
@@ -722,7 +968,7 @@ def main() -> int:
             "bound_ms": kh["packed_bound_bf16"][0], "bound_by": kh["packed_bound_bf16"][1],
             "library_ms": kh["packed_library_ms"],
             "fp32_ms": kh["packed_ms_fp32"], "fp32_plain_ms": kh["packed_plain_ms_fp32"],
-            "fp32_bound_ms": kh["packed_bound_fp32"][0],
+            "fp32_bound_ms": kh["packed_bound_fp32"][0], "fp32_library_ms": kh["packed_library_ms_fp32"],
             "shape": f"bf16, q/k/v ({B * HEADS}, {GRID[0] * GRID[1]}, {HD_H}), rel ({GRID[0]}, {GRID[1]})",
         },
     ]
@@ -753,10 +999,39 @@ def main() -> int:
         else:
             entry["shape"] = f"bf16, x ({B * GRID[0] * GRID[1]}, {c}), M={4 * c}"
         kernels.append(entry)
+    n = GRID[0] * GRID[1]
+    for name, src, tpu, key, shape in (
+        ("attn_fused", "attn_fused.cu", "pallas_attn.py:53", "fused", f"q/k/v ({B * HEADS}, {n}, {HD}), rel ({GRID[0]}, {GRID[1]})"),
+        ("attn_qkv", "attn_qkv.cu", "pallas_attn.py:224", "qkv", f"qkv ({B}, {n}, {3 * C}), rel slots ({B}, {n}, {HEADS * 64})"),
+    ):
+        entry_name = "fused_attention" if name == "attn_fused" else "fused_attention_qkv"
+        for dt in ("bf16", "fp32"):
+            kernels.append({
+                "name": name, "geometry": "vit_l", "dtype": dt, "route": "cuda",
+                "source": f"beach_seg_tpu_torch/ops/csrc/{src}", "replaces": f"beach_seg_tpu/ops/{tpu}",
+                "launches": ke[f"{entry_name} {dt} head_dim {HD}"]["launches"][name],
+                "max_abs_err": kl[f"{key}_err_{dt}"], "ms": kl[f"{key}_ms_{dt}"], "plain_ms": kl[f"{key}_plain_ms_{dt}"],
+                "bound_ms": kl[f"{key}_bound_{dt}"][0], "bound_by": kl[f"{key}_bound_{dt}"][1],
+                "library_ms": kl[f"{key}_library_ms_{dt}"], "shape": f"{dt}, {shape}",
+            })
+    for hd, launches in ((HD, tr32["launches"]["attn_bwd"]), (HD_H, ke[f"fused_attention fp32 head_dim {HD_H}"]["launches"]["attn_bwd"])):
+        r = kl[f"bwd32_{hd}"]
+        kernels.append({
+            "name": "attn_bwd", "geometry": "vit_l" if hd == HD else "vit_h", "dtype": "fp32", "route": "cuda",
+            "source": "beach_seg_tpu_torch/ops/csrc/attn_bwd.cu", "replaces": "beach_seg_tpu/ops/pallas_attn.py:722",
+            "launches": launches, "launches_entries": ke[f"fused_attention fp32 head_dim {hd}"]["launches"]["attn_bwd"],
+            "max_abs_err": r["attn_bwd_err"], "max_abs_err_by_output": r["attn_bwd_errs"],
+            "ms": r["attn_bwd_ms"], "plain_ms": r["attn_bwd_plain_ms"],
+            "bound_ms": r["attn_bwd_bound"][0], "bound_by": r["attn_bwd_bound"][1], "library_ms": r["attn_bwd_library_ms"],
+            "shape": f"fp32, q/k/v/g ({B * HEADS}, {n}, {hd}), rel ({GRID[0]}, {GRID[1]})",
+        })
     log(f"ViT-H: predict_step seconds per call {mh['seconds']}; train_step seconds per step {trh['seconds']}, "
         f"peak memory {trh['peak_bytes']} bytes, prompt gradient cosine kernels vs plain {trh['grad_cos']:.6f}")
     log(f"train_step: seconds per step {tr['seconds']}, peak memory {tr['peak_bytes']} bytes, "
         f"prompt gradient cosine kernels vs plain {tr['grad_cos']:.6f}")
+    log(f"fp32 ViT-L: predict_step seconds per call {m32['seconds']}; train_step seconds per step {tr32['seconds']}, "
+        f"peak memory {tr32['peak_bytes']} bytes, prompt gradient 1 - cosine kernels vs plain {1 - tr32['grad_cos']:.4e}, "
+        f"max_abs_err {tr32['grad_err']:.4e}")
     log(f"total: {time.perf_counter() - t_start:.3f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

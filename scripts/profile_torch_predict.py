@@ -1,10 +1,11 @@
 """Where the time of the torch port's predict step (or train step) goes, on
 one CUDA card.
 
-    python3 scripts/profile_torch_predict.py [--backbone large|huge] [--batch 8] [--calls 3] [--train]
+    python3 scripts/profile_torch_predict.py [--backbone large|huge] [--dtype bfloat16|float32] [--batch 8] [--calls 3] [--train]
 
 Builds the backbone at full width and depth (``train.loop.model_for_config``:
-ViT-L, or ViT-H with ``--backbone huge``; seeded random weights, bf16),
+ViT-L, or ViT-H with ``--backbone huge``; seeded random weights, bf16, or
+fp32 with ``--dtype float32``, the default BeachSegConfig's compute dtype),
 warms ``PromptTuner.predict_step`` up on B uint8 112×112 crops (with
 ``--train``: ``PromptTuner.train_step`` on B 448×448 tiles, as
 chip_smoke.py drives it), then traces ``--calls`` calls with
@@ -30,6 +31,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--backbone", choices=("large", "huge"), default="large")
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16", help="BeachSegConfig.compute_dtype")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--calls", type=int, default=3)
     ap.add_argument("--train", action="store_true", help="profile train_step instead of predict_step")
@@ -46,7 +48,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
-    conf = BeachSegConfig(batch_size=args.batch, backbone=args.backbone, compute_dtype="bfloat16")
+    conf = BeachSegConfig(batch_size=args.batch, backbone=args.backbone, compute_dtype=args.dtype)
     model, cfg = model_for_config(conf, device="cuda", seed=0)
     tuner = PromptTuner(model, conf, device="cuda")
     if args.train:
@@ -87,7 +89,7 @@ def main() -> int:
     rows.sort(reverse=True)
     busy_us = sum(r[0] for r in rows)
     step = "train_step" if args.train else "predict_step"
-    print(json.dumps({"card": card, "step": step, "backbone": args.backbone, "batch": args.batch,
+    print(json.dumps({"card": card, "step": step, "backbone": args.backbone, "dtype": args.dtype, "batch": args.batch,
                       "layers": cfg.num_hidden_layers, "calls": args.calls}))
     print(json.dumps({
         "host_s_per_call": wall / args.calls,

@@ -1,5 +1,6 @@
-"""The port's import boundary: no module of beach_seg_tpu_torch, and not
-chip_smoke.py, imports jax, flax, optax or beach_seg_tpu."""
+"""The port's import boundary: no module of beach_seg_tpu_torch, not
+chip_smoke.py and not the port's scripts (scripts/*torch*.py) import jax,
+flax, optax or beach_seg_tpu."""
 
 import ast
 import os
@@ -51,8 +52,16 @@ def _imported_roots(path: Path) -> set[str]:
     return roots
 
 
+SCRIPTS = sorted((ROOT / "scripts").glob("*torch*.py"))
+
+
+def test_port_scripts_are_scanned():
+    names = {p.name for p in SCRIPTS}
+    assert {"bench_torch_parts.py", "bench_torch_attn_parts.py", "ablate_torch_kernels.py", "profile_torch_predict.py"} <= names
+
+
 @pytest.mark.parametrize(
-    "path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"], ids=lambda p: str(p.relative_to(ROOT))
+    "path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + SCRIPTS, ids=lambda p: str(p.relative_to(ROOT))
 )
 def test_no_forbidden_import_statements(path):
     assert not _imported_roots(path) & set(BLOCKED)

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions on the card, at one
 ViT-L layer's shapes, at ViT-H's widths (head_dim 80, C=1280) and at ragged
-small ones, tiny bf16 models (head_dim 64, and C=1280 with 16 heads of 80)
-through the kernels forward and backward, and the shapes the kernels refuse.
+small ones, tiny bf16 and fp32 models (head_dim 64, and C=1280 with 16 heads
+of 80) through the kernels forward and backward, the library's attention
+entries, and the shapes the kernels refuse.
 Marked ``gpu``: they skip where no CUDA device is present (run them on the
 card with ``python -m pytest --noconftest -m gpu tests/test_torch_gpu.py``)."""
 
@@ -9,9 +10,17 @@ import numpy as np
 import pytest
 import torch
 
+from beach_seg_tpu_torch.config import BeachSegConfig
 from beach_seg_tpu_torch.models.seggpt import build_model, tiny_config
 from beach_seg_tpu_torch.ops import cuda_attn, cuda_mlp
-from beach_seg_tpu_torch.ops.attention import attention_bwd_plain, attention_packed_plain, rel_tables_padded
+from beach_seg_tpu_torch.ops.attention import (
+    attention_bwd_plain,
+    attention_fused_plain,
+    attention_packed_plain,
+    attention_qkv_plain,
+    rel_tables_padded,
+)
+from beach_seg_tpu_torch.train import PromptTuner
 
 pytestmark = pytest.mark.gpu
 
@@ -281,3 +290,182 @@ def test_backward_kernels_raise_on_shapes_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="C % 256"):
         cuda_mlp.ln_mlp_dx(x, torch.ones(200, device=cuda), torch.zeros(200, device=cuda), w1,
                            torch.zeros(800, device=cuda, dtype=torch.bfloat16), w1.T.contiguous(), x, 1e-6, True)
+
+
+@pytest.mark.parametrize("hk,wk", [(3, 5), (7, 4), (56, 28)])  # ragged tiles; the ViT-L/H grid
+@pytest.mark.parametrize("d", [64, 80])
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 3e-2), (torch.float32, 1e-4)], ids=["bf16", "fp32"])
+def test_attn_fused_kernel_matches_plain(cuda, dtype, tol, d, hk, wk):
+    """The basic fused attention (port of _kernel, head-split out) against
+    its plain version, with the other attention kernels' tolerances: bf16
+    three bf16 steps at |out| ≤ ~1 (the kernel rounds p before its division,
+    the plain version after), fp32 a few ulps."""
+    q, k, v, rh, rw = _packed_inputs(cuda, dtype, 6, hk, wk, d)
+    before = cuda_attn.attn_fused.launches
+    got = cuda_attn.attn_fused(q, k, v, rh, rw, d**-0.5)
+    torch.cuda.synchronize()
+    assert cuda_attn.attn_fused.launches == before + 1
+    want = attention_fused_plain(q, k, v, rh, rw, d**-0.5)
+    assert got.dtype == dtype and got.shape == want.shape == (6, hk * wk, d)
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+def _qkv_slot_inputs(device, dtype, b, nh, hk, wk, seed=0):
+    """qkv (B, S, 3·nH·64) and rel_h64 / rel_w64 (B, S, nH·64) with zero
+    unused slots, as rel_pos_terms_split makes them."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    s = hk * wk
+    qkv = torch.randn((b, s, 3 * nh * 64), generator=g)
+    slots = []
+    for n in (hk, wk):
+        t = torch.zeros((b, s, nh, 64))
+        t[..., :n] = 0.5 * torch.randn((b, s, nh, n), generator=g)
+        slots.append(t.reshape(b, s, nh * 64))
+    return [t.to(device=device, dtype=dtype) for t in (qkv, *slots)]
+
+
+@pytest.mark.parametrize("hk,wk", [(3, 5), (7, 4), (56, 28)])
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 3e-2), (torch.float32, 1e-4)], ids=["bf16", "fp32"])
+def test_attn_qkv_kernel_matches_plain(cuda, dtype, tol, hk, wk):
+    """The qkv-layout attention (port of _kernel_qkv: q, k, v by stride from
+    (B, S, 3C), 64-slot rel terms, merged out) at B=2, 3 heads of 64."""
+    qkv, rh64, rw64 = _qkv_slot_inputs(cuda, dtype, 2, 3, hk, wk)
+    args = (qkv, rh64, rw64, 0.125, hk, wk, 3)
+    before = cuda_attn.attn_qkv.launches
+    got = cuda_attn.attn_qkv(*args)
+    torch.cuda.synchronize()
+    assert cuda_attn.attn_qkv.launches == before + 1
+    want = attention_qkv_plain(*args)
+    assert got.dtype == dtype and got.shape == want.shape == (2, hk * wk, 3 * 64)
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+# one ViT-L / ViT-H image; ragged tiles
+@pytest.mark.parametrize("bh,hk,wk,d", [(16, 56, 28, 64), (3, 5, 7, 64), (2, 9, 64, 64), (16, 56, 28, 80), (2, 7, 4, 80)])
+def test_attn_bwd_fp32_kernel_matches_plain(cuda, bh, hk, wk, d):
+    """The fp32 attention backward: every product in fp32 on both sides,
+    sums over S in another order: 1e-4 of each output's scale."""
+    args = (*(t.float() for t in _bwd_inputs(cuda, bh, hk, wk, d=d)), d**-0.5)
+    before = cuda_attn.attn_bwd.launches
+    got = cuda_attn.attn_bwd(*args)
+    torch.cuda.synchronize()
+    assert cuda_attn.attn_bwd.launches == before + 1
+    want = attention_bwd_plain(*args)
+    for name, a, w in zip(("dq", "dk", "dv", "drh", "drw"), got, want):
+        assert a.dtype == w.dtype == torch.float32 and a.shape == w.shape, name
+        assert (a - w).abs().max().item() <= 1e-4 * w.abs().max().item(), name
+
+
+def test_library_attention_kernels_raise_on_what_they_do_not_take(cuda):
+    """No instance, no launch: a head dim, a dtype or a mix of dtypes the
+    kernels were not built for raises on the card."""
+    q, k, v, rh, rw, g = _bwd_inputs(cuda, 2, 4, 8)
+    with pytest.raises(ValueError, match="attn_fused kernel .*head_dim 64 or 80"):
+        cuda_attn.attn_fused(q[..., :32], k[..., :32], v[..., :32], rh, rw, 0.1)
+    with pytest.raises(TypeError, match="bf16 or fp32"):
+        cuda_attn.attn_fused(q.half(), k.half(), v.half(), rh.half(), rw.half(), 0.1)
+    with pytest.raises(TypeError, match="bf16 or fp32"):
+        cuda_attn.attn_bwd(*(t.half() for t in (q, k, v, rh, rw, g)), 0.1)
+    qkv, rh64, rw64 = _qkv_slot_inputs(cuda, torch.bfloat16, 1, 2, 4, 8)
+    with pytest.raises(ValueError, match="attn_qkv kernel .*head_dim 64"):
+        cuda_attn.attn_qkv(qkv, rh64, rw64, 0.1, 4, 8, 4)  # 2·64 columns as 4 heads of 32
+    with pytest.raises(TypeError, match="bf16 or fp32"):
+        cuda_attn.attn_qkv(qkv.half(), rh64, rw64, 0.1, 4, 8, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("entry", ["fused_attention", "fused_attention_qkv"])
+def test_attention_entries_on_card(cuda, entry, dtype):
+    """Forward and backward through the library entries launch the forward
+    kernel once and the attention backward once, and their gradients agree
+    with the same entry on the CPU (plain versions): fp32 within 1e-4 of
+    each gradient's scale, bf16 within 2% (p and dS are bf16 operands)."""
+    if entry == "fused_attention":
+        hk, wk, d = 8, 4, 64
+        inputs = _packed_inputs("cpu", dtype, 4, hk, wk, d)
+        fn, fwd = (lambda *a: cuda_attn.fused_attention(*a, d**-0.5, hk, wk)), cuda_attn.attn_fused
+        out_shape = (4, hk * wk, d)
+    else:
+        hk, wk, nh = 8, 4, 2
+        inputs = _qkv_slot_inputs("cpu", dtype, 2, nh, hk, wk)
+        fn, fwd = (lambda *a: cuda_attn.fused_attention_qkv(*a, 0.125, hk, wk, nh)), cuda_attn.attn_qkv
+        out_shape = (2, hk * wk, nh * 64)
+    g = torch.randn(out_shape, generator=torch.Generator().manual_seed(5)).to(dtype)
+    grads = []
+    for dev in ("cpu", cuda):
+        leaves = [t.to(dev).requires_grad_(True) for t in inputs]
+        f0, b0 = fwd.launches, cuda_attn.attn_bwd.launches
+        out = fn(*leaves)
+        gr = torch.autograd.grad(out, leaves, g.to(dev))
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert (fwd.launches - f0, cuda_attn.attn_bwd.launches - b0) == (1, 1)
+        grads.append([t.float().cpu() for t in gr])
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for want, got in zip(*grads):
+        assert got.shape == want.shape
+        assert (got - want).abs().max().item() <= tol * want.abs().max().item()
+
+
+def _hd64_fp32_tiny():
+    # head_dim 64 (the qkv-rel kernel's path), two layers, fp32 (the default compute dtype)
+    return tiny_config(hidden_size=128, num_attention_heads=2, num_hidden_layers=2, merge_index=0,
+                       intermediate_hidden_state_indices=(1,), initializer_range=0.2)
+
+
+def test_fp32_backward_on_card_matches_cpu(cuda):
+    """fp32: the input gradient runs the fp32 forward attention and the fp32
+    attention backward once per layer each (the MLP stays plain torch under
+    fp32) and agrees with the CPU plain path to fp32 precision."""
+    cfg = _hd64_fp32_tiny()
+    rng = np.random.default_rng(0)
+    h, w = cfg.image_size[0] // 2, cfg.image_size[1]
+    x, px, pm, lab = (torch.from_numpy(rng.standard_normal((2, h, w, 3)).astype(np.float32)) for _ in range(4))
+    grads = []
+    for dev in ("cpu", cuda):
+        model = build_model(cfg, torch.float32, device=dev, seed=1)
+        leaf = px.to(dev).requires_grad_(True)
+        a0, b0, m0 = cuda_attn.attn_qkv_rel.launches, cuda_attn.attn_bwd.launches, cuda_mlp.ln_mlp.launches
+        out = model(x.to(dev), leaf, pm.to(dev), labels=lab.to(dev), decode_query_only=True)
+        (gr,) = torch.autograd.grad(out["loss"], leaf)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert cuda_attn.attn_qkv_rel.launches - a0 == cfg.num_hidden_layers
+            assert cuda_attn.attn_bwd.launches - b0 == cfg.num_hidden_layers
+            assert cuda_mlp.ln_mlp.launches == m0
+        grads.append(gr.cpu().flatten())
+    assert torch.isfinite(grads[1]).all()
+    assert 1 - torch.nn.functional.cosine_similarity(grads[0], grads[1], dim=0).item() <= 1e-5
+    assert (grads[1] - grads[0]).abs().max().item() <= 1e-3 * grads[0].abs().max().item()
+
+
+@pytest.mark.parametrize("hidden,fwd", [(128, "attn_qkv_rel"), (160, "attn_packed")], ids=["hd64", "hd80"])
+def test_fp32_train_step_on_card(cuda, hidden, fwd):
+    """One PromptTuner.train_step of a 2-layer fp32 model on the card (the
+    default BeachSegConfig compute dtype) runs without raising, through the
+    fp32 forward attention (qkv-rel at head_dim 64, packed at ViT-H's 80) and
+    the fp32 attention backward."""
+    cfg = _hd64_fp32_tiny() if hidden == 128 else tiny_config(
+        hidden_size=160, num_attention_heads=2, num_hidden_layers=2, merge_index=0,
+        intermediate_hidden_state_indices=(1,), initializer_range=0.2)
+    size = cfg.image_size[1]
+    conf = BeachSegConfig(batch_size=2, inpt_size=size)
+    assert conf.compute_dtype == "float32"
+    model = build_model(cfg, torch.float32, device=cuda, seed=1)
+    tuner = PromptTuner(model, conf, device=cuda)
+    rng = np.random.default_rng(0)
+    n = len(conf.classes)
+    state = tuner.init_state(rng.random((2, size, size, 3), dtype=np.float32))
+    batch = {
+        "image": rng.random((2, size, size, 3), dtype=np.float32),
+        "mask": rng.integers(0, n, (2, size, size)).astype(np.int32),
+        "nodata": np.zeros((2, size, size), bool),
+        "crop_idx": np.array([0, 1], np.int32),
+        "valid": np.ones((2,), bool),
+    }
+    a0, b0 = getattr(cuda_attn, fwd).launches, cuda_attn.attn_bwd.launches
+    state, metrics = tuner.train_step(state, rng.integers(0, n, (2, size, size)).astype(np.int32),
+                                      np.zeros((2, size, size), bool), batch, generator=torch.Generator(device=cuda).manual_seed(0))
+    assert np.isfinite(metrics["loss"].item())
+    assert torch.isfinite(state.prompt_pixels).all()
+    assert getattr(cuda_attn, fwd).launches > a0 and cuda_attn.attn_bwd.launches > b0
