@@ -1,6 +1,6 @@
 // Attention backward with the decomposed rel-pos terms, for Hopper (sm_90a),
-// bf16 (tensor cores) or fp32 (FP32 units, at the end of this file),
-// head_dim 64 (ViT-L) or 80 (ViT-H) as template instances.
+// bf16 or fp32 (split-TF32 products, at the end of this file), both on the
+// tensor cores, head_dim 64 (ViT-L) or 80 (ViT-H) as template instances.
 //
 // Replaces the TPU kernel `_bwd_kernel` (beach_seg_tpu/ops/pallas_attn.py:722,
 // wrapper `_pallas_attention_bwd`). Per (batch·head), with q, k, v, g (S, D)
@@ -49,6 +49,8 @@
 #include <math.h>
 #include <stdint.h>
 #include <string.h>
+
+#include "tf32x3.cuh"
 
 typedef __nv_bfloat16 bf16;
 
@@ -571,323 +573,550 @@ int launch(const void* q, const void* k, const void* v, const void* rh, const vo
   return (int)cudaGetLastError();
 }
 
-// ============================ fp32: SIMT ============================
+// ======================= fp32: split-TF32 mma.sync =======================
 //
-// The same two kernels in full fp32, every product on the FP32 units (no
-// TF32), so the math is the TPU kernel's at fp32 up to the order of sums:
-// 64-row tiles, 256 threads. Each product is a 64 × 64 (or 64 × D) tile in
-// which a thread owns a 4 × 4 block (4 × D/16 for the head dim) and reads
-// both operands as 128-bit shared-memory loads: the contraction dim runs
-// along rows of "d-major" copies of the tiles (q, k, v, g transposed on
-// their way into shared memory, dS transposed when it is formed), so one
-// 16-byte load feeds four FMAs. Scores, dP and dS go through shared memory;
-// dQ, dK and dV accumulate in registers. The q-major kernel's drh/drw: each
-// (row, slot) cell is owned by one thread, which adds the tile's dS over
-// that slot's keys, so the sums are deterministic and need no atomics.
+// The same two kernels with every input and output in fp32 and every
+// product in split TF32 (tf32x3.cuh: three mma.sync m16n8k8 .tf32 a
+// product, fp32-accurate to a few ulps): S, dP and dQ in the q-major
+// kernel, Sᵀ, dPᵀ, dV and dK in the k-major one, and drh/drw as dS times
+// the 0/1 key-to-slot matrices (exact in TF32, so two products: dS big and
+// small). Warps of 16 rows with accumulators in registers, tiles by
+// cp.async, two blocks of 4 warps per SM at both head dims:
+//   q-major: 64 query rows a block; q and g stay in registers as fp32
+//     fragment values (split where used), so their tiles share the K/V
+//     stages' shared memory until the key loop; 32 keys a step; drh and
+//     drw into shared histograms, one row per query (drh's slots move with
+//     the step's key rows).
+//   k-major: 64 keys a block, K and V tiles in shared memory as the A
+//     operands, 32 queries a step: the next step's Q/G tiles load during
+//     this step's products, its rel rows and statistics during dV and dK.
+// The products over the head dim (S, dP and their transposes) take it in
+// the order of tf32x3::dperm, so a thread's B values of two k steps are one
+// 16-byte load. An accumulator tile is the A operand of the next product in the k order
+// of tf32x3::to_a, so the B operands of dQ, dV and dK read rows 2t and
+// 2t + 1 of each 8-row group; with a row stride of HD + 4 floats both
+// orientations of a tile's fragment loads are free of bank conflicts.
+// Exponentials use the exact expf.
 
-namespace simt {
+namespace f32 {
 
-constexpr int NTS = 256;     // threads per block: 16 × 16, each a 4 × 4 block of a 64 × 64 tile
-constexpr int LDD = BT + 4;  // row stride of d-major tiles and of 64 × 64 score tiles (floats, 16-byte rows)
-constexpr int HLD = 64 + 1;  // row stride of the rel-row and histogram tiles
+constexpr int BK = 32;      // keys a step (q-major), queries a step (k-major)
+constexpr int RLD = 64 + 4; // rel-row stride (floats)
+constexpr int HLD = 64 + 1; // drh histogram row stride
 
 template <int HD>
 struct Dim32 {
-  static constexpr int LD = HD + 4;         // row stride of row-major (64, HD) tiles
-  static constexpr int NE = (HD - 64) / 16;  // head-dim columns a thread owns past the first 64 (0 or 1)
-  static constexpr int NJ = 4 + NE;          // columns 4·tx + j (j < 4), then 64 + tx + 16·e
+  static constexpr int LD = HD + 4;  // tile row stride (floats)
+  static constexpr int KS = HD / 8;  // 8-wide k steps over the head dim, and 8-wide output tiles
 };
 
-// rows [r0, r0 + BT) of an (S, HD) tensor (zero past S) into a row-major
-// tile and / or a d-major tile [d][row]
-template <int HD, bool ROW, bool COL>
-__device__ __forceinline__ void load32(float* row, float* colT, const float* src, int S, int r0, int tid) {
-  constexpr int V = HD / 4;
-  for (int i = tid; i < BT * V; i += NTS) {
-    const int r = i / V, d = (i % V) * 4, gr = r0 + r;
-    const float4 x = gr < S ? *reinterpret_cast<const float4*>(src + (size_t)gr * HD + d) : make_float4(0.f, 0.f, 0.f, 0.f);
-    if (ROW) *reinterpret_cast<float4*>(row + r * Dim32<HD>::LD + d) = x;
-    if (COL) {
-      colT[d * LDD + r] = x.x;
-      colT[(d + 1) * LDD + r] = x.y;
-      colT[(d + 2) * LDD + r] = x.z;
-      colT[(d + 3) * LDD + r] = x.w;
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  // invalid rows are zero-filled (src-size 0)
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+
+// rows [r0, r0 + ROWS) of an (S, HD) tensor into a tile (zero past S)
+template <int HD, int ROWS>
+__device__ __forceinline__ void load32(float* dst, const float* src, int S, int r0, int tid) {
+  constexpr int LD = Dim32<HD>::LD, CH = HD / 4;
+  for (int i = tid; i < ROWS * CH; i += NT) {
+    const int r = i / CH, c4 = (i % CH) * 4, row = r0 + r;
+    const bool valid = row < S;
+    cp_async16(dst + r * LD + c4, valid ? src + (size_t)row * HD + c4 : src, valid);
+  }
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src), "r"(valid ? 4 : 0));
+}
+
+// rows [r0, r0 + rows) of rel_h / rel_w (zero past S)
+__device__ __forceinline__ void load_rel32(float* sRh, float* sRw, const float* rh, const float* rw, int S, int hk,
+                                           int wk, int r0, int rows, int tid) {
+  for (int i = tid; i < rows * hk; i += NT) {
+    const int r = i / hk, j = i % hk;
+    sRh[r * RLD + j] = r0 + r < S ? rh[(size_t)(r0 + r) * hk + j] : 0.0f;
+  }
+  for (int i = tid; i < rows * wk; i += NT) {
+    const int r = i / wk, j = i % wk;
+    sRw[r * RLD + j] = r0 + r < S ? rw[(size_t)(r0 + r) * wk + j] : 0.0f;
+  }
+}
+
+// the A fragment values (a0..a3 of every k step) of 16 rows of a tile, the
+// head dim in the order of tf32x3::dperm
+template <int HD>
+__device__ __forceinline__ void load_a32(float (&a)[Dim32<HD>::KS][4], const float* rows16, int gr, int t) {
+  constexpr int LD = Dim32<HD>::LD;
+  const float* r = rows16 + gr * LD;
+#pragma unroll
+  for (int kk = 0; kk < Dim32<HD>::KS; ++kk) {
+    a[kk][0] = r[tf32x3::dperm<HD>(kk, t)];
+    a[kk][1] = r[8 * LD + tf32x3::dperm<HD>(kk, t)];
+    a[kk][2] = r[tf32x3::dperm<HD>(kk, t + 4)];
+    a[kk][3] = r[8 * LD + tf32x3::dperm<HD>(kk, t + 4)];
+  }
+}
+
+// the B fragment of a (·, HD)-wide product's output tile nt, k step j, from
+// a [k][HD] tile in the k order of tf32x3::to_a (rows 8j + 2t, 8j + 2t + 1)
+template <int HD>
+__device__ __forceinline__ tf32x3::FragB b_kn(const float* tile, int j, int nt, int gr, int t) {
+  const float* p = tile + (8 * j + 2 * t) * Dim32<HD>::LD + 8 * nt + gr;
+  return tf32x3::split_b(p[0], p[Dim32<HD>::LD]);
+}
+// the B fragment values of an (·, 8j..8j+7) score tile, k steps 2p and
+// 2p + 1 over the head dim (order of tf32x3::dperm), from an [n][HD] tile
+// (row 8j + gr): b0, b1 of step 2p, then of step 2p + 1
+template <int HD>
+__device__ __forceinline__ float4 b_nk2(const float* tile, int j, int p, int gr, int t) {
+  return *reinterpret_cast<const float4*>(tile + (8 * j + gr) * Dim32<HD>::LD + tf32x3::pair_col<HD>(p, t));
+}
+
+// acc += A · B over a step of 32 rows (4 k steps): A this thread's part of
+// 4 accumulator tiles (k order of tf32x3::to_a), B a [k][HD] tile. The
+// step's product has its own accumulator, added to acc on the FP32 units:
+// the tensor cores' accumulation truncates, and a sum over all S rows inside
+// them would carry S/8·3 truncations (588 at S=1568) where one
+// step carries 12
+template <int HD>
+__device__ __forceinline__ void step_acc(float (&acc)[Dim32<HD>::KS][4], const float (&a)[4][4], const float* tile,
+                                         int gr, int t) {
+  constexpr int KS = Dim32<HD>::KS;
+  float p[KS][4];
+#pragma unroll
+  for (int nt = 0; nt < KS; ++nt) p[nt][0] = p[nt][1] = p[nt][2] = p[nt][3] = 0.0f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const tf32x3::FragA fa = tf32x3::to_a(a[j]);
+#pragma unroll
+    for (int nt = 0; nt < KS; ++nt) tf32x3::mma3(p[nt], fa, b_kn<HD>(tile, j, nt, gr, t));
+  }
+#pragma unroll
+  for (int nt = 0; nt < KS; ++nt) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[nt][c] += p[nt][c];
+  }
+}
+
+// 1.0f where a slot byte equals the slot, as a TF32 operand
+__device__ __forceinline__ uint32_t one_if(uint32_t byte, uint32_t slot) { return byte == slot ? 0x3F800000u : 0u; }
+
+// ---------------------------- q-major: dQ, drh, drw ----------------------------
+
+// drh or drw of a step of 32 keys as dS · E on the tensor cores, E[key][slot]
+// = 1 where the key's slot (its row from the step's first, or its column)
+// is the slot: E's B fragment is built in registers from the slot bytes of
+// this thread's two keys of k step j (b0: key 8j + 2t, b1: 8j + 2t + 1).
+// Up to 4 tiles of 8 slots from slot `first`; each thread adds its cells
+// (its rows, its slots) into the histogram rows `hist` (slot `first` at
+// hist[0]), n of them
+__device__ __forceinline__ void slot_sums(float* hist, const uint32_t (&bytes)[2], const float (&ds)[4][4], int n,
+                                          int rA, int rB, int gr, int t, int first = 0) {
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.0f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const tf32x3::FragA da = tf32x3::to_a(ds[j]);
+    const uint32_t b2 = bytes[j / 2] >> (16 * (j % 2));
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (8 * i < n) {
+        const uint32_t slot = first + 8 * i + gr, e[2] = {one_if(b2 & 0xFFu, slot), one_if((b2 >> 8) & 0xFFu, slot)};
+        tf32x3::mma2(acc[i], da, e);
+      }
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int col = 8 * i + 2 * t + (c % 2);
+      if (col < n) hist[(c / 2 ? rB : rA) * HLD + col] += acc[i][c];
     }
   }
 }
-__device__ __forceinline__ void load_rel32(float* sRh, float* sRw, const float* rh, const float* rw, int S, int hk,
-                                           int wk, int r0, int tid) {
-  for (int i = tid; i < BT * hk; i += NTS) {
-    const int r = i / hk, j = i % hk;
-    sRh[r * HLD + j] = r0 + r < S ? rh[(size_t)(r0 + r) * hk + j] : 0.0f;
-  }
-  for (int i = tid; i < BT * wk; i += NTS) {
-    const int r = i / wk, j = i % wk;
-    sRw[r * HLD + j] = r0 + r < S ? rw[(size_t)(r0 + r) * wk + j] : 0.0f;
-  }
-}
 
-// C[r][c] (64 × 64, row-major) = Σ_d At[d][r] · Bt[d][c], At and Bt
-// d-major (HD, 64) tiles: thread (ty, tx) owns rows 4ty.., columns 4tx..
 template <int HD>
-__device__ __forceinline__ void gemm_abt32(const float* At, const float* Bt, float* C, int tid) {
-  const int ty = tid / 16, tx = tid % 16;
-  float acc[4][4] = {};
-#pragma unroll 4
-  for (int d = 0; d < HD; ++d) {
-    const float4 a = *reinterpret_cast<const float4*>(At + d * LDD + 4 * ty);
-    const float4 b = *reinterpret_cast<const float4*>(Bt + d * LDD + 4 * tx);
-    const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    *reinterpret_cast<float4*>(C + (4 * ty + i) * LDD + 4 * tx) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-}
-
-// head-dim column of a thread's j-th accumulator
-template <int HD>
-__device__ __forceinline__ int col32(int j, int tx) {
-  return j < 4 ? 4 * tx + j : 64 + tx + 16 * (j - 4);
-}
-
-// acc[i][j] (rows 4ty + i, head-dim columns col32(j)) += Σ_c At[c][r] · B[c][d],
-// At a 64 × 64 tile stored [c][r], B a row-major (64, HD) tile
-template <int HD>
-__device__ __forceinline__ void gemm_pb32(float (&acc)[4][Dim32<HD>::NJ], const float* At, const float* B, int tid) {
-  constexpr int LD = Dim32<HD>::LD, NE = Dim32<HD>::NE;
-  const int ty = tid / 16, tx = tid % 16;
-#pragma unroll 4
-  for (int c = 0; c < BT; ++c) {
-    const float4 a = *reinterpret_cast<const float4*>(At + c * LDD + 4 * ty);
-    const float4 b = *reinterpret_cast<const float4*>(B + c * LD + 4 * tx);
-    float bv[4 + NE] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int e = 0; e < NE; ++e) bv[4 + e] = B[c * LD + 64 + tx + 16 * e];
-    const float av[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4 + NE; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
+constexpr size_t smem_q() {
+  // K, V (2 stages of BK rows; first the Q and G tiles), rel rows, drh and drw histograms
+  return (size_t)(4 * BK * Dim32<HD>::LD + 2 * BT * RLD + 2 * BT * HLD) * sizeof(float);
 }
 
 template <int HD>
-constexpr size_t smem_q32() {
-  return (size_t)(4 * HD * LDD + BT * Dim32<HD>::LD + 2 * BT * LDD + 4 * BT * HLD) * sizeof(float);
-}
-
-template <int HD>
-__global__ void __launch_bounds__(NTS) bwd_q_kernel(
+__global__ void __launch_bounds__(NT, 2) bwd_q_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ rh, const float* __restrict__ rw, const float* __restrict__ g,
     float* __restrict__ dq, float* __restrict__ drh, float* __restrict__ drw, float* __restrict__ stats,
     int BH, int S, int hk, int wk, float scale) {
-  constexpr int NJ = Dim32<HD>::NJ;
+  using namespace tf32x3;
+  constexpr int LD = Dim32<HD>::LD, KS = Dim32<HD>::KS;
+  static_assert(2 * BT == 4 * BK, "the Q and G tiles fill the K/V stages");
   extern __shared__ __align__(128) unsigned char smem[];
-  float* sQt = reinterpret_cast<float*>(smem);  // d-major q, g, k, v tiles
-  float* sGt = sQt + HD * LDD;
-  float* sKt = sGt + HD * LDD;
-  float* sVt = sKt + HD * LDD;
-  float* sK = sVt + HD * LDD;       // row-major k, for dQ
-  float* sS = sK + BT * Dim32<HD>::LD;  // scores [q][key]
-  float* sP = sS + BT * LDD;        // dP [q][key], then dS transposed [key][q]
-  float* sRh = sP + BT * LDD;
-  float* sRw = sRh + BT * HLD;
-  float* sHh = sRw + BT * HLD;  // drh histograms, one row per query
-  float* sHw = sHh + BT * HLD;
+  float* sK = reinterpret_cast<float*>(smem);  // 2 stages
+  float* sV = sK + 2 * BK * LD;                 // 2 stages
+  float* sQ = sK;                               // Q and G tiles, until their fragments are in registers
+  float* sG = sQ + BT * LD;
+  float* sRh = sK + 4 * BK * LD;
+  float* sRw = sRh + BT * RLD;
+  float* sHh = sRw + BT * RLD;  // drh histograms, one row per query
+  float* sHw = sHh + BT * HLD;  // drw histograms
 
-  const int q0 = blockIdx.x * BT, bh = blockIdx.y, tid = threadIdx.x;
+  const int q0 = blockIdx.x * BT, bh = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, gr = lane >> 2, t = lane & 3;
   const size_t off = (size_t)bh * S * HD;
   const float *qp = q + off, *kp = k + off, *vp = v + off, *gp = g + off;
-  load32<HD, false, true>(nullptr, sQt, qp, S, q0, tid);
-  load32<HD, false, true>(nullptr, sGt, gp, S, q0, tid);
-  load_rel32(sRh, sRw, rh + (size_t)bh * S * hk, rw + (size_t)bh * S * wk, S, hk, wk, q0, tid);
-  for (int i = tid; i < 2 * BT * HLD; i += NTS) sHh[i] = 0.0f;  // sHh and sHw
 
-  // the row step's thread layout: four lanes per query row, keys part + 4j
-  const int r = tid / 4, part = tid % 4;
-  float m = -INFINITY, l = 0.0f, dd = 0.0f, linv = 0.0f;
-  float dqa[4][NJ] = {};
+  load32<HD, BT>(sQ, qp, S, q0, tid);
+  load32<HD, BT>(sG, gp, S, q0, tid);
+  cp_async_commit();
+  load_rel32(sRh, sRw, rh + (size_t)bh * S * hk, rw + (size_t)bh * S * wk, S, hk, wk, q0, BT, tid);
+  for (int i = tid; i < 2 * BT * HLD; i += NT) sHh[i] = 0.0f;  // sHh and sHw
+  cp_async_wait<0>();
+  __syncthreads();
+  float qa[KS][4], ga[KS][4];
+  load_a32<HD>(qa, sQ + warp * 16 * LD, gr, t);
+  load_a32<HD>(ga, sG + warp * 16 * LD, gr, t);
+  __syncthreads();  // every warp holds its fragments before the K/V stages overwrite the tiles
+  load32<HD, BK>(sK, kp, S, 0, tid);
+  load32<HD, BK>(sV, vp, S, 0, tid);
+  cp_async_commit();
 
-  const int nk = (S + BT - 1) / BT;
-  for (int it = 0; it < 2 * nk; ++it) {
-    const int kt = it % nk, pass = it / nk, k0 = kt * BT;
-    __syncthreads();  // the previous step is done with the k / v tiles, sS and sP
-    load32<HD, true, true>(sK, sKt, kp, S, k0, tid);
-    load32<HD, false, true>(nullptr, sVt, vp, S, k0, tid);
-    __syncthreads();
-    gemm_abt32<HD>(sQt, sKt, sS, tid);  // q·kᵀ
-    gemm_abt32<HD>(sGt, sVt, sP, tid);  // dP = g·vᵀ
-    __syncthreads();
-
-    float s[16], dp[16];
-    float mloc = -INFINITY;
+  const int rA = warp * 16 + gr, rB = rA + 8;  // this thread's two rows (local)
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f}, dd[2] = {0.0f, 0.0f}, linv[2] = {0.0f, 0.0f};
+  float dqa[KS][4];
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int c = part + 4 * j, key = k0 + c;
-      dp[j] = sP[r * LDD + c];
-      if (key < S) {
-        const int kh = key / wk, kw = key - kh * wk;
-        s[j] = sS[r * LDD + c] * scale + (sRh[r * HLD + kh] + sRw[r * HLD + kw]);
-      } else {
-        s[j] = -INFINITY;
-      }
-      mloc = fmaxf(mloc, s[j]);
+  for (int j = 0; j < KS; ++j) dqa[j][0] = dqa[j][1] = dqa[j][2] = dqa[j][3] = 0.0f;
+  const float inv_wk = 1.0f / wk;
+
+  const int nk = (S + BK - 1) / BK;
+  // step it walks the keys twice: pass 0 gathers the row statistics, pass 1
+  // forms dS; the K/V tiles stream through two stages across both passes
+  for (int it = 0; it < 2 * nk; ++it) {
+    const int kt = it % nk, pass = it / nk, k0 = kt * BK;
+    const float* cK = sK + (it & 1) * BK * LD;
+    const float* cV = sV + (it & 1) * BK * LD;
+    __syncthreads();  // every warp is done with the stage the next prefetch overwrites
+    if (it + 1 < 2 * nk) {
+      const int kn = ((it + 1) % nk) * BK;
+      load32<HD, BK>(sK + ((it + 1) & 1) * BK * LD, kp, S, kn, tid);
+      load32<HD, BK>(sV + ((it + 1) & 1) * BK * LD, vp, S, kn, tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
+    __syncthreads();
+
+    // S = q·kᵀ and dP = g·vᵀ, 4 tiles of 8 keys (column n of tile j is key 8j + n)
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.0f;
+#pragma unroll
+    for (int p = 0; p < KS / 2; ++p) {
+      {
+        const FragA f0 = split_a(qa[2 * p][0], qa[2 * p][1], qa[2 * p][2], qa[2 * p][3]);
+        const FragA f1 = split_a(qa[2 * p + 1][0], qa[2 * p + 1][1], qa[2 * p + 1][2], qa[2 * p + 1][3]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float4 b = b_nk2<HD>(cK, j, p, gr, t);
+          mma3(s[j], f0, split_b(b.x, b.y));
+          mma3(s[j], f1, split_b(b.z, b.w));
+        }
+      }
+      const FragA f0 = split_a(ga[2 * p][0], ga[2 * p][1], ga[2 * p][2], ga[2 * p][3]);
+      const FragA f1 = split_a(ga[2 * p + 1][0], ga[2 * p + 1][1], ga[2 * p + 1][2], ga[2 * p + 1][3]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float4 b = b_nk2<HD>(cV, j, p, gr, t);
+        mma3(dp[j], f0, split_b(b.x, b.y));
+        mma3(dp[j], f1, split_b(b.z, b.w));
+      }
+    }
+    // scores; this thread's keys 8j + 2t + e: their slots, 0xFF past S, a
+    // byte each (drh from this step's first key row kh0) for pass 1
+    const int kh0 = k0 / wk;
+    uint32_t sh[2] = {0u, 0u}, sw[2] = {0u, 0u};
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = k0 + 8 * j + 2 * t + e, byte = 8 * (2 * (j % 2) + e);
+        if (key < S) {
+          const int kh = static_cast<int>((key + 0.5f) * inv_wk), kw = key - kh * wk;
+          s[j][e] = s[j][e] * scale + (sRh[rA * RLD + kh] + sRw[rA * RLD + kw]);
+          s[j][2 + e] = s[j][2 + e] * scale + (sRh[rB * RLD + kh] + sRw[rB * RLD + kw]);
+          sh[j / 2] |= (uint32_t)(kh - kh0) << byte;
+          sw[j / 2] |= (uint32_t)kw << byte;
+        } else {
+          s[j][e] = s[j][2 + e] = -INFINITY;
+          sh[j / 2] |= 0xFFu << byte;
+          sw[j / 2] |= 0xFFu << byte;
+        }
+        mx[0] = fmaxf(mx[0], s[j][e]);
+        mx[1] = fmaxf(mx[1], s[j][2 + e]);
+      }
+    }
+
     if (pass == 0) {
       // online row max, row sum of u = exp(s - max) and Σ u·dP
-      const float mnew = fmaxf(m, quad_max(mloc));
-      const float alpha = expf(m - mnew);  // 0 on the first step (m = -inf)
-      float ls = 0.0f, ds = 0.0f;
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const float u = expf(s[j] - mnew);
-        ls += u;
-        ds += u * dp[j];
+      for (int i = 0; i < 2; ++i) {
+        const float mnew = fmaxf(m[i], quad_max(mx[i]));
+        const float alpha = expf(m[i] - mnew);  // 0 on the first step (m = -inf)
+        float ls = 0.0f, ds = 0.0f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float u = expf(s[j][2 * i + e] - mnew);
+            ls += u;
+            ds += u * dp[j][2 * i + e];
+          }
+        }
+        l[i] = l[i] * alpha + ls;
+        dd[i] = dd[i] * alpha + ds;
+        m[i] = mnew;
       }
-      l = l * alpha + quad_sum(ls);
-      dd = dd * alpha + quad_sum(ds);
-      m = mnew;
       if (it == nk - 1) {
-        dd /= l;  // D = rowsum(dP∘p)
-        linv = 1.0f / l;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          l[i] = quad_sum(l[i]);
+          dd[i] = quad_sum(dd[i]) / l[i];  // D = rowsum(dP∘p)
+          linv[i] = 1.0f / l[i];
+        }
       }
       continue;
     }
 
-    // pass 1: dS = p∘(dP - D), 0 for keys past S, stored transposed over dP
-    __syncthreads();  // every thread holds its dP values
+    // pass 1: dS = p∘(dP - D), kept in s (0 past S)
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int c = part + 4 * j;
-      sP[c * LDD + r] = k0 + c < S ? expf(s[j] - m) * linv * (dp[j] - dd) : 0.0f;
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int i = c / 2;
+        s[j][c] = expf(s[j][c] - m[i]) * linv[i] * (dp[j][c] - dd[i]);
+      }
     }
-    __syncthreads();
-    gemm_pb32<HD>(dqa, sP, sK, tid);  // dQ += dS·k
-    // drh/drw: this thread's cells are row r's slots part, part + 4, ...
-    const int kend = min(k0 + BT, S);
-    const int kh0 = k0 / wk, kh1 = (kend - 1) / wk;
-    for (int kh = kh0 + part; kh <= kh1; kh += 4) {
-      float acc = 0.0f;
-      for (int key = max(kh * wk, k0); key < min((kh + 1) * wk, kend); ++key) acc += sP[(key - k0) * LDD + r];
-      sHh[r * HLD + kh] += acc;
-    }
-    for (int kw = part; kw < wk; kw += 4) {
-      float acc = 0.0f;
-      for (int key = k0 + (kw - k0 % wk + wk) % wk; key < kend; key += wk) acc += sP[(key - k0) * LDD + r];
-      sHw[r * HLD + kw] += acc;
-    }
+    // dQ += dS·k, tile j of dS the A fragment of a k step of 8 keys
+    step_acc<HD>(dqa, s, cK, gr, t);
+    const int nh = (min(k0 + BK, S) - 1) / wk - kh0 + 1;  // drh slots this step touches (≤ BK)
+    slot_sums(sHh + kh0, sh, s, nh, rA, rB, gr, t);         // drh: 4 tiles of 8 slots
+    slot_sums(sHw, sw, s, min(wk, 32), rA, rB, gr, t);      // drw slots 0..31
+    if (wk > 32) slot_sums(sHw + 32, sw, s, wk - 32, rA, rB, gr, t, 32);
   }
-  __syncthreads();  // the histograms are written out by other threads than their owners
+  // the histogram cells of this warp's rows were added to by other lanes
+  // than those that write them out below
+  __syncwarp();
 
-  if (part == 0 && q0 + r < S) {
-    const size_t o = (size_t)bh * S + q0 + r;
-    stats[o] = m;
-    stats[(size_t)BH * S + o] = l;
-    stats[(size_t)2 * BH * S + o] = dd;
-  }
-  const int ty = tid / 16, tx = tid % 16;
+  // outputs of this warp's rows
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * ty + i;
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + (i ? rB : rA);
     if (row >= S) continue;
+    if (t == 0) {
+      const size_t o = (size_t)bh * S + row;
+      stats[o] = m[i];
+      stats[(size_t)BH * S + o] = l[i];
+      stats[(size_t)2 * BH * S + o] = dd[i];
+    }
+    float* dst = dq + off + (size_t)row * HD + 2 * t;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) dq[off + (size_t)row * HD + col32<HD>(j, tx)] = dqa[i][j] * scale;
+    for (int nt = 0; nt < KS; ++nt)
+      *reinterpret_cast<float2*>(dst + 8 * nt) = make_float2(dqa[nt][2 * i] * scale, dqa[nt][2 * i + 1] * scale);
   }
-  for (int i = tid; i < BT * hk; i += NTS) {
-    const int rr = i / hk, j = i % hk, row = q0 + rr;
-    if (row < S) drh[((size_t)bh * S + row) * hk + j] = sHh[rr * HLD + j];
+  for (int i = lane; i < 16 * hk; i += 32) {
+    const int r = i / hk, j = i % hk, row = q0 + warp * 16 + r;
+    if (row < S) drh[((size_t)bh * S + row) * hk + j] = sHh[(warp * 16 + r) * HLD + j];
   }
-  for (int i = tid; i < BT * wk; i += NTS) {
-    const int rr = i / wk, j = i % wk, row = q0 + rr;
-    if (row < S) drw[((size_t)bh * S + row) * wk + j] = sHw[rr * HLD + j];
+  for (int i = lane; i < 16 * wk; i += 32) {
+    const int r = i / wk, j = i % wk, row = q0 + warp * 16 + r;
+    if (row < S) drw[((size_t)bh * S + row) * wk + j] = sHw[(warp * 16 + r) * HLD + j];
+  }
+}
+
+// ---------------------------- k-major: dK, dV ----------------------------
+
+// the rel rows and statistics (row max, row sum, D) of queries [q0, q0 + BK)
+// by cp.async, zero past S; stats points at this (batch·head)'s row max,
+// the other two are plane floats after it. A warp a row, its lanes along
+// the slots: 16-byte pieces where hk and wk are multiples of 4 (then S is a
+// multiple of 16 and every row 16-byte aligned), else floats
+__device__ __forceinline__ void load_step(float* sRh, float* sRw, float* sStat, const float* rh, const float* rw,
+                                          const float* stats, size_t plane, int S, int hk, int wk, int q0, int tid) {
+  if ((hk | wk) % 4 == 0) {
+    const int lane = tid % 32, nh = hk / 4, c = 4 * (lane - nh);  // lanes [0, nh) take rel_h, then rel_w
+    for (int r = tid / 32; r < BK; r += NW) {
+      const int row = min(q0 + r, S - 1);
+      const bool valid = q0 + r < S;
+      if (lane < nh) {
+        cp_async16(sRh + r * RLD + 4 * lane, rh + (size_t)row * hk + 4 * lane, valid);
+      } else if (c < wk) {
+        cp_async16(sRw + r * RLD + c, rw + (size_t)row * wk + c, valid);
+      }
+    }
+    if (tid < 3 * BK / 4) {
+      const int w = tid / (BK / 4), r = 4 * (tid % (BK / 4));
+      cp_async16(sStat + w * BK + r, stats + w * plane + min(q0 + r, S - 4), q0 + r < S);
+    }
+    return;
+  }
+  for (int r = tid / 32; r < BK; r += NW) {
+    const int row = min(q0 + r, S - 1);
+    const bool valid = q0 + r < S;
+    for (int j = tid % 32; j < hk; j += 32) cp_async4(sRh + r * RLD + j, rh + (size_t)row * hk + j, valid);
+    for (int j = tid % 32; j < wk; j += 32) cp_async4(sRw + r * RLD + j, rw + (size_t)row * wk + j, valid);
+  }
+  for (int i = tid; i < 3 * BK; i += NT) {
+    const int w = i / BK, r = i % BK;
+    cp_async4(sStat + i, stats + w * plane + min(q0 + r, S - 1), q0 + r < S);
   }
 }
 
 template <int HD>
-constexpr size_t smem_k32() {
-  return (size_t)(4 * HD * LDD + 2 * BT * Dim32<HD>::LD + 2 * BT * LDD + 2 * BT * HLD + 3 * BT) * sizeof(float);
+constexpr size_t smem_k() {
+  // K, V (BT rows), Q, G (2 stages of BK rows), rel rows and statistics of a step
+  return (size_t)(2 * BT * Dim32<HD>::LD + 4 * BK * Dim32<HD>::LD + 2 * BK * RLD + 3 * BK) * sizeof(float);
 }
 
 template <int HD>
-__global__ void __launch_bounds__(NTS) bwd_k_kernel(
+__global__ void __launch_bounds__(NT, 2) bwd_k_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ rh, const float* __restrict__ rw, const float* __restrict__ g,
     float* __restrict__ dk, float* __restrict__ dv, const float* __restrict__ stats,
     int BH, int S, int hk, int wk, float scale) {
-  constexpr int NJ = Dim32<HD>::NJ;
+  using namespace tf32x3;
+  constexpr int LD = Dim32<HD>::LD, KS = Dim32<HD>::KS;
   extern __shared__ __align__(128) unsigned char smem[];
-  float* sKt = reinterpret_cast<float*>(smem);  // d-major k, v, q, g tiles
-  float* sVt = sKt + HD * LDD;
-  float* sQt = sVt + HD * LDD;
-  float* sGt = sQt + HD * LDD;
-  float* sQ = sGt + HD * LDD;  // row-major q and g, for dK and dV
-  float* sG = sQ + BT * Dim32<HD>::LD;
-  float* sS = sG + BT * Dim32<HD>::LD;  // s, then p: [q][key]
-  float* sP = sS + BT * LDD;            // dP, then dS: [q][key]
-  float* sRh = sP + BT * LDD;
-  float* sRw = sRh + BT * HLD;
-  float* sM = sRw + BT * HLD;
-  float* sLinv = sM + BT;  // 1 / row sum
-  float* sD = sLinv + BT;
+  float* sK = reinterpret_cast<float*>(smem);
+  float* sV = sK + BT * LD;
+  float* sQ = sV + BT * LD;      // 2 stages
+  float* sG = sQ + 2 * BK * LD;  // 2 stages
+  float* sRh = sG + 2 * BK * LD;
+  float* sRw = sRh + BK * RLD;
+  float* sM = sRw + BK * RLD;  // row max, row sum, D of the step's queries
+  float* sL = sM + BK;
+  float* sD = sL + BK;
 
-  const int k0 = blockIdx.x * BT, bh = blockIdx.y, tid = threadIdx.x;
+  const int k0 = blockIdx.x * BT, bh = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, gr = lane >> 2, t = lane & 3;
   const size_t off = (size_t)bh * S * HD;
   const float *qp = q + off, *kp = k + off, *vp = v + off, *gp = g + off;
   const float* rhp = rh + (size_t)bh * S * hk;
   const float* rwp = rw + (size_t)bh * S * wk;
-  load32<HD, false, true>(nullptr, sKt, kp, S, k0, tid);
-  load32<HD, false, true>(nullptr, sVt, vp, S, k0, tid);
-  float dka[4][NJ] = {}, dva[4][NJ] = {};
 
-  const int nq = (S + BT - 1) / BT;
+  load32<HD, BT>(sK, kp, S, k0, tid);
+  load32<HD, BT>(sV, vp, S, k0, tid);
+  load32<HD, BK>(sQ, qp, S, 0, tid);
+  load32<HD, BK>(sG, gp, S, 0, tid);
+  load_step(sRh, sRw, sM, rhp, rwp, stats + (size_t)bh * S, (size_t)BH * S, S, hk, wk, 0, tid);
+  cp_async_commit();
+
+  // this thread's two keys (rows of the transposed scores); keys past S
+  // read table slot 0 and are never stored
+  int kh[2], kw[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = min(k0 + warp * 16 + gr + 8 * i, S - 1);
+    kh[i] = key / wk;
+    kw[i] = key - kh[i] * wk;
+  }
+  float dka[KS][4], dva[KS][4];
+#pragma unroll
+  for (int j = 0; j < KS; ++j) {
+    dka[j][0] = dka[j][1] = dka[j][2] = dka[j][3] = 0.0f;
+    dva[j][0] = dva[j][1] = dva[j][2] = dva[j][3] = 0.0f;
+  }
+  const float* kr16 = sK + warp * 16 * LD;
+  const float* vr16 = sV + warp * 16 * LD;
+
+  const int nq = (S + BK - 1) / BK;
   for (int qt = 0; qt < nq; ++qt) {
-    const int q0 = qt * BT;
-    __syncthreads();  // the previous step is done with the q / g tiles, sS, sP, the rel rows and statistics
-    load32<HD, true, true>(sQ, sQt, qp, S, q0, tid);
-    load32<HD, true, true>(sG, sGt, gp, S, q0, tid);
-    load_rel32(sRh, sRw, rhp, rwp, S, hk, wk, q0, tid);
-    for (int i = tid; i < BT; i += NTS) {
-      const bool valid = q0 + i < S;
-      const size_t o = (size_t)bh * S + q0 + i;
-      sM[i] = valid ? stats[o] : 0.0f;
-      sLinv[i] = valid ? 1.0f / stats[(size_t)BH * S + o] : 1.0f;
-      sD[i] = valid ? stats[(size_t)2 * BH * S + o] : 0.0f;
+    const int q0 = qt * BK;
+    const float* cQ = sQ + (qt & 1) * BK * LD;
+    const float* cG = sG + (qt & 1) * BK * LD;
+    // this step's Q/G stage, rel rows and statistics have landed, and every
+    // warp is done with the previous step
+    cp_async_wait<0>();
+    __syncthreads();
+    if (qt + 1 < nq) {  // the next Q/G stage, during this step's products
+      load32<HD, BK>(sQ + ((qt + 1) & 1) * BK * LD, qp, S, q0 + BK, tid);
+      load32<HD, BK>(sG + ((qt + 1) & 1) * BK * LD, gp, S, q0 + BK, tid);
+      cp_async_commit();
     }
-    __syncthreads();
-    gemm_abt32<HD>(sQt, sKt, sS, tid);  // s = q·kᵀ
-    gemm_abt32<HD>(sGt, sVt, sP, tid);  // dP = g·vᵀ
-    __syncthreads();
-    // consecutive threads take consecutive keys of one query
-    for (int i = tid; i < BT * BT; i += NTS) {
-      const int qr = i / BT, kc = i % BT, key = k0 + kc;
-      float p = 0.0f;
-      if (key < S && q0 + qr < S) {
-        const int kh = key / wk, kw = key - kh * wk;
-        const float s = sS[qr * LDD + kc] * scale + (sRh[qr * HLD + kh] + sRw[qr * HLD + kw]);
-        p = expf(s - sM[qr]) * sLinv[qr];
+
+    // sᵀ = k·qᵀ and dPᵀ = v·gᵀ: this warp's 16 keys × 4 tiles of 8 queries
+    float st[4][4], dpt[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) st[j][0] = st[j][1] = st[j][2] = st[j][3] = dpt[j][0] = dpt[j][1] = dpt[j][2] = dpt[j][3] = 0.0f;
+#pragma unroll
+    for (int p = 0; p < KS / 2; ++p) {
+      const int col = pair_col<HD>(p, t);
+      {
+        const float4 x = *reinterpret_cast<const float4*>(kr16 + gr * LD + col);
+        const float4 y = *reinterpret_cast<const float4*>(kr16 + (gr + 8) * LD + col);
+        const FragA f0 = split_a(x.x, y.x, x.y, y.y), f1 = split_a(x.z, y.z, x.w, y.w);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float4 b = b_nk2<HD>(cQ, j, p, gr, t);
+          mma3(st[j], f0, split_b(b.x, b.y));
+          mma3(st[j], f1, split_b(b.z, b.w));
+        }
       }
-      sS[qr * LDD + kc] = p;
-      sP[qr * LDD + kc] = p * (sP[qr * LDD + kc] - sD[qr]);  // dS
+      const float4 x = *reinterpret_cast<const float4*>(vr16 + gr * LD + col);
+      const float4 y = *reinterpret_cast<const float4*>(vr16 + (gr + 8) * LD + col);
+      const FragA f0 = split_a(x.x, y.x, x.y, y.y), f1 = split_a(x.z, y.z, x.w, y.w);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float4 b = b_nk2<HD>(cG, j, p, gr, t);
+        mma3(dpt[j], f0, split_b(b.x, b.y));
+        mma3(dpt[j], f1, split_b(b.z, b.w));
+      }
     }
-    __syncthreads();
-    gemm_pb32<HD>(dva, sS, sG, tid);  // dV += pᵀ·g
-    gemm_pb32<HD>(dka, sP, sQ, tid);  // dK += dSᵀ·q
+    // pᵀ and dSᵀ (0 for queries past S)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int qc = 8 * j + 2 * t + e;
+        const bool valid = q0 + qc < S;
+        const float linv = valid ? __frcp_rn(sL[qc]) : 0.0f, m = sM[qc], d = sD[qc];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int c = 2 * i + e;
+          float p = 0.0f;
+          if (valid) {
+            const float s = st[j][c] * scale + (sRh[qc * RLD + kh[i]] + sRw[qc * RLD + kw[i]]);
+            p = expf(s - m) * linv;
+          }
+          st[j][c] = p;
+          dpt[j][c] = p * (dpt[j][c] - d);  // dSᵀ
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with the step's rel rows and statistics
+    if (qt + 1 < nq) {  // the next step's, during the dV and dK products
+      load_step(sRh, sRw, sM, rhp, rwp, stats + (size_t)bh * S, (size_t)BH * S, S, hk, wk, q0 + BK, tid);
+      cp_async_commit();
+    }
+    // dV += pᵀ·g, then dK += dSᵀ·q, tile j a k step of 8 queries
+    step_acc<HD>(dva, st, cG, gr, t);
+    step_acc<HD>(dka, dpt, cQ, gr, t);
   }
 
-  const int ty = tid / 16, tx = tid % 16;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + 4 * ty + i;
+  for (int i = 0; i < 2; ++i) {
+    const int key = k0 + warp * 16 + gr + 8 * i;
     if (key >= S) continue;
+    float* dkr = dk + off + (size_t)key * HD + 2 * t;
+    float* dvr = dv + off + (size_t)key * HD + 2 * t;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      dk[off + (size_t)key * HD + col32<HD>(j, tx)] = dka[i][j] * scale;
-      dv[off + (size_t)key * HD + col32<HD>(j, tx)] = dva[i][j];
+    for (int j = 0; j < KS; ++j) {
+      *reinterpret_cast<float2*>(dkr + 8 * j) = make_float2(dka[j][2 * i] * scale, dka[j][2 * i + 1] * scale);
+      *reinterpret_cast<float2*>(dvr + 8 * j) = make_float2(dva[j][2 * i], dva[j][2 * i + 1]);
     }
   }
 }
@@ -897,26 +1126,24 @@ int launch(const void* q, const void* k, const void* v, const void* rh, const vo
            void* dk, void* dv, void* drh, void* drw, void* stats, int BH, int S, int hk, int wk, float scale,
            void* stream) {
   cudaError_t err =
-      cudaFuncSetAttribute(bwd_q_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_q32<HD>());
+      cudaFuncSetAttribute(bwd_q_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_q<HD>());
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(bwd_k_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_k32<HD>());
+  err = cudaFuncSetAttribute(bwd_k_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_k<HD>());
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((S + BT - 1) / BT, BH);
   cudaStream_t st = (cudaStream_t)stream;
-  bwd_q_kernel<HD><<<grid, NTS, smem_q32<HD>(), st>>>((const float*)q, (const float*)k, (const float*)v,
-                                                      (const float*)rh, (const float*)rw, (const float*)g,
-                                                      (float*)dq, (float*)drh, (float*)drw, (float*)stats, BH, S,
-                                                      hk, wk, scale);
+  bwd_q_kernel<HD><<<grid, NT, smem_q<HD>(), st>>>((const float*)q, (const float*)k, (const float*)v,
+                                                   (const float*)rh, (const float*)rw, (const float*)g, (float*)dq,
+                                                   (float*)drh, (float*)drw, (float*)stats, BH, S, hk, wk, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  bwd_k_kernel<HD><<<grid, NTS, smem_k32<HD>(), st>>>((const float*)q, (const float*)k, (const float*)v,
-                                                      (const float*)rh, (const float*)rw, (const float*)g,
-                                                      (float*)dk, (float*)dv, (const float*)stats, BH, S, hk, wk,
-                                                      scale);
+  bwd_k_kernel<HD><<<grid, NT, smem_k<HD>(), st>>>((const float*)q, (const float*)k, (const float*)v,
+                                                   (const float*)rh, (const float*)rw, (const float*)g, (float*)dk,
+                                                   (float*)dv, (const float*)stats, BH, S, hk, wk, scale);
   return (int)cudaGetLastError();
 }
 
-}  // namespace simt
+}  // namespace f32
 
 typedef int (*Launch)(const void*, const void*, const void*, const void*, const void*, const void*, void*, void*,
                       void*, void*, void*, void*, int, int, int, int, float, void*);
@@ -951,6 +1178,6 @@ extern "C" int attn_bwd_bf16(const void* q, const void* k, const void* v, const 
 extern "C" int attn_bwd_f32(const void* q, const void* k, const void* v, const void* rh, const void* rw,
                             const void* g, void* dq, void* dk, void* dv, void* drh, void* drw, void* stats, int BH,
                             int S, int D, int hk, int wk, float scale, void* stream) {
-  return dispatch(simt::launch<64>, simt::launch<80>, q, k, v, rh, rw, g, dq, dk, dv, drh, drw, stats, BH, S, D, hk,
+  return dispatch(f32::launch<64>, f32::launch<80>, q, k, v, rh, rw, g, dq, dk, dv, drh, drw, stats, BH, S, D, hk,
                   wk, scale, stream);
 }

@@ -54,11 +54,11 @@ Phases (any failure exits non-zero before the result lines):
      backward at B=8 in bf16 and fp32, each call launching its forward
      kernel once and the attention backward once, output and gradients held
      against the plain versions;
- 12. the default BeachSegConfig (fp32 ViT-L, model_for_config): 1
-     predict_step call (24 qkv-rel attention launches) and 2 train_steps (24
-     qkv-rel and 24 fp32 attention-backward launches each, the MLP plain
-     torch), the prompt gradient held against the plain versions with fp32
-     limits;
+ 12. the default BeachSegConfig (fp32 ViT-L, model_for_config): 2
+     predict_step calls (24 qkv-rel attention launches each; the second is
+     the warm time) and 2 train_steps (24 qkv-rel and 24 fp32
+     attention-backward launches each, the MLP plain torch), the prompt
+     gradient held against the plain versions with fp32 limits;
  13. one JSON line of per-kernel numbers (one entry per kernel, geometry
      and dtype), then the card's name and power limit, then
      {"ok": true, "device": {...}} as the last line.
@@ -81,7 +81,14 @@ import numpy as np
 import torch
 
 PEAK_BF16 = 989e12  # H100 SXM dense tensor-core FLOP/s (NVIDIA data sheet)
-PEAK_FP32 = 67e12  # H100 SXM fp32 FLOP/s outside the tensor cores
+PEAK_TF32 = 495e12  # H100 SXM dense TF32 tensor-core FLOP/s (NVIDIA data sheet)
+# fp32-accurate FLOP/s on the tensor cores: split TF32 takes three TF32
+# products for each fp32 one (tf32x3.cuh), the route PyTorch's fp32 attention
+# takes too, so the least time fp32 attention work needs is 3·FLOPs / 495 TF/s
+# (the FP32 units' 67 TF/s is slower)
+PEAK_FP32_TC = PEAK_TF32 / 3
+FP32_ROUTE = "tensor cores, split TF32: 3 x FLOPs at 495 TF/s"
+TF32X3 = "mma.sync m16n8k8 tf32x3"  # the design of the fp32 #1 and #4 instances
 HBM = 3.35e12  # bytes/s
 B = 8  # tiles per batch (the predict step's batch)
 GRID = (56, 28)  # ViT-L and ViT-H canvas 896×448 at 16-pixel patches
@@ -95,7 +102,10 @@ BF16_EPS = 2.0**-8
 # attention bf16/clamp: three bf16 steps at |out| ≤ ~1 (p and out are rounded
 # at the same points, fp32 sums in another order may round to the neighbour)
 ATTN_BF16_TOL = 3e-2
-# attention fp32/stable: the online softmax rescales partial sums, a few ulps
+# attention fp32/stable: the online softmax rescales partial sums, and the
+# split-TF32 products of #1 (~2^-21 a product, the tensor cores' truncating
+# accumulation within one 64-key tile, the tiles added in fp32) leave a few
+# e-6 at |out| ≤ ~3; the FP32-unit kernels (#3, #6, #7) a few ulps
 ATTN_FP32_TOL = 1e-4
 # MLP bf16: four bf16 steps of the output's scale
 MLP_BF16_REL_TOL = 4 * BF16_EPS
@@ -105,10 +115,11 @@ MLP_BF16_REL_TOL = 4 * BF16_EPS
 # fp32 sums of dS rounded once to bf16: two bf16 steps of their scale
 ATTN_BWD_REL_TOL = 1e-2
 ATTN_BWD_REL_DRHW = 2 * BF16_EPS
-# attention backward in fp32, kernel vs plain: every product in fp32 on both
-# sides (FP32 units, no TF32), so the two differ only in the order of the
-# sums over S=1568 keys or queries and in expf's last bit: a few fp32 ulps of
-# the largest terms, ~1e-6 of each output's scale; 1e-4 of it
+# attention backward in fp32, kernel vs plain: the kernel forms every product
+# in split TF32 on the tensor cores (~2^-21 relative a product, each step's
+# truncating tensor-core sum added to the total in fp32), the plain version in
+# full fp32; beside the order of the sums over S=1568 keys or queries that
+# leaves a few e-6 of each output's scale; 1e-4 of it
 ATTN_BWD_FP32_REL_TOL = 1e-4
 # LN→MLP dx: LN, dh and dx rounded to bf16 at the same points; fp32 sums in
 # another order may round to the neighbour: four bf16 steps of the scale
@@ -122,10 +133,11 @@ MLP_DX_REL_TOL = 4 * BF16_EPS
 # turns the gradient's direction by more than the cosine limit allows
 GRAD_1MCOS_MAX = 1e-3
 GRAD_REL_TOL = 5e-2
-# the same at fp32 (the default BeachSegConfig): every product in fp32 in
-# both runs, the kernels summing in other orders, so a layer's outputs
-# differ by ~1e-6 of their scale and 24 layers forward and backward grow
-# that at most tenfold; a kernel wrong anywhere moves the gradient by far more
+# the same at fp32 (the default BeachSegConfig): the attention kernels' split-
+# TF32 products and fp32 sums in other orders against full fp32 products in
+# the plain run, so a layer's attention outputs differ by a few e-6 of their
+# scale and 24 layers forward and backward grow that at most tenfold; a
+# kernel wrong anywhere moves the gradient by far more
 GRAD32_1MCOS_MAX = 1e-5
 GRAD32_REL_TOL = 1e-3
 # main path, pred_masks through kernels vs plain versions after 24 layers of
@@ -288,7 +300,7 @@ def phase_kernels(device) -> dict:
             res["attn32_ms"] = time_ms(lambda: cuda_attn.attn_qkv_rel(*args), iters=3, warmup=1)
             res["attn32_plain_ms"] = time_ms(lambda: cuda_attn.attn_qkv_rel_plain(*args), iters=2)
             res["attn32_library_ms"] = time_ms(sdpa_yardstick(*args[:4]), iters=3, warmup=1)
-            res["attn32_bound"] = attn_bound(B, 4, PEAK_FP32)
+            res["attn32_bound"] = attn_bound(B, 4, PEAK_FP32_TC)
             torch.cuda.empty_cache()
     # bf16 times at the main path's shapes (args still hold the bf16 inputs)
     res["attn_ms"] = time_ms(lambda: cuda_attn.attn_qkv_rel(*args), iters=20, warmup=2)
@@ -372,7 +384,8 @@ def attn_bwd_check(device, hd: int, where: str, dtype=torch.bfloat16) -> dict:
         err = (a.float() - w.float()).abs().max().item()
         scale = w.float().abs().max().item()
         tol = (ATTN_BWD_FP32_REL_TOL if fp32 else ATTN_BWD_REL_DRHW if name in ("drh", "drw") else ATTN_BWD_REL_TOL) * scale
-        log(f"attn_bwd {name}{where}: max_abs_err {err:.3e} (tol {tol:.3e}), max|plain| {scale:.3f}")
+        was = "; the FP32-unit design read <= 1.19e-6 at scales 0.64-3.3" if fp32 else ""
+        log(f"attn_bwd {name}{where}: max_abs_err {err:.3e} = {err / scale:.2e} of max|plain| {scale:.3f} (tol {tol:.3e}{was})")
         check(err <= tol, f"attn_bwd{where} {name} disagrees with its plain version: {err} > {tol}")
         errs[name] = err
     del got, want
@@ -382,7 +395,7 @@ def attn_bwd_check(device, hd: int, where: str, dtype=torch.bfloat16) -> dict:
     res["attn_bwd_plain_ms"] = time_ms(lambda: attention_bwd_plain(*args), iters=2)
     torch.cuda.empty_cache()
     res["attn_bwd_library_ms"] = time_ms(sdpa_bwd_yardstick(*args[:6]), iters=3 if fp32 else 10, warmup=2)
-    res["attn_bwd_bound"] = attn_bwd_bound(bh, gh * gw, gh, gw, hd, dtype.itemsize, PEAK_FP32 if fp32 else PEAK_BF16)
+    res["attn_bwd_bound"] = attn_bwd_bound(bh, gh * gw, gh, gw, hd, dtype.itemsize, PEAK_FP32_TC if fp32 else PEAK_BF16)
     del args
     torch.cuda.empty_cache()
     return res
@@ -464,7 +477,7 @@ def phase_kernels_vit_h(device) -> dict:
         res[f"packed_plain_ms_{name}"] = time_ms(lambda: attention_packed_plain(*args), iters=2)
         if name == "fp32":
             res["packed_library_ms_fp32"] = time_ms(sdpa_packed_yardstick(*args[:5]), iters=3, warmup=1)
-        res[f"packed_bound_{name}"] = packed_bound(bh, s, gh, gw, HD_H, dtype.itemsize, PEAK_BF16 if name == "bf16" else PEAK_FP32)
+        res[f"packed_bound_{name}"] = packed_bound(bh, s, gh, gw, HD_H, dtype.itemsize, PEAK_BF16 if name == "bf16" else PEAK_FP32_TC)
         torch.cuda.empty_cache()
     # SDPA yardstick on the bf16 inputs (args still hold them)
     res["packed_library_ms"] = time_ms(sdpa_packed_yardstick(*args[:5]), iters=20, warmup=2)
@@ -546,7 +559,7 @@ def phase_library_kernels(device) -> dict:
     s, bh = gh * gw, B * HEADS
     for dtype, tol, name in ((torch.float32, ATTN_FP32_TOL, "fp32"), (torch.bfloat16, ATTN_BF16_TOL, "bf16")):
         fp32 = name == "fp32"
-        peak = PEAK_FP32 if fp32 else PEAK_BF16
+        peak = PEAK_FP32_TC if fp32 else PEAK_BF16
         iters = 3 if fp32 else 20
         q, k, v, rel_h, rel_w = packed_inputs(device, dtype, bh, HD, seed=8)
         args = (q, k, v, rel_h, rel_w, HD**-0.5)
@@ -924,7 +937,7 @@ def main() -> int:
     model, cfg32 = model_for_config(conf32, device=device, seed=0)
     check(cfg32.head_dim == HD and cfg32.num_hidden_layers == 24, f"fp32 ViT-L config {cfg32}")
     log(f"fp32 predict path: ViT-L from the default BeachSegConfig, built in {time.perf_counter() - t:.3f} s")
-    m32 = phase_main_path(device, model, conf32, {"attn_qkv_rel": 24}, n_batches=1)
+    m32 = phase_main_path(device, model, conf32, {"attn_qkv_rel": 24}, n_batches=2)
     log(f"fp32 predict path phase: {time.perf_counter() - t:.3f} s")
     t = time.perf_counter()
     tr32 = phase_train_path(device, model, conf32, {"attn_qkv_rel": 24, "attn_bwd": 24}, n_steps=2,
@@ -954,8 +967,8 @@ def main() -> int:
             "launches": m32["launches"]["attn_qkv_rel"], "launches_train": tr32["launches"]["attn_qkv_rel"],
             "max_abs_err": k["attn_err_stable"],
             "ms": k["attn32_ms"], "plain_ms": k["attn32_plain_ms"],
-            "bound_ms": k["attn32_bound"][0], "bound_by": k["attn32_bound"][1],
-            "library_ms": k["attn32_library_ms"],
+            "bound_ms": k["attn32_bound"][0], "bound_by": k["attn32_bound"][1], "bound_route": FP32_ROUTE,
+            "library_ms": k["attn32_library_ms"], "design": TF32X3,
             "shape": f"fp32 stable, qkv ({B}, {GRID[0] * GRID[1]}, 3, {C}), {HEADS} heads",
         },
         {
@@ -968,7 +981,8 @@ def main() -> int:
             "bound_ms": kh["packed_bound_bf16"][0], "bound_by": kh["packed_bound_bf16"][1],
             "library_ms": kh["packed_library_ms"],
             "fp32_ms": kh["packed_ms_fp32"], "fp32_plain_ms": kh["packed_plain_ms_fp32"],
-            "fp32_bound_ms": kh["packed_bound_fp32"][0], "fp32_library_ms": kh["packed_library_ms_fp32"],
+            "fp32_bound_ms": kh["packed_bound_fp32"][0], "fp32_bound_route": FP32_ROUTE,
+            "fp32_library_ms": kh["packed_library_ms_fp32"],
             "shape": f"bf16, q/k/v ({B * HEADS}, {GRID[0] * GRID[1]}, {HD_H}), rel ({GRID[0]}, {GRID[1]})",
         },
     ]
@@ -1013,6 +1027,7 @@ def main() -> int:
                 "max_abs_err": kl[f"{key}_err_{dt}"], "ms": kl[f"{key}_ms_{dt}"], "plain_ms": kl[f"{key}_plain_ms_{dt}"],
                 "bound_ms": kl[f"{key}_bound_{dt}"][0], "bound_by": kl[f"{key}_bound_{dt}"][1],
                 "library_ms": kl[f"{key}_library_ms_{dt}"], "shape": f"{dt}, {shape}",
+                **({"bound_route": FP32_ROUTE} if dt == "fp32" else {}),
             })
     for hd, launches in ((HD, tr32["launches"]["attn_bwd"]), (HD_H, ke[f"fused_attention fp32 head_dim {HD_H}"]["launches"]["attn_bwd"])):
         r = kl[f"bwd32_{hd}"]
@@ -1022,14 +1037,15 @@ def main() -> int:
             "launches": launches, "launches_entries": ke[f"fused_attention fp32 head_dim {hd}"]["launches"]["attn_bwd"],
             "max_abs_err": r["attn_bwd_err"], "max_abs_err_by_output": r["attn_bwd_errs"],
             "ms": r["attn_bwd_ms"], "plain_ms": r["attn_bwd_plain_ms"],
-            "bound_ms": r["attn_bwd_bound"][0], "bound_by": r["attn_bwd_bound"][1], "library_ms": r["attn_bwd_library_ms"],
+            "bound_ms": r["attn_bwd_bound"][0], "bound_by": r["attn_bwd_bound"][1], "bound_route": FP32_ROUTE,
+            "library_ms": r["attn_bwd_library_ms"], "design": TF32X3,
             "shape": f"fp32, q/k/v/g ({B * HEADS}, {n}, {hd}), rel ({GRID[0]}, {GRID[1]})",
         })
     log(f"ViT-H: predict_step seconds per call {mh['seconds']}; train_step seconds per step {trh['seconds']}, "
         f"peak memory {trh['peak_bytes']} bytes, prompt gradient cosine kernels vs plain {trh['grad_cos']:.6f}")
     log(f"train_step: seconds per step {tr['seconds']}, peak memory {tr['peak_bytes']} bytes, "
         f"prompt gradient cosine kernels vs plain {tr['grad_cos']:.6f}")
-    log(f"fp32 ViT-L: predict_step seconds per call {m32['seconds']}; train_step seconds per step {tr32['seconds']}, "
+    log(f"fp32 ViT-L: predict_step seconds per call {m32['seconds']} (warm {m32['seconds'][-1]:.4f}); train_step seconds per step {tr32['seconds']}, "
         f"peak memory {tr32['peak_bytes']} bytes, prompt gradient 1 - cosine kernels vs plain {1 - tr32['grad_cos']:.4e}, "
         f"max_abs_err {tr32['grad_err']:.4e}")
     log(f"total: {time.perf_counter() - t_start:.3f} s")

@@ -3,16 +3,23 @@ forward kernels are rebuilt with one phase removed and timed beside the
 intact ones at the main path's shapes (B=8 tiles of ViT-L); the two ViT-H
 attention kernels (packed forward, backward at head_dim 80), whose
 instances spill registers, are rebuilt with one block per SM in their
-launch bounds and timed beside the intact ones at ViT-H's shapes. One CUDA
-card.
+launch bounds and timed beside the intact ones at ViT-H's shapes; the fp32
+instances of the qkv-rel attention and of the attention backward (split-TF32
+products, ``csrc/tf32x3.cuh``) are rebuilt with one part removed or cheapened
+(one TF32 product instead of three, no split, the hardware exp, ...) or with
+the split done the costlier ways (the small part rounded too; both parts by
+``cvt.rna.tf32.f32``) and timed beside the intact ones at ViT-L's shapes in
+fp32. One CUDA card.
 
-    python3 scripts/ablate_torch_kernels.py
+    python3 scripts/ablate_torch_kernels.py [bf16|fp32]
 
-The variants are text edits of ``beach_seg_tpu_torch/ops/csrc/*.cu`` compiled
-into a temporary directory; the phase-removed outputs are wrong by
+(no argument: both groups). The variants are text edits of
+``beach_seg_tpu_torch/ops/csrc/`` (a source or a shared header), each compiled
+in its own temporary directory; the phase-removed outputs are wrong by
 construction and only their times mean anything. Prints the card, ptxas'
-register and spill lines of the launch-bound variants, then one JSON line per
-variant. Exits non-zero without a CUDA device.
+register and spill lines of the launch-bound variants and of the fp32
+instances, then one JSON line per variant. Exits non-zero without a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -28,60 +35,111 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-ATTN = {  # variant → (text in attn_qkv_rel.cu, replacement)
-    "no_rel_terms": ("    const int nrows = min(BQ, S - q0);", "    const int nrows = 0;"),
-    "no_rel_lookups": (
+# variant → edits: (old, new) in the kernel's source, or (header, old, new)
+ATTN = {  # attn_qkv_rel.cu, bf16 instance
+    "no_rel_terms": [("    const int nrows = min(BQ, S - q0);", "    const int nrows = 0;")],
+    "no_rel_lookups": [(
         "          s[j][e] += __bfloat162float(sRh[rA * RLD + kh]) + __bfloat162float(sRw[rA * RLD + kw]);\n"
         "          s[j][2 + e] += __bfloat162float(sRh[rB * RLD + kh]) + __bfloat162float(sRw[rB * RLD + kw]);\n",
         "",
-    ),
-    "no_bias_pass": ("    for (int i = tid; i < 2 * BK * 8; i += NT) {\n      const int which = i / (BK * 8), r = (i / 8) % BK, c8 = (i % 8) * 8;\n      uint4* t",
-                     "    for (int i = tid; i < 0; i += NT) {\n      const int which = i / (BK * 8), r = (i / 8) % BK, c8 = (i % 8) * 8;\n      uint4* t"),
-    "no_pv": ("        mma(o[2 * jj], pa[t], vb[0], vb[1]);\n        mma(o[2 * jj + 1], pa[t], vb[2], vb[3]);", ""),
+    )],
+    "no_bias_pass": [("    for (int i = tid; i < 2 * BK * 8; i += NT) {\n      const int which = i / (BK * 8), r = (i / 8) % BK, c8 = (i % 8) * 8;\n      uint4* t",
+                      "    for (int i = tid; i < 0; i += NT) {\n      const int which = i / (BK * 8), r = (i / 8) % BK, c8 = (i % 8) * 8;\n      uint4* t")],
+    "no_pv": [("        mma(o[2 * jj], pa[t], vb[0], vb[1]);\n        mma(o[2 * jj + 1], pa[t], vb[2], vb[3]);", "")],
 }
-MLP = {  # variant → (text in ln_mlp.cu, replacement)
-    "no_weight_loads": ("  auto issue = [&](int s, int st) {\n", "  auto issue = [&](int s, int st) {\n    return;\n"),
-    "no_lin1_products": ("      for (int kk = 0; kk < KC / 16; ++kk) {\n        uint32_t b[4];",
-                         "      for (int kk = 0; kk < 0; ++kk) {\n        uint32_t b[4];"),
-    "no_lin2_products": ("      for (int cf = 0; cf < WC / 16; ++cf) {\n        uint32_t b[4];",
-                         "      for (int cf = 0; cf < 0; ++cf) {\n        uint32_t b[4];"),
+MLP = {  # ln_mlp.cu
+    "no_weight_loads": [("  auto issue = [&](int s, int st) {\n", "  auto issue = [&](int s, int st) {\n    return;\n")],
+    "no_lin1_products": [("      for (int kk = 0; kk < KC / 16; ++kk) {\n        uint32_t b[4];",
+                          "      for (int kk = 0; kk < 0; ++kk) {\n        uint32_t b[4];")],
+    "no_lin2_products": [("      for (int cf = 0; cf < WC / 16; ++cf) {\n        uint32_t b[4];",
+                          "      for (int cf = 0; cf < 0; ++cf) {\n        uint32_t b[4];")],
 }
-PACKED = {"one_block_per_sm": ("__global__ void __launch_bounds__(NT, 2) attn_kernel(",  # attn_packed.cu
-                               "__global__ void __launch_bounds__(NT, 1) attn_kernel(")}
-BWD = {"one_block_per_sm": ("__global__ void __launch_bounds__(NT, 2) bwd_k_kernel(",  # attn_bwd.cu
-                            "__global__ void __launch_bounds__(NT, 1) bwd_k_kernel(")}
+PACKED = {"one_block_per_sm": [("attn_flash.cuh", "__global__ void __launch_bounds__(NT, 2) attn_kernel(",  # attn_packed.cu
+                                "__global__ void __launch_bounds__(NT, 1) attn_kernel(")]}
+BWD = {"one_block_per_sm": [("__global__ void __launch_bounds__(NT, 2) bwd_k_kernel(\n    const bf16*",  # attn_bwd.cu
+                             "__global__ void __launch_bounds__(NT, 1) bwd_k_kernel(\n    const bf16*")]}
+
+# the split-TF32 products of the fp32 instances (tf32x3.cuh)
+ONE_PRODUCT = [("tf32x3.cuh", "  mma(d, a.small, b.big);\n  mma(d, a.big, b.small);\n  mma(d, a.big, b.big);\n",
+                "  mma(d, a.big, b.big);\n"),
+               ("tf32x3.cuh", "  mma(d, a.small, e);\n  mma(d, a.big, e);\n", "  mma(d, a.big, e);\n")]
+NO_SPLIT = [("tf32x3.cuh", "  big = round_tf32(x);\n  small = __float_as_uint(x - __uint_as_float(big));\n",
+             "  big = small = __float_as_uint(x);\n")]
+# the small part rounded to TF32 too (integer add and mask), or both parts by cvt.rna.tf32.f32
+RNA_SMALL = [("tf32x3.cuh", "  small = __float_as_uint(x - __uint_as_float(big));\n",
+              "  small = round_tf32(x - __uint_as_float(big));\n")]
+CVT_SPLIT = [("tf32x3.cuh", "{ return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u; }",
+              '{\n  uint32_t r;\n  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(r) : "f"(x));\n  return r;\n}'),
+             *RNA_SMALL]
+ATTN32 = {  # attn_qkv_rel.cu, fp32 instance
+    "fp32_one_product": ONE_PRODUCT,
+    "fp32_no_split": NO_SPLIT,
+    "fp32_rna_small": RNA_SMALL,
+    "fp32_cvt_split": CVT_SPLIT,
+    "fp32_fast_exp": [("        s[j][c] = softmax_p<false>(s[j][c], m[c / 2], softmax);",
+                       "        s[j][c] = softmax_p<true>(s[j][c], m[c / 2], softmax);")],
+    "fp32_no_rel_lookups": [("          s[j][e] += rh.x + rw.x;\n          s[j][2 + e] += rh.y + rw.y;\n", "")],
+    "fp32_no_pv": [("        mma3(pv[nt], pa, split_b(vr[0], vr[LD]));\n", "")],
+}
+BWD32 = {  # attn_bwd.cu, fp32 instance at head_dim 64
+    "fp32_one_product": ONE_PRODUCT,
+    "fp32_no_split": NO_SPLIT,
+    "fp32_rna_small": RNA_SMALL,
+    "fp32_cvt_split": CVT_SPLIT,
+    "fp32_fast_exp": [("            const float u = expf(s[j][2 * i + e] - mnew);", "            const float u = __expf(s[j][2 * i + e] - mnew);"),
+                      ("        s[j][c] = expf(s[j][c] - m[i]) * linv[i]", "        s[j][c] = __expf(s[j][c] - m[i]) * linv[i]"),
+                      ("            p = expf(s - m) * linv;", "            p = __expf(s - m) * linv;")],
+    "fp32_no_slot_sums": [("    slot_sums(sHh + kh0, sh, s, nh, rA, rB, gr, t);", "    (void)nh;"),
+                          ("    slot_sums(sHw, sw, s, min(wk, 32), rA, rB, gr, t);", ""),
+                          ("    if (wk > 32) slot_sums(sHw + 32, sw, s, wk - 32, rA, rB, gr, t, 32);", "")],
+    "fp32_k_no_step_loads": [("      load_step(sRh, sRw, sM, rhp, rwp, stats + (size_t)bh * S, (size_t)BH * S, S, hk, wk, q0 + BK, tid);", "")],
+    "fp32_q_kernel_only": [("  bwd_k_kernel<HD><<<grid, NT, smem_k<HD>(), st>>>((const float*)q,",
+                            "  if (S < 0) bwd_k_kernel<HD><<<grid, NT, smem_k<HD>(), st>>>((const float*)q,")],
+}
 
 
-def build_variants(name: str, edits: dict, out: Path, show_ptxas: bool = False) -> dict[str, ctypes.CDLL]:
+def build_variants(specs: list[tuple[str, str, dict]], out: Path, show_ptxas: set[str] = frozenset()) -> dict:
+    """Compile every (group, source name, variants) spec's intact source and
+    its variants, all ``nvcc`` processes at once, each in its own directory
+    beside copies of the shared headers; returns group → variant → library."""
     from beach_seg_tpu_torch.ops import build
 
-    src = (build.CSRC / f"{name}.cu").read_text()
-    texts = {"intact": src}
-    for variant, (old, new) in edits.items():
-        if src.count(old) != 1:
-            raise RuntimeError(f"{name}.cu no longer has the text variant {variant} edits")
-        texts[variant] = src.replace(old, new)
     procs = {}
-    for variant, text in texts.items():
-        cu = out / f"{name}_{variant}.cu"
-        cu.write_text(text)
-        cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(cu.with_suffix(".so")), str(cu)]
-        procs[variant] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    for variant, proc in procs.items():
+    for group, name, edits in specs:
+        for variant, changes in {"intact": [], **edits}.items():
+            files = {p.name: p.read_text() for p in [build.CSRC / f"{name}.cu", *build.CSRC.glob("*.cuh")]}
+            for change in changes:
+                fname, old, new = change if len(change) == 3 else (f"{name}.cu", *change)
+                if files[fname].count(old) != 1:
+                    raise RuntimeError(f"{fname} no longer has the text variant {group} {variant} edits")
+                files[fname] = files[fname].replace(old, new)
+            d = out / f"{group}_{variant}"
+            d.mkdir()
+            for fname, text in files.items():
+                (d / fname).write_text(text)
+            cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(d / f"lib{name}.so"), str(d / f"{name}.cu")]
+            procs[group, variant] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+                                     d / f"lib{name}.so")
+    libs: dict[str, dict[str, ctypes.CDLL]] = {}
+    for (group, variant), (proc, so) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {name} {variant}:\n{log}")
-        for line in log.splitlines() if show_ptxas else ():
-            if "Compiling entry" in line or "Used" in line or "spill" in line:
-                print(f"{name} {variant}: {line.strip()}")
-        libs[variant] = ctypes.CDLL(str(out / f"{name}_{variant}.so"))
+            raise RuntimeError(f"nvcc failed for {group} {variant}:\n{log}")
+        lines = log.splitlines()
+        for i, line in enumerate(lines if group in show_ptxas else ()):
+            if "Compiling entry" in line and (group not in ("attn32", "bwd32") or "PKf" in line):
+                print(f"{group} {variant}: {line.strip()[-70:]} | {' | '.join(x.strip() for x in lines[i + 1:i + 3])}")
+        libs.setdefault(group, {})[variant] = ctypes.CDLL(str(so))
     return libs
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("ablate_torch_kernels: no CUDA device", file=sys.stderr)
+        return 2
+    which = sys.argv[1] if len(sys.argv) > 1 else "all"
+    if which not in ("all", "bf16", "fp32"):
+        print("usage: ablate_torch_kernels.py [bf16|fp32]", file=sys.stderr)
         return 2
     import chip_smoke
     from beach_seg_tpu_torch.ops import cuda_attn, cuda_mlp
@@ -91,57 +149,61 @@ def main() -> int:
     stream = torch.cuda.current_stream().cuda_stream
     gh, gw = chip_smoke.GRID
     s, c, m, b = gh * gw, chip_smoke.C, chip_smoke.MLP, chip_smoke.B
+    specs = []
+    if which in ("all", "bf16"):
+        specs += [("attn", "attn_qkv_rel", ATTN), ("mlp", "ln_mlp", MLP), ("packed", "attn_packed", PACKED),
+                  ("bwd", "attn_bwd", BWD)]
+    if which in ("all", "fp32"):
+        specs += [("attn32", "attn_qkv_rel", ATTN32), ("bwd32", "attn_bwd", BWD32)]
     with tempfile.TemporaryDirectory() as tmp:
-        attn = build_variants("attn_qkv_rel", ATTN, Path(tmp))
-        mlp = build_variants("ln_mlp", MLP, Path(tmp))
-        packed = build_variants("attn_packed", PACKED, Path(tmp), show_ptxas=True)
-        bwd = build_variants("attn_bwd", BWD, Path(tmp), show_ptxas=True)
-        # ViT-H: (B·H, S, 80) q, k, v, g and the rel terms, bf16
-        bh, hd = b * chip_smoke.HEADS, chip_smoke.HD_H
-        hq, hk_, hv, hrh, hrw, hg = chip_smoke.attn_bwd_inputs(dev, bh, hd=hd)
-        hout = torch.empty((b, s, chip_smoke.C_H), dtype=torch.bfloat16, device=dev)
-        dq, dk, dv = torch.empty_like(hq), torch.empty(hq.shape, device=dev), torch.empty(hq.shape, device=dev)
-        drh, drw, stats = torch.empty_like(hrh), torch.empty_like(hrw), torch.empty((3, bh, s), device=dev)
-        qkv, bias, rh, rw = chip_smoke.attn_inputs(torch.bfloat16, dev)
-        out = torch.empty((b, s, c), dtype=torch.bfloat16, device=dev)
-        g = torch.Generator(device=dev).manual_seed(1)
-        x = torch.randn((b * s, c), generator=g, device=dev).to(torch.bfloat16)
-        ls, lb = torch.ones(c, device=dev), torch.zeros(c, device=dev)
-        w1 = (torch.randn((c, m), generator=g, device=dev) / c**0.5).to(torch.bfloat16)
-        w2 = (torch.randn((m, c), generator=g, device=dev) / m**0.5).to(torch.bfloat16)
-        b1 = torch.zeros(m, dtype=torch.bfloat16, device=dev)
-        b2 = torch.zeros(c, dtype=torch.bfloat16, device=dev)
-        y = torch.empty_like(x)
+        libs = build_variants(specs, Path(tmp), show_ptxas={"packed", "bwd", "attn32", "bwd32"})
+        calls = {}  # group → (entry, argtypes, argument pointers and sizes, iterations)
+        if which in ("all", "bf16"):
+            # ViT-H: (B·H, S, 80) q, k, v, g and the rel terms, bf16
+            bh, hd = b * chip_smoke.HEADS, chip_smoke.HD_H
+            hq, hk_, hv, hrh, hrw, hg = chip_smoke.attn_bwd_inputs(dev, bh, hd=hd)
+            hout = torch.empty((b, s, chip_smoke.C_H), dtype=torch.bfloat16, device=dev)
+            dq, dk, dv = torch.empty_like(hq), torch.empty(hq.shape, device=dev), torch.empty(hq.shape, device=dev)
+            drh, drw, stats = torch.empty_like(hrh), torch.empty_like(hrw), torch.empty((3, bh, s), device=dev)
+            qkv, bias, rh, rw = chip_smoke.attn_inputs(torch.bfloat16, dev)
+            out = torch.empty((b, s, c), dtype=torch.bfloat16, device=dev)
+            g = torch.Generator(device=dev).manual_seed(1)
+            x = torch.randn((b * s, c), generator=g, device=dev).to(torch.bfloat16)
+            ls, lb = torch.ones(c, device=dev), torch.zeros(c, device=dev)
+            w1 = (torch.randn((c, m), generator=g, device=dev) / c**0.5).to(torch.bfloat16)
+            w2 = (torch.randn((m, c), generator=g, device=dev) / m**0.5).to(torch.bfloat16)
+            b1 = torch.zeros(m, dtype=torch.bfloat16, device=dev)
+            b2 = torch.zeros(c, dtype=torch.bfloat16, device=dev)
+            y = torch.empty_like(x)
+            calls["attn"] = ("attn_qkv_rel_bf16", cuda_attn._PROTO, (qkv, bias, rh, rw, out, b, s, c, chip_smoke.HEADS,
+                                                                      gh, gw, chip_smoke.HD**-0.5, 1), 20)
+            calls["mlp"] = ("ln_mlp_bf16", cuda_mlp._PROTO["ln_mlp_bf16"], (x, ls, lb, w1, b1, w2, b2, y, b * s, c, m,
+                                                                             1e-6, 1), 20)
+            calls["packed"] = ("attn_packed_bf16", cuda_attn._PACKED_PROTO, (hq, hk_, hv, hrh, hrw, hout, bh, s, hd,
+                                                                             chip_smoke.HEADS, gh, gw, hd**-0.5), 20)
+            calls["bwd"] = ("attn_bwd_bf16", cuda_attn._BWD_PROTO,
+                            (hq, hk_, hv, hrh, hrw, hg, dq, dk, dv, drh, drw, stats, bh, s, hd, gh, gw, hd**-0.5), 10)
+        if which in ("all", "fp32"):
+            # ViT-L in fp32: the qkv-rel forward at B=8 and the backward at head_dim 64
+            bh, hd = b * chip_smoke.HEADS, chip_smoke.HD
+            qkv, bias, rh, rw = chip_smoke.attn_inputs(torch.float32, dev)
+            out = torch.empty((b, s, c), device=dev)
+            fq, fk, fv, frh, frw, fg = chip_smoke.attn_bwd_inputs(dev, bh, hd=hd, dtype=torch.float32)
+            dq, dk, dv = (torch.empty_like(fq) for _ in range(3))
+            drh, drw, stats = torch.empty_like(frh), torch.empty_like(frw), torch.empty((3, bh, s), device=dev)
+            calls["attn32"] = ("attn_qkv_rel_f32", cuda_attn._PROTO, (qkv, bias, rh, rw, out, b, s, c, chip_smoke.HEADS,
+                                                                      gh, gw, hd**-0.5, 0), 5)
+            calls["bwd32"] = ("attn_bwd_f32", cuda_attn._BWD_PROTO,
+                              (fq, fk, fv, frh, frw, fg, dq, dk, dv, drh, drw, stats, bh, s, hd, gh, gw, hd**-0.5), 3)
         for rep in range(2):  # two passes, to show the spread
-            for variant, lib in attn.items():
-                fn = getattr(lib, "attn_qkv_rel_bf16")
-                fn.argtypes, fn.restype = cuda_attn._PROTO, ctypes.c_int
-                ms = chip_smoke.time_ms(lambda: fn(qkv.data_ptr(), bias.data_ptr(), rh.data_ptr(), rw.data_ptr(),
-                                                   out.data_ptr(), b, s, c, chip_smoke.HEADS, gh, gw,
-                                                   chip_smoke.HD**-0.5, 1, stream), iters=20, warmup=2)
-                print(json.dumps({"kernel": "attn_qkv_rel", "variant": variant, "pass": rep, "ms": ms}))
-            for variant, lib in mlp.items():
-                fn = getattr(lib, "ln_mlp_bf16")
-                fn.argtypes, fn.restype = cuda_mlp._PROTO["ln_mlp_bf16"], ctypes.c_int
-                ms = chip_smoke.time_ms(lambda: fn(x.data_ptr(), ls.data_ptr(), lb.data_ptr(), w1.data_ptr(),
-                                                   b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), y.data_ptr(),
-                                                   b * s, c, m, 1e-6, 1, stream), iters=20, warmup=2)
-                print(json.dumps({"kernel": "ln_mlp", "variant": variant, "pass": rep, "ms": ms}))
-            for variant, lib in packed.items():
-                fn = getattr(lib, "attn_packed_bf16")
-                fn.argtypes, fn.restype = cuda_attn._PACKED_PROTO, ctypes.c_int
-                ms = chip_smoke.time_ms(lambda: fn(hq.data_ptr(), hk_.data_ptr(), hv.data_ptr(), hrh.data_ptr(),
-                                                   hrw.data_ptr(), hout.data_ptr(), bh, s, hd, chip_smoke.HEADS, gh, gw,
-                                                   hd**-0.5, stream), iters=20, warmup=2)
-                print(json.dumps({"kernel": "attn_packed", "variant": variant, "pass": rep, "ms": ms}))
-            for variant, lib in bwd.items():
-                fn = getattr(lib, "attn_bwd_bf16")
-                fn.argtypes, fn.restype = cuda_attn._BWD_PROTO["attn_bwd_bf16"], ctypes.c_int
-                ms = chip_smoke.time_ms(lambda: fn(hq.data_ptr(), hk_.data_ptr(), hv.data_ptr(), hrh.data_ptr(),
-                                                   hrw.data_ptr(), hg.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                                                   dv.data_ptr(), drh.data_ptr(), drw.data_ptr(), stats.data_ptr(),
-                                                   bh, s, hd, gh, gw, hd**-0.5, stream), iters=10, warmup=2)
-                print(json.dumps({"kernel": "attn_bwd", "variant": variant, "pass": rep, "ms": ms}))
+            for group, variants in libs.items():
+                entry, argtypes, args, iters = calls[group]
+                ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args] + [stream]
+                for variant, lib in variants.items():
+                    fn = getattr(lib, entry)
+                    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+                    ms = chip_smoke.time_ms(lambda: fn(*ptrs), iters=iters, warmup=2)
+                    print(json.dumps({"kernel": entry, "variant": variant, "pass": rep, "ms": ms}), flush=True)
     return 0
 
 

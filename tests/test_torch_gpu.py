@@ -36,28 +36,39 @@ def cuda():
     return torch.device("cuda")
 
 
-def _attn_inputs(dtype, device, batch=1, seed=0):
+def _attn_inputs(dtype, device, batch=1, seed=0, grid=S_GRID, heads=HEADS):
     g = torch.Generator(device="cpu").manual_seed(seed)
-    gh, gw = S_GRID
+    gh, gw = grid
     hd = C // HEADS
-    qkv = torch.randn((batch, gh * gw, 3, C), generator=g)
-    bias = 0.1 * torch.randn((3, C), generator=g)
+    c = heads * hd
+    qkv = torch.randn((batch, gh * gw, 3, c), generator=g)
+    bias = 0.1 * torch.randn((3, c), generator=g)
     rph = 0.1 * torch.randn((2 * gh - 1, hd), generator=g)
     rpw = 0.1 * torch.randn((2 * gw - 1, hd), generator=g)
-    rh, rw = rel_tables_padded(rph, rpw, S_GRID, S_GRID)
+    rh, rw = rel_tables_padded(rph, rpw, grid, grid)
     return [t.to(device=device, dtype=dtype).contiguous() for t in (qkv, bias, rh, rw)]
 
 
-@pytest.mark.parametrize("dtype,softmax,tol", [(torch.bfloat16, "clamp", 3e-2), (torch.float32, "stable", 1e-4)])
-def test_attn_kernel_matches_plain(cuda, dtype, softmax, tol):
-    qkv, bias, rh, rw = _attn_inputs(dtype, cuda)
-    args = (qkv, bias, rh, rw, 0.125, S_GRID[1], HEADS, softmax)
+# bf16 at one ViT-L layer (B=1, 16 heads); fp32 (split-TF32 products) in
+# every softmax mode at B=2 with 3 heads, on ragged grids (S not a multiple
+# of the 32-key step or the 8-key mma tile, a 64-wide row) and ViT-L's
+_ATTN_CASES = [(torch.bfloat16, "clamp", 3e-2, 1, HEADS, S_GRID)] + [
+    (torch.float32, softmax, 1e-4, 2, 3, grid)
+    for softmax in ("stable", "clamp", "fast")
+    for grid in ((3, 5), (7, 4), (9, 64), S_GRID)
+]
+
+
+@pytest.mark.parametrize("dtype,softmax,tol,batch,heads,grid", _ATTN_CASES)
+def test_attn_kernel_matches_plain(cuda, dtype, softmax, tol, batch, heads, grid):
+    qkv, bias, rh, rw = _attn_inputs(dtype, cuda, batch=batch, grid=grid, heads=heads)
+    args = (qkv, bias, rh, rw, 0.125, grid[1], heads, softmax)
     before = cuda_attn.attn_qkv_rel.launches
     got = cuda_attn.attn_qkv_rel(*args)
     torch.cuda.synchronize()
     assert cuda_attn.attn_qkv_rel.launches == before + 1
     want = cuda_attn.attn_qkv_rel_plain(*args)
-    assert got.shape == want.shape == (1, S_GRID[0] * S_GRID[1], C)
+    assert got.shape == want.shape == (batch, grid[0] * grid[1], heads * (C // HEADS))
     assert (got.float() - want.float()).abs().max().item() <= tol
 
 
@@ -340,11 +351,14 @@ def test_attn_qkv_kernel_matches_plain(cuda, dtype, tol, hk, wk):
     assert (got.float() - want.float()).abs().max().item() <= tol
 
 
-# one ViT-L / ViT-H image; ragged tiles
-@pytest.mark.parametrize("bh,hk,wk,d", [(16, 56, 28, 64), (3, 5, 7, 64), (2, 9, 64, 64), (16, 56, 28, 80), (2, 7, 4, 80)])
+# one ViT-L / ViT-H image; ragged tiles (S=35 is not a multiple of 8) at both head dims
+@pytest.mark.parametrize("bh,hk,wk,d", [(16, 56, 28, 64), (3, 5, 7, 64), (2, 9, 64, 64), (16, 56, 28, 80), (2, 7, 4, 80),
+                                        (3, 5, 7, 80)])
 def test_attn_bwd_fp32_kernel_matches_plain(cuda, bh, hk, wk, d):
-    """The fp32 attention backward: every product in fp32 on both sides,
-    sums over S in another order: 1e-4 of each output's scale."""
+    """The fp32 attention backward: split-TF32 products on the tensor cores
+    (~2^-21 relative a product, each step's sum added in fp32) against full
+    fp32 ones, sums over S in another order: a few e-6 of each output's
+    scale; 1e-4 of it."""
     args = (*(t.float() for t in _bwd_inputs(cuda, bh, hk, wk, d=d)), d**-0.5)
     before = cuda_attn.attn_bwd.launches
     got = cuda_attn.attn_bwd(*args)
