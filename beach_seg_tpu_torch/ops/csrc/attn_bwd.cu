@@ -1,6 +1,7 @@
 // Attention backward with the decomposed rel-pos terms, for Hopper (sm_90a),
 // bf16 or fp32 (split-TF32 products, at the end of this file), both on the
-// tensor cores, head_dim 64 (ViT-L) or 80 (ViT-H) as template instances.
+// tensor cores, head_dim 16 (the debug backbone), 64 (ViT-L) or 80 (ViT-H)
+// as template instances.
 //
 // Replaces the TPU kernel `_bwd_kernel` (beach_seg_tpu/ops/pallas_attn.py:722,
 // wrapper `_pallas_attention_bwd`). Per (batch·head), with q, k, v, g (S, D)
@@ -17,30 +18,38 @@
 // cores. The TPU kernel walks q-blocks in grid order and accumulates dK/dV by
 // revisiting the output block; Hopper blocks run in parallel, so this file
 // splits the work into two kernels, both flash-style (scores never reach
-// device memory) and deterministic (no atomics):
+// device memory) and deterministic (no atomics, every sum in a fixed order):
 //   1. q-major, one block per (64-row q tile, batch·head): a first pass over
 //      the keys gathers the row max, row sum and D with an online rescale; a
-//      second pass recomputes p and dP, forms dS, accumulates dQ = dS·k on
-//      the tensor cores, and drh/drw as dS times 0/1 key-to-slot matrices
-//      (also on the tensor cores, dS split into bf16 high and low parts) into
-//      per-row shared-memory histograms. It writes dQ, drh, drw and the row
-//      statistics.
+//      second pass recomputes p and dP, forms dS, accumulates dQ = dS·k,
+//      and drh/drw as dS times the 0/1 key-to-slot matrix E. It writes dQ,
+//      drh, drw and the row statistics.
 //   2. k-major, one block per (64-key tile, batch·head): recomputes pᵀ and
 //      dPᵀ from those statistics for every q tile and accumulates dV = pᵀg
-//      and dK = dSᵀq in registers.
-// At head_dim 80 the head dim is five 16-wide k-steps (two ldmatrix.x4 and
-// one .x2 per 8-key tile) and ten 8-wide output tiles. The q-major kernel's
-// Q and G tiles are needed only until their mma fragments are in registers,
-// so the drh/drw histograms reuse their shared memory: that keeps both
-// kernels at two blocks per SM at head_dim 80.
+//      and dK = dSᵀq.
 // That is nine products where five would do (the statistics pass and the
 // recompute of S and dP in both kernels), traded for no atomics and no
 // S×S storage.
-// Rounding (bf16): every product is mma.sync m16n8k16 with bf16 operands and fp32
-// accumulation. q, k, v and g are bf16 already, so S and dP are exact
+// bf16 (namespace wgb): one warpgroup a block, wgmma on 64-row tiles
+// (wgmma.cuh), every operand tile in shared memory in one swizzled layout
+// that serves as a K-major and an MN-major operand. In the k-major kernel
+// Sᵀ and dPᵀ take K and V as the shared-memory A operands; dV and dK take
+// pᵀ and dSᵀ from the accumulators as register A operands. In the q-major
+// kernel S, dP, then dQ with dS from registers. The rel terms of a score are
+// more k steps of the score product (with a power-of-two scale, as at head
+// dims 16 and 64, the fixed Q or K tile is prescaled, exactly, so they join
+// the product's chain; else they wait for S·scale): each row's slot terms (rel_h ‖ rel_w,
+// packed by pack_slots) times E's rows (filled by fill_slots), over the
+// slot chunks a key tile reaches, so no score takes a division or a lookup;
+// drh ‖ drw is dS (bf16 high and low parts: 16 significant bits) times E on
+// the tensor cores, accumulated in registers. The accumulators are the only
+// per-thread state. The Q/G tiles, slot rows and statistics (k-major) and
+// the K/V/E tiles (q-major) arrive through a 2-stage cp.async ring, one
+// barrier a step, so two blocks fit an SM at head dims 64 and 80.
+// Head dims 16, 64 and 80 are template instances (the wrapper pads 8 to 16).
+// Rounding (bf16): q, k, v and g are bf16 already, so S and dP are exact
 // products summed in fp32; p (for dV) and dS (for dQ and dK) are rounded to
-// bf16 as operands, where the TPU kernel keeps them in fp32. drh and drw sum
-// dS to 16 significant bits (bf16 high + low parts) in fp32. Exponentials
+// bf16 as operands, where the TPU kernel keeps them in fp32. Exponentials
 // use the hardware exp2 (__expf, relative error ~1e-5 for the arguments
 // ≤ 0 a stable softmax takes), below the bf16 rounding of every output.
 
@@ -51,50 +60,18 @@
 #include <string.h>
 
 #include "tf32x3.cuh"
+#include "wgmma.cuh"
 
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int BT = 64;        // rows per block tile and per step (queries or keys)
+constexpr int BT = 64;        // rows per block tile (queries or keys)
 constexpr int NW = 4;         // warps per block, 16 rows each
 constexpr int NT = NW * 32;
-constexpr int RLD = 64 + 2;   // bf16 rel-term row stride
-constexpr int LDS = 64 + 1;   // fp32 histogram row stride
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  uint32_t u;
-  memcpy(&u, &v, 4);
-  return u;
-}
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1]) : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
-}
-// d += a · b, m16n8k16, bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-      "{%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src, bool valid) {
-  // invalid rows are zero-filled (src-size 0)
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(valid ? 16 : 0));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>
@@ -109,469 +86,428 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// the tile shapes of one head dim
+// ============================ bf16: wgmma ============================
+
+namespace wgb {
+
+using namespace wg;
+
 template <int HD>
-struct Dim {
-  static constexpr int LDT = HD + 8;  // bf16 tile row stride: 144 B (64) / 176 B (80), conflict-free ldmatrix
-  static constexpr int KS = HD / 16;  // 16-wide k-steps over the head dim
-  static constexpr int NO = HD / 8;   // 8-wide output tiles of a (·, HD) product
+struct Cfg {
+  static constexpr int NP = HD / 16;      // 16-column panels of a 64-row q / k / v / g tile
+  static constexpr int TB = BT * HD * 2;  // its bytes
+  static constexpr int NS = 2;            // ring stages (two blocks an SM at ViT shapes)
+  // alignment slack, two fixed tiles and the fixed slot or E rows, NS ring stages
+  static size_t smem_q(int kx) { return 1024 + 2 * TB + (size_t)BT * kx * 2 + NS * stage_q(kx); }
+  static size_t smem_k(int kx) { return 1024 + 2 * TB + (size_t)BT * kx * 2 + NS * stage_k(kx); }
+  // q-major stage: K, V and E tiles; k-major stage: Q, G, slot rows and the three statistics
+  static __host__ __device__ uint32_t stage_q(int kx) { return 2 * TB + BT * kx * 2; }
+  static __host__ __device__ uint32_t stage_k(int kx) { return 2 * TB + BT * kx * 2 + 3 * BT * 4; }
 };
 
-// rows [r0, r0 + BT) of an (S, HD) tensor into a bf16 tile (zero past S)
-template <int HD>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int S, int r0, int tid) {
-  constexpr int LDT = Dim<HD>::LDT, CH = HD / 8;
-  for (int i = tid; i < BT * CH; i += NT) {
-    const int r = i / CH, c8 = (i % CH) * 8, row = r0 + r;
-    const bool valid = row < S;
-    cp_async16(dst + r * LDT + c8, valid ? src + (size_t)row * HD + c8 : src, valid);
+// For a power-of-two scale (head dims 16 and 64 at scale head_dim^-1/2),
+// multiplies the `bytes` of bf16 tile `tile` by it in place, which is exact,
+// so S·scale needs no pass of its own; returns whether it did. Waits for
+// every cp.async of the block so far.
+__device__ __forceinline__ bool prescale_tile(uint32_t tile, int bytes, float scale, int tid) {
+  int ex;
+  if (frexpf(scale, &ex) != 0.5f) return false;
+  cp_async_wait<0>();
+  __syncthreads();
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* p0 = smem_raw + (tile - smem_addr(smem_raw));
+  for (int i = tid; i < bytes / 16; i += NT) {
+    __align__(16) bf16 vals[8];
+    *reinterpret_cast<uint4*>(vals) = *reinterpret_cast<const uint4*>(p0 + 16 * i);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) vals[j] = __float2bfloat16_rn(__bfloat162float(vals[j]) * scale);
+    *reinterpret_cast<uint4*>(p0 + 16 * i) = *reinterpret_cast<const uint4*>(vals);
+  }
+  return true;
+}
+
+// rel_h ‖ rel_w of every row into the (BH·S, KX) slot layout of wgmma.cuh
+__global__ void pack_slots(const bf16* __restrict__ rh, const bf16* __restrict__ rw, bf16* __restrict__ out,
+                           size_t n, int hk, int wk, int hkp, int kx) {
+  const int nch = kx / 8;
+  const bf16 zero = __float2bfloat16_rn(0.0f);
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n * nch; i += (size_t)gridDim.x * blockDim.x) {
+    const size_t r = i / nch;
+    const int c0 = 8 * (int)(i - r * nch);
+    const bool in_h = c0 < hkp;
+    const bf16* src = in_h ? rh + r * hk : rw + r * wk;
+    const int m = in_h ? hk : wk, j0 = in_h ? c0 : c0 - hkp;
+    __align__(16) bf16 vals[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) vals[j] = j0 + j < m ? src[j0 + j] : zero;
+    *reinterpret_cast<uint4*>(out + r * kx + c0) = *reinterpret_cast<const uint4*>(vals);
   }
 }
 
-// rows [r0, r0 + BT) of rel_h / rel_w into bf16 smem tiles (zero past S)
-__device__ __forceinline__ void load_rel(bf16* sRh, bf16* sRw, const bf16* rh, const bf16* rw, int S, int hk,
-                                         int wk, int r0, int tid) {
-  for (int i = tid; i < BT * hk; i += NT) {
-    const int r = i / hk, j = i % hk;
-    sRh[r * RLD + j] = r0 + r < S ? rh[(size_t)(r0 + r) * hk + j] : __float2bfloat16_rn(0.0f);
-  }
-  for (int i = tid; i < BT * wk; i += NT) {
-    const int r = i / wk, j = i % wk;
-    sRw[r * RLD + j] = r0 + r < S ? rw[(size_t)(r0 + r) * wk + j] : __float2bfloat16_rn(0.0f);
-  }
-}
-
-// acc[8][4] = A (this warp's 16 rows, registers) · Bᵀ, B = 64 rows of a
-// bf16 tile (64 output columns, 8 tiles of 8); the head dim in pairs of
-// k-steps (ldmatrix.x4) and, for an odd count, one more (ldmatrix.x2)
-template <int HD>
-__device__ __forceinline__ void mma_abt(float (&acc)[8][4], const uint32_t (&a)[Dim<HD>::KS][4], const bf16* tile,
-                                        int lane) {
-  constexpr int LDT = Dim<HD>::LDT, KS = Dim<HD>::KS;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk + 1 < KS; kk += 2) {
-      uint32_t b[4];
-      ldsm_x4(b, tile + (8 * j + (lane % 8)) * LDT + kk * 16 + (lane / 8) * 8);
-      mma(acc[j], a[kk], b[0], b[1]);
-      mma(acc[j], a[kk + 1], b[2], b[3]);
-    }
-    if (KS % 2) {
-      uint32_t b[2];
-      ldsm_x2(b, tile + (8 * j + (lane % 8)) * LDT + (KS - 1) * 16 + ((lane / 8) % 2) * 8);
-      mma(acc[j], a[KS - 1], b[0], b[1]);
-    }
-  }
-}
-
-// P (16 rows × 64, the accumulator layout of mma_abt) as bf16 A fragments
-// of 4 k-steps, and optionally the bf16 rounding residue likewise (hi + lo
-// carry 16 significant bits)
-__device__ __forceinline__ void to_a(uint32_t (&pa)[4][4], const float (&p)[8][4]) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    pa[j / 2][(j % 2) * 2] = pack(p[j][0], p[j][1]);
-    pa[j / 2][(j % 2) * 2 + 1] = pack(p[j][2], p[j][3]);
-  }
-}
-__device__ __forceinline__ void to_a_residue(uint32_t (&la)[4][4], const float (&p)[8][4]) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    float r[4];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) r[c] = p[j][c] - __bfloat162float(__float2bfloat16_rn(p[j][c]));
-    la[j / 2][(j % 2) * 2] = pack(r[0], r[1]);
-    la[j / 2][(j % 2) * 2 + 1] = pack(r[2], r[3]);
-  }
-}
-
-// acc[NO][4] += P · B, P as A fragments (to_a), B = a 64×HD bf16 tile [k][n]
-template <int HD>
-__device__ __forceinline__ void mma_pb(float (&acc)[Dim<HD>::NO][4], const uint32_t (&pa)[4][4], const bf16* tile,
-                                       int lane) {
-  constexpr int LDT = Dim<HD>::LDT;
-#pragma unroll
-  for (int t = 0; t < 4; ++t) {
-#pragma unroll
-    for (int jj = 0; jj < Dim<HD>::NO / 2; ++jj) {
-      uint32_t b[4];
-      ldsm_x4_t(b, tile + (16 * t + (lane % 16)) * LDT + 16 * jj + (lane / 16) * 8);
-      mma(acc[2 * jj], pa[t], b[0], b[1]);
-      mma(acc[2 * jj + 1], pa[t], b[2], b[3]);
-    }
-  }
-}
-
-// this warp's 16 rows of a bf16 tile as mma A fragments
-template <int HD>
-__device__ __forceinline__ void load_a(uint32_t (&a)[Dim<HD>::KS][4], const bf16* tile, int warp, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < Dim<HD>::KS; ++kk)
-    ldsm_x4(a[kk], tile + (warp * 16 + (lane % 16)) * Dim<HD>::LDT + kk * 16 + (lane / 16) * 8);
-}
-
-// ============================ 1. q-major: dQ, drh, drw ============================
-
-// bytes of the fp32 drh/drw histograms, which first hold the Q and G tiles
-template <int HD>
-struct Hist {
-  static constexpr size_t HB = (size_t)2 * BT * LDS * sizeof(float);
-  static constexpr size_t QG = (size_t)2 * BT * Dim<HD>::LDT * sizeof(bf16);
-  static constexpr size_t bytes = HB > QG ? HB : QG;
-};
-template <int HD>
-constexpr size_t smem_q() {
-  return Hist<HD>::bytes + (size_t)(4 * BT * Dim<HD>::LDT + 2 * BT * RLD) * sizeof(bf16);
-}
+// ---------------------------- 1. q-major: dQ, drh, drw, row statistics ----------------------------
 
 template <int HD>
 __global__ void __launch_bounds__(NT, 2) bwd_q_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ rh, const bf16* __restrict__ rw, const bf16* __restrict__ g,
-    bf16* __restrict__ dq, bf16* __restrict__ drh, bf16* __restrict__ drw, float* __restrict__ stats,
-    int BH, int S, int hk, int wk, float scale) {
-  constexpr int LDT = Dim<HD>::LDT, KS = Dim<HD>::KS, NO = Dim<HD>::NO;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* sHh = reinterpret_cast<float*>(smem);  // drh histograms, one row per query
-  float* sHw = sHh + BT * LDS;
-  bf16* sQ = reinterpret_cast<bf16*>(smem);  // Q and G tiles, until their fragments are loaded
-  bf16* sG = sQ + BT * LDT;
-  bf16* sK = reinterpret_cast<bf16*>(smem + Hist<HD>::bytes);  // 2 stages
-  bf16* sV = sK + 2 * BT * LDT;  // 2 stages
-  bf16* sRh = sV + 2 * BT * LDT;
-  bf16* sRw = sRh + BT * RLD;
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v, const bf16* __restrict__ g,
+    const bf16* __restrict__ slots, const bf16* __restrict__ e, bf16* __restrict__ dq, bf16* __restrict__ drh,
+    bf16* __restrict__ drw, float* __restrict__ stats, int BH, int S, int hk, int wk, int kx, float scale) {
+  constexpr int NP = Cfg<HD>::NP, TB = Cfg<HD>::TB, NS = Cfg<HD>::NS;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base, sG = base + TB, sR = base + 2 * TB, ring = sR + BT * kx * 2;
+  const uint32_t stage_bytes = Cfg<HD>::stage_q(kx);
 
   const int q0 = blockIdx.x * BT, bh = blockIdx.y;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, gr = lane >> 2, tig = lane & 3;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, gr = lane >> 2, t = lane & 3;
+  const int hkp = round16(hk), nx = kx / 16;
   const size_t off = (size_t)bh * S * HD;
   const bf16 *qp = q + off, *kp = k + off, *vp = v + off, *gp = g + off;
-
-  load_tile<HD>(sQ, qp, S, q0, tid);
-  load_tile<HD>(sG, gp, S, q0, tid);
-  load_tile<HD>(sK, kp, S, 0, tid);
-  load_tile<HD>(sV, vp, S, 0, tid);
-  cp_async_commit();
-  load_rel(sRh, sRw, rh + (size_t)bh * S * hk, rw + (size_t)bh * S * wk, S, hk, wk, q0, tid);
-  cp_async_wait<0>();
-  __syncthreads();
-  uint32_t qa[KS][4], ga[KS][4];
-  load_a<HD>(qa, sQ, warp, lane);
-  load_a<HD>(ga, sG, warp, lane);
-  __syncthreads();  // every warp holds its fragments before the histograms overwrite the tiles
-  for (int i = tid; i < 2 * BT * LDS; i += NT) sHh[i] = 0.0f;  // sHh and sHw
-
-  const int rA = warp * 16 + gr, rB = rA + 8;  // this thread's two rows (local)
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f}, dd[2] = {0.0f, 0.0f}, linv[2];
-  float dqa[NO][4];
-#pragma unroll
-  for (int j = 0; j < NO; ++j) dqa[j][0] = dqa[j][1] = dqa[j][2] = dqa[j][3] = 0.0f;
-
   const int nk = (S + BT - 1) / BT;
-  // step it walks the keys twice: pass 0 gathers the row statistics, pass 1
-  // forms dS; the K/V tiles stream through two stages across both passes
-  for (int it = 0; it < 2 * nk; ++it) {
-    const int kt = it % nk, pass = it / nk, k0 = kt * BT;
-    const bf16* cK = sK + (it & 1) * BT * LDT;
-    const bf16* cV = sV + (it & 1) * BT * LDT;
-    __syncthreads();  // every warp is done with the stage the next prefetch overwrites
-    if (it + 1 < 2 * nk) {
-      const int kn = ((it + 1) % nk) * BT;
-      load_tile<HD>(sK + ((it + 1) & 1) * BT * LDT, kp, S, kn, tid);
-      load_tile<HD>(sV + ((it + 1) & 1) * BT * LDT, vp, S, kn, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
 
-    float s[8][4], dp[8][4];
-    mma_abt<HD>(s, qa, cK, lane);
-    mma_abt<HD>(dp, ga, cV, lane);
+  // K, V and E tiles of step it (key tile it % nk) into its ring stage
+  auto load_stage = [&](int it) {
+    const uint32_t sb = ring + (it % NS) * stage_bytes;
+    const int k0 = (it % nk) * BT;
+    load_tile(sb, kp, HD, HD, S, k0, BT, tid);
+    load_tile(sb + TB, vp, HD, HD, S, k0, BT, tid);
+    load_tile(sb + 2 * TB, e, kx, kx, S, k0, BT, tid);
+  };
+  load_tile(sQ, qp, HD, HD, S, q0, BT, tid);
+  load_tile(sG, gp, HD, HD, S, q0, BT, tid);
+  load_tile(sR, slots + (size_t)bh * S * kx, kx, kx, S, q0, BT, tid);
+  for (int st = 0; st < NS - 1; ++st) {
+    load_stage(st);
+    cp_async_commit();
+  }
+  // a power-of-two scale is exact on bf16: then Q·scale replaces the Q tile
+  const bool pow2 = prescale_tile(sQ, TB, scale, tid);
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f}, dd[2] = {0.0f, 0.0f}, linv[2] = {0.0f, 0.0f};
+  float dqa[HD / 2], hist[8][8];  // dQ; drh ‖ drw, 16 slots a chunk
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dqa[i] = 0.0f;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) hist[c][i] = 0.0f;
+  }
+
+  // the keys twice: pass 0 gathers the row statistics, pass 1 forms dS; the
+  // K/V/E tiles stream through the ring across both passes
+  for (int it = 0; it < 2 * nk; ++it) {
+    const int pass = it / nk, k0 = (it % nk) * BT;
+    cp_async_wait<NS - 2>();  // step it's tiles have landed
+    fence_async_smem();
+    __syncthreads();          // for every thread's copies; every warp is done with the stage refilled next
+    if (it + NS - 1 < 2 * nk) load_stage(it + NS - 1);
+    cp_async_commit();
+    const uint32_t sb = ring + (it % NS) * stage_bytes;
+    const int c_lo = (k0 / wk) / 16, c_hi = (min(k0 + BT - 1, S - 1) / wk) / 16;
+
+    // S = Q·Kᵀ·scale + the rel terms (slot rows · E tileᵀ) and dP = G·Vᵀ;
+    // with Q prescaled the rel terms join S's chain, else they wait for S·scale
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.0f;
+    auto rel_terms = [&]() {
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        if (touched(c, nx, hkp, c_lo, c_hi)) mma_ss<64>(s, kdesc(sR + c * BT * 32), kdesc(sb + 2 * TB + c * BT * 32), 1);
+      }
+    };
+    fence_regs(s);
+    fence_regs(dp);
+    arrive();
+#pragma unroll
+    for (int kk = 0; kk < NP; ++kk) mma_ss<64>(s, kdesc(sQ + kk * BT * 32), kdesc(sb + kk * BT * 32), kk > 0);
+    if (pow2) rel_terms();
+    commit();
+#pragma unroll
+    for (int kk = 0; kk < NP; ++kk) mma_ss<64>(dp, kdesc(sG + kk * BT * 32), kdesc(sb + TB + kk * BT * 32), kk > 0);
+    commit();
+    if (!pow2) {
+      wait<1>();
+      fence_regs(s);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] *= scale;
+      fence_regs(s);
+      arrive();
+      rel_terms();
+      commit();
+    }
+    wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int key = k0 + 8 * j + 2 * tig + e;
-        if (key < S) {
-          const int kh = key / wk, kw = key - kh * wk;
-          s[j][e] = s[j][e] * scale + (__bfloat162float(sRh[rA * RLD + kh]) + __bfloat162float(sRw[rA * RLD + kw]));
-          s[j][2 + e] = s[j][2 + e] * scale + (__bfloat162float(sRh[rB * RLD + kh]) + __bfloat162float(sRw[rB * RLD + kw]));
-        } else {
-          s[j][e] = s[j][2 + e] = -INFINITY;
-        }
-        mx[0] = fmaxf(mx[0], s[j][e]);
-        mx[1] = fmaxf(mx[1], s[j][2 + e]);
-      }
+    for (int i = 0; i < 32; ++i) {
+      if (k0 + 8 * (i / 4) + 2 * t + (i & 1) >= S) s[i] = -INFINITY;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
     }
 
     if (pass == 0) {
       // online row max, row sum of u = exp(s - max) and Σ u·dP
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const float mnew = fmaxf(m[i], quad_max(mx[i]));
-        const float alpha = __expf(m[i] - mnew);  // 0 on the first step (m = -inf)
+      for (int r = 0; r < 2; ++r) {
+        const float mnew = fmaxf(m[r], quad_max(mx[r]));
+        const float alpha = __expf(m[r] - mnew);  // 0 on the first step (m = -inf)
         float ls = 0.0f, ds = 0.0f;
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float u = __expf(s[j][2 * i + e] - mnew);
+        for (int i = 0; i < 32; ++i) {
+          if (((i >> 1) & 1) == r) {
+            const float u = __expf(s[i] - mnew);
             ls += u;
-            ds += u * dp[j][2 * i + e];
+            ds += u * dp[i];
           }
         }
-        l[i] = l[i] * alpha + ls;
-        dd[i] = dd[i] * alpha + ds;
-        m[i] = mnew;
+        l[r] = l[r] * alpha + ls;
+        dd[r] = dd[r] * alpha + ds;
+        m[r] = mnew;
       }
       if (it == nk - 1) {
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          l[i] = quad_sum(l[i]);
-          dd[i] = quad_sum(dd[i]) / l[i];  // D = rowsum(dP∘p)
-          linv[i] = 1.0f / l[i];
+        for (int r = 0; r < 2; ++r) {
+          l[r] = quad_sum(l[r]);
+          dd[r] = quad_sum(dd[r]) / l[r];  // D = rowsum(dP∘p)
+          linv[r] = 1.0f / l[r];
         }
       }
       continue;
     }
 
-    // pass 1: dS = p∘(dP - D), kept in s
+    // pass 1: dS = p∘(dP - D), in s; then dQ += dS·K and, on the tensor
+    // cores, drh ‖ drw += (dS_hi + dS_lo)·E over the touched slot chunks
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int i = c / 2;
-        const float p = __expf(s[j][c] - m[i]) * linv[i];
-        s[j][c] = p * (dp[j][c] - dd[i]);
-      }
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      s[i] = __expf(s[i] - m[r]) * linv[r] * (dp[i] - dd[r]);
     }
-    uint32_t dsa[4][4], dsl[4][4];
-    to_a(dsa, s);
-    to_a_residue(dsl, s);
-    // drh/drw on the tensor cores: (dS_hi + dS_lo) · E, E[key][slot] = 1
-    // where the key's row (drh, slots from this tile's first row kh0) or
-    // column (drw) is the slot, built in registers from the slot indices of
-    // this thread's keys (8 bits each, 0xFF past S); each thread adds its
-    // accumulator cells (its own rows and slots) into the histograms
-    {
-      const int kh0 = k0 / wk;
-      uint32_t slots[2][4] = {{0u, 0u, 0u, 0u}, {0u, 0u, 0u, 0u}};  // [drh, drw][key index / 4]
+    uint32_t da[4][4], dl[4][4];
+    to_a(da, s);
+    to_a_residue(dl, s);
+    fence_regs(dqa);
 #pragma unroll
-      for (int idx = 0; idx < 16; ++idx) {  // key index 2j + e ↔ key 8j + 2·tig + e
-        const int key = k0 + 8 * (idx / 2) + 2 * tig + (idx % 2);
-        const int kh = key / wk;
-        const uint32_t sh = key < S ? kh - kh0 : 0xFFu, sw = key < S ? key - kh * wk : 0xFFu;
-        slots[0][idx / 4] |= sh << (8 * (idx % 4));
-        slots[1][idx / 4] |= sw << (8 * (idx % 4));
-      }
+    for (int c = 0; c < 8; ++c) fence_regs(hist[c]);
+    arrive();
 #pragma unroll
-      for (int which = 0; which < 2; ++which) {
-        const int nslots = which ? wk : (min(k0 + BT, S) - 1) / wk - kh0 + 1;
-        float* hist = which ? sHw : sHh + kh0;
-        for (int nt = 0; nt * 8 < nslots; ++nt) {
-          const uint32_t slot = 8 * nt + gr;
-          float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int ks = 0; ks < 4; ++ks) mma_rs<HD>(dqa, da[ks], mndesc(sb + ks * 16 * 32, BT), 1);
 #pragma unroll
-          for (int t = 0; t < 4; ++t) {
-            uint32_t b[2];
+    for (int c = 0; c < 8; ++c) {
+      if (touched(c, nx, hkp, c_lo, c_hi)) {  // drh, drw
 #pragma unroll
-            for (int h = 0; h < 2; ++h) {  // keys 16t + 8h + 2·tig + {0, 1}: key indices 4t + 2h + {0, 1}
-              const uint32_t w = slots[which][t] >> (16 * h);
-              b[h] = ((w & 0xFFu) == slot ? 0x3F80u : 0u) | (((w >> 8) & 0xFFu) == slot ? 0x3F800000u : 0u);
-            }
-            mma(acc, dsa[t], b[0], b[1]);
-            mma(acc, dsl[t], b[0], b[1]);
-          }
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const int col = 8 * nt + 2 * tig + (c % 2);
-            if (col < nslots) hist[(warp * 16 + gr + 8 * (c / 2)) * LDS + col] += acc[c];
-          }
+        for (int ks = 0; ks < 4; ++ks) {
+          const uint64_t de = mndesc(sb + 2 * TB + c * BT * 32 + ks * 16 * 32, BT);
+          mma_rs<16>(hist[c], da[ks], de, 1);
+          mma_rs<16>(hist[c], dl[ks], de, 1);
         }
       }
     }
-    mma_pb<HD>(dqa, dsa, cK, lane);  // dQ += dS·k
-  }
-  // the histogram cells of this warp's rows were added to by other lanes
-  // than those that write them out below (the loop's barriers order the
-  // steps among themselves, nothing orders the last step and the write-out)
-  __syncwarp();
-
-  // outputs of this warp's rows
+    commit();
+    wait<0>();
+    fence_regs(dqa);
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = q0 + (i ? rB : rA);
+    for (int c = 0; c < 8; ++c) fence_regs(hist[c]);
+  }
+
+  // outputs of this thread's rows
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + warp * 16 + gr + 8 * r;
     if (row >= S) continue;
-    if (tig == 0) {
+    if (t == 0) {
       const size_t o = (size_t)bh * S + row;
-      stats[o] = m[i];
-      stats[(size_t)BH * S + o] = l[i];
-      stats[(size_t)2 * BH * S + o] = dd[i];
+      stats[o] = m[r];
+      stats[(size_t)BH * S + o] = linv[r];
+      stats[(size_t)2 * BH * S + o] = dd[r];
     }
-    bf16* dst = dq + off + (size_t)row * HD + 2 * tig;
+    bf16* dst = dq + off + (size_t)row * HD + 2 * t;
 #pragma unroll
-    for (int j = 0; j < NO; ++j)
-      *reinterpret_cast<uint32_t*>(dst + 8 * j) = pack(dqa[j][2 * i] * scale, dqa[j][2 * i + 1] * scale);
-  }
-  for (int i = lane; i < 16 * hk; i += 32) {
-    const int r = i / hk, j = i % hk, row = q0 + warp * 16 + r;
-    if (row < S) drh[((size_t)bh * S + row) * hk + j] = __float2bfloat16_rn(sHh[(warp * 16 + r) * LDS + j]);
-  }
-  for (int i = lane; i < 16 * wk; i += 32) {
-    const int r = i / wk, j = i % wk, row = q0 + warp * 16 + r;
-    if (row < S) drw[((size_t)bh * S + row) * wk + j] = __float2bfloat16_rn(sHw[(warp * 16 + r) * LDS + j]);
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<uint32_t*>(dst + 8 * j) = pack(dqa[4 * j + 2 * r] * scale, dqa[4 * j + 2 * r + 1] * scale);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      if (c >= nx) continue;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        if (((i >> 1) & 1) != r) continue;
+        const int slot = 16 * c + 8 * (i / 4) + 2 * t + (i & 1);
+        const bf16 x = __float2bfloat16_rn(hist[c][i]);
+        if (slot < hk) {
+          drh[((size_t)bh * S + row) * hk + slot] = x;
+        } else if (slot >= hkp && slot - hkp < wk) {
+          drw[((size_t)bh * S + row) * wk + slot - hkp] = x;
+        }
+      }
+    }
   }
 }
 
-// ============================ 2. k-major: dK, dV ============================
-
-template <int HD>
-constexpr size_t smem_k() {
-  return (size_t)(6 * BT * Dim<HD>::LDT + 2 * BT * RLD) * sizeof(bf16) + (size_t)3 * BT * sizeof(float);
-}
+// ---------------------------- 2. k-major: dK, dV ----------------------------
 
 template <int HD>
 __global__ void __launch_bounds__(NT, 2) bwd_k_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ rh, const bf16* __restrict__ rw, const bf16* __restrict__ g,
-    float* __restrict__ dk, float* __restrict__ dv, const float* __restrict__ stats,
-    int BH, int S, int hk, int wk, float scale) {
-  constexpr int LDT = Dim<HD>::LDT, KS = Dim<HD>::KS, NO = Dim<HD>::NO;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + BT * LDT;
-  bf16* sQ = sV + BT * LDT;      // 2 stages
-  bf16* sG = sQ + 2 * BT * LDT;  // 2 stages
-  bf16* sRh = sG + 2 * BT * LDT;
-  bf16* sRw = sRh + BT * RLD;
-  float* sM = reinterpret_cast<float*>(sRw + BT * RLD);
-  float* sLinv = sM + BT;  // 1 / row sum
-  float* sD = sLinv + BT;
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v, const bf16* __restrict__ g,
+    const bf16* __restrict__ slots, const bf16* __restrict__ e, float* __restrict__ dk, float* __restrict__ dv,
+    const float* __restrict__ stats, int BH, int S, int hk, int wk, int kx, float scale) {
+  constexpr int NP = Cfg<HD>::NP, TB = Cfg<HD>::TB, NS = Cfg<HD>::NS;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw), base = (raw + 1023u) & ~1023u;
+  const unsigned char* gbase = smem_raw + (base - raw);
+  const uint32_t sK = base, sV = base + TB, sE = base + 2 * TB, ring = sE + BT * kx * 2;
+  const uint32_t stage_bytes = Cfg<HD>::stage_k(kx);
 
   const int k0 = blockIdx.x * BT, bh = blockIdx.y;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, gr = lane >> 2, tig = lane & 3;
-  const size_t off = (size_t)bh * S * HD;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, gr = lane >> 2, t = lane & 3;
+  const int hkp = round16(hk), nx = kx / 16;
+  const size_t off = (size_t)bh * S * HD, plane = (size_t)BH * S;
   const bf16 *qp = q + off, *kp = k + off, *vp = v + off, *gp = g + off;
-  const bf16* rhp = rh + (size_t)bh * S * hk;
-  const bf16* rwp = rw + (size_t)bh * S * wk;
-
-  load_tile<HD>(sK, kp, S, k0, tid);
-  load_tile<HD>(sV, vp, S, k0, tid);
-  load_tile<HD>(sQ, qp, S, 0, tid);
-  load_tile<HD>(sG, gp, S, 0, tid);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  uint32_t ka[KS][4], va[KS][4];
-  load_a<HD>(ka, sK, warp, lane);
-  load_a<HD>(va, sV, warp, lane);
-
-  // this thread's two keys (rows of the transposed scores); keys past S
-  // read table slot 0 and are never stored
-  int kh[2], kw[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int key = min(k0 + warp * 16 + gr + 8 * i, S - 1);
-    kh[i] = key / wk;
-    kw[i] = key - kh[i] * wk;
-  }
-  float dka[NO][4], dva[NO][4];
-#pragma unroll
-  for (int j = 0; j < NO; ++j) {
-    dka[j][0] = dka[j][1] = dka[j][2] = dka[j][3] = 0.0f;
-    dva[j][0] = dva[j][1] = dva[j][2] = dva[j][3] = 0.0f;
-  }
-
+  const bf16* sp = slots + (size_t)bh * S * kx;
   const int nq = (S + BT - 1) / BT;
-  for (int qt = 0; qt < nq; ++qt) {
-    const int q0 = qt * BT;
-    const bf16* cQ = sQ + (qt & 1) * BT * LDT;
-    const bf16* cG = sG + (qt & 1) * BT * LDT;
-    __syncthreads();  // every warp is done with the previous stage, rel rows and statistics
-    if (qt + 1 < nq) {
-      load_tile<HD>(sQ + ((qt + 1) & 1) * BT * LDT, qp, S, q0 + BT, tid);
-      load_tile<HD>(sG + ((qt + 1) & 1) * BT * LDT, gp, S, q0 + BT, tid);
-      cp_async_commit();
-    }
-    load_rel(sRh, sRw, rhp, rwp, S, hk, wk, q0, tid);
-    for (int i = tid; i < BT; i += NT) {
-      const bool valid = q0 + i < S;
-      const size_t o = (size_t)bh * S + q0 + i;
-      sM[i] = valid ? stats[o] : 0.0f;
-      sLinv[i] = valid ? 1.0f / stats[(size_t)BH * S + o] : 1.0f;
-      sD[i] = valid ? stats[(size_t)2 * BH * S + o] : 0.0f;
-    }
-    if (qt + 1 < nq) {
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
 
-    float st[8][4], dpt[8][4];  // sᵀ and dPᵀ: this warp's 16 keys × 64 queries
-    mma_abt<HD>(st, ka, cQ, lane);
-    mma_abt<HD>(dpt, va, cG, lane);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int i = c / 2, qc = 8 * j + 2 * tig + (c % 2);
-        float p = 0.0f;
-        if (q0 + qc < S) {
-          const float s = st[j][c] * scale +
-                          (__bfloat162float(sRh[qc * RLD + kh[i]]) + __bfloat162float(sRw[qc * RLD + kw[i]]));
-          p = __expf(s - sM[qc]) * sLinv[qc];
-        }
-        st[j][c] = p;
-        dpt[j][c] = p * (dpt[j][c] - sD[qc]);  // dSᵀ
-      }
+  // Q, G tiles, slot rows and statistics (row max, 1 / row sum, D) of query
+  // tile qt into its ring stage, zero past S
+  auto load_stage = [&](int qt) {
+    const uint32_t sb = ring + (qt % NS) * stage_bytes;
+    const int q0 = qt * BT;
+    load_tile(sb, qp, HD, HD, S, q0, BT, tid);
+    load_tile(sb + TB, gp, HD, HD, S, q0, BT, tid);
+    load_tile(sb + 2 * TB, sp, kx, kx, S, q0, BT, tid);
+    for (int i = tid; i < 3 * BT; i += NT) {
+      const int w = i / BT, r = i - w * BT;
+      const bool valid = q0 + r < S;
+      cp_async4(sb + 2 * TB + BT * kx * 2 + 4 * i, stats + w * plane + (size_t)bh * S + (valid ? q0 + r : 0), valid);
     }
-    uint32_t pa[4][4];
+  };
+  load_tile(sK, kp, HD, HD, S, k0, BT, tid);
+  load_tile(sV, vp, HD, HD, S, k0, BT, tid);
+  load_tile(sE, e, kx, kx, S, k0, BT, tid);
+  for (int st = 0; st < NS - 1; ++st) {
+    if (st < nq) load_stage(st);
+    cp_async_commit();
+  }
+  const int c_lo = (k0 / wk) / 16, c_hi = (min(k0 + BT - 1, S - 1) / wk) / 16;
+  // a power-of-two scale is exact on bf16: then K·scale replaces the K tile
+  const bool pow2 = prescale_tile(sK, TB, scale, tid);
+
+  float dka[HD / 2], dva[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dka[i] = dva[i] = 0.0f;
+
+  for (int qt = 0; qt < nq; ++qt) {
+    cp_async_wait<NS - 2>();  // query tile qt's stage has landed
+    fence_async_smem();
+    __syncthreads();          // for every thread's copies; every warp is done with the stage refilled next
+    if (qt + NS - 1 < nq) load_stage(qt + NS - 1);
+    cp_async_commit();
+    const uint32_t sb = ring + (qt % NS) * stage_bytes;
+    const float* sStat = reinterpret_cast<const float*>(gbase + (sb + 2 * TB + BT * kx * 2 - base));
+
+    // Sᵀ = K·Qᵀ·scale + the rel terms (E rows of the keys · slot rowsᵀ) and
+    // dPᵀ = V·Gᵀ (this block's 64 keys × 64 queries); with K prescaled the
+    // rel terms join Sᵀ's chain, else they wait for Sᵀ·scale
+    float st[32], dpt[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.0f;
+    auto rel_terms = [&]() {
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        if (touched(c, nx, hkp, c_lo, c_hi)) mma_ss<64>(st, kdesc(sE + c * BT * 32), kdesc(sb + 2 * TB + c * BT * 32), 1);
+      }
+    };
+    fence_regs(st);
+    fence_regs(dpt);
+    arrive();
+#pragma unroll
+    for (int kk = 0; kk < NP; ++kk) mma_ss<64>(st, kdesc(sK + kk * BT * 32), kdesc(sb + kk * BT * 32), kk > 0);
+    if (pow2) rel_terms();
+    commit();
+#pragma unroll
+    for (int kk = 0; kk < NP; ++kk) mma_ss<64>(dpt, kdesc(sV + kk * BT * 32), kdesc(sb + TB + kk * BT * 32), kk > 0);
+    commit();
+    if (!pow2) {
+      wait<1>();
+      fence_regs(st);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) st[i] *= scale;
+      fence_regs(st);
+      arrive();
+      rel_terms();
+      commit();
+    }
+    wait<0>();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    // pᵀ and dSᵀ; queries past S have 1 / row sum 0, so p = 0
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int qc = 8 * (i / 4) + 2 * t + (i & 1);
+      const float p = __expf(st[i] - sStat[qc]) * sStat[BT + qc];
+      st[i] = p;
+      dpt[i] = p * (dpt[i] - sStat[2 * BT + qc]);
+    }
+    uint32_t pa[4][4], da[4][4];
     to_a(pa, st);
-    mma_pb<HD>(dva, pa, cG, lane);  // dV += pᵀ·g
-    to_a(pa, dpt);
-    mma_pb<HD>(dka, pa, cQ, lane);  // dK += dSᵀ·q
+    to_a(da, dpt);
+    // dV += pᵀ·G, dK += dSᵀ·Q (G and Q the MN-major B operands)
+    fence_regs(dva);
+    fence_regs(dka);
+    arrive();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) mma_rs<HD>(dva, pa[ks], mndesc(sb + TB + ks * 16 * 32, BT), 1);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) mma_rs<HD>(dka, da[ks], mndesc(sb + ks * 16 * 32, BT), 1);
+    commit();
+    wait<0>();
+    fence_regs(dva);
+    fence_regs(dka);
   }
 
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int key = k0 + warp * 16 + gr + 8 * i;
+  for (int r = 0; r < 2; ++r) {
+    const int key = k0 + warp * 16 + gr + 8 * r;
     if (key >= S) continue;
-    float* dkr = dk + off + (size_t)key * HD + 2 * tig;
-    float* dvr = dv + off + (size_t)key * HD + 2 * tig;
+    float* dkr = dk + off + (size_t)key * HD + 2 * t;
+    float* dvr = dv + off + (size_t)key * HD + 2 * t;
 #pragma unroll
-    for (int j = 0; j < NO; ++j) {
-      *reinterpret_cast<float2*>(dkr + 8 * j) = make_float2(dka[j][2 * i] * scale, dka[j][2 * i + 1] * scale);
-      *reinterpret_cast<float2*>(dvr + 8 * j) = make_float2(dva[j][2 * i], dva[j][2 * i + 1]);
+    for (int j = 0; j < HD / 8; ++j) {
+      *reinterpret_cast<float2*>(dkr + 8 * j) = make_float2(dka[4 * j + 2 * r] * scale, dka[4 * j + 2 * r + 1] * scale);
+      *reinterpret_cast<float2*>(dvr + 8 * j) = make_float2(dva[4 * j + 2 * r], dva[4 * j + 2 * r + 1]);
     }
   }
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, const void* rh, const void* rw, const void* g, void* dq,
-           void* dk, void* dv, void* drh, void* drw, void* stats, int BH, int S, int hk, int wk, float scale,
-           void* stream) {
-  cudaError_t err =
-      cudaFuncSetAttribute(bwd_q_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_q<HD>());
+int launch(const void* q, const void* k, const void* v, const void* rh, const void* rw, const void* g, void* e,
+           void* slots, void* dq, void* dk, void* dv, void* drh, void* drw, void* stats, int BH, int S, int hk, int wk,
+           float scale, void* stream) {
+  const int hkp = round16(hk), kx = hkp + round16(wk), s_pad = (S + BT - 1) / BT * BT;
+  cudaStream_t st = (cudaStream_t)stream;
+  fill_slots<<<(s_pad * kx / 8 + 255) / 256, 256, 0, st>>>((bf16*)e, S, s_pad, wk, hkp, kx);
+  const size_t n = (size_t)BH * S;
+  const size_t nblk = (n * kx / 8 + 255) / 256;
+  pack_slots<<<(unsigned)(nblk < 4096 ? nblk : 4096), 256, 0, st>>>(
+      (const bf16*)rh, (const bf16*)rw, (bf16*)slots, n, hk, wk, hkp, kx);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(bwd_k_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_k<HD>());
+  const size_t smq = Cfg<HD>::smem_q(kx), smk = Cfg<HD>::smem_k(kx);
+  err = cudaFuncSetAttribute(bwd_q_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smq);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(bwd_k_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smk);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((S + BT - 1) / BT, BH);
-  cudaStream_t st = (cudaStream_t)stream;
-  bwd_q_kernel<HD><<<grid, NT, smem_q<HD>(), st>>>((const bf16*)q, (const bf16*)k, (const bf16*)v,
-                                                   (const bf16*)rh, (const bf16*)rw, (const bf16*)g, (bf16*)dq,
-                                                   (bf16*)drh, (bf16*)drw, (float*)stats, BH, S, hk, wk, scale);
+  bwd_q_kernel<HD><<<grid, NT, smq, st>>>((const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)g,
+                                          (const bf16*)slots, (const bf16*)e, (bf16*)dq, (bf16*)drh, (bf16*)drw,
+                                          (float*)stats, BH, S, hk, wk, kx, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  bwd_k_kernel<HD><<<grid, NT, smem_k<HD>(), st>>>((const bf16*)q, (const bf16*)k, (const bf16*)v,
-                                                   (const bf16*)rh, (const bf16*)rw, (const bf16*)g, (float*)dk,
-                                                   (float*)dv, (const float*)stats, BH, S, hk, wk, scale);
+  bwd_k_kernel<HD><<<grid, NT, smk, st>>>((const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)g,
+                                          (const bf16*)slots, (const bf16*)e, (float*)dk, (float*)dv,
+                                          (const float*)stats, BH, S, hk, wk, kx, scale);
   return (int)cudaGetLastError();
 }
+
+}  // namespace wgb
 
 // ======================= fp32: split-TF32 mma.sync =======================
 //
@@ -1145,39 +1081,41 @@ int launch(const void* q, const void* k, const void* v, const void* rh, const vo
 
 }  // namespace f32
 
-typedef int (*Launch)(const void*, const void*, const void*, const void*, const void*, const void*, void*, void*,
-                      void*, void*, void*, void*, int, int, int, int, float, void*);
+}  // namespace
 
-int dispatch(Launch l64, Launch l80, const void* q, const void* k, const void* v, const void* rh, const void* rw,
-             const void* g, void* dq, void* dk, void* dv, void* drh, void* drw, void* stats, int BH, int S, int D,
-             int hk, int wk, float scale, void* stream) {
+// q, k, v, g (BH, S, D) with D 16, 64 or 80, rel_h (BH, S, hk), rel_w (BH,
+// S, wk) bf16, S = hk·wk, hk, wk <= 64 → dq, drh, drw bf16, dk, dv fp32;
+// scratch: stats (3, BH, S) fp32, e (S rounded up to 64, KX) and slots
+// (BH, S, KX) bf16, KX = hk and wk each rounded up to 16, summed
+extern "C" int attn_bwd_bf16(const void* q, const void* k, const void* v, const void* rh, const void* rw,
+                             const void* g, void* e, void* slots, void* dq, void* dk, void* dv, void* drh, void* drw,
+                             void* stats, int BH, int S, int D, int hk, int wk, float scale, void* stream) {
   if (hk * wk != S || hk > 64 || wk > 64) return (int)cudaErrorInvalidValue;
   switch (D) {
+    case 16:
+      return wgb::launch<16>(q, k, v, rh, rw, g, e, slots, dq, dk, dv, drh, drw, stats, BH, S, hk, wk, scale, stream);
     case 64:
-      return l64(q, k, v, rh, rw, g, dq, dk, dv, drh, drw, stats, BH, S, hk, wk, scale, stream);
+      return wgb::launch<64>(q, k, v, rh, rw, g, e, slots, dq, dk, dv, drh, drw, stats, BH, S, hk, wk, scale, stream);
     case 80:
-      return l80(q, k, v, rh, rw, g, dq, dk, dv, drh, drw, stats, BH, S, hk, wk, scale, stream);
+      return wgb::launch<80>(q, k, v, rh, rw, g, e, slots, dq, dk, dv, drh, drw, stats, BH, S, hk, wk, scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-}  // namespace
-
-// q, k, v, g (BH, S, D) with D 64 or 80, rel_h (BH, S, hk), rel_w (BH, S, wk)
-// bf16, S = hk·wk, hk, wk <= 64 → dq, drh, drw bf16, dk, dv fp32; stats:
-// (3, BH, S) fp32 scratch
-extern "C" int attn_bwd_bf16(const void* q, const void* k, const void* v, const void* rh, const void* rw,
-                             const void* g, void* dq, void* dk, void* dv, void* drh, void* drw, void* stats,
-                             int BH, int S, int D, int hk, int wk, float scale, void* stream) {
-  return dispatch(launch<64>, launch<80>, q, k, v, rh, rw, g, dq, dk, dv, drh, drw, stats, BH, S, D, hk, wk, scale,
-                  stream);
-}
-
-// the same contract with every input and output in fp32
+// the same contract with every input and output in fp32 (e and slots unused)
 extern "C" int attn_bwd_f32(const void* q, const void* k, const void* v, const void* rh, const void* rw,
-                            const void* g, void* dq, void* dk, void* dv, void* drh, void* drw, void* stats, int BH,
-                            int S, int D, int hk, int wk, float scale, void* stream) {
-  return dispatch(f32::launch<64>, f32::launch<80>, q, k, v, rh, rw, g, dq, dk, dv, drh, drw, stats, BH, S, D, hk,
-                  wk, scale, stream);
+                            const void* g, void*, void*, void* dq, void* dk, void* dv, void* drh, void* drw,
+                            void* stats, int BH, int S, int D, int hk, int wk, float scale, void* stream) {
+  if (hk * wk != S || hk > 64 || wk > 64) return (int)cudaErrorInvalidValue;
+  switch (D) {
+    case 16:
+      return f32::launch<16>(q, k, v, rh, rw, g, dq, dk, dv, drh, drw, stats, BH, S, hk, wk, scale, stream);
+    case 64:
+      return f32::launch<64>(q, k, v, rh, rw, g, dq, dk, dv, drh, drw, stats, BH, S, hk, wk, scale, stream);
+    case 80:
+      return f32::launch<80>(q, k, v, rh, rw, g, dq, dk, dv, drh, drw, stats, BH, S, hk, wk, scale, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

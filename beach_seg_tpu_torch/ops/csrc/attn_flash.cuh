@@ -27,14 +27,20 @@
 // batch·head) streams 64-key tiles of K and V with an online softmax, so
 // scores never reach device memory, and stores its rows straight into the
 // output layout.
-//   bf16: 7 warps × 16 query rows (112 rows: S=1568 is 14 tiles). The q
-//   tile's (112, Hk) and (112, Wk) rel rows are staged in shared memory once
-//   per block. Scores, probabilities and the output accumulator stay in
-//   registers between mma.sync m16n8k16 products; K/V tiles are
-//   double-buffered with cp.async.
-//   fp32: the simple form, 64 query rows, products on the FP32 units with
-//   scores and accumulator in shared memory.
-// Head dims 64 and 80 are template instances. wgmma and TMA are later work.
+//   bf16 (namespace wgf): two warpgroups of 64 query rows share each key
+//   tile, wgmma (wgmma.cuh).
+//   S = Q·Kᵀ with Q and K from shared memory; the rel terms enter as more
+//   k steps of the same product: the q tile's slot rows (rel_h ‖ rel_w,
+//   staged once per block) times the key tile's rows of the 0/1 key-to-slot
+//   matrix E (filled by fill_slots before the kernel), over the slot chunks
+//   the key tile touches, so no score takes a division or a lookup. O += P·V
+//   with P from the S accumulator in registers and V from shared memory.
+//   K, V and E tiles arrive through a 2-stage cp.async ring (two blocks, four
+//   warpgroups an SM at ViT shapes), one barrier a step. #7's scale on
+//   the fp32 scores needs the rel terms in an accumulator of their own.
+//   fp32 (namespace simt): the simple form, 64 query rows, products on the
+//   FP32 units with scores and accumulator in shared memory.
+// Head dims 16, 64 and 80 are template instances (the wrappers pad 8 to 16).
 
 #pragma once
 
@@ -44,13 +50,14 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "wgmma.cuh"
+
 namespace flash {
 
 typedef __nv_bfloat16 bf16;
 
 constexpr int BK = 64;        // keys per step
 constexpr int MAXG = 64;      // largest Hk and Wk, and the rel slot width of the merged layout
-constexpr int RLD = MAXG + 2; // bf16 rel-row stride (elements)
 
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
@@ -89,187 +96,143 @@ __device__ __forceinline__ size_t out_at(int bh, int b, int h, int S, int H, int
   return OUT_MERGED ? ((size_t)b * S + row) * ((size_t)H * HD) + (size_t)h * HD : ((size_t)bh * S + row) * HD;
 }
 
-// ============================ bf16: mma.sync ============================
+// ============================ bf16: wgmma ============================
 
-namespace mma16 {
+namespace wgf {
 
-constexpr int NW = 7;        // warps per block
-constexpr int NT = NW * 32;
-constexpr int BQ = 16 * NW;  // query rows per block
+using namespace wg;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  uint32_t u;
-  memcpy(&u, &v, 4);
-  return u;
-}
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1]) : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
-}
-// d += a · b, m16n8k16, bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-      "{%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src, bool valid) {
-  // invalid rows are zero-filled (src-size 0)
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
+constexpr int NWG = 2;          // warpgroups a block, 64 query rows each
+constexpr int BQ = 64 * NWG;    // query rows per block
+constexpr int NTB = NT * NWG;   // threads per block
+constexpr int NS = 2;           // ring stages (two blocks an SM at ViT shapes)
 
 template <int HD>
-struct Tile {
-  static constexpr int LDT = HD + 8;  // smem row stride: 144 B (64) / 176 B (80), conflict-free ldmatrix
-  static constexpr int KS = HD / 16;  // 16-wide k-steps over the head dim
-  static constexpr int NO = HD / 8;   // 8-wide output tiles
-  static constexpr size_t smem = (size_t)(BQ * LDT + 4 * BK * LDT + 2 * BQ * RLD) * sizeof(bf16);
+struct Cfg {
+  static constexpr int NP = HD / 16;      // 16-column panels of a q / k / v tile
+  static constexpr int TB = 64 * HD * 2;  // bytes of a 64-row q / k / v tile
+  // shared bytes: alignment slack, each warpgroup's Q tile and slot rows, NS stages of K, V, E
+  static size_t smem(int kx) { return 1024 + NWG * (TB + (size_t)64 * kx * 2) + (size_t)NS * (2 * TB + 64 * kx * 2); }
 };
 
-// rows [r0, r0 + n) of an (S, HD) slice with row stride ld into a tile (zero past S)
-template <int HD>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int ld, int S, int r0, int n, int tid) {
-  constexpr int LDT = Tile<HD>::LDT, CH = HD / 8;
-  for (int i = tid; i < n * CH; i += NT) {
-    const int r = i / CH, c8 = (i % CH) * 8, row = r0 + r;
-    const bool valid = row < S;
-    cp_async16(dst + r * LDT + c8, valid ? src + (size_t)row * ld + c8 : src, valid);
-  }
-}
-
 template <int HD, bool IN_MERGED, bool OUT_MERGED, bool PRESCALE>
-__global__ void __launch_bounds__(NT, 2) attn_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ rh, const bf16* __restrict__ rw, bf16* __restrict__ out, int S, int H, int hk,
-    int wk, int ld_in, int rld, float scale) {
-  constexpr int LDT = Tile<HD>::LDT, KS = Tile<HD>::KS, NO = Tile<HD>::NO;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + BQ * LDT;      // 2 stages
-  bf16* sV = sK + 2 * BK * LDT;  // 2 stages
-  bf16* sRh = sV + 2 * BK * LDT;
-  bf16* sRw = sRh + BQ * RLD;
+__global__ void __launch_bounds__(NTB) attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                                   const bf16* __restrict__ v, const bf16* __restrict__ rh,
+                                                   const bf16* __restrict__ rw, const bf16* __restrict__ e,
+                                                   bf16* __restrict__ out, int S, int H, int hk, int wk, int ld_in,
+                                                   int rld, int kx, float scale) {
+  constexpr int NP = Cfg<HD>::NP, TB = Cfg<HD>::TB;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw), base = (raw + 1023u) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - raw);  // generic address of `base`
+  const uint32_t rbytes = 64 * kx * 2;             // one warpgroup's slot rows
+  const uint32_t sQ0 = base, sR0 = base + NWG * TB, ring = sR0 + NWG * rbytes;
+  const uint32_t stage_bytes = 2 * TB + 64 * kx * 2;
 
   const int q0 = blockIdx.x * BQ, bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane >> 2, tig = lane & 3;
+  const int tid = threadIdx.x, wgi = tid / NT, warp = (tid % NT) / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
+  const uint32_t sQ = sQ0 + wgi * TB, sR = sR0 + wgi * rbytes;  // this warpgroup's 64 rows
+  const int hkp = round16(hk), nx = kx / 16;
   const Rows<IN_MERGED> rows(bh, b, h, S, HD, hk, wk, ld_in, rld);
   const bf16 *qp = q + rows.qkv, *kp = k + rows.qkv, *vp = v + rows.qkv;
-  const bf16* rhp = rh + rows.rh;
-  const bf16* rwp = rw + rows.rw;
+  const int nk = (S + 63) / 64;
 
-  const int nk = (S + BK - 1) / BK;
-  load_rows<HD>(sQ, qp, rows.ld, S, q0, BQ, tid);
-  load_rows<HD>(sK, kp, rows.ld, S, 0, BK, tid);
-  load_rows<HD>(sV, vp, rows.ld, S, 0, BK, tid);
-  cp_async_commit();
-  // the q tile's rel rows, staged once (rows past S read as zero)
-  for (int i = tid; i < BQ * hk; i += NT) {
-    const int r = i / hk, j = i % hk;
-    sRh[r * RLD + j] = q0 + r < S ? rhp[(size_t)(q0 + r) * rows.ldh + j] : __float2bfloat16_rn(0.0f);
-  }
-  for (int i = tid; i < BQ * wk; i += NT) {
-    const int r = i / wk, j = i % wk;
-    sRw[r * RLD + j] = q0 + r < S ? rwp[(size_t)(q0 + r) * rows.ldw + j] : __float2bfloat16_rn(0.0f);
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-
-  if (PRESCALE) {
-    // q·scale in bf16 (the scale rounded to bf16 first)
-    const float scale_t = __bfloat162float(__float2bfloat16_rn(scale));
-    for (int i = tid; i < BQ * HD; i += NT) {
-      const int r = i / HD, d = i % HD;
-      sQ[r * LDT + d] = __float2bfloat16_rn(__bfloat162float(sQ[r * LDT + d]) * scale_t);
-    }
-    __syncthreads();
-  }
-  // this warp's 16 rows as mma operand fragments for the whole key loop
-  uint32_t qa[KS][4];
+  // K, V and E tiles of key tile kt into its ring stage
+  auto load_stage = [&](int kt) {
+    const uint32_t sb = ring + (kt % NS) * stage_bytes;
+    load_tile(sb, kp, rows.ld, HD, S, 64 * kt, 64, tid, NTB);
+    load_tile(sb + TB, vp, rows.ld, HD, S, 64 * kt, 64, tid, NTB);
+    load_tile(sb + 2 * TB, e, kx, kx, S, 64 * kt, 64, tid, NTB);
+  };
 #pragma unroll
-  for (int kk = 0; kk < KS; ++kk) ldsm_x4(qa[kk], sQ + (warp * 16 + (lane % 16)) * LDT + kk * 16 + (lane / 16) * 8);
+  for (int w = 0; w < NWG; ++w) load_tile(sQ0 + w * TB, qp, rows.ld, HD, S, q0 + 64 * w, 64, tid, NTB);
+  for (int st = 0; st < NS - 1; ++st) {
+    if (st < nk) load_stage(st);
+    cp_async_commit();
+  }
+  // the q tile's slot rows (rel_h ‖ rel_w, zero-padded; zero past S), once
+  {
+    const bf16 zero = __float2bfloat16_rn(0.0f);
+    const int nch = kx / 8;
+    for (int i = tid; i < BQ * nch; i += NTB) {
+      const int r = i / nch, ch = i - r * nch, row = q0 + r, c0 = 8 * ch;
+      const bool in_h = c0 < hkp;
+      const bf16* src = in_h ? rh + rows.rh + (size_t)row * rows.ldh : rw + rows.rw + (size_t)row * rows.ldw;
+      const int n = in_h ? hk : wk, j0 = in_h ? c0 : c0 - hkp;
+      __align__(16) bf16 vals[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) vals[j] = row < S && j0 + j < n ? src[j0 + j] : zero;
+      *reinterpret_cast<uint4*>(gbase + (sR0 - base) + (r / 64) * rbytes + chunk_off(r % 64, ch, 64)) =
+          *reinterpret_cast<const uint4*>(vals);
+    }
+  }
+  cp_async_wait<NS - 2>();  // the Q tiles (and key tile 0)
+  __syncthreads();
+  if (PRESCALE) {
+    // q·scale in bf16 (the scale rounded to bf16 first), in place
+    const float scale_t = __bfloat162float(__float2bfloat16_rn(scale));
+    for (int i = tid; i < NWG * 64 * HD / 8; i += NTB) {
+      uint4* p = reinterpret_cast<uint4*>(gbase + 16 * i);
+      __align__(16) bf16 vals[8];
+      *reinterpret_cast<uint4*>(vals) = *p;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) vals[j] = __float2bfloat16_rn(__bfloat162float(vals[j]) * scale_t);
+      *p = *reinterpret_cast<const uint4*>(vals);
+    }
+  }
 
-  const int rA = warp * 16 + g, rB = rA + 8;  // this thread's two rows (local)
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.0f, 0.0f};
-  float o[NO][4];
+  float o[HD / 2];
 #pragma unroll
-  for (int j = 0; j < NO; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.0f;
 
   for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * BK;
-    const bf16* cK = sK + (kt & 1) * BK * LDT;
-    const bf16* cV = sV + (kt & 1) * BK * LDT;
-    __syncthreads();  // every warp is done with the stage the next prefetch overwrites
-    if (kt + 1 < nk) {
-      load_rows<HD>(sK + ((kt + 1) & 1) * BK * LDT, kp, rows.ld, S, k0 + BK, BK, tid);
-      load_rows<HD>(sV + ((kt + 1) & 1) * BK * LDT, vp, rows.ld, S, k0 + BK, BK, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
+    const int k0 = kt * 64;
+    cp_async_wait<NS - 2>();  // key tile kt has landed
+    fence_async_smem();
+    __syncthreads();          // for every thread's copies; every warp is done with the stage refilled next
+    if (kt + NS - 1 < nk) load_stage(kt + NS - 1);
+    cp_async_commit();
+    const uint32_t sb = ring + (kt % NS) * stage_bytes;
 
-    // S = q·kᵀ, 8 tiles of 8 keys; the head dim in pairs of k-steps
-    // (ldmatrix.x4) and, for an odd count, one more (ldmatrix.x2)
-    float s[8][4];
+    // S = Q·Kᵀ, then the rel terms: slot rows · E tileᵀ over the slot
+    // chunks this key tile touches (its rows' rel_h slots, every rel_w slot)
+    const int c_lo = (k0 / wk) / 16, c_hi = (min(k0 + 63, S - 1) / wk) / 16;
+    float s[32], sr[32];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+    for (int i = 0; i < 32; ++i) s[i] = sr[i] = 0.0f;
+    fence_regs(s);
+    arrive();
 #pragma unroll
-      for (int kk = 0; kk + 1 < KS; kk += 2) {
-        uint32_t kb[4];
-        ldsm_x4(kb, cK + (8 * j + (lane % 8)) * LDT + kk * 16 + (lane / 8) * 8);
-        mma(s[j], qa[kk], kb[0], kb[1]);
-        mma(s[j], qa[kk + 1], kb[2], kb[3]);
-      }
-      if (KS % 2) {
-        uint32_t kb[2];
-        ldsm_x2(kb, cK + (8 * j + (lane % 8)) * LDT + (KS - 1) * 16 + ((lane / 8) % 2) * 8);
-        mma(s[j], qa[KS - 1], kb[0], kb[1]);
+    for (int kk = 0; kk < NP; ++kk) mma_ss<64>(s, kdesc(sQ + kk * 64 * 32), kdesc(sb + kk * 64 * 32), kk > 0);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      if (touched(c, nx, hkp, c_lo, c_hi)) {  // rel terms
+        const uint64_t dr = kdesc(sR + c * 64 * 32), de = kdesc(sb + 2 * TB + c * 64 * 32);
+        if (PRESCALE) {
+          mma_ss<64>(s, dr, de, 1);
+        } else {
+          mma_ss<64>(sr, dr, de, 1);
+        }
       }
     }
+    commit();
+    wait<0>();
+    fence_regs(s);
+    if (!PRESCALE) fence_regs(sr);
 
-    // (scale,) + rel terms, mask keys past S, row max
+    // (scale,) mask keys past S, row max
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int key = k0 + 8 * j + 2 * tig + e;
-        if (key < S) {
-          const int kh = key / wk, kw = key - kh * wk;
-          const float hA = __bfloat162float(sRh[rA * RLD + kh]), wA = __bfloat162float(sRw[rA * RLD + kw]);
-          const float hB = __bfloat162float(sRh[rB * RLD + kh]), wB = __bfloat162float(sRw[rB * RLD + kw]);
-          if (PRESCALE) {
-            s[j][e] = (s[j][e] + hA) + wA;
-            s[j][2 + e] = (s[j][2 + e] + hB) + wB;
-          } else {
-            s[j][e] = s[j][e] * scale + (hA + wA);
-            s[j][2 + e] = s[j][2 + e] * scale + (hB + wB);
-          }
-        } else {
-          s[j][e] = s[j][2 + e] = -INFINITY;
-        }
-        mx[0] = fmaxf(mx[0], s[j][e]);
-        mx[1] = fmaxf(mx[1], s[j][2 + e]);
+      for (int c = 0; c < 4; ++c) {
+        const int key = k0 + 8 * j + 2 * t + (c & 1);
+        float x = PRESCALE ? s[4 * j + c] : s[4 * j + c] * scale + sr[4 * j + c];
+        if (key >= S) x = -INFINITY;
+        s[4 * j + c] = x;
+        mx[c >> 1] = fmaxf(mx[c >> 1], x);
       }
     }
     float alpha[2];
@@ -282,53 +245,42 @@ __global__ void __launch_bounds__(NT, 2) attn_kernel(
     // p = exp(s - max) with the hardware exp2 (__expf, relative error ~1e-5
     // for the arguments ≤ 0 a stable softmax takes; p is rounded to bf16)
     float ls[2] = {0.0f, 0.0f};
-    uint32_t pa[4][4];  // P as operand fragments, 4 steps of 16 keys
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float p0 = __expf(s[j][0] - m[0]), p1 = __expf(s[j][1] - m[0]);
-      const float p2 = __expf(s[j][2] - m[1]), p3 = __expf(s[j][3] - m[1]);
-      ls[0] += p0 + p1;
-      ls[1] += p2 + p3;
-      pa[j / 2][(j % 2) * 2] = pack(p0, p1);
-      pa[j / 2][(j % 2) * 2 + 1] = pack(p2, p3);
+    for (int i = 0; i < 32; ++i) {
+      s[i] = __expf(s[i] - m[(i >> 1) & 1]);
+      ls[(i >> 1) & 1] += s[i];
     }
+    uint32_t pa[4][4];
+    to_a(pa, s);
 #pragma unroll
     for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + ls[i];
 #pragma unroll
-    for (int j = 0; j < NO; ++j) {
-      o[j][0] *= alpha[0];
-      o[j][1] *= alpha[0];
-      o[j][2] *= alpha[1];
-      o[j][3] *= alpha[1];
-    }
+    for (int i = 0; i < HD / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
 
-    // O += P·V, 4 steps of 16 keys × NO/2 pairs of 8-dim tiles
+    // O += P·V, V the MN-major B operand, 4 k steps of 16 keys
+    fence_regs(o);
+    arrive();
 #pragma unroll
-    for (int t = 0; t < 4; ++t) {
-#pragma unroll
-      for (int jj = 0; jj < NO / 2; ++jj) {
-        uint32_t vb[4];
-        ldsm_x4_t(vb, cV + (16 * t + (lane % 16)) * LDT + 16 * jj + (lane / 16) * 8);
-        mma(o[2 * jj], pa[t], vb[0], vb[1]);
-        mma(o[2 * jj + 1], pa[t], vb[2], vb[3]);
-      }
-    }
+    for (int ks = 0; ks < 4; ++ks) mma_rs<HD>(o, pa[ks], mndesc(sb + TB + ks * 16 * 32, 64), 1);
+    commit();
+    wait<0>();
+    fence_regs(o);
   }
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int row = q0 + (i ? rB : rA);
+    const int row = q0 + 64 * wgi + warp * 16 + g + 8 * i;
     const float lt = quad_sum(l[i]);
     if (row < S) {
-      bf16* dst = out + out_at<OUT_MERGED>(bh, b, h, S, H, HD, row) + 2 * tig;
+      bf16* dst = out + out_at<OUT_MERGED>(bh, b, h, S, H, HD, row) + 2 * t;
 #pragma unroll
-      for (int j = 0; j < NO; ++j)
-        *reinterpret_cast<uint32_t*>(dst + 8 * j) = pack(o[j][2 * i] / lt, o[j][2 * i + 1] / lt);
+      for (int j = 0; j < HD / 8; ++j)
+        *reinterpret_cast<uint32_t*>(dst + 8 * j) = pack(o[4 * j + 2 * i] / lt, o[4 * j + 2 * i + 1] / lt);
     }
   }
 }
 
-}  // namespace mma16
+}  // namespace wgf
 
 // ============================ fp32: SIMT ============================
 
@@ -514,18 +466,46 @@ int launch(KernelFn<T> kernel, size_t smem, int bq, int nt, const void* q, const
   return (int)cudaGetLastError();
 }
 
-// the bf16 (mma.sync) or fp32 (SIMT) instance of one layout at head dim D
-// (64 or 80; anything else is refused)
+// bytes of the key-to-slot scratch E a bf16 launch needs (see wgmma.cuh)
+inline size_t slots_bytes(int S, int hk, int wk) {
+  return (size_t)(S + 63) / 64 * 64 * (wg::round16(hk) + wg::round16(wk)) * sizeof(bf16);
+}
+
+// the bf16 (wgmma) instance of one layout at head dim D: fills the E
+// scratch (slots_bytes), then runs the kernel
+template <int HD, bool IN_MERGED, bool OUT_MERGED, bool PRESCALE>
+int launch_wg(const void* q, const void* k, const void* v, const void* rh, const void* rw, void* e, void* out,
+              int BH, int S, int H, int hk, int wk, int ld_in, int rld, float scale, void* stream) {
+  const int hkp = wg::round16(hk), kx = hkp + wg::round16(wk), s_pad = (S + 63) / 64 * 64;
+  cudaStream_t st = (cudaStream_t)stream;
+  wg::fill_slots<<<(s_pad * kx / 8 + 255) / 256, 256, 0, st>>>((bf16*)e, S, s_pad, wk, hkp, kx);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  auto kernel = wgf::attn_kernel<HD, IN_MERGED, OUT_MERGED, PRESCALE>;
+  const size_t smem = wgf::Cfg<HD>::smem(kx);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((S + wgf::BQ - 1) / wgf::BQ, BH);
+  kernel<<<grid, wgf::NTB, smem, st>>>((const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)rh,
+                                     (const bf16*)rw, (const bf16*)e, (bf16*)out, S, H, hk, wk, ld_in, rld, kx, scale);
+  return (int)cudaGetLastError();
+}
+
+// the bf16 (wgmma) or fp32 (SIMT) instance of one layout at head dim D
+// (16, 64 or 80; anything else is refused)
 template <bool IN_MERGED, bool OUT_MERGED, bool PRESCALE>
-int launch_bf16(int D, const void* q, const void* k, const void* v, const void* rh, const void* rw, void* out,
-                int BH, int S, int H, int hk, int wk, int ld_in, int rld, float scale, void* stream) {
+int launch_bf16(int D, const void* q, const void* k, const void* v, const void* rh, const void* rw, void* e,
+                void* out, int BH, int S, int H, int hk, int wk, int ld_in, int rld, float scale, void* stream) {
   switch (D) {
+    case 16:
+      return launch_wg<16, IN_MERGED, OUT_MERGED, PRESCALE>(q, k, v, rh, rw, e, out, BH, S, H, hk, wk, ld_in, rld,
+                                                           scale, stream);
     case 64:
-      return launch<bf16>(mma16::attn_kernel<64, IN_MERGED, OUT_MERGED, PRESCALE>, mma16::Tile<64>::smem,
-                          mma16::BQ, mma16::NT, q, k, v, rh, rw, out, BH, S, H, hk, wk, ld_in, rld, scale, stream);
+      return launch_wg<64, IN_MERGED, OUT_MERGED, PRESCALE>(q, k, v, rh, rw, e, out, BH, S, H, hk, wk, ld_in, rld,
+                                                           scale, stream);
     case 80:
-      return launch<bf16>(mma16::attn_kernel<80, IN_MERGED, OUT_MERGED, PRESCALE>, mma16::Tile<80>::smem,
-                          mma16::BQ, mma16::NT, q, k, v, rh, rw, out, BH, S, H, hk, wk, ld_in, rld, scale, stream);
+      return launch_wg<80, IN_MERGED, OUT_MERGED, PRESCALE>(q, k, v, rh, rw, e, out, BH, S, H, hk, wk, ld_in, rld,
+                                                           scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -534,6 +514,9 @@ template <bool IN_MERGED, bool OUT_MERGED, bool PRESCALE>
 int launch_f32(int D, const void* q, const void* k, const void* v, const void* rh, const void* rw, void* out,
                int BH, int S, int H, int hk, int wk, int ld_in, int rld, float scale, void* stream) {
   switch (D) {
+    case 16:
+      return launch<float>(simt::attn_kernel<16, IN_MERGED, OUT_MERGED, PRESCALE>, simt::Tile<16>::smem, simt::BQ,
+                           simt::NT, q, k, v, rh, rw, out, BH, S, H, hk, wk, ld_in, rld, scale, stream);
     case 64:
       return launch<float>(simt::attn_kernel<64, IN_MERGED, OUT_MERGED, PRESCALE>, simt::Tile<64>::smem, simt::BQ,
                            simt::NT, q, k, v, rh, rw, out, BH, S, H, hk, wk, ld_in, rld, scale, stream);

@@ -25,15 +25,18 @@
 #include "attn_flash.cuh"
 
 // q, k, v (BH, S, D), rel_h (BH, S, hk), rel_w (BH, S, wk), S = hk·wk,
-// hk, wk <= 64, D 64 or 80 → out (BH, S, D); all bf16
+// hk, wk <= 64, D 16, 64 or 80 → out (BH, S, D); all bf16; e:
+// flash::slots_bytes(S, hk, wk) of scratch
 extern "C" int attn_fused_bf16(const void* q, const void* k, const void* v, const void* rh, const void* rw,
-                               void* out, int BH, int S, int D, int hk, int wk, float scale, void* stream) {
+                               void* e, void* out, int BH, int S, int D, int hk, int wk, float scale,
+                               void* stream) {
   if (!flash::shape_ok(BH, S, 1, hk, wk)) return (int)cudaErrorInvalidValue;
-  return flash::launch_bf16<false, false, false>(D, q, k, v, rh, rw, out, BH, S, 1, hk, wk, 0, 0, scale, stream);
+  return flash::launch_bf16<false, false, false>(D, q, k, v, rh, rw, e, out, BH, S, 1, hk, wk, 0, 0, scale,
+                                                 stream);
 }
 
-// the same contract in fp32
-extern "C" int attn_fused_f32(const void* q, const void* k, const void* v, const void* rh, const void* rw,
+// the same contract in fp32 (e unused)
+extern "C" int attn_fused_f32(const void* q, const void* k, const void* v, const void* rh, const void* rw, void*,
                               void* out, int BH, int S, int D, int hk, int wk, float scale, void* stream) {
   if (!flash::shape_ok(BH, S, 1, hk, wk)) return (int)cudaErrorInvalidValue;
   return flash::launch_f32<false, false, false>(D, q, k, v, rh, rw, out, BH, S, 1, hk, wk, 0, 0, scale, stream);

@@ -23,20 +23,20 @@
 #include "attn_flash.cuh"
 
 // qkv (B, S, 3C) with C = H·D, D 64; rel_h64, rel_w64 (B, S, H·64), S =
-// hk·wk, hk, wk <= 64 → out (B, S, C); all bf16
-extern "C" int attn_qkv_bf16(const void* qkv, const void* rh64, const void* rw64, void* out, int B, int S, int D,
-                             int H, int hk, int wk, float scale, void* stream) {
+// hk·wk, hk, wk <= 64 → out (B, S, C); all bf16; e:
+// flash::slots_bytes(S, hk, wk) of scratch
+extern "C" int attn_qkv_bf16(const void* qkv, const void* rh64, const void* rw64, void* e, void* out, int B, int S,
+                             int D, int H, int hk, int wk, float scale, void* stream) {
   if (D != 64 || !flash::shape_ok(B * H, S, H, hk, wk)) return (int)cudaErrorInvalidValue;
   const size_t C = (size_t)H * D;
   const flash::bf16* q = (const flash::bf16*)qkv;
-  return flash::launch<flash::bf16>(flash::mma16::attn_kernel<64, true, true, true>, flash::mma16::Tile<64>::smem,
-                                    flash::mma16::BQ, flash::mma16::NT, q, q + C, q + 2 * C, rh64, rw64, out, B * H,
-                                    S, H, hk, wk, (int)(3 * C), H * flash::MAXG, scale, stream);
+  return flash::launch_wg<64, true, true, true>(q, q + C, q + 2 * C, rh64, rw64, e, out, B * H, S, H, hk, wk,
+                                                (int)(3 * C), H * flash::MAXG, scale, stream);
 }
 
-// the same contract in fp32
-extern "C" int attn_qkv_f32(const void* qkv, const void* rh64, const void* rw64, void* out, int B, int S, int D,
-                            int H, int hk, int wk, float scale, void* stream) {
+// the same contract in fp32 (e unused)
+extern "C" int attn_qkv_f32(const void* qkv, const void* rh64, const void* rw64, void*, void* out, int B, int S,
+                            int D, int H, int hk, int wk, float scale, void* stream) {
   if (D != 64 || !flash::shape_ok(B * H, S, H, hk, wk)) return (int)cudaErrorInvalidValue;
   const size_t C = (size_t)H * D;
   const float* q = (const float*)qkv;

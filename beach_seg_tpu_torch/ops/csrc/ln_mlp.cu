@@ -315,12 +315,73 @@ int launch(const void* x, const void* ln_scale, const void* ln_bias, const void*
   return (int)cudaGetLastError();
 }
 
+// ---------------------------- narrow widths (C = 64, 128) ----------------------------
+//
+// The debug backbone's C=64 rows are too narrow for the cluster design
+// (each CTA's half of the channels must hold 64-channel weight chunks), so
+// C < 256 takes a plain form: one warp a row, the row's LN and GELU'd hidden
+// units in shared memory, both products on the FP32 units with the weights
+// read through the L1 cache. The same rounding points. At these widths the
+// model's time is in its launches, not in this kernel.
+
+constexpr int NARROW_WARPS = 4;
+
+__global__ void __launch_bounds__(NARROW_WARPS * 32) ln_mlp_narrow(
+    const bf16* __restrict__ x, const float* __restrict__ ln_scale, const float* __restrict__ ln_bias,
+    const bf16* __restrict__ w1, const bf16* __restrict__ b1, const bf16* __restrict__ w2, const bf16* __restrict__ b2,
+    bf16* __restrict__ out, int N, int C, int M, float eps, int approx) {
+  extern __shared__ float rows[];  // per warp: LN row (C), hidden units (M)
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, row = blockIdx.x * NARROW_WARPS + warp;
+  if (row >= N) return;
+  float* sLn = rows + warp * (C + M);
+  float* sH = sLn + C;
+  const bf16* xr = x + (size_t)row * C;
+  float sum = 0.0f;
+  for (int c = lane; c < C; c += 32) sum += __bfloat162float(xr[c]);
+  for (int o = 16; o; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+  const float mean = sum / C;
+  float var = 0.0f;
+  for (int c = lane; c < C; c += 32) {
+    const float d = __bfloat162float(xr[c]) - mean;
+    var += d * d;
+  }
+  for (int o = 16; o; o >>= 1) var += __shfl_xor_sync(0xffffffffu, var, o);
+  const float rstd = rsqrtf(var / C + eps);
+  for (int c = lane; c < C; c += 32)
+    sLn[c] = __bfloat162float(__float2bfloat16_rn((__bfloat162float(xr[c]) - mean) * rstd * ln_scale[c] + ln_bias[c]));
+  __syncwarp();
+  for (int m = lane; m < M; m += 32) {
+    float h = 0.0f;
+    for (int c = 0; c < C; ++c) h = fmaf(sLn[c], __bfloat162float(w1[(size_t)c * M + m]), h);
+    sH[m] = __bfloat162float(__float2bfloat16_rn(gelu(h + __bfloat162float(b1[m]), approx)));
+  }
+  __syncwarp();
+  for (int c = lane; c < C; c += 32) {
+    float y = 0.0f;
+    for (int m = 0; m < M; ++m) y = fmaf(sH[m], __bfloat162float(w2[(size_t)m * C + c]), y);
+    out[(size_t)row * C + c] = __float2bfloat16_rn(y + __bfloat162float(b2[c]));
+  }
+}
+
+int launch_narrow(const void* x, const void* ln_scale, const void* ln_bias, const void* w1, const void* b1,
+                  const void* w2, const void* b2, void* out, int N, int C, int M, float eps, int approx,
+                  void* stream) {
+  const size_t smem = (size_t)NARROW_WARPS * (C + M) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(ln_mlp_narrow, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  ln_mlp_narrow<<<(N + NARROW_WARPS - 1) / NARROW_WARPS, NARROW_WARPS * 32, smem, (cudaStream_t)stream>>>(
+      (const bf16*)x, (const float*)ln_scale, (const float*)ln_bias, (const bf16*)w1, (const bf16*)b1,
+      (const bf16*)w2, (const bf16*)b2, (bf16*)out, N, C, M, eps, approx);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// C must be a multiple of 256 up to 1280, M a multiple of 128
+// C a multiple of 256 up to 1280, or 64 or 128; M a multiple of 128
 extern "C" int ln_mlp_bf16(const void* x, const void* ln_scale, const void* ln_bias, const void* w1,
                            const void* b1, const void* w2, const void* b2, void* out, int N, int C,
                            int M, float eps, int approx, void* stream) {
+  if (C == 64 || C == 128) return launch_narrow(x, ln_scale, ln_bias, w1, b1, w2, b2, out, N, C, M, eps, approx, stream);
   switch (C / 256) {
     case 1:
       return launch<1>(x, ln_scale, ln_bias, w1, b1, w2, b2, out, N, M, eps, approx, stream);

@@ -381,12 +381,95 @@ int launch(const void* x, const void* ln_scale, const void* ln_bias, const void*
   return (int)cudaGetLastError();
 }
 
+// ---------------------------- narrow widths (C = 64, 128) ----------------------------
+//
+// As in ln_mlp.cu: C < 256 (the debug backbone's 64) takes a plain form, one
+// warp a row, the LN row, g row and dh in shared memory, the three products
+// on the FP32 units, the same rounding points.
+
+constexpr int NARROW_WARPS = 4;
+
+__global__ void __launch_bounds__(NARROW_WARPS * 32) ln_mlp_dx_narrow(
+    const bf16* __restrict__ x, const float* __restrict__ ln_scale, const float* __restrict__ ln_bias,
+    const bf16* __restrict__ w1, const bf16* __restrict__ b1, const bf16* __restrict__ w2, const bf16* __restrict__ g,
+    bf16* __restrict__ dx, int N, int C, int M, float eps, int approx) {
+  extern __shared__ float rows[];  // per warp: LN row (C), g row (C), dh (M)
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, row = blockIdx.x * NARROW_WARPS + warp;
+  if (row >= N) return;
+  float* sLn = rows + warp * (2 * C + M);
+  float* sG = sLn + C;
+  float* sDh = sG + C;
+  const bf16* xr = x + (size_t)row * C;
+  float sum = 0.0f;
+  for (int c = lane; c < C; c += 32) sum += __bfloat162float(xr[c]);
+  for (int o = 16; o; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+  const float mean = sum / C;
+  float var = 0.0f;
+  for (int c = lane; c < C; c += 32) {
+    const float d = __bfloat162float(xr[c]) - mean;
+    var += d * d;
+  }
+  for (int o = 16; o; o >>= 1) var += __shfl_xor_sync(0xffffffffu, var, o);
+  const float rstd = rsqrtf(var / C + eps);
+  for (int c = lane; c < C; c += 32) {
+    sLn[c] = __bfloat162float(__float2bfloat16_rn((__bfloat162float(xr[c]) - mean) * rstd * ln_scale[c] + ln_bias[c]));
+    sG[c] = __bfloat162float(g[(size_t)row * C + c]);
+  }
+  __syncwarp();
+  for (int m = lane; m < M; m += 32) {
+    float h = 0.0f, gw = 0.0f;
+    for (int c = 0; c < C; ++c) {
+      h = fmaf(sLn[c], __bfloat162float(w1[(size_t)c * M + m]), h);
+      gw = fmaf(sG[c], __bfloat162float(w2[(size_t)m * C + c]), gw);
+    }
+    sDh[m] = __bfloat162float(__float2bfloat16_rn(gw * gelu_grad(h + __bfloat162float(b1[m]), approx)));
+  }
+  __syncwarp();
+  // dxh = (dh · W1ᵀ) * ln_scale, then the LN VJP's two row sums
+  float dxh[4], xh[4], s1 = 0.0f, s2 = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int c = lane + 32 * i;
+    dxh[i] = xh[i] = 0.0f;
+    if (c < C) {
+      float dl = 0.0f;
+      for (int m = 0; m < M; ++m) dl = fmaf(sDh[m], __bfloat162float(w1[(size_t)c * M + m]), dl);
+      dxh[i] = dl * ln_scale[c];
+      xh[i] = (__bfloat162float(xr[c]) - mean) * rstd;
+      s1 += dxh[i];
+      s2 += dxh[i] * xh[i];
+    }
+  }
+  for (int o = 16; o; o >>= 1) {
+    s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+    s2 += __shfl_xor_sync(0xffffffffu, s2, o);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int c = lane + 32 * i;
+    if (c < C) dx[(size_t)row * C + c] = __float2bfloat16_rn((dxh[i] - s1 / C - xh[i] * s2 / C) * rstd);
+  }
+}
+
+int launch_narrow(const void* x, const void* ln_scale, const void* ln_bias, const void* w1, const void* b1,
+                  const void* w2, const void* g, void* dx, int N, int C, int M, float eps, int approx,
+                  void* stream) {
+  const size_t smem = (size_t)NARROW_WARPS * (2 * C + M) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(ln_mlp_dx_narrow, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  ln_mlp_dx_narrow<<<(N + NARROW_WARPS - 1) / NARROW_WARPS, NARROW_WARPS * 32, smem, (cudaStream_t)stream>>>(
+      (const bf16*)x, (const float*)ln_scale, (const float*)ln_bias, (const bf16*)w1, (const bf16*)b1,
+      (const bf16*)w2, (const bf16*)g, (bf16*)dx, N, C, M, eps, approx);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// C must be a multiple of 256 up to 1280, M a multiple of 128
+// C a multiple of 256 up to 1280, or 64 or 128; M a multiple of 128
 extern "C" int ln_mlp_dx_bf16(const void* x, const void* ln_scale, const void* ln_bias, const void* w1,
                               const void* b1, const void* w2, const void* g, void* dx, int N, int C, int M,
                               float eps, int approx, void* stream) {
+  if (C == 64 || C == 128) return launch_narrow(x, ln_scale, ln_bias, w1, b1, w2, g, dx, N, C, M, eps, approx, stream);
   switch (C / 256) {
     case 1:
       return launch<1>(x, ln_scale, ln_bias, w1, b1, w2, g, dx, N, M, eps, approx, stream);

@@ -11,11 +11,12 @@ Five CUDA kernels, each with a plain PyTorch version:
   of qkv and output per image).
 - :func:`attn_packed` (``csrc/attn_packed.cu``) replaces ``_kernel_packed``
   (``pallas_attn.py:126``): attention over head-split q, k, v with
-  precomputed rel terms, merged-head output; head_dim 64 or 80 (ViT-H). Its
-  plain version is ``ops.attention.attention_packed_plain``.
+  precomputed rel terms, merged-head output; head_dim 8 (padded to 16), 16
+  (the debug backbone), 64 or 80 (ViT-H). Its plain version is
+  ``ops.attention.attention_packed_plain``.
 - :func:`attn_bwd` (``csrc/attn_bwd.cu``) replaces the TPU backward kernel
-  ``_bwd_kernel`` (``pallas_attn.py:722``), bf16 or fp32, head_dim 64 or
-  80; its plain version is ``ops.attention.attention_bwd_plain``.
+  ``_bwd_kernel`` (``pallas_attn.py:722``), bf16 or fp32, the same head
+  dims; its plain version is ``ops.attention.attention_bwd_plain``.
 - :func:`attn_fused` (``csrc/attn_fused.cu``) replaces ``_kernel``
   (``pallas_attn.py:53``): head-split in and out, the scale on the fp32
   scores; plain version ``ops.attention.attention_fused_plain``.
@@ -40,6 +41,7 @@ so they can be swapped for their plain versions.
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 
@@ -54,6 +56,7 @@ from beach_seg_tpu_torch.ops.attention import (
     split_qkv,
     unpack_rel_slots,
 )
+from beach_seg_tpu_torch.utils.env import env_flag
 
 SOFTMAX_MODES = ("stable", "clamp", "fast")
 
@@ -62,22 +65,54 @@ _I = ctypes.c_int
 _PROTO = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P]
 _ENTRY = {torch.bfloat16: "attn_qkv_rel_bf16", torch.float32: "attn_qkv_rel_f32"}
 _BWD_ENTRY = {torch.bfloat16: "attn_bwd_bf16", torch.float32: "attn_bwd_f32"}
-_BWD_PROTO = [_P] * 12 + [_I, _I, _I, _I, _I, ctypes.c_float, _P]
+_BWD_PROTO = [_P] * 14 + [_I, _I, _I, _I, _I, ctypes.c_float, _P]
 _PACKED_ENTRY = {torch.bfloat16: "attn_packed_bf16", torch.float32: "attn_packed_f32"}
-_PACKED_PROTO = [_P] * 6 + [_I] * 6 + [ctypes.c_float, _P]
+_PACKED_PROTO = [_P] * 7 + [_I] * 6 + [ctypes.c_float, _P]
 _FUSED_ENTRY = {torch.bfloat16: "attn_fused_bf16", torch.float32: "attn_fused_f32"}
-_FUSED_PROTO = [_P] * 6 + [_I] * 5 + [ctypes.c_float, _P]
+_FUSED_PROTO = [_P] * 7 + [_I] * 5 + [ctypes.c_float, _P]
 _QKV_ENTRY = {torch.bfloat16: "attn_qkv_bf16", torch.float32: "attn_qkv_f32"}
-_QKV_PROTO = [_P] * 4 + [_I] * 6 + [ctypes.c_float, _P]
-# head dims the packed attention and backward kernels are instantiated for
-HEAD_DIMS = (64, 80)
+_QKV_PROTO = [_P] * 5 + [_I] * 6 + [ctypes.c_float, _P]
+# head dims the packed, fused and backward attention kernels take: 16, 64 and
+# 80 are instances; 8 is zero-padded to 16 (as the TPU kernel pads its
+# contraction): zero columns change no score, and the extra output columns
+# are dropped
+HEAD_DIMS = (8, 16, 64, 80)
+_PADDED_HEAD_DIM = {8: 16}
 
 
-def default_softmax(dtype: torch.dtype) -> str:
-    """``clamp`` under bf16 (exact while row-max logits stay below 80, one
-    pass), ``stable`` otherwise — the JAX package's default by dtype
-    (``pallas_attn._resolve_softmax``)."""
+def resolve_softmax(dtype: torch.dtype) -> str:
+    """The qkv-rel attention's softmax mode, in the JAX package's priority
+    (``pallas_attn._resolve_softmax``): ``BEACH_SEG_TPU_ATTN_SOFTMAX`` =
+    stable | clamp | fast, then ``BEACH_SEG_TPU_ATTN_NO_MAX`` (→ fast), then
+    the dtype: ``clamp`` under bf16 (exact while row-max logits stay below
+    80, one pass), ``stable`` otherwise."""
+    mode = os.environ.get("BEACH_SEG_TPU_ATTN_SOFTMAX", "")
+    if mode in SOFTMAX_MODES:
+        return mode
+    if env_flag("BEACH_SEG_TPU_ATTN_NO_MAX"):
+        return "fast"
     return "clamp" if dtype == torch.bfloat16 else "stable"
+
+
+def pad_head_dim(x: torch.Tensor, d: int) -> torch.Tensor:
+    """x (..., D) zero-padded to (..., d), contiguous."""
+    return F.pad(x, (0, d - x.shape[-1])).contiguous()
+
+
+def _ptrs(scratch: tuple[torch.Tensor, ...], n: int) -> list:
+    """The scratch tensors' pointers, or ``n`` null pointers where there are
+    none (the fp32 instances take none); the caller keeps the tensors alive
+    across the launch."""
+    return [t.data_ptr() for t in scratch] if scratch else [None] * n
+
+
+def _slots_scratch(s: int, hk: int, wk: int, device, rows: int = 0) -> tuple[torch.Tensor, ...]:
+    """The bf16 kernels' rel-slot scratch (``csrc/wgmma.cuh``): the 0/1
+    key-to-slot matrix (S rounded up to 64, KX) and, for ``rows`` > 0, the
+    packed slot rows (rows, KX); KX is Hk and Wk each rounded up to 16."""
+    kx = -(-hk // 16) * 16 + -(-wk // 16) * 16
+    e = torch.empty((-(-s // 64) * 64, kx), dtype=torch.bfloat16, device=device)
+    return (e, torch.empty((rows, kx), dtype=torch.bfloat16, device=device)) if rows else (e,)
 
 
 def attn_qkv_rel_plain(
@@ -97,7 +132,7 @@ def attn_qkv_rel_plain(
 
     qkv4 (B, S, 3, C), qkv_bias (3, C), rh_tab (Gh, 64, hd), rw_tab
     (Gw, 64, hd) → (B, S, C) merged heads."""
-    softmax = softmax or default_softmax(qkv4.dtype)
+    softmax = softmax or resolve_softmax(qkv4.dtype)
     b, s, _, c = qkv4.shape
     dt = qkv4.dtype
     hd = c // num_heads
@@ -135,8 +170,8 @@ def attn_qkv_rel(
 ) -> torch.Tensor:
     """Same contract as :func:`attn_qkv_rel_plain`. CUDA tensors launch the
     kernel (bf16 or fp32, head_dim 64, Gh, Gw ≤ 64); CPU tensors take the
-    plain version."""
-    softmax = softmax or default_softmax(qkv4.dtype)
+    plain version. The softmax mode defaults to :func:`resolve_softmax`."""
+    softmax = softmax or resolve_softmax(qkv4.dtype)
     if softmax not in SOFTMAX_MODES:
         raise ValueError(f"softmax must be one of {SOFTMAX_MODES}, got {softmax!r}")
     if qkv4.device.type == "cpu":
@@ -200,9 +235,9 @@ def _merge_qkv_grads(dq, dk, dv, b: int, num_heads: int, dt: torch.dtype) -> tor
 def attn_packed(q, k, v, rel_h, rel_w, scale: float, num_heads: int) -> torch.Tensor:
     """Same contract as ``ops.attention.attention_packed_plain``: q/k/v
     (B·H, S, D), rel_h (B·H, S, Hk), rel_w (B·H, S, Wk) → (B, S, H·D). CUDA
-    tensors launch the kernel (bf16 or fp32, head_dim 64 or 80, S = Hk·Wk
-    with Hk, Wk ≤ 64; the rel terms are cast to q's dtype, the kernel's
-    rounding point); CPU tensors take the plain version."""
+    tensors launch the kernel (bf16 or fp32, head_dim 8, 16, 64 or 80, S =
+    Hk·Wk with Hk, Wk ≤ 64; the rel terms are cast to q's dtype, the
+    kernel's rounding point); CPU tensors take the plain version."""
     if q.device.type == "cpu":
         return attention_packed_plain(q, k, v, rel_h, rel_w, scale, num_heads)
     if q.device.type != "cuda":
@@ -211,6 +246,10 @@ def attn_packed(q, k, v, rel_h, rel_w, scale: float, num_heads: int) -> torch.Te
     hk, wk = rel_h.shape[-1], rel_w.shape[-1]
     dt = q.dtype
     _check_grid("attn_packed", "_kernel_packed", d, HEAD_DIMS, s, hk, wk, q.shape)
+    if d in _PADDED_HEAD_DIM:
+        dp = _PADDED_HEAD_DIM[d]
+        out = attn_packed(*(pad_head_dim(t, dp) for t in (q, k, v)), rel_h, rel_w, scale, num_heads)
+        return out.reshape(bh // num_heads, s, num_heads, dp)[..., :d].reshape(bh // num_heads, s, num_heads * d)
     if bh % num_heads:
         raise ValueError(f"attn_packed: B·H = {bh} is not a multiple of {num_heads=}")
     if dt not in _PACKED_ENTRY:
@@ -226,8 +265,9 @@ def attn_packed(q, k, v, rel_h, rel_w, scale: float, num_heads: int) -> torch.Te
         raise ValueError("attn_packed kernel needs contiguous, 16-byte aligned q, k, v")
     lib = build.load("attn_packed", {fn: _PACKED_PROTO for fn in _PACKED_ENTRY.values()})
     out = torch.empty((bh // num_heads, s, num_heads * d), dtype=dt, device=q.device)
+    scratch = _slots_scratch(s, hk, wk, q.device) if dt == torch.bfloat16 else ()
     err = getattr(lib, _PACKED_ENTRY[dt])(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(), out.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(), *_ptrs(scratch, 1), out.data_ptr(),
         bh, s, d, num_heads, hk, wk, float(scale), torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(err, "attn_packed launch")
@@ -240,8 +280,9 @@ attn_packed.launches = 0
 
 def attn_bwd(q, k, v, rel_h, rel_w, g, scale: float) -> tuple[torch.Tensor, ...]:
     """Same contract as ``ops.attention.attention_bwd_plain``. CUDA tensors
-    launch the kernel (all six inputs bf16, or all fp32; head_dim 64 or 80,
-    S = Hk·Wk with Hk, Wk ≤ 64); CPU tensors take the plain version."""
+    launch the kernel (all six inputs bf16, or all fp32; head_dim 8, 16, 64
+    or 80, S = Hk·Wk with Hk, Wk ≤ 64); CPU tensors take the plain
+    version."""
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, rel_h, rel_w, g, scale)
     if q.device.type != "cuda":
@@ -249,6 +290,10 @@ def attn_bwd(q, k, v, rel_h, rel_w, g, scale: float) -> tuple[torch.Tensor, ...]
     bh, s, d = q.shape
     hk, wk = rel_h.shape[-1], rel_w.shape[-1]
     _check_grid("attn_bwd", "_bwd_kernel", d, HEAD_DIMS, s, hk, wk, q.shape)
+    if d in _PADDED_HEAD_DIM:
+        dp = _PADDED_HEAD_DIM[d]
+        dq, dk, dv, drh, drw = attn_bwd(*(pad_head_dim(t, dp) for t in (q, k, v)), rel_h, rel_w, pad_head_dim(g, dp), scale)
+        return dq[..., :d].contiguous(), dk[..., :d].contiguous(), dv[..., :d].contiguous(), drh, drw
     dt = q.dtype
     if dt not in _BWD_ENTRY:
         raise TypeError(f"attn_bwd kernel takes bf16 or fp32, got {dt}")
@@ -268,9 +313,10 @@ def attn_bwd(q, k, v, rel_h, rel_w, g, scale: float) -> tuple[torch.Tensor, ...]
     dk = torch.empty((bh, s, d), dtype=torch.float32, device=q.device)
     dv = torch.empty_like(dk)
     drh, drw = torch.empty_like(rel_h), torch.empty_like(rel_w)
-    stats = torch.empty((3, bh, s), dtype=torch.float32, device=q.device)  # row max, row sum, rowsum(dP∘P)
+    stats = torch.empty((3, bh, s), dtype=torch.float32, device=q.device)  # row max, row sum or its inverse, rowsum(dP∘P)
+    scratch = _slots_scratch(s, hk, wk, q.device, rows=bh * s) if dt == torch.bfloat16 else ()
     err = getattr(lib, _BWD_ENTRY[dt])(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(), g.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(), g.data_ptr(), *_ptrs(scratch, 2),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), drh.data_ptr(), drw.data_ptr(), stats.data_ptr(),
         bh, s, d, hk, wk, float(scale), torch.cuda.current_stream(q.device).cuda_stream,
     )
@@ -286,8 +332,8 @@ def attn_fused(q, k, v, rel_h, rel_w, scale: float) -> torch.Tensor:
     """Same contract as ``ops.attention.attention_fused_plain``: q/k/v
     (B·H, S, D), rel_h (B·H, S, Hk), rel_w (B·H, S, Wk) → (B·H, S, D). CUDA
     tensors launch the kernel (bf16 or fp32, the rel terms in q's dtype,
-    head_dim 64 or 80, S = Hk·Wk with Hk, Wk ≤ 64); CPU tensors take the
-    plain version."""
+    head_dim 8, 16, 64 or 80, S = Hk·Wk with Hk, Wk ≤ 64); CPU tensors take
+    the plain version."""
     if q.device.type == "cpu":
         return attention_fused_plain(q, k, v, rel_h, rel_w, scale)
     if q.device.type != "cuda":
@@ -296,6 +342,9 @@ def attn_fused(q, k, v, rel_h, rel_w, scale: float) -> torch.Tensor:
     hk, wk = rel_h.shape[-1], rel_w.shape[-1]
     dt = q.dtype
     _check_grid("attn_fused", "_kernel", d, HEAD_DIMS, s, hk, wk, q.shape)
+    if d in _PADDED_HEAD_DIM:
+        out = attn_fused(*(pad_head_dim(t, _PADDED_HEAD_DIM[d]) for t in (q, k, v)), rel_h, rel_w, scale)
+        return out[..., :d].contiguous()
     if dt not in _FUSED_ENTRY:
         raise TypeError(f"attn_fused kernel takes bf16 or fp32, got {dt}")
     for name, t, shape in (("k", k, (bh, s, d)), ("v", v, (bh, s, d)), ("rel_h", rel_h, (bh, s, hk)), ("rel_w", rel_w, (bh, s, wk))):
@@ -305,8 +354,9 @@ def attn_fused(q, k, v, rel_h, rel_w, scale: float) -> torch.Tensor:
         raise ValueError("attn_fused kernel needs contiguous, 16-byte aligned inputs")
     lib = build.load("attn_fused", {fn: _FUSED_PROTO for fn in _FUSED_ENTRY.values()})
     out = torch.empty_like(q)
+    scratch = _slots_scratch(s, hk, wk, q.device) if dt == torch.bfloat16 else ()
     err = getattr(lib, _FUSED_ENTRY[dt])(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(), out.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(), *_ptrs(scratch, 1), out.data_ptr(),
         bh, s, d, hk, wk, float(scale), torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(err, "attn_fused launch")
@@ -343,8 +393,9 @@ def attn_qkv(qkv, rel_h64, rel_w64, scale: float, hk: int, wk: int, num_heads: i
         raise ValueError("attn_qkv kernel needs a contiguous, 16-byte aligned qkv")
     lib = build.load("attn_qkv", {fn: _QKV_PROTO for fn in _QKV_ENTRY.values()})
     out = torch.empty((b, s, c), dtype=dt, device=qkv.device)
+    scratch = _slots_scratch(s, hk, wk, qkv.device) if dt == torch.bfloat16 else ()
     err = getattr(lib, _QKV_ENTRY[dt])(
-        qkv.data_ptr(), rel_h64.data_ptr(), rel_w64.data_ptr(), out.data_ptr(),
+        qkv.data_ptr(), rel_h64.data_ptr(), rel_w64.data_ptr(), *_ptrs(scratch, 1), out.data_ptr(),
         b, s, c // num_heads, num_heads, hk, wk, float(scale), torch.cuda.current_stream(qkv.device).cuda_stream,
     )
     build.check(err, "attn_qkv launch")

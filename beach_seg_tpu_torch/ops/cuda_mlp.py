@@ -57,8 +57,8 @@ def _check_kernel_args(what, x, ln_scale, ln_bias, w1, b1, w2, last):
     shape) of the seventh argument (b2 or g)."""
     c = x.shape[-1]
     m = w1.shape[-1]
-    if c % 256 or c > 1280 or m % 128:
-        raise ValueError(f"{what} kernel needs C % 256 == 0, C <= 1280 and M % 128 == 0, got C={c}, M={m}")
+    if (c % 256 and c not in (64, 128)) or c > 1280 or m % 128:
+        raise ValueError(f"{what} kernel needs C % 256 == 0 (or C 64 or 128), C <= 1280 and M % 128 == 0, got C={c}, M={m}")
     want = (
         ("x", x, torch.bfloat16, None), ("ln_scale", ln_scale, torch.float32, (c,)),
         ("ln_bias", ln_bias, torch.float32, (c,)), ("w1", w1, torch.bfloat16, (c, m)),

@@ -13,16 +13,14 @@ from beach_seg_tpu_torch.config import BeachSegConfig
 from beach_seg_tpu_torch.models.seggpt.config import SegGPTConfig, huge_config
 from beach_seg_tpu_torch.models.seggpt.model import SegGPT, build_model
 
-BACKBONES = ("large", "huge")
-
 
 def model_for_config(conf: BeachSegConfig, device=None, state: dict | None = None, seed: int = 0) -> tuple[SegGPT, SegGPTConfig]:
     """The SegGPT (``build_model``: on CUDA unless ``device`` says otherwise,
     ``state`` or seeded random weights, bf16 when ``conf.compute_dtype`` is
     ``"bfloat16"``) and its config for ``conf``: the ``debug`` miniature,
-    else ``conf.backbone`` — ``"large"`` (ViT-L) or ``"huge"`` (ViT-H:
-    C=1280, 32 layers, 16 heads of 80) — on a (2·inpt_size, inpt_size)
-    canvas. Any other backbone raises.
+    else ``conf.backbone``: ``"huge"`` (ViT-H: C=1280, 32 layers, 16 heads
+    of 80), and ViT-L for ``"large"`` or any other name, as in the JAX
+    package — on a (2·inpt_size, inpt_size) canvas.
 
     The JAX package also lets a converted npz checkpoint that stores its own
     topology override these presets; that waits for the port's checkpoint
@@ -43,8 +41,6 @@ def model_for_config(conf: BeachSegConfig, device=None, state: dict | None = Non
         )
     elif conf.backbone == "huge":
         cfg = huge_config(image_size=image_size)
-    elif conf.backbone == "large":
-        cfg = SegGPTConfig(image_size=image_size)
     else:
-        raise ValueError(f"backbone must be one of {BACKBONES}, got {conf.backbone!r}")
+        cfg = SegGPTConfig(image_size=image_size)
     return build_model(cfg, dtype, device=device, state=state, seed=seed), cfg

@@ -59,7 +59,21 @@ Phases (any failure exits non-zero before the result lines):
      the warm time) and 2 train_steps (24 qkv-rel and 24 fp32
      attention-backward launches each, the MLP plain torch), the prompt
      gradient held against the plain versions with fp32 limits;
- 13. one JSON line of per-kernel numbers (one entry per kernel, geometry
+ 13. the small head dims: the packed (#3) and fused (#7) attention and the
+     attention backward (#4) at head_dim 16 (the debug backbone's) and 8
+     (tiny_config's, zero-padded to 16 by the wrappers), bf16 and fp32, at
+     B=8 tiles of 4 heads on the ViT grid, each against its plain version
+     with the head_dim-64 tolerances;
+ 14. the grid (37, 27), whose 64-key tiles cross rel_h slot chunks and whose
+     last tile is ragged: #3, #7 and #4 at head dims 64 and 80 and #6, bf16
+     and fp32, each against its plain version;
+ 15. the debug backbone (BeachSegConfig(debug=True): C=64, 4 layers, 4
+     heads of 16) in bf16 and fp32: 3 (2 in fp32) predict_step calls and
+     train_steps at B=8, each call launching #3 (and under bf16 the MLP
+     kernel #2, at C=64 its narrow instance) 4 times and each step #3 and
+     #4 (and #2, #5) 4 times, pred_masks and the prompt gradient held
+     against the plain versions with phases 5–6's limits (fp32: phase 12's);
+ 16. one JSON line of per-kernel numbers (one entry per kernel, geometry
      and dtype), then the card's name and power limit, then
      {"ok": true, "device": {...}} as the last line.
 
@@ -89,9 +103,14 @@ PEAK_TF32 = 495e12  # H100 SXM dense TF32 tensor-core FLOP/s (NVIDIA data sheet)
 PEAK_FP32_TC = PEAK_TF32 / 3
 FP32_ROUTE = "tensor cores, split TF32: 3 x FLOPs at 495 TF/s"
 TF32X3 = "mma.sync m16n8k8 tf32x3"  # the design of the fp32 #1 and #4 instances
+# the design of the bf16 #3, #4, #6 and #7 instances (wgmma.cuh)
+WGMMA = "wgmma m64nNk16, one warpgroup a block, cp.async ring, rel terms as k steps against the 0/1 slot matrix"
 HBM = 3.35e12  # bytes/s
 B = 8  # tiles per batch (the predict step's batch)
 GRID = (56, 28)  # ViT-L and ViT-H canvas 896×448 at 16-pixel patches
+# a grid whose 64-key tiles cross rel_h slot chunks (16 rows of 27 keys) and
+# whose last tile is ragged (999 = 15·64 + 39); ViT's 16·28 keys are 7 tiles
+GRID_CROSS = (37, 27)
 C, HEADS, MLP = 1024, 16, 4096
 HD = C // HEADS
 C_H, MLP_H = 1280, 5120  # ViT-H (huge_config): 16 heads of 80
@@ -102,6 +121,14 @@ BF16_EPS = 2.0**-8
 # attention bf16/clamp: three bf16 steps at |out| ≤ ~1 (p and out are rounded
 # at the same points, fp32 sums in another order may round to the neighbour)
 ATTN_BF16_TOL = 3e-2
+# and within it, relative to what is compared: the largest error within two
+# bf16 steps of max|plain| (a neighbour in the top binade is one), and the
+# error's norm within one rounding step of the output's (BF16_EPS·‖plain‖):
+# outputs rounded at the same points differ by a neighbour at a few elements,
+# while a kernel that drops a key tile, a slot chunk or the tail mask moves
+# every row it reaches (scripts/ablate_torch_kernels.py check)
+ATTN_BF16_REL_TOL = 4 * BF16_EPS
+ATTN_BF16_NORM_TOL = BF16_EPS
 # attention fp32/stable: the online softmax rescales partial sums, and the
 # split-TF32 products of #1 (~2^-21 a product, the tensor cores' truncating
 # accumulation within one 64-key tile, the tiles added in fp32) leave a few
@@ -251,6 +278,53 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
+def attn_errors(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """An attention output against its plain version: the largest error,
+    max|plain|, and the error's norm over the output's."""
+    d = got.float() - want.float()
+    return {"err": d.abs().max().item(), "scale": want.float().abs().max().item(),
+            "norm": (d.norm() / want.float().norm()).item()}
+
+
+def attn_within(e: dict, dtype) -> bool:
+    """Whether ``attn_errors``' readings meet the forward attention limits."""
+    if dtype == torch.float32:
+        return e["err"] <= ATTN_FP32_TOL
+    return e["err"] <= min(ATTN_BF16_TOL, ATTN_BF16_REL_TOL * e["scale"]) and e["norm"] <= ATTN_BF16_NORM_TOL
+
+
+def attn_out_check(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """A forward attention kernel's output against its plain version: finite,
+    fp32 within ATTN_FP32_TOL; bf16 within ATTN_BF16_TOL and the relative
+    limits beside it. Returns the largest error."""
+    check(bool(torch.isfinite(got).all()), f"{name} output not finite")
+    e = attn_errors(got, want)
+    if got.dtype == torch.float32:
+        limits = f"tol {ATTN_FP32_TOL:.1e}"
+    else:
+        limits = (f"tol {min(ATTN_BF16_TOL, ATTN_BF16_REL_TOL * e['scale']):.3e}; error norm {e['norm']:.3e} "
+                  f"of the output's, tol {ATTN_BF16_NORM_TOL:.3e}")
+    log(f"{name}: max_abs_err {e['err']:.3e} ({limits}), max|plain| {e['scale']:.3f}")
+    check(attn_within(e, got.dtype), f"{name} disagrees with its plain version: {e}")
+    return e["err"]
+
+
+def bwd_out_check(name: str, got, want, fp32: bool) -> dict:
+    """The attention backward's five outputs against its plain version's (bf16:
+    ATTN_BWD_REL_TOL of each output's scale, ATTN_BWD_REL_DRHW for drh/drw;
+    fp32: ATTN_BWD_FP32_REL_TOL). Returns the largest error of each."""
+    errs = {}
+    for out, a, w in zip(("dq", "dk", "dv", "drh", "drw"), got, want):
+        check(tuple(a.shape) == tuple(w.shape) and bool(torch.isfinite(a).all()), f"{name} {out} shape or not finite")
+        err = (a.float() - w.float()).abs().max().item()
+        scale = w.float().abs().max().item()
+        tol = (ATTN_BWD_FP32_REL_TOL if fp32 else ATTN_BWD_REL_DRHW if out in ("drh", "drw") else ATTN_BWD_REL_TOL) * scale
+        log(f"{name} {out}: max_abs_err {err:.3e} = {err / scale:.2e} of max|plain| {scale:.3f} (tol {tol:.3e})")
+        check(err <= tol, f"{name} {out} disagrees with its plain version: {err} > {tol}")
+        errs[out] = err
+    return errs
+
+
 def mlp_inputs(device, seed: int, n: int, c: int, m: int):
     """x, LN scale and bias, W1, b1, W2, b2 and an output cotangent g for n
     rows of width c and m hidden units, seeded."""
@@ -285,16 +359,12 @@ def phase_kernels(device) -> dict:
 
     res = {}
     gw = GRID[1]
-    for dtype, softmax, tol in ((torch.float32, "stable", ATTN_FP32_TOL), (torch.bfloat16, "clamp", ATTN_BF16_TOL)):
+    for dtype, softmax in ((torch.float32, "stable"), (torch.bfloat16, "clamp")):
         args = (*attn_inputs(dtype, device), HD**-0.5, gw, HEADS, softmax)
         got = cuda_attn.attn_qkv_rel(*args)
         torch.cuda.synchronize()
         want = cuda_attn.attn_qkv_rel_plain(*args)
-        err = (got.float() - want.float()).abs().max().item()
-        check(torch.isfinite(got).all().item(), f"attn {dtype} kernel output not finite")
-        log(f"attn_qkv_rel {dtype} {softmax}: max_abs_err {err:.3e} (tol {tol:.1e}), max|plain| {want.abs().max().item():.3f}")
-        check(err <= tol, f"attn {dtype} kernel disagrees with its plain version: {err} > {tol}")
-        res[f"attn_err_{softmax}"] = err
+        res[f"attn_err_{softmax}"] = attn_out_check(f"attn_qkv_rel {dtype} {softmax}", got, want)
         del got, want
         if dtype == torch.float32:  # the instance the default (fp32) configuration runs
             res["attn32_ms"] = time_ms(lambda: cuda_attn.attn_qkv_rel(*args), iters=3, warmup=1)
@@ -336,11 +406,11 @@ def mlp_dx_bound(n: int, c: int = C, m: int = MLP) -> tuple[float, str]:
     return bound(flops, nbytes, PEAK_BF16)
 
 
-def attn_bwd_inputs(device, bh: int, seed: int = 2, hd: int = HD, dtype=torch.bfloat16):
+def attn_bwd_inputs(device, bh: int, seed: int = 2, hd: int = HD, dtype=torch.bfloat16, grid=GRID):
     """q, k, v, g (B·H, S, hd) and the rel terms at the scale the model's
     rel-pos tables give them."""
     g = torch.Generator(device=device).manual_seed(seed)
-    gh, gw = GRID
+    gh, gw = grid
     s = gh * gw
     r = lambda *shape, sc=1.0: (sc * torch.randn(shape, generator=g, device=device)).to(dtype)  # noqa: E731
     return r(bh, s, hd), r(bh, s, hd), r(bh, s, hd), r(bh, s, gh, sc=0.5), r(bh, s, gw, sc=0.5), r(bh, s, hd)
@@ -378,16 +448,7 @@ def attn_bwd_check(device, hd: int, where: str, dtype=torch.bfloat16) -> dict:
     got = cuda_attn.attn_bwd(*args)
     torch.cuda.synchronize()
     want = attention_bwd_plain(*args)
-    errs = {}
-    for name, a, w in zip(("dq", "dk", "dv", "drh", "drw"), got, want):
-        check(bool(torch.isfinite(a).all()), f"attn_bwd{where} {name} not finite")
-        err = (a.float() - w.float()).abs().max().item()
-        scale = w.float().abs().max().item()
-        tol = (ATTN_BWD_FP32_REL_TOL if fp32 else ATTN_BWD_REL_DRHW if name in ("drh", "drw") else ATTN_BWD_REL_TOL) * scale
-        was = "; the FP32-unit design read <= 1.19e-6 at scales 0.64-3.3" if fp32 else ""
-        log(f"attn_bwd {name}{where}: max_abs_err {err:.3e} = {err / scale:.2e} of max|plain| {scale:.3f} (tol {tol:.3e}{was})")
-        check(err <= tol, f"attn_bwd{where} {name} disagrees with its plain version: {err} > {tol}")
-        errs[name] = err
+    errs = bwd_out_check(f"attn_bwd{where}", got, want, fp32)
     del got, want
     torch.cuda.empty_cache()
     res = {"attn_bwd_err": max(errs.values()), "attn_bwd_errs": errs}
@@ -426,11 +487,11 @@ def packed_bound(bh: int, s: int, hk: int, wk: int, hd: int, itemsize: int, peak
     return bound(flops, nbytes, peak)
 
 
-def packed_inputs(device, dtype, bh: int, hd: int, seed: int = 4):
+def packed_inputs(device, dtype, bh: int, hd: int, seed: int = 4, grid=GRID):
     """q, k, v (B·H, S, hd) and the rel terms at the scale the model's
     rel-pos tables give them."""
     g = torch.Generator(device=device).manual_seed(seed)
-    gh, gw = GRID
+    gh, gw = grid
     s = gh * gw
     r = lambda *shape, sc=1.0: (sc * torch.randn(shape, generator=g, device=device)).to(dtype)  # noqa: E731
     return r(bh, s, hd), r(bh, s, hd), r(bh, s, hd), r(bh, s, gh, sc=0.5), r(bh, s, gw, sc=0.5)
@@ -460,19 +521,10 @@ def phase_kernels_vit_h(device) -> dict:
     res = {}
     gh, gw = GRID
     s, bh = gh * gw, B * HEADS
-    for dtype, tol, name in ((torch.float32, ATTN_FP32_TOL, "fp32"), (torch.bfloat16, ATTN_BF16_TOL, "bf16")):
+    for dtype, name in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
         args = (*packed_inputs(device, dtype, bh, HD_H), HD_H**-0.5, HEADS)
-        got = cuda_attn.attn_packed(*args)
-        torch.cuda.synchronize()
-        want = attention_packed_plain(*args)
-        check(tuple(got.shape) == tuple(want.shape) == (B, s, C_H), f"attn_packed shape {tuple(got.shape)}")
-        check(bool(torch.isfinite(got).all()), f"attn_packed {name} output not finite")
-        err = (got.float() - want.float()).abs().max().item()
-        log(f"attn_packed {name} (ViT-H): max_abs_err {err:.3e} (tol {tol:.1e}), max|plain| {want.abs().max().item():.3f}")
-        check(err <= tol, f"attn_packed {name} disagrees with its plain version: {err} > {tol}")
-        res[f"packed_err_{name}"] = err
-        del got, want
-        torch.cuda.empty_cache()
+        res[f"packed_err_{name}"] = fwd_check(f"attn_packed {name} (ViT-H)", cuda_attn.attn_packed, attention_packed_plain,
+                                              args, (B, s, C_H))
         res[f"packed_ms_{name}"] = time_ms(lambda: cuda_attn.attn_packed(*args), iters=20 if name == "bf16" else 3, warmup=2)
         res[f"packed_plain_ms_{name}"] = time_ms(lambda: attention_packed_plain(*args), iters=2)
         if name == "fp32":
@@ -506,18 +558,18 @@ def phase_kernels_vit_h(device) -> dict:
     return res
 
 
-def qkv_slot_inputs(device, dtype, seed: int = 6):
+def qkv_slot_inputs(device, dtype, seed: int = 6, grid=GRID):
     """qkv (B, S, 3C) and its rel terms in the 64-slot layout, made by the
     port's ``rel_pos_terms_split`` from qkv's q columns and seeded rel-pos
     tables, as ``scripts/bench_torch_attn_parts.py`` makes them."""
     from beach_seg_tpu_torch.ops.attention import rel_pos_terms_split
 
     g = torch.Generator(device=device).manual_seed(seed)
-    gh, gw = GRID
+    gh, gw = grid
     qkv = torch.randn((B, gh * gw, 3 * C), generator=g, device=device).to(dtype)
     rph = (0.1 * torch.randn((2 * gh - 1, HD), generator=g, device=device)).to(dtype)
     rpw = (0.1 * torch.randn((2 * gw - 1, HD), generator=g, device=device)).to(dtype)
-    return qkv, rph, rpw, rel_pos_terms_split(qkv[..., :C].reshape(B, gh, gw, HEADS, HD), rph, rpw, GRID, GRID)
+    return qkv, rph, rpw, rel_pos_terms_split(qkv[..., :C].reshape(B, gh, gw, HEADS, HD), rph, rpw, grid, grid)
 
 
 def sdpa_qkv_yardstick(qkv, rel_h64, rel_w64):
@@ -529,17 +581,14 @@ def sdpa_qkv_yardstick(qkv, rel_h64, rel_w64):
     return sdpa_packed_yardstick(q, k, v, unpack_rel_slots(rel_h64, HEADS, GRID[0]), unpack_rel_slots(rel_w64, HEADS, GRID[1]))
 
 
-def fwd_check(name: str, fn, plain, args, tol: float, shape) -> float:
+def fwd_check(name: str, fn, plain, args, shape) -> float:
     """A forward attention kernel against its plain version on the same
-    inputs, within ``tol`` absolute (the outputs are ≤ ~1)."""
+    inputs (``attn_out_check``); returns the largest error."""
     got = fn(*args)
     torch.cuda.synchronize()
     want = plain(*args)
     check(tuple(got.shape) == tuple(want.shape) == shape, f"{name} shape {tuple(got.shape)}, want {shape}")
-    check(bool(torch.isfinite(got).all()), f"{name} output not finite")
-    err = (got.float() - want.float()).abs().max().item()
-    log(f"{name}: max_abs_err {err:.3e} (tol {tol:.1e}), max|plain| {want.abs().max().item():.3f}")
-    check(err <= tol, f"{name} disagrees with its plain version: {err} > {tol}")
+    err = attn_out_check(name, got, want)
     del got, want
     torch.cuda.empty_cache()
     return err
@@ -557,13 +606,13 @@ def phase_library_kernels(device) -> dict:
     res = {}
     gh, gw = GRID
     s, bh = gh * gw, B * HEADS
-    for dtype, tol, name in ((torch.float32, ATTN_FP32_TOL, "fp32"), (torch.bfloat16, ATTN_BF16_TOL, "bf16")):
+    for dtype, name in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
         fp32 = name == "fp32"
         peak = PEAK_FP32_TC if fp32 else PEAK_BF16
         iters = 3 if fp32 else 20
         q, k, v, rel_h, rel_w = packed_inputs(device, dtype, bh, HD, seed=8)
         args = (q, k, v, rel_h, rel_w, HD**-0.5)
-        res[f"fused_err_{name}"] = fwd_check(f"attn_fused {name}", cuda_attn.attn_fused, attention_fused_plain, args, tol, (bh, s, HD))
+        res[f"fused_err_{name}"] = fwd_check(f"attn_fused {name}", cuda_attn.attn_fused, attention_fused_plain, args, (bh, s, HD))
         res[f"fused_ms_{name}"] = time_ms(lambda: cuda_attn.attn_fused(*args), iters=iters, warmup=2)
         res[f"fused_plain_ms_{name}"] = time_ms(lambda: attention_fused_plain(*args), iters=2)
         res[f"fused_library_ms_{name}"] = time_ms(sdpa_packed_yardstick(q, k, v, rel_h, rel_w), iters=iters, warmup=2)
@@ -573,7 +622,7 @@ def phase_library_kernels(device) -> dict:
 
         qkv, _, _, (rh64, rw64) = qkv_slot_inputs(device, dtype)
         args = (qkv, rh64, rw64, HD**-0.5, gh, gw, HEADS)
-        res[f"qkv_err_{name}"] = fwd_check(f"attn_qkv {name}", cuda_attn.attn_qkv, attention_qkv_plain, args, tol, (B, s, C))
+        res[f"qkv_err_{name}"] = fwd_check(f"attn_qkv {name}", cuda_attn.attn_qkv, attention_qkv_plain, args, (B, s, C))
         res[f"qkv_ms_{name}"] = time_ms(lambda: cuda_attn.attn_qkv(*args), iters=iters, warmup=2)
         res[f"qkv_plain_ms_{name}"] = time_ms(lambda: attention_qkv_plain(*args), iters=2)
         res[f"qkv_library_ms_{name}"] = time_ms(sdpa_qkv_yardstick(qkv, rh64, rw64), iters=iters, warmup=2)
@@ -610,8 +659,8 @@ def phase_entries(device) -> dict:
     forward kernel once and the attention backward once, nothing else; the
     output and the input gradients of a seeded cotangent are held against
     the same call through the plain versions (the phases' kernel
-    tolerances: bf16 forward ATTN_BF16_TOL and gradients ATTN_BWD_REL_TOL of
-    their scale; fp32 ATTN_FP32_TOL and ATTN_BWD_FP32_REL_TOL)."""
+    tolerances: the output by ``attn_out_check``, the gradients within
+    ATTN_BWD_REL_TOL of their scale, fp32 ATTN_BWD_FP32_REL_TOL)."""
     from beach_seg_tpu_torch.ops import cuda_attn
     from beach_seg_tpu_torch.ops.attention import rel_pos_terms, rel_pos_terms_split
 
@@ -656,9 +705,8 @@ def phase_entries(device) -> dict:
             out_p = call(*leaves)
             grads_p = torch.autograd.grad(out_p, leaves, cot)
         torch.cuda.synchronize()
-        errs = {"out": (out.float() - out_p.float()).abs().max().item()}
-        check(tuple(out.shape) == out_shape and bool(torch.isfinite(out).all()), f"{key}: output {tuple(out.shape)}")
-        check(errs["out"] <= (ATTN_FP32_TOL if fp32 else ATTN_BF16_TOL), f"{key}: output disagrees with plain: {errs['out']}")
+        check(tuple(out.shape) == out_shape, f"{key}: output {tuple(out.shape)}")
+        errs = {"out": attn_out_check(f"entry {key} output", out, out_p)}
         rel = ATTN_BWD_FP32_REL_TOL if fp32 else ATTN_BWD_REL_TOL
         for name, a, w in zip(("dq", "dk", "dv") if len(leaves) == 3 else ("dqkv",), grads, grads_p):
             scale = w.float().abs().max().item()
@@ -670,6 +718,99 @@ def phase_entries(device) -> dict:
         del out, grads, out_p, grads_p, leaves
         torch.cuda.empty_cache()
     return res
+
+
+def phase_small_head_dims(device) -> dict:
+    """#3, #7 and #4 at head dims 16 and 8 (zero-padded to 16 by the
+    wrappers), bf16 and fp32, at B=8 tiles of the debug backbone's 4 heads
+    on the ViT grid, against their plain versions with the tolerances of
+    head dims 64 and 80; the head_dim-16 bf16 instances timed."""
+    from beach_seg_tpu_torch.ops import cuda_attn
+    from beach_seg_tpu_torch.ops.attention import attention_bwd_plain, attention_fused_plain, attention_packed_plain
+
+    gh, gw = GRID
+    heads = 4
+    bh, s = B * heads, gh * gw
+    res = {}
+    for hd in (16, 8):
+        for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+            fp32 = dtype == torch.float32
+            q, k, v, rel_h, rel_w = packed_inputs(device, dtype, bh, hd, seed=10)
+            args = (q, k, v, rel_h, rel_w, hd**-0.5, heads)
+            res[f"packed_err_{name}_hd{hd}"] = fwd_check(f"attn_packed {name} head_dim {hd}", cuda_attn.attn_packed,
+                                                         attention_packed_plain, args, (B, s, heads * hd))
+            args = (q, k, v, rel_h, rel_w, hd**-0.5)
+            res[f"fused_err_{name}_hd{hd}"] = fwd_check(f"attn_fused {name} head_dim {hd}", cuda_attn.attn_fused,
+                                                        attention_fused_plain, args, (bh, s, hd))
+            g = packed_inputs(device, dtype, bh, hd, seed=11)[0]
+            args = (q, k, v, rel_h, rel_w, g, hd**-0.5)
+            got = cuda_attn.attn_bwd(*args)
+            torch.cuda.synchronize()
+            res[f"bwd_errs_{name}_hd{hd}"] = bwd_out_check(f"attn_bwd {name} head_dim {hd}", got, attention_bwd_plain(*args), fp32)
+            if hd == 16 and not fp32:
+                res["packed_ms_hd16"] = time_ms(lambda: cuda_attn.attn_packed(q, k, v, rel_h, rel_w, hd**-0.5, heads), iters=20, warmup=2)
+                res["bwd_ms_hd16"] = time_ms(lambda: cuda_attn.attn_bwd(*args), iters=10, warmup=2)
+            del q, k, v, rel_h, rel_w, g, args, got
+            torch.cuda.empty_cache()
+    log(f"times (ms, B={B}, 4 heads of 16, bf16): attn_packed {res['packed_ms_hd16']:.4f}; attn_bwd {res['bwd_ms_hd16']:.4f}")
+    return res
+
+
+def phase_chunk_crossing(device) -> dict:
+    """#3, #7 and #4 at head dims 64 and 80, and #6, in bf16 and fp32 at B=8
+    tiles of 16 heads on GRID_CROSS, where key tiles cross rel_h slot chunks
+    and the last tile is ragged, against their plain versions with the
+    phases' tolerances. Returns the largest errors by kernel and dtype."""
+    from beach_seg_tpu_torch.ops import cuda_attn
+    from beach_seg_tpu_torch.ops.attention import (attention_bwd_plain, attention_fused_plain, attention_packed_plain,
+                                                   attention_qkv_plain)
+
+    gh, gw = GRID_CROSS
+    bh, s = B * HEADS, gh * gw
+    res = {}
+    for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        for hd in (HD, HD_H):
+            where = f"{name} head_dim {hd} grid {GRID_CROSS}"
+            q, k, v, rel_h, rel_w = packed_inputs(device, dtype, bh, hd, seed=12, grid=GRID_CROSS)
+            res[f"packed_{name}_hd{hd}"] = fwd_check(f"attn_packed {where}", cuda_attn.attn_packed, attention_packed_plain,
+                                                     (q, k, v, rel_h, rel_w, hd**-0.5, HEADS), (B, s, HEADS * hd))
+            res[f"fused_{name}_hd{hd}"] = fwd_check(f"attn_fused {where}", cuda_attn.attn_fused, attention_fused_plain,
+                                                    (q, k, v, rel_h, rel_w, hd**-0.5), (bh, s, hd))
+            args = (q, k, v, rel_h, rel_w, packed_inputs(device, dtype, bh, hd, seed=13, grid=GRID_CROSS)[0], hd**-0.5)
+            got = cuda_attn.attn_bwd(*args)
+            torch.cuda.synchronize()
+            res[f"bwd_{name}_hd{hd}"] = bwd_out_check(f"attn_bwd {where}", got, attention_bwd_plain(*args), dtype == torch.float32)
+            del q, k, v, rel_h, rel_w, args, got
+        qkv, _, _, (rh64, rw64) = qkv_slot_inputs(device, dtype, seed=14, grid=GRID_CROSS)
+        res[f"qkv_{name}"] = fwd_check(f"attn_qkv {name} grid {GRID_CROSS}", cuda_attn.attn_qkv, attention_qkv_plain,
+                                       (qkv, rh64, rw64, HD**-0.5, gh, gw, HEADS), (B, s, C))
+        del qkv, rh64, rw64
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_debug_backbone(device, dtype) -> dict:
+    """The debug backbone through predict_step and train_step in ``dtype``:
+    #3 (and #2 under bf16) once per layer per call, #3 and #4 (and #2, #5)
+    once per layer per step; pred_masks and the prompt gradient against the
+    plain versions (phases 5–6's limits; fp32 phase 12's gradient limits)."""
+    from beach_seg_tpu_torch.config import BeachSegConfig
+    from beach_seg_tpu_torch.train.loop import model_for_config
+
+    fp32 = dtype == torch.float32
+    conf = BeachSegConfig(debug=True, batch_size=B, compute_dtype="float32" if fp32 else "bfloat16")
+    model, cfg = model_for_config(conf, device=device, seed=0)
+    check(cfg.head_dim == 16 and cfg.hidden_size == 64, f"debug config {cfg}")
+    n = cfg.num_hidden_layers
+    fwd = {"attn_packed": n} if fp32 else {"attn_packed": n, "ln_mlp": n}
+    bwd = {"attn_bwd": n} if fp32 else {"attn_bwd": n, "ln_mlp_dx": n}
+    m = phase_main_path(device, model, conf, fwd, n_batches=2 if fp32 else 3)
+    tr = phase_train_path(device, model, conf, dict(fwd, **bwd), n_steps=2 if fp32 else 3,
+                          grad_limits=(GRAD32_1MCOS_MAX, GRAD32_REL_TOL) if fp32 else (GRAD_1MCOS_MAX, GRAD_REL_TOL))
+    check(m["launches"]["attn_packed"] > 0 and tr["launches"]["attn_bwd"] > 0, "debug backbone did not run #3 and #4")
+    del model
+    torch.cuda.empty_cache()
+    return {"predict": m, "train": tr}
 
 
 @contextlib.contextmanager
@@ -930,6 +1071,18 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
 
+    t = time.perf_counter()
+    ks = phase_small_head_dims(device)
+    log(f"small head-dim kernel phase: {time.perf_counter() - t:.3f} s")
+    t = time.perf_counter()
+    kc = phase_chunk_crossing(device)
+    log(f"chunk-crossing grid phase: {time.perf_counter() - t:.3f} s")
+    dbg = {}
+    for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        t = time.perf_counter()
+        dbg[name] = phase_debug_backbone(device, dtype)
+        log(f"debug backbone {name} phase: {time.perf_counter() - t:.3f} s")
+
     # the default BeachSegConfig: fp32 ViT-L (the MLP stays plain torch under fp32)
     t = time.perf_counter()
     conf32 = BeachSegConfig(batch_size=B)
@@ -1041,6 +1194,29 @@ def main() -> int:
             "library_ms": r["attn_bwd_library_ms"], "design": TF32X3,
             "shape": f"fp32, q/k/v/g ({B * HEADS}, {n}, {hd}), rel ({GRID[0]}, {GRID[1]})",
         })
+    # the small head dims and the debug backbone's launches, beside each kernel's first entry
+    first = {}
+    for e in kernels:
+        first.setdefault(e["name"], e)
+    for key, name in (("packed", "attn_packed"), ("fused", "attn_fused")):
+        first[name]["max_abs_err_small_head_dims"] = {f"{dt}_hd{hd}": ks[f"{key}_err_{dt}_hd{hd}"] for dt in ("bf16", "fp32") for hd in (16, 8)}
+    first["attn_bwd"]["max_abs_err_small_head_dims"] = {f"{dt}_hd{hd}": ks[f"bwd_errs_{dt}_hd{hd}"] for dt in ("bf16", "fp32") for hd in (16, 8)}
+    for e in kernels:
+        if e["name"] in ("attn_packed", "attn_bwd", "attn_fused", "attn_qkv") and e.get("dtype", "bf16") == "bf16":
+            e["design"] = WGMMA
+    grid = f"{GRID_CROSS[0]}x{GRID_CROSS[1]}"
+    for key, name in (("packed", "attn_packed"), ("fused", "attn_fused"), ("bwd", "attn_bwd")):
+        first[name][f"max_abs_err_grid_{grid}"] = {f"{dt}_hd{hd}": kc[f"{key}_{dt}_hd{hd}"] for dt in ("bf16", "fp32") for hd in (HD, HD_H)}
+    first["attn_qkv"][f"max_abs_err_grid_{grid}"] = {dt: kc[f"qkv_{dt}"] for dt in ("bf16", "fp32")}
+    first["attn_packed"]["ms_hd16_bf16"] = ks["packed_ms_hd16"]
+    first["attn_bwd"]["ms_hd16_bf16"] = ks["bwd_ms_hd16"]
+    for name in ("attn_packed", "attn_bwd", "ln_mlp", "ln_mlp_dx"):
+        first[name]["launches_debug_backbone"] = {f"{dt}_{path}": dbg[dt][path]["launches"][name] for dt in ("bf16", "fp32")
+                                                  for path in ("predict", "train")}
+    log(f"debug backbone: " + "; ".join(
+        f"{dt} predict_step seconds per call {dbg[dt]['predict']['seconds']}, train_step seconds per step "
+        f"{dbg[dt]['train']['seconds']}, prompt gradient cosine kernels vs plain {dbg[dt]['train']['grad_cos']:.6f}"
+        for dt in ("bf16", "fp32")))
     log(f"ViT-H: predict_step seconds per call {mh['seconds']}; train_step seconds per step {trh['seconds']}, "
         f"peak memory {trh['peak_bytes']} bytes, prompt gradient cosine kernels vs plain {trh['grad_cos']:.6f}")
     log(f"train_step: seconds per step {tr['seconds']}, peak memory {tr['peak_bytes']} bytes, "

@@ -1,0 +1,117 @@
+"""Two trees of the torch port on one card, in turns: the attention kernels
+the bf16 redesigns replace (#4 at head dims 64 and 80, #6, #7, #3) by CUDA
+events, and the end-to-end steps (ViT-L and ViT-H bf16 predict_step and
+train_step, the default fp32 ViT-L config's) by the host clock around
+synchronized calls, with each train step's peak device memory.
+
+    python3 scripts/ab_torch_trees.py OLD_ROOT NEW_ROOT
+
+runs OLD, NEW, NEW, OLD, each in its own process (its own build of its
+kernels, from that tree's sources), and prints one JSON line per run, then
+the card's name and power limit. Every tree must have the port's public
+entries (``ops.cuda_attn`` wrappers, ``train.loop.model_for_config``,
+``PromptTuner``) and a ``chip_smoke.py`` with the seeded input builders.
+
+    python3 scripts/ab_torch_trees.py --one ROOT
+
+measures one tree in this process. Exits non-zero without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+
+def measure(root: Path) -> dict:
+    sys.path.insert(0, str(root))
+    import torch
+
+    import chip_smoke as cs
+    from beach_seg_tpu_torch.config import BeachSegConfig
+    from beach_seg_tpu_torch.ops import build, cuda_attn
+    from beach_seg_tpu_torch.train import PromptTuner
+    from beach_seg_tpu_torch.train.loop import model_for_config
+
+    dev = torch.device("cuda")
+    t = time.perf_counter()
+    build.build(*build.KERNELS)
+    res = {"root": str(root), "build_s": time.perf_counter() - t}
+    gh, gw = cs.GRID
+    bh = cs.B * cs.HEADS
+    for hd in (cs.HD, cs.HD_H):
+        args = (*cs.attn_bwd_inputs(dev, bh, hd=hd), hd**-0.5)
+        res[f"attn_bwd_bf16_hd{hd}_ms"] = cs.time_ms(lambda: cuda_attn.attn_bwd(*args), iters=10, warmup=2)
+        del args
+    qkv, _, _, (rh64, rw64) = cs.qkv_slot_inputs(dev, torch.bfloat16)
+    res["attn_qkv_bf16_ms"] = cs.time_ms(lambda: cuda_attn.attn_qkv(qkv, rh64, rw64, cs.HD**-0.5, gh, gw, cs.HEADS), iters=20, warmup=2)
+    del qkv, rh64, rw64
+    q, k, v, rh, rw = cs.packed_inputs(dev, torch.bfloat16, bh, cs.HD, seed=8)
+    res["attn_fused_bf16_ms"] = cs.time_ms(lambda: cuda_attn.attn_fused(q, k, v, rh, rw, cs.HD**-0.5), iters=20, warmup=2)
+    q, k, v, rh, rw = cs.packed_inputs(dev, torch.bfloat16, bh, cs.HD_H)
+    res["attn_packed_bf16_hd80_ms"] = cs.time_ms(lambda: cuda_attn.attn_packed(q, k, v, rh, rw, cs.HD_H**-0.5, cs.HEADS), iters=20, warmup=2)
+    del q, k, v, rh, rw
+    torch.cuda.empty_cache()
+
+    for name, conf in (("vit_l_bf16", BeachSegConfig(batch_size=cs.B, compute_dtype="bfloat16")),
+                       ("vit_h_bf16", BeachSegConfig(batch_size=cs.B, backbone="huge", compute_dtype="bfloat16")),
+                       ("vit_l_fp32", BeachSegConfig(batch_size=cs.B))):
+        model, _ = model_for_config(conf, device=dev, seed=0)
+        tuner = PromptTuner(model, conf, device=dev)
+        prompts, batches = cs.main_path_inputs(conf, 4, 3)
+        secs = []
+        for batch in batches:
+            t = time.perf_counter()
+            tuner.predict_step(*prompts, batch, out_size=conf.crop_size)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t)
+        res[f"{name}_predict_s"] = secs
+        prompts, batches = cs.train_path_inputs(conf, 4, 3)
+        state = tuner.init_state(prompts[0])
+        gen = torch.Generator(device=dev).manual_seed(0)
+        torch.cuda.reset_peak_memory_stats()
+        secs = []
+        for batch in batches:
+            t = time.perf_counter()
+            state, metrics = tuner.train_step(state, prompts[1], prompts[2], batch, generator=gen)
+            metrics["loss"].item()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t)
+        res[f"{name}_train_s"] = secs
+        res[f"{name}_train_peak_bytes"] = torch.cuda.max_memory_allocated()
+        del model, tuner, state
+        torch.cuda.empty_cache()
+    return res
+
+
+def main() -> int:
+    if sys.argv[1:2] == ["--one"]:
+        import torch
+
+        if not torch.cuda.is_available():
+            print("ab_torch_trees: no CUDA device", file=sys.stderr)
+            return 2
+        print(json.dumps(measure(Path(sys.argv[2]).resolve())), flush=True)
+        return 0
+    if len(sys.argv) != 3:
+        print(__doc__, file=sys.stderr)
+        return 2
+    old, new = (Path(p).resolve() for p in sys.argv[1:])
+    for root in (old, new, new, old):
+        res = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--one", str(root)], cwd=root,
+                             capture_output=True, text=True)
+        if res.returncode:
+            print(res.stdout[-4000:], res.stderr[-8000:], file=sys.stderr)
+            return res.returncode
+        print(res.stdout.strip().splitlines()[-1], flush=True)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    print(card)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,29 +1,36 @@
-"""Where the time of the torch port's CUDA kernels goes: the two ViT-L
-forward kernels are rebuilt with one phase removed and timed beside the
-intact ones at the main path's shapes (B=8 tiles of ViT-L); the two ViT-H
-attention kernels (packed forward, backward at head_dim 80), whose
-instances spill registers, are rebuilt with one block per SM in their
-launch bounds and timed beside the intact ones at ViT-H's shapes; the fp32
-instances of the qkv-rel attention and of the attention backward (split-TF32
-products, ``csrc/tf32x3.cuh``) are rebuilt with one part removed or cheapened
-(one TF32 product instead of three, no split, the hardware exp, ...) or with
-the split done the costlier ways (the small part rounded too; both parts by
-``cvt.rna.tf32.f32``) and timed beside the intact ones at ViT-L's shapes in
-fp32. One CUDA card.
+"""Where the time of the torch port's CUDA kernels goes: each is rebuilt
+with one part removed or cheapened and timed beside the intact one at the
+main path's shapes (B=8 tiles). bf16: the ViT-L qkv-rel forward (#1) and
+LN→MLP (#2); the bf16 flash forward (attn_flash.cuh) as the ViT-H packed
+attention (#3, head_dim 80) and the ViT-L qkv-layout attention (#6), and the
+bf16 attention backward (#4) at head dims 80 and 64, each without its rel
+terms (the slot chunks on the tensor cores), without its ring's prefetch
+(every step waits for its next stage's loads), and the forward without PV,
+the backward without drh/drw or without its k-major kernel. fp32: the
+qkv-rel attention and the attention backward (split-TF32 products,
+``csrc/tf32x3.cuh``) with one part removed or cheapened (one TF32 product
+instead of three, no split, the hardware exp, ...) or with the split done
+the costlier ways (the small part rounded too; both parts by
+``cvt.rna.tf32.f32``), at ViT-L's shapes in fp32. One CUDA card.
 
-    python3 scripts/ablate_torch_kernels.py [bf16|fp32]
+    python3 scripts/ablate_torch_kernels.py [bf16|fp32|check]
 
 (no argument: both groups). The variants are text edits of
 ``beach_seg_tpu_torch/ops/csrc/`` (a source or a shared header), each compiled
-in its own temporary directory; the phase-removed outputs are wrong by
-construction and only their times mean anything. Prints the card, ptxas'
-register and spill lines of the launch-bound variants and of the fp32
-instances, then one JSON line per variant. Exits non-zero without a CUDA
-device.
+in its own temporary directory; the outputs of a variant with a part removed
+are wrong by construction and only their times mean anything. Prints the
+card, ptxas' register and spill lines of the fp32 instances, then one JSON
+line per variant. Exits non-zero without a CUDA device.
+
+``check`` instead holds faulty builds of the bf16 flash forward (#3, #6, #7:
+no rel terms, a crossing slot chunk dropped, a key tile dropped, no tail
+mask) against their plain versions by chip_smoke.py's forward limits, which
+each must fail.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import subprocess
@@ -54,10 +61,37 @@ MLP = {  # ln_mlp.cu
     "no_lin2_products": [("      for (int cf = 0; cf < WC / 16; ++cf) {\n        uint32_t b[4];",
                           "      for (int cf = 0; cf < 0; ++cf) {\n        uint32_t b[4];")],
 }
-PACKED = {"one_block_per_sm": [("attn_flash.cuh", "__global__ void __launch_bounds__(NT, 2) attn_kernel(",  # attn_packed.cu
-                                "__global__ void __launch_bounds__(NT, 1) attn_kernel(")]}
-BWD = {"one_block_per_sm": [("__global__ void __launch_bounds__(NT, 2) bwd_k_kernel(\n    const bf16*",  # attn_bwd.cu
-                             "__global__ void __launch_bounds__(NT, 1) bwd_k_kernel(\n    const bf16*")]}
+# the bf16 wgmma designs (attn_flash.cuh behind #3, #6, #7; attn_bwd.cu's bf16 instance)
+FLASH = {
+    "no_rel_terms": [("attn_flash.cuh", "      if (touched(c, nx, hkp, c_lo, c_hi)) {  // rel terms",
+                      "      if (false) {  // rel terms")],
+    "no_prefetch": [("attn_flash.cuh", "    if (kt + NS - 1 < nk) load_stage(kt + NS - 1);\n    cp_async_commit();\n",
+                     "    if (kt + NS - 1 < nk) load_stage(kt + NS - 1);\n    cp_async_commit();\n    cp_async_wait<0>();\n")],
+    "no_pv": [("attn_flash.cuh", "    for (int ks = 0; ks < 4; ++ks) mma_rs<HD>(o, pa[ks], mndesc(sb + TB + ks * 16 * 32, 64), 1);\n", "")],
+}
+# faults of the bf16 flash forward, for the `check` mode: each must fail
+# chip_smoke's forward limits, or the limits see too little
+FLASH_FAULTS = {
+    "no_rel_terms": FLASH["no_rel_terms"],
+    "drop_crossing_chunk": [("attn_flash.cuh", "c_hi = (min(k0 + 63, S - 1) / wk) / 16;", "c_hi = c_lo;")],
+    "drop_key_tile": [("attn_flash.cuh", "        if (key >= S) x = -INFINITY;\n",
+                       "        if (key >= S || kt == nk / 2) x = -INFINITY;\n")],
+    "no_tail_mask": [("attn_flash.cuh", "        if (key >= S) x = -INFINITY;\n", "")],
+}
+BWD = {  # attn_bwd.cu, bf16 instance
+    "no_rel_terms": [
+        ("      if (touched(c, nx, hkp, c_lo, c_hi)) mma_ss<64>(s, kdesc(sR + c * BT * 32), kdesc(sb + 2 * TB + c * BT * 32), 1);\n", ""),
+        ("      if (touched(c, nx, hkp, c_lo, c_hi)) mma_ss<64>(st, kdesc(sE + c * BT * 32), kdesc(sb + 2 * TB + c * BT * 32), 1);\n", ""),
+    ],
+    "no_drh_drw": [("      if (touched(c, nx, hkp, c_lo, c_hi)) {  // drh, drw", "      if (false) {  // drh, drw")],
+    "no_prefetch": [
+        ("    if (it + NS - 1 < 2 * nk) load_stage(it + NS - 1);\n    cp_async_commit();\n",
+         "    if (it + NS - 1 < 2 * nk) load_stage(it + NS - 1);\n    cp_async_commit();\n    cp_async_wait<0>();\n"),
+        ("    if (qt + NS - 1 < nq) load_stage(qt + NS - 1);\n    cp_async_commit();\n",
+         "    if (qt + NS - 1 < nq) load_stage(qt + NS - 1);\n    cp_async_commit();\n    cp_async_wait<0>();\n"),
+    ],
+    "q_kernel_only": [("  bwd_k_kernel<HD><<<grid, NT, smk, st>>>(", "  if (S < 0) bwd_k_kernel<HD><<<grid, NT, smk, st>>>(")],
+}
 
 # the split-TF32 products of the fp32 instances (tf32x3.cuh)
 ONE_PRODUCT = [("tf32x3.cuh", "  mma(d, a.small, b.big);\n  mma(d, a.big, b.small);\n  mma(d, a.big, b.big);\n",
@@ -133,30 +167,94 @@ def build_variants(specs: list[tuple[str, str, dict]], out: Path, show_ptxas: se
     return libs
 
 
+@contextlib.contextmanager
+def loaded(lib: ctypes.CDLL):
+    """The wrappers launch from ``lib`` (a variant's build) while inside."""
+    from beach_seg_tpu_torch.ops import build
+
+    load = build.load
+
+    def load_variant(name, prototypes):
+        for fn, argtypes in prototypes.items():
+            getattr(lib, fn).argtypes, getattr(lib, fn).restype = argtypes, ctypes.c_int
+        return lib
+
+    build.load = load_variant
+    try:
+        yield
+    finally:
+        build.load = load
+
+
+def check_faults() -> int:
+    """Each FLASH_FAULTS variant of #3, #7 and #6 (and the intact source)
+    through its wrapper at B=8 bf16 on the ViT grid and on GRID_CROSS,
+    against the plain version: one JSON line each with chip_smoke's readings
+    (largest error, max|plain|, error norm over the output's) and whether
+    they pass its limits. Exits non-zero if the intact kernel fails or a
+    fault passes at a grid where it changes what the kernel computes (a
+    dropped crossing chunk changes nothing on the ViT grid)."""
+    import chip_smoke
+    from beach_seg_tpu_torch.ops import cuda_attn
+    from beach_seg_tpu_torch.ops.attention import attention_fused_plain, attention_packed_plain, attention_qkv_plain
+
+    dev = torch.device("cuda")
+    heads, hd = chip_smoke.HEADS, chip_smoke.HD
+    bh, scale = chip_smoke.B * heads, hd**-0.5
+    bad = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        libs = build_variants([(name, name, FLASH_FAULTS) for name in ("attn_packed", "attn_fused", "attn_qkv")], Path(tmp))
+        for grid in (chip_smoke.GRID, chip_smoke.GRID_CROSS):
+            gh, gw = grid
+            q, k, v, rh, rw = chip_smoke.packed_inputs(dev, torch.bfloat16, bh, hd, seed=8, grid=grid)
+            qkv, _, _, (rh64, rw64) = chip_smoke.qkv_slot_inputs(dev, torch.bfloat16, grid=grid)
+            calls = {
+                "attn_packed": (cuda_attn.attn_packed, attention_packed_plain, (q, k, v, rh, rw, scale, heads)),
+                "attn_fused": (cuda_attn.attn_fused, attention_fused_plain, (q, k, v, rh, rw, scale)),
+                "attn_qkv": (cuda_attn.attn_qkv, attention_qkv_plain, (qkv, rh64, rw64, scale, gh, gw, heads)),
+            }
+            for name, (fn, plain, args) in calls.items():
+                want = plain(*args)
+                for variant, lib in libs[name].items():
+                    with loaded(lib):
+                        got = fn(*args)
+                    torch.cuda.synchronize()
+                    e = chip_smoke.attn_errors(got, want)
+                    passes = chip_smoke.attn_within(e, torch.bfloat16)
+                    inert = variant == "drop_crossing_chunk" and grid == chip_smoke.GRID
+                    bad += passes != (variant == "intact" or inert)
+                    print(json.dumps({"kernel": name, "variant": variant, "grid": list(grid), **e, "passes": passes}), flush=True)
+                    del got
+    return int(bad > 0)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("ablate_torch_kernels: no CUDA device", file=sys.stderr)
         return 2
     which = sys.argv[1] if len(sys.argv) > 1 else "all"
-    if which not in ("all", "bf16", "fp32"):
-        print("usage: ablate_torch_kernels.py [bf16|fp32]", file=sys.stderr)
+    if which not in ("all", "bf16", "fp32", "check"):
+        print("usage: ablate_torch_kernels.py [bf16|fp32|check]", file=sys.stderr)
         return 2
     import chip_smoke
-    from beach_seg_tpu_torch.ops import cuda_attn, cuda_mlp
 
     print(chip_smoke.card_line())
+    if which == "check":
+        return check_faults()
+    from beach_seg_tpu_torch.ops import cuda_attn, cuda_mlp
+
     dev = torch.device("cuda")
     stream = torch.cuda.current_stream().cuda_stream
     gh, gw = chip_smoke.GRID
     s, c, m, b = gh * gw, chip_smoke.C, chip_smoke.MLP, chip_smoke.B
     specs = []
     if which in ("all", "bf16"):
-        specs += [("attn", "attn_qkv_rel", ATTN), ("mlp", "ln_mlp", MLP), ("packed", "attn_packed", PACKED),
-                  ("bwd", "attn_bwd", BWD)]
+        specs += [("attn", "attn_qkv_rel", ATTN), ("mlp", "ln_mlp", MLP), ("packed", "attn_packed", FLASH),
+                  ("qkv", "attn_qkv", FLASH), ("bwd", "attn_bwd", BWD), ("bwd64", "attn_bwd", BWD)]
     if which in ("all", "fp32"):
         specs += [("attn32", "attn_qkv_rel", ATTN32), ("bwd32", "attn_bwd", BWD32)]
     with tempfile.TemporaryDirectory() as tmp:
-        libs = build_variants(specs, Path(tmp), show_ptxas={"packed", "bwd", "attn32", "bwd32"})
+        libs = build_variants(specs, Path(tmp), show_ptxas={"attn32", "bwd32"})
         calls = {}  # group → (entry, argtypes, argument pointers and sizes, iterations)
         if which in ("all", "bf16"):
             # ViT-H: (B·H, S, 80) q, k, v, g and the rel terms, bf16
@@ -179,10 +277,20 @@ def main() -> int:
                                                                       gh, gw, chip_smoke.HD**-0.5, 1), 20)
             calls["mlp"] = ("ln_mlp_bf16", cuda_mlp._PROTO["ln_mlp_bf16"], (x, ls, lb, w1, b1, w2, b2, y, b * s, c, m,
                                                                              1e-6, 1), 20)
-            calls["packed"] = ("attn_packed_bf16", cuda_attn._PACKED_PROTO, (hq, hk_, hv, hrh, hrw, hout, bh, s, hd,
+            e, slots = cuda_attn._slots_scratch(s, gh, gw, dev, rows=bh * s)
+            calls["packed"] = ("attn_packed_bf16", cuda_attn._PACKED_PROTO, (hq, hk_, hv, hrh, hrw, e, hout, bh, s, hd,
                                                                              chip_smoke.HEADS, gh, gw, hd**-0.5), 20)
             calls["bwd"] = ("attn_bwd_bf16", cuda_attn._BWD_PROTO,
-                            (hq, hk_, hv, hrh, hrw, hg, dq, dk, dv, drh, drw, stats, bh, s, hd, gh, gw, hd**-0.5), 10)
+                            (hq, hk_, hv, hrh, hrw, hg, e, slots, dq, dk, dv, drh, drw, stats, bh, s, hd, gh, gw, hd**-0.5), 10)
+            # ViT-L: #6 over the (B, S, 3C) qkv tensor, #4 at head_dim 64
+            lqkv, _, _, (lrh64, lrw64) = chip_smoke.qkv_slot_inputs(dev, torch.bfloat16)
+            calls["qkv"] = ("attn_qkv_bf16", cuda_attn._QKV_PROTO, (lqkv, lrh64, lrw64, e, out, b, s, chip_smoke.HD,
+                                                                    chip_smoke.HEADS, gh, gw, chip_smoke.HD**-0.5), 20)
+            lq, lk, lv, lrh, lrw, lg = chip_smoke.attn_bwd_inputs(dev, bh, hd=chip_smoke.HD)
+            ldq, ldk, ldv = torch.empty_like(lq), torch.empty(lq.shape, device=dev), torch.empty(lq.shape, device=dev)
+            calls["bwd64"] = ("attn_bwd_bf16", cuda_attn._BWD_PROTO,
+                              (lq, lk, lv, lrh, lrw, lg, e, slots, ldq, ldk, ldv, torch.empty_like(lrh), torch.empty_like(lrw),
+                               stats, bh, s, chip_smoke.HD, gh, gw, chip_smoke.HD**-0.5), 10)
         if which in ("all", "fp32"):
             # ViT-L in fp32: the qkv-rel forward at B=8 and the backward at head_dim 64
             bh, hd = b * chip_smoke.HEADS, chip_smoke.HD
@@ -194,11 +302,11 @@ def main() -> int:
             calls["attn32"] = ("attn_qkv_rel_f32", cuda_attn._PROTO, (qkv, bias, rh, rw, out, b, s, c, chip_smoke.HEADS,
                                                                       gh, gw, hd**-0.5, 0), 5)
             calls["bwd32"] = ("attn_bwd_f32", cuda_attn._BWD_PROTO,
-                              (fq, fk, fv, frh, frw, fg, dq, dk, dv, drh, drw, stats, bh, s, hd, gh, gw, hd**-0.5), 3)
+                              (fq, fk, fv, frh, frw, fg, None, None, dq, dk, dv, drh, drw, stats, bh, s, hd, gh, gw, hd**-0.5), 3)
         for rep in range(2):  # two passes, to show the spread
             for group, variants in libs.items():
                 entry, argtypes, args, iters = calls[group]
-                ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args] + [stream]
+                ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args] + [stream]  # None: a null pointer
                 for variant, lib in variants.items():
                     fn = getattr(lib, entry)
                     fn.argtypes, fn.restype = argtypes, ctypes.c_int

@@ -196,5 +196,9 @@ def test_model_for_config_matches_jax(kw, device):
 
 
 def test_model_for_config_rejects_unknown_backbone():
-    with pytest.raises(ValueError, match="backbone"):
-        model_for_config(BeachSegConfig(backbone="giant"), device="meta")
+    """An unknown backbone is not an error: it builds ViT-L, as the JAX
+    package's model_for_config does (beach_seg_tpu/train/loop.py:74-75)."""
+    _, want = jloop.model_for_config(JConf(backbone="giant"))
+    _, got = model_for_config(BeachSegConfig(backbone="giant"), device="meta")
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.hidden_size == 1024 and got.num_hidden_layers == 24
