@@ -1,6 +1,7 @@
-// Flash-style attention with precomputed decomposed rel-pos terms, for
-// Hopper (sm_90a): the device code of three kernels that differ only in
-// where they read and write and in one rounding point.
+// Flash-style attention with decomposed rel-pos terms, for Hopper (sm_90a):
+// the device code of four kernels that differ in where they read and
+// write, in one rounding point, and in whether the qkv bias and the rel
+// terms are formed in the kernel.
 //
 // Per (batch, head) bh = b·H + h, with q, k, v (S, D), rel_h (S, Hk),
 // rel_w (S, Wk), S = Hk·Wk, all in the compute type T (bf16 or fp32):
@@ -16,17 +17,23 @@
 //              passed as qkv + C and qkv + 2C), and rel_h, rel_w rows of
 //              stride `rld` with the head's terms in the 64-slot at h·64.
 //   OUT_MERGED false: out (B·H, S, D); true: out (B, S, H·D).
-// The three users (one source each, one shared library each):
-//   attn_packed.cu  IN false, OUT true,  PRESCALE  (TPU `_kernel_packed`)
-//   attn_qkv.cu     IN true,  OUT true,  PRESCALE  (TPU `_kernel_qkv`)
-//   attn_fused.cu   IN false, OUT false, !PRESCALE (TPU `_kernel`)
+// The users (one source each, one shared library each):
+//   attn_packed.cu   IN false, OUT true,  PRESCALE  (TPU `_kernel_packed`)
+//   attn_qkv.cu      IN true,  OUT true,  PRESCALE  (TPU `_kernel_qkv`)
+//   attn_fused.cu    IN false, OUT false, !PRESCALE (TPU `_kernel`)
+//   attn_qkv_rel.cu  bf16 only: IN true, OUT true, PRESCALE and QKV_REL
+//                    (TPU `_kernel_qkv_rel`): q, k, v + the qkv bias
+//                    (rounded to bf16), the rel terms formed in the kernel
+//                    from the unscaled biased q and the tables Rh (Gh, 64,
+//                    64), Rw (Gw, 64, 64), and the softmax a template mode:
+//                    stable as above, or clamp / fast with no row max,
+//                    p = exp(min(s, 80)) | exp(s) and a row sum + 1e-30.
 //
 // What bounds it: at S=1568 the two S×S×D products per head are ~5e8 FLOP
 // against ~1 MB of q, k, v, rel terms and output, so it is compute-bound on
-// the tensor cores (bf16) or the FP32 units (fp32). One block per (q tile,
-// batch·head) streams 64-key tiles of K and V with an online softmax, so
-// scores never reach device memory, and stores its rows straight into the
-// output layout.
+// the tensor cores. One block per (q tile, batch·head) streams 64-key tiles
+// of K and V with an online softmax, so scores never reach device memory,
+// and stores its rows straight into the output layout.
 //   bf16 (namespace wgf): two warpgroups of 64 query rows share each key
 //   tile, wgmma (wgmma.cuh).
 //   S = Q·Kᵀ with Q and K from shared memory; the rel terms enter as more
@@ -38,9 +45,22 @@
 //   K, V and E tiles arrive through a 2-stage cp.async ring (two blocks, four
 //   warpgroups an SM at ViT shapes), one barrier a step. #7's scale on
 //   the fp32 scores needs the rel terms in an accumulator of their own.
-//   fp32 (namespace simt): the simple form, 64 query rows, products on the
-//   FP32 units with scores and accumulator in shared memory.
-// Head dims 16, 64 and 80 are template instances (the wrappers pad 8 to 16).
+//   QKV_REL adds a prologue (q + bq in place, then the slot rows formed from
+//   it by mma.sync over gathered rows, then q·scale) and the k and v biases
+//   on each K/V stage after it lands: each thread adds them to the chunks
+//   it copied itself, while the tensor cores run the step before's PV, so
+//   the step's one barrier covers them.
+//   fp32 (namespace tc32): 4 warps × 16 query rows (two blocks an SM), both
+//   products in split TF32 on the tensor cores (tf32x3.cuh: three mma.sync
+//   m16n8k8 .tf32 a product, fp32 to a few ulps), the design of #1's fp32
+//   instance (attn_qkv_rel.cu): S and O in registers, q in registers with
+//   the head dim in dperm order, P fed to PV from the S accumulator, one PV
+//   accumulator per 64-key tile added to O in fp32, a cp.async
+//   double-buffered K/V ring, the q tile's rel rows staged once slot-major
+//   (Hk + Wk rows) and added per score, the exact expf. Bound: 3·FLOPs at
+//   the 495 TF/s TF32 rate.
+// Head dims 16, 64 and 80 are template instances (the wrappers pad 8 to 16);
+// QKV_REL takes 64 only (the JAX model's precondition).
 
 #pragma once
 
@@ -50,6 +70,7 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "tf32x3.cuh"
 #include "wgmma.cuh"
 
 namespace flash {
@@ -58,6 +79,9 @@ typedef __nv_bfloat16 bf16;
 
 constexpr int BK = 64;        // keys per step
 constexpr int MAXG = 64;      // largest Hk and Wk, and the rel slot width of the merged layout
+
+// the qkv-rel attention's softmax modes (cuda_attn.SOFTMAX_MODES order)
+enum Softmax { STABLE = 0, CLAMP = 1, FAST = 2 };
 
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
@@ -105,6 +129,7 @@ using namespace wg;
 constexpr int NWG = 2;          // warpgroups a block, 64 query rows each
 constexpr int BQ = 64 * NWG;    // query rows per block
 constexpr int NTB = NT * NWG;   // threads per block
+constexpr int NW = NTB / 32;    // warps per block
 constexpr int NS = 2;           // ring stages (two blocks an SM at ViT shapes)
 
 template <int HD>
@@ -115,12 +140,171 @@ struct Cfg {
   static size_t smem(int kx) { return 1024 + NWG * (TB + (size_t)64 * kx * 2) + (size_t)NS * (2 * TB + 64 * kx * 2); }
 };
 
-template <int HD, bool IN_MERGED, bool OUT_MERGED, bool PRESCALE>
-__global__ void __launch_bounds__(NTB) attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+__device__ __forceinline__ uint32_t add2(uint32_t a, uint32_t b) {  // bf16x2 a + b, rounded
+  __nv_bfloat162 x, y;
+  memcpy(&x, &a, 4);
+  memcpy(&y, &b, 4);
+  x = __hadd2(x, y);
+  memcpy(&a, &x, 4);
+  return a;
+}
+
+// The 16-byte chunk c of a 64-row panel tile, in shared-memory order (its
+// byte offset is 16·c; chunk_off's inverse): row r, columns 8·ch..8·ch + 7.
+__device__ __forceinline__ void chunk_at(int c, int& r, int& ch) {
+  const int w = c % 128;  // 128 chunks a panel
+  r = w / 2;
+  ch = 2 * (c / 128) + ((w & 1) ^ ((r >> 2) & 1));
+}
+
+// rows [r0, r0 + 64) of a bf16 matrix (row stride ld, `cols` columns, a
+// multiple of 16) into a 64-row panel tile by cp.async, as load_tile, with
+// the threads walking the tile in shared-memory order: the 8 threads of a
+// quarter-warp write 128 contiguous bytes (no bank conflicts), and a thread
+// can revisit its own chunks (chunk c = tid + i·NTB) after its
+// cp_async_wait without a barrier. Rows at or past n read as zero.
+__device__ __forceinline__ void load_tile64(uint32_t tile, const bf16* src, size_t ld, int cols, int n, int r0,
+                                            int tid) {
+  for (int c = tid; c < 8 * cols; c += NTB) {
+    int r, ch;
+    chunk_at(c, r, ch);
+    const bool valid = r0 + r < n;
+    cp_async16(tile + 16 * c, valid ? src + (size_t)(r0 + r) * ld + 8 * ch : src, valid);
+  }
+}
+
+// a bias row added, rounded to bf16, to this thread's chunks of a 64-row
+// panel tile of HD columns (generic address p) loaded by load_tile64; once
+// the thread's own copies are complete (cp_async_wait) it needs no barrier
+template <int HD>
+__device__ __forceinline__ void add_bias(unsigned char* p, const bf16* bias, int tid) {
+  for (int c = tid; c < 8 * HD; c += NTB) {
+    int r, ch;
+    chunk_at(c, r, ch);
+    const uint4 bb = __ldg(reinterpret_cast<const uint4*>(bias + 8 * ch));
+    uint4* x = reinterpret_cast<uint4*>(p + 16 * c);
+    const uint4 xv = *x;
+    *x = make_uint4(add2(xv.x, bb.x), add2(xv.y, bb.y), add2(xv.z, bb.z), add2(xv.w, bb.w));
+  }
+}
+// k + bk and v + bv on a landed K/V stage (bk: the head's k bias; bv = bk
+// + C), this thread's chunks; rows past S become the bias (their p is 0)
+template <int HD>
+__device__ __forceinline__ void add_bias_kv(unsigned char* stage, const bf16* bk, int C, int tid) {
+  add_bias<HD>(stage, bk, tid);
+  add_bias<HD>(stage + Cfg<HD>::TB, bk + C, tid);
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+// d += a · b, mma.sync m16n8k16, bf16 in, fp32 accumulate
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
+      "{%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The qkv-rel attention's rel terms (head dim 64): from the block's biased,
+// unscaled q tiles at sQ0 and the tables Rh (Gh, 64, 64), Rw (Gw, 64, 64),
+// rel_h[r, j] = Σ_c q[r,c]·Rh[y(r), j, c] into slot j and rel_w[r, j] =
+// Σ_c q[r,c]·Rw[x(r), j, c] into slot hkp + j of the slot rows at gR
+// (generic address; rbytes a warpgroup's), fp32 sums rounded to bf16. The
+// block's rows that read one table row (one y: a run of consecutive rows;
+// one x: rows wk apart) are gathered 16 at a time into an mma.sync A
+// operand through ldmatrix's row addresses (a missing row repeats the
+// first; its sums are not kept); the items are dealt to the warps in turn.
+// A warp takes its items in 32-slot units (4 slot tiles of 8), and loads a
+// unit's table words while it forms the unit before, so it waits for one
+// global latency at its start, not one per unit, in few enough registers
+// to keep two blocks an SM.
+__device__ __forceinline__ void rel_prologue(uint32_t sQ0, unsigned char* gR, uint32_t rbytes, const bf16* rh_tab,
+                                             const bf16* rw_tab, int q0, int S, int hk, int wk, int hkp, int tid) {
+  constexpr int HD = 64, TB = Cfg<HD>::TB;
+  const int warp = tid / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
+  const int nrows = min(BQ, S - q0);
+  struct Unit {
+    const bf16* table;  // the table row (64 slots of HD)
+    int n0, nslots, col0, start, stride, count;
+  };
+  // a unit's B words: bw[u] for slot tile n0 / 8 + u, two a k step (zero past nslots)
+  auto load = [&](const Unit& un, uint32_t (&bw)[4][8]) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const bf16* tb = un.table + (un.n0 + 8 * u + g) * HD + 2 * t;
+#pragma unroll
+      for (int w = 0; w < 8; ++w)
+        bw[u][w] = un.n0 + 8 * u < un.nslots ? __ldg(reinterpret_cast<const unsigned int*>(tb + 8 * w)) : 0u;
+    }
+  };
+  auto form = [&](const Unit& un, const uint32_t (&bw)[4][8]) {
+    const int row = un.start + (lane % 16 < un.count ? lane % 16 : 0) * un.stride;
+    uint32_t a[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) ldsm_x4(a[kk], sQ0 + (row / 64) * TB + chunk_off(row % 64, 2 * kk + lane / 16, 64));
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (un.n0 + 8 * u >= un.nslots) break;
+      float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) mma16816(acc, a[kk], bw[u][2 * kk], bw[u][2 * kk + 1]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ri = g + (e / 2) * 8, j = un.n0 + 8 * u + 2 * t + (e % 2);
+        if (ri < un.count && j < un.nslots) {
+          const int r = un.start + ri * un.stride, col = un.col0 + j;
+          *reinterpret_cast<bf16*>(gR + (r / 64) * rbytes + chunk_off(r % 64, col / 8, 64) + 2 * (col % 8)) =
+              __float2bfloat16_rn(acc[e]);
+        }
+      }
+    }
+  };
+  int item = 0;
+  bool pending = false;
+  Unit cur;
+  uint32_t bcur[4][8];
+  auto run = [&](const bf16* table, int nslots, int col0, int start, int stride, int count) {
+    if (item++ % NW != warp) return;
+    for (int n0 = 0; n0 < nslots; n0 += 32) {
+      const Unit un{table, n0, nslots, col0, start, stride, count};
+      uint32_t bnext[4][8];
+      load(un, bnext);
+      if (pending) form(cur, bcur);
+      cur = un;
+      pending = true;
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int w = 0; w < 8; ++w) bcur[u][w] = bnext[u][w];
+    }
+  };
+  const int y_first = q0 / wk, y_last = (q0 + nrows - 1) / wk;
+  for (int y = y_first; y <= y_last; ++y) {
+    const int lo = max(y * wk - q0, 0), hi = min((y + 1) * wk - q0, nrows);
+    for (int r = lo; r < hi; r += 16) run(rh_tab + (size_t)y * MAXG * HD, hk, 0, r, 1, min(16, hi - r));
+  }
+  for (int x = 0; x < wk; ++x) {
+    const int first = ((x - q0) % wk + wk) % wk;
+    for (int r = first; r < nrows; r += 16 * wk)
+      run(rw_tab + (size_t)x * MAXG * HD, wk, hkp, r, wk, min(16, (nrows - r + wk - 1) / wk));
+  }
+  if (pending) form(cur, bcur);
+}
+
+// rh, rw: the rel terms (precomputed), or with QKV_REL the tables Rh, Rw;
+// bias: the (3, C) qkv bias (QKV_REL only). At most 128 registers a
+// thread, so two blocks fit an SM (their shared memory does at the ViT grid)
+template <int HD, bool IN_MERGED, bool OUT_MERGED, bool PRESCALE, bool QKV_REL = false, int SOFTMAX = STABLE>
+__global__ void __launch_bounds__(NTB, 2) attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                                    const bf16* __restrict__ v, const bf16* __restrict__ rh,
                                                    const bf16* __restrict__ rw, const bf16* __restrict__ e,
-                                                   bf16* __restrict__ out, int S, int H, int hk, int wk, int ld_in,
-                                                   int rld, int kx, float scale) {
+                                                   const bf16* __restrict__ bias, bf16* __restrict__ out, int S,
+                                                   int H, int hk, int wk, int ld_in, int rld, int kx, float scale) {
+  static_assert(!QKV_REL || (HD == 64 && IN_MERGED && OUT_MERGED && PRESCALE), "the qkv-rel layout");
+  static_assert(QKV_REL || SOFTMAX == STABLE, "precomputed rel terms take the stable softmax");
   constexpr int NP = Cfg<HD>::NP, TB = Cfg<HD>::TB;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw), base = (raw + 1023u) & ~1023u;
@@ -136,22 +320,27 @@ __global__ void __launch_bounds__(NTB) attn_kernel(const bf16* __restrict__ q, c
   const Rows<IN_MERGED> rows(bh, b, h, S, HD, hk, wk, ld_in, rld);
   const bf16 *qp = q + rows.qkv, *kp = k + rows.qkv, *vp = v + rows.qkv;
   const int nk = (S + 63) / 64;
+  const int C = H * HD;  // the qkv bias' row length (QKV_REL)
 
   // K, V and E tiles of key tile kt into its ring stage
   auto load_stage = [&](int kt) {
     const uint32_t sb = ring + (kt % NS) * stage_bytes;
-    load_tile(sb, kp, rows.ld, HD, S, 64 * kt, 64, tid, NTB);
-    load_tile(sb + TB, vp, rows.ld, HD, S, 64 * kt, 64, tid, NTB);
-    load_tile(sb + 2 * TB, e, kx, kx, S, 64 * kt, 64, tid, NTB);
+    load_tile64(sb, kp, rows.ld, HD, S, 64 * kt, tid);
+    load_tile64(sb + TB, vp, rows.ld, HD, S, 64 * kt, tid);
+    load_tile64(sb + 2 * TB, e, kx, kx, S, 64 * kt, tid);
   };
 #pragma unroll
-  for (int w = 0; w < NWG; ++w) load_tile(sQ0 + w * TB, qp, rows.ld, HD, S, q0 + 64 * w, 64, tid, NTB);
+  for (int w = 0; w < NWG; ++w) load_tile64(sQ0 + w * TB, qp, rows.ld, HD, S, q0 + 64 * w, tid);
   for (int st = 0; st < NS - 1; ++st) {
     if (st < nk) load_stage(st);
     cp_async_commit();
   }
-  // the q tile's slot rows (rel_h ‖ rel_w, zero-padded; zero past S), once
-  {
+  if (QKV_REL) {
+    // zeros in the slot rows' padding (E's zero columns meet it, and 0·NaN is not 0)
+    for (int i = tid; i < NWG * 64 * kx / 8; i += NTB)
+      *reinterpret_cast<uint4*>(gbase + (sR0 - base) + 16 * i) = make_uint4(0u, 0u, 0u, 0u);
+  } else {
+    // the q tile's slot rows (rel_h ‖ rel_w, zero-padded; zero past S), once
     const bf16 zero = __float2bfloat16_rn(0.0f);
     const int nch = kx / 8;
     for (int i = tid; i < BQ * nch; i += NTB) {
@@ -167,7 +356,17 @@ __global__ void __launch_bounds__(NTB) attn_kernel(const bf16* __restrict__ q, c
     }
   }
   cp_async_wait<NS - 2>();  // the Q tiles (and key tile 0)
+  if constexpr (QKV_REL) {
+#pragma unroll
+    for (int w = 0; w < NWG; ++w) add_bias<HD>(gbase + w * TB, bias + h * HD, tid);  // q + bq
+    if (nk > 0) add_bias_kv<HD>(gbase + (ring - base), bias + C + h * HD, C, tid);
+  }
   __syncthreads();
+  if (QKV_REL) {
+    // the rel terms, from the biased q before the scale
+    rel_prologue(sQ0, gbase + (sR0 - base), rbytes, rh, rw, q0, S, hk, wk, hkp, tid);
+    __syncthreads();
+  }
   if (PRESCALE) {
     // q·scale in bf16 (the scale rounded to bf16 first), in place
     const float scale_t = __bfloat162float(__float2bfloat16_rn(scale));
@@ -189,12 +388,12 @@ __global__ void __launch_bounds__(NTB) attn_kernel(const bf16* __restrict__ q, c
 
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * 64;
-    cp_async_wait<NS - 2>();  // key tile kt has landed
+    const uint32_t sb = ring + (kt % NS) * stage_bytes;
+    cp_async_wait<NS - 2>();  // key tile kt has landed (QKV_REL: with its biases)
     fence_async_smem();
     __syncthreads();          // for every thread's copies; every warp is done with the stage refilled next
     if (kt + NS - 1 < nk) load_stage(kt + NS - 1);
     cp_async_commit();
-    const uint32_t sb = ring + (kt % NS) * stage_bytes;
 
     // S = Q·Kᵀ, then the rel terms: slot rows · E tileᵀ over the slot
     // chunks this key tile touches (its rows' rel_h slots, every rel_w slot)
@@ -222,7 +421,7 @@ __global__ void __launch_bounds__(NTB) attn_kernel(const bf16* __restrict__ q, c
     fence_regs(s);
     if (!PRESCALE) fence_regs(sr);
 
-    // (scale,) mask keys past S, row max
+    // (scale,) mask keys past S, row max (stable)
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -235,27 +434,32 @@ __global__ void __launch_bounds__(NTB) attn_kernel(const bf16* __restrict__ q, c
         mx[c >> 1] = fmaxf(mx[c >> 1], x);
       }
     }
-    float alpha[2];
+    float alpha[2] = {1.0f, 1.0f};
+    if (SOFTMAX == STABLE) {
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float mnew = fmaxf(m[i], quad_max(mx[i]));
-      alpha[i] = __expf(m[i] - mnew);  // 0 on the first step (m = -inf)
-      m[i] = mnew;
+      for (int i = 0; i < 2; ++i) {
+        const float mnew = fmaxf(m[i], quad_max(mx[i]));
+        alpha[i] = __expf(m[i] - mnew);  // 0 on the first step (m = -inf)
+        m[i] = mnew;
+      }
     }
-    // p = exp(s - max) with the hardware exp2 (__expf, relative error ~1e-5
-    // for the arguments ≤ 0 a stable softmax takes; p is rounded to bf16)
+    // p = exp(s - max) | exp(min(s, 80)) | exp(s) with the hardware exp2
+    // (__expf, relative error ~1e-5 at |x| ≤ 80; p is rounded to bf16)
     float ls[2] = {0.0f, 0.0f};
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
-      s[i] = __expf(s[i] - m[(i >> 1) & 1]);
+      const float x = s[i];
+      s[i] = __expf(SOFTMAX == STABLE ? x - m[(i >> 1) & 1] : SOFTMAX == CLAMP ? fminf(x, 80.0f) : x);
       ls[(i >> 1) & 1] += s[i];
     }
     uint32_t pa[4][4];
     to_a(pa, s);
 #pragma unroll
     for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + ls[i];
+    if (SOFTMAX == STABLE) {
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+      for (int i = 0; i < HD / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+    }
 
     // O += P·V, V the MN-major B operand, 4 k steps of 16 keys
     fence_regs(o);
@@ -263,6 +467,14 @@ __global__ void __launch_bounds__(NTB) attn_kernel(const bf16* __restrict__ q, c
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks) mma_rs<HD>(o, pa[ks], mndesc(sb + TB + ks * 16 * 32, 64), 1);
     commit();
+    if constexpr (QKV_REL) {
+      // the next stage's biases, as it lands, while the tensor cores run PV
+      static_assert(NS == 2, "the next stage is the one loaded last");
+      if (kt + 1 < nk) {
+        cp_async_wait<0>();
+        add_bias_kv<HD>(gbase + (ring - base) + ((kt + 1) % NS) * stage_bytes, bias + C + h * HD, C, tid);
+      }
+    }
     wait<0>();
     fence_regs(o);
   }
@@ -270,7 +482,7 @@ __global__ void __launch_bounds__(NTB) attn_kernel(const bf16* __restrict__ q, c
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = q0 + 64 * wgi + warp * 16 + g + 8 * i;
-    const float lt = quad_sum(l[i]);
+    const float lt = quad_sum(l[i]) + (SOFTMAX == STABLE ? 0.0f : 1e-30f);
     if (row < S) {
       bf16* dst = out + out_at<OUT_MERGED>(bh, b, h, S, H, HD, row) + 2 * t;
 #pragma unroll
@@ -282,174 +494,215 @@ __global__ void __launch_bounds__(NTB) attn_kernel(const bf16* __restrict__ q, c
 
 }  // namespace wgf
 
-// ============================ fp32: SIMT ============================
+// ==================== fp32: split TF32 on the tensor cores ====================
 
-namespace simt {
+namespace tc32 {
 
+using namespace tf32x3;
+
+constexpr int NT = 128;       // 4 warps × 16 query rows
 constexpr int BQ = 64;        // query rows per block
-constexpr int NT = 256;       // 8 warps
-constexpr int LDF = BK + 4;   // row stride of the score / probability tile (floats)
-constexpr int RLDF = MAXG + 1;  // row stride of the rel-row tiles
+constexpr int RLD = BQ + 4;   // rel-row stride (floats): one row per slot, a column per query row
 
 template <int HD>
-struct Tile {
-  static constexpr int LD = HD + 4;  // row stride of the q / k / v / output tiles
-  static constexpr size_t smem = (size_t)(4 * BQ * LD + BQ * LDF + 2 * BQ * RLDF + 2 * BQ) * sizeof(float);
+struct Cfg {
+  static constexpr int LD = HD + 4;  // q / k / v tile row stride (floats)
+  // 2 stages of K and V tiles, then the q tile's rel rows (Hk + Wk slots);
+  // the q tile lives in the second stage until the key loop starts
+  static size_t smem(int nslots) { return (size_t)(4 * BK * LD + nslots * RLD) * sizeof(float); }
 };
 
-// S = A·Bᵀ over the head dim: each thread owns rows ty+16i, keys tx+16j
-template <int HD>
-__device__ void gemm_abt(const float* A, const float* Bt, float* S, int tid) {
-  constexpr int LD = Tile<HD>::LD;
-  const int ty = tid / 16, tx = tid % 16;
-  float acc[4][4] = {};
-  for (int k = 0; k < HD; ++k) {
-    float a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A[(ty + 16 * i) * LD + k];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = Bt[(tx + 16 * j) * LD + k];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) S[(ty + 16 * i) * LDF + tx + 16 * j] = acc[i][j];
-}
+// the column of query row r (local) in the rel rows: the two rows of a
+// thread (g and g + 8 of a warp's 16) are adjacent, one 8-byte load
+__device__ __forceinline__ int rel_col(int r) { return (r & ~15) + 2 * (r & 7) + ((r >> 3) & 1); }
 
-// O += P·V over the keys: each thread owns rows ty+16i, dims tx+16j
+// rows [r0, r0 + 64) of an fp32 matrix (row stride ld, HD columns) into a
+// tile of row stride LD by cp.async; rows at or past n read as zero
 template <int HD>
-__device__ void gemm_pv_acc(const float* P, const float* V, float* O, int tid) {
-  constexpr int LD = Tile<HD>::LD, NJ = HD / 16;
-  const int ty = tid / 16, tx = tid % 16;
-  float acc[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = O[(ty + 16 * i) * LD + tx + 16 * j];
-  for (int k = 0; k < BK; ++k) {
-    float a[4], b[NJ];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = P[(ty + 16 * i) * LDF + k];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) b[j] = V[k * LD + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+__device__ __forceinline__ void load_rows(float* dst, const float* src, size_t ld, int n, int r0, int tid) {
+  constexpr int LD = Cfg<HD>::LD, NC = HD / 4;
+  for (int i = tid; i < BK * NC; i += NT) {
+    const int r = i / NC, c4 = 4 * (i - r * NC), row = r0 + r;
+    const bool valid = row < n;
+    wg::cp_async16(wg::smem_u32(dst + r * LD + c4), valid ? src + (size_t)row * ld + c4 : src, valid);
   }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) O[(ty + 16 * i) * LD + tx + 16 * j] = acc[i][j];
 }
 
 template <int HD, bool IN_MERGED, bool OUT_MERGED, bool PRESCALE>
-__global__ void __launch_bounds__(NT) attn_kernel(
+__global__ void __launch_bounds__(NT, 2) attn_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ rh, const float* __restrict__ rw, float* __restrict__ out, int S, int H, int hk,
     int wk, int ld_in, int rld, float scale) {
-  constexpr int LD = Tile<HD>::LD;
+  constexpr int LD = Cfg<HD>::LD, NO = HD / 8;
   extern __shared__ __align__(128) unsigned char smem[];
-  float* sQ = reinterpret_cast<float*>(smem);  // q, or q·scale
-  float* sK = sQ + BQ * LD;
-  float* sV = sK + BQ * LD;
-  float* sO = sV + BQ * LD;
-  float* sS = sO + BQ * LD;  // scores, then probabilities in place
-  float* sRh = sS + BQ * LDF;
-  float* sRw = sRh + BQ * RLDF;
-  float* sM = sRw + BQ * RLDF;
-  float* sL = sM + BQ;
+  float* sK = reinterpret_cast<float*>(smem);  // stage i: K at sK + 2i·BK·LD, V after it
+  float* sRel = sK + 4 * BK * LD;              // rel_h slots [0, hk), then rel_w slots [hk, hk + wk)
+  float* sQ = sK + 2 * BK * LD;                // the q tile, in the second stage until the key loop
 
   const int q0 = blockIdx.x * BQ, bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
   const Rows<IN_MERGED> rows(bh, b, h, S, HD, hk, wk, ld_in, rld);
   const float *qp = q + rows.qkv, *kp = k + rows.qkv, *vp = v + rows.qkv;
-  const float* rhp = rh + rows.rh;
-  const float* rwp = rw + rows.rw;
-
-  for (int i = tid; i < BQ * HD; i += NT) {
-    const int r = i / HD, d = i % HD, row = q0 + r;
-    const float x = row < S ? qp[(size_t)row * rows.ld + d] : 0.0f;
-    sQ[r * LD + d] = PRESCALE ? x * scale : x;
-    sO[r * LD + d] = 0.0f;
-  }
-  for (int i = tid; i < BQ * hk; i += NT) {
-    const int r = i / hk, j = i % hk;
-    sRh[r * RLDF + j] = q0 + r < S ? rhp[(size_t)(q0 + r) * rows.ldh + j] : 0.0f;
-  }
-  for (int i = tid; i < BQ * wk; i += NT) {
-    const int r = i / wk, j = i % wk;
-    sRw[r * RLDF + j] = q0 + r < S ? rwp[(size_t)(q0 + r) * rows.ldw + j] : 0.0f;
-  }
-  if (tid < BQ) {
-    sM[tid] = -INFINITY;
-    sL[tid] = 0.0f;
-  }
-
   const int nk = (S + BK - 1) / BK;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // the previous step is done with sK, sV, sS
-    for (int i = tid; i < BK * HD; i += NT) {
-      const int r = i / HD, d = i % HD, key = k0 + r;
-      const bool valid = key < S;
-      sK[r * LD + d] = valid ? kp[(size_t)key * rows.ld + d] : 0.0f;
-      sV[r * LD + d] = valid ? vp[(size_t)key * rows.ld + d] : 0.0f;
-    }
-    __syncthreads();
-    gemm_abt<HD>(sQ, sK, sS, tid);
-    __syncthreads();
 
-    // softmax step: four lanes per query row, 16 keys each; p overwrites s
-    {
-      const int r = tid / 4, part = tid % 4;
-      float s[16];
-      float mloc = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const int c = part + 4 * j, key = k0 + c;
-        if (key < S) {
-          const int kh = key / wk, kw = key - kh * wk;
-          s[j] = PRESCALE ? (sS[r * LDF + c] + sRh[r * RLDF + kh]) + sRw[r * RLDF + kw]
-                          : sS[r * LDF + c] * scale + (sRh[r * RLDF + kh] + sRw[r * RLDF + kw]);
-        } else {
-          s[j] = -INFINITY;
-        }
-        mloc = fmaxf(mloc, s[j]);
-      }
-      const float m_old = sM[r];
-      const float m_new = fmaxf(m_old, quad_max(mloc));
-      float lsum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const float p = expf(s[j] - m_new);
-        lsum += p;
-        sS[r * LDF + part + 4 * j] = p;
-      }
-      lsum = quad_sum(lsum);
-      const float alpha = expf(m_old - m_new);  // 0 on the first step
-      for (int d = part; d < HD; d += 4) sO[r * LD + d] *= alpha;
-      if (part == 0) {
-        sM[r] = m_new;
-        sL[r] = sL[r] * alpha + lsum;
-      }
-    }
-    __syncthreads();
-    gemm_pv_acc<HD>(sS, sV, sO, tid);
+  load_rows<HD>(sK, kp, rows.ld, S, 0, tid);
+  load_rows<HD>(sK + BK * LD, vp, rows.ld, S, 0, tid);
+  load_rows<HD>(sQ, qp, rows.ld, S, q0, tid);
+  wg::cp_async_commit();
+  // the q tile's rel rows, slot-major (zero past S)
+  const int nslots = hk + wk;
+  for (int i = tid; i < BQ * nslots; i += NT) {
+    const int r = i / nslots, j = i - r * nslots, row = q0 + r;
+    float x = 0.0f;
+    if (row < S) x = j < hk ? rh[rows.rh + (size_t)row * rows.ldh + j] : rw[rows.rw + (size_t)row * rows.ldw + j - hk];
+    sRel[j * RLD + rel_col(r)] = x;
   }
+  wg::cp_async_wait<0>();
   __syncthreads();
 
-  for (int i = tid; i < BQ * HD; i += NT) {
-    const int r = i / HD, d = i % HD, row = q0 + r;
-    if (row < S) out[out_at<OUT_MERGED>(bh, b, h, S, H, HD, row) + d] = sO[r * LD + d] / sL[r];
+  // this warp's 16 rows of q (PRESCALE: q·scale, rounded in fp32) as A
+  // fragment values for the whole key loop (split where used), the head
+  // dim in the order of tf32x3::dperm
+  float qa[NO][4];
+  {
+    const float* r0 = sQ + (warp * 16 + g) * LD;
+    const float sc = PRESCALE ? scale : 1.0f;
+#pragma unroll
+    for (int kk = 0; kk < NO; ++kk) {
+      qa[kk][0] = r0[dperm<HD>(kk, t)] * sc;
+      qa[kk][1] = r0[8 * LD + dperm<HD>(kk, t)] * sc;
+      qa[kk][2] = r0[dperm<HD>(kk, t + 4)] * sc;
+      qa[kk][3] = r0[8 * LD + dperm<HD>(kk, t + 4)] * sc;
+    }
+  }
+
+  const int rA = warp * 16 + g;  // this thread's rows (local): rA, rA + 8
+  const int cA = rel_col(rA);    // their rel-row columns: cA, cA + 1
+  const float inv_wk = 1.0f / wk;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.0f, 0.0f};
+  float o[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * BK;
+    const float* cK = sK + (kt & 1) * 2 * BK * LD;
+    const float* cV = cK + BK * LD;
+    __syncthreads();  // every warp is done with the stage the next prefetch overwrites (at kt = 0: the q tile)
+    if (kt + 1 < nk) {
+      float* nK = sK + ((kt + 1) & 1) * 2 * BK * LD;
+      load_rows<HD>(nK, kp, rows.ld, S, k0 + BK, tid);
+      load_rows<HD>(nK + BK * LD, vp, rows.ld, S, k0 + BK, tid);
+      wg::cp_async_commit();
+      wg::cp_async_wait<1>();
+    } else {
+      wg::cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    // S = q·kᵀ, 8 tiles of 8 keys (column n of tile j is key 8j + n), two
+    // k steps a 16-byte load of K (zero-filled rows past S are masked below)
+    float s[BK / 8][4];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+#pragma unroll
+    for (int p = 0; p < HD / 16; ++p) {
+      const FragA q0f = split_a(qa[2 * p][0], qa[2 * p][1], qa[2 * p][2], qa[2 * p][3]);
+      const FragA q1f = split_a(qa[2 * p + 1][0], qa[2 * p + 1][1], qa[2 * p + 1][2], qa[2 * p + 1][3]);
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        const float4 kv = *reinterpret_cast<const float4*>(cK + (8 * j + g) * LD + pair_col<HD>(p, t));
+        mma3(s[j], q0f, split_b(kv.x, kv.y));
+        mma3(s[j], q1f, split_b(kv.z, kv.w));
+      }
+    }
+
+    // (scale,) + the rel terms (the key → (kh, kw) split once per key, for
+    // both rows), mask keys past S, row max
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = k0 + 8 * j + 2 * t + e;
+        if (key < S) {
+          const int kh = static_cast<int>((key + 0.5f) * inv_wk), kw = key - kh * wk;
+          const float2 rh2 = *reinterpret_cast<const float2*>(sRel + kh * RLD + cA);
+          const float2 rw2 = *reinterpret_cast<const float2*>(sRel + (hk + kw) * RLD + cA);
+          if (PRESCALE) {
+            s[j][e] = (s[j][e] + rh2.x) + rw2.x;
+            s[j][2 + e] = (s[j][2 + e] + rh2.y) + rw2.y;
+          } else {
+            s[j][e] = s[j][e] * scale + (rh2.x + rw2.x);
+            s[j][2 + e] = s[j][2 + e] * scale + (rh2.y + rw2.y);
+          }
+        } else {
+          s[j][e] = s[j][2 + e] = -INFINITY;
+        }
+        mx[0] = fmaxf(mx[0], s[j][e]);
+        mx[1] = fmaxf(mx[1], s[j][2 + e]);
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float mnew = fmaxf(m[i], quad_max(mx[i]));
+      alpha[i] = expf(m[i] - mnew);  // 0 on the first step (m = -inf)
+      m[i] = mnew;
+    }
+    // p = exp(s - max) in fp32 with the exact expf, in s
+    float ls[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        s[j][c] = expf(s[j][c] - m[c / 2]);
+        ls[c / 2] += s[j][c];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + ls[i];
+
+    // O = O·alpha + P·V. Tile j of P is the A fragment of a k step of 8
+    // keys in the order of tf32x3::to_a, so V's B fragment reads keys
+    // 8j + 2t and 8j + 2t + 1. The tile's product has its own accumulator,
+    // added to O on the FP32 units (the tensor cores' accumulation
+    // truncates: one tile carries 24 truncations, a sum over all S keys
+    // S/8·3)
+    float pv[NO][4];
+#pragma unroll
+    for (int nt = 0; nt < NO; ++nt) pv[nt][0] = pv[nt][1] = pv[nt][2] = pv[nt][3] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      const FragA pa = to_a(s[j]);
+#pragma unroll
+      for (int nt = 0; nt < NO; ++nt) {
+        const float* vr = cV + (8 * j + 2 * t) * LD + 8 * nt + g;
+        mma3(pv[nt], pa, split_b(vr[0], vr[LD]));
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < NO; ++nt) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) o[nt][c] = fmaf(o[nt][c], alpha[c / 2], pv[nt][c]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + rA + 8 * i;
+    const float lt = quad_sum(l[i]);
+    if (row < S) {
+      float* dst = out + out_at<OUT_MERGED>(bh, b, h, S, H, HD, row) + 2 * t;
+#pragma unroll
+      for (int nt = 0; nt < NO; ++nt)
+        *reinterpret_cast<float2*>(dst + 8 * nt) = make_float2(o[nt][2 * i] / lt, o[nt][2 * i + 1] / lt);
+    }
   }
 }
 
-}  // namespace simt
+}  // namespace tc32
 
 template <typename T>
 using KernelFn = void (*)(const T*, const T*, const T*, const T*, const T*, T*, int, int, int, int, int, int, float);
@@ -472,27 +725,30 @@ inline size_t slots_bytes(int S, int hk, int wk) {
 }
 
 // the bf16 (wgmma) instance of one layout at head dim D: fills the E
-// scratch (slots_bytes), then runs the kernel
-template <int HD, bool IN_MERGED, bool OUT_MERGED, bool PRESCALE>
+// scratch (slots_bytes), then runs the kernel (QKV_REL: rh, rw are the
+// tables and bias the (3, C) qkv bias)
+template <int HD, bool IN_MERGED, bool OUT_MERGED, bool PRESCALE, bool QKV_REL = false, int SOFTMAX = STABLE>
 int launch_wg(const void* q, const void* k, const void* v, const void* rh, const void* rw, void* e, void* out,
-              int BH, int S, int H, int hk, int wk, int ld_in, int rld, float scale, void* stream) {
+              int BH, int S, int H, int hk, int wk, int ld_in, int rld, float scale, void* stream,
+              const void* bias = nullptr) {
   const int hkp = wg::round16(hk), kx = hkp + wg::round16(wk), s_pad = (S + 63) / 64 * 64;
   cudaStream_t st = (cudaStream_t)stream;
   wg::fill_slots<<<(s_pad * kx / 8 + 255) / 256, 256, 0, st>>>((bf16*)e, S, s_pad, wk, hkp, kx);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  auto kernel = wgf::attn_kernel<HD, IN_MERGED, OUT_MERGED, PRESCALE>;
+  auto kernel = wgf::attn_kernel<HD, IN_MERGED, OUT_MERGED, PRESCALE, QKV_REL, SOFTMAX>;
   const size_t smem = wgf::Cfg<HD>::smem(kx);
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((S + wgf::BQ - 1) / wgf::BQ, BH);
   kernel<<<grid, wgf::NTB, smem, st>>>((const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)rh,
-                                     (const bf16*)rw, (const bf16*)e, (bf16*)out, S, H, hk, wk, ld_in, rld, kx, scale);
+                                     (const bf16*)rw, (const bf16*)e, (const bf16*)bias, (bf16*)out, S, H, hk, wk,
+                                     ld_in, rld, kx, scale);
   return (int)cudaGetLastError();
 }
 
-// the bf16 (wgmma) or fp32 (SIMT) instance of one layout at head dim D
-// (16, 64 or 80; anything else is refused)
+// the bf16 (wgmma) or fp32 (split TF32) instance of one layout at head dim
+// D (16, 64 or 80; anything else is refused)
 template <bool IN_MERGED, bool OUT_MERGED, bool PRESCALE>
 int launch_bf16(int D, const void* q, const void* k, const void* v, const void* rh, const void* rw, void* e,
                 void* out, int BH, int S, int H, int hk, int wk, int ld_in, int rld, float scale, void* stream) {
@@ -515,14 +771,14 @@ int launch_f32(int D, const void* q, const void* k, const void* v, const void* r
                int BH, int S, int H, int hk, int wk, int ld_in, int rld, float scale, void* stream) {
   switch (D) {
     case 16:
-      return launch<float>(simt::attn_kernel<16, IN_MERGED, OUT_MERGED, PRESCALE>, simt::Tile<16>::smem, simt::BQ,
-                           simt::NT, q, k, v, rh, rw, out, BH, S, H, hk, wk, ld_in, rld, scale, stream);
+      return launch<float>(tc32::attn_kernel<16, IN_MERGED, OUT_MERGED, PRESCALE>, tc32::Cfg<16>::smem(hk + wk),
+                           tc32::BQ, tc32::NT, q, k, v, rh, rw, out, BH, S, H, hk, wk, ld_in, rld, scale, stream);
     case 64:
-      return launch<float>(simt::attn_kernel<64, IN_MERGED, OUT_MERGED, PRESCALE>, simt::Tile<64>::smem, simt::BQ,
-                           simt::NT, q, k, v, rh, rw, out, BH, S, H, hk, wk, ld_in, rld, scale, stream);
+      return launch<float>(tc32::attn_kernel<64, IN_MERGED, OUT_MERGED, PRESCALE>, tc32::Cfg<64>::smem(hk + wk),
+                           tc32::BQ, tc32::NT, q, k, v, rh, rw, out, BH, S, H, hk, wk, ld_in, rld, scale, stream);
     case 80:
-      return launch<float>(simt::attn_kernel<80, IN_MERGED, OUT_MERGED, PRESCALE>, simt::Tile<80>::smem, simt::BQ,
-                           simt::NT, q, k, v, rh, rw, out, BH, S, H, hk, wk, ld_in, rld, scale, stream);
+      return launch<float>(tc32::attn_kernel<80, IN_MERGED, OUT_MERGED, PRESCALE>, tc32::Cfg<80>::smem(hk + wk),
+                           tc32::BQ, tc32::NT, q, k, v, rh, rw, out, BH, S, H, hk, wk, ld_in, rld, scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -40,7 +40,6 @@ extern "C" int attn_qkv_f32(const void* qkv, const void* rh64, const void* rw64,
   if (D != 64 || !flash::shape_ok(B * H, S, H, hk, wk)) return (int)cudaErrorInvalidValue;
   const size_t C = (size_t)H * D;
   const float* q = (const float*)qkv;
-  return flash::launch<float>(flash::simt::attn_kernel<64, true, true, true>, flash::simt::Tile<64>::smem,
-                              flash::simt::BQ, flash::simt::NT, q, q + C, q + 2 * C, rh64, rw64, out, B * H, S, H,
-                              hk, wk, (int)(3 * C), H * flash::MAXG, scale, stream);
+  return flash::launch_f32<true, true, true>(64, q, q + C, q + 2 * C, rh64, rw64, out, B * H, S, H, hk, wk,
+                                             (int)(3 * C), H * flash::MAXG, scale, stream);
 }

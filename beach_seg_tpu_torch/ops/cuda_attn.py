@@ -62,7 +62,7 @@ SOFTMAX_MODES = ("stable", "clamp", "fast")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_PROTO = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P]
+_PROTO = [_P] * 6 + [_I] * 6 + [ctypes.c_float, _I, _P]
 _ENTRY = {torch.bfloat16: "attn_qkv_rel_bf16", torch.float32: "attn_qkv_rel_f32"}
 _BWD_ENTRY = {torch.bfloat16: "attn_bwd_bf16", torch.float32: "attn_bwd_f32"}
 _BWD_PROTO = [_P] * 14 + [_I, _I, _I, _I, _I, ctypes.c_float, _P]
@@ -193,8 +193,9 @@ def attn_qkv_rel(
         raise ValueError("attn_qkv_rel kernel needs contiguous, 16-byte aligned inputs")
     lib = build.load("attn_qkv_rel", {fn: _PROTO for fn in _ENTRY.values()})
     out = torch.empty((b, s, c), dtype=dt, device=qkv4.device)
+    scratch = _slots_scratch(s, gh, gw, qkv4.device) if dt == torch.bfloat16 else ()
     err = getattr(lib, _ENTRY[dt])(
-        qkv4.data_ptr(), qkv_bias.data_ptr(), rh_tab.data_ptr(), rw_tab.data_ptr(), out.data_ptr(),
+        qkv4.data_ptr(), qkv_bias.data_ptr(), rh_tab.data_ptr(), rw_tab.data_ptr(), *_ptrs(scratch, 1), out.data_ptr(),
         b, s, c, num_heads, gh, gw, float(scale), SOFTMAX_MODES.index(softmax),
         torch.cuda.current_stream(qkv4.device).cuda_stream,
     )

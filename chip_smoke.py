@@ -11,7 +11,8 @@ Phases (any failure exits non-zero before the result lines):
      M=4096): each forward kernel against its plain PyTorch version on the
      card, then CUDA-event times of the kernel, the plain version and, for
      attention, scaled_dot_product_attention with the materialized bias (a
-     yardstick the port never calls); the qkv-rel attention in bf16 and in
+     yardstick the port never calls); the qkv-rel attention in bf16 in all
+     three softmax modes (stable, clamp: the default, timed; fast) and in
      fp32 (the instance phase 12 runs);
   4. the same for the two backward kernels (attention backward at B·H=128,
      LN→MLP dx at 12544 rows); the attention yardstick is SDPA's backward
@@ -66,14 +67,19 @@ Phases (any failure exits non-zero before the result lines):
      with the head_dim-64 tolerances;
  14. the grid (37, 27), whose 64-key tiles cross rel_h slot chunks and whose
      last tile is ragged: #3, #7 and #4 at head dims 64 and 80 and #6, bf16
-     and fp32, each against its plain version;
+     and fp32, and #1 bf16 in its three softmax modes, each against its plain
+     version;
  15. the debug backbone (BeachSegConfig(debug=True): C=64, 4 layers, 4
      heads of 16) in bf16 and fp32: 3 (2 in fp32) predict_step calls and
      train_steps at B=8, each call launching #3 (and under bf16 the MLP
      kernel #2, at C=64 its narrow instance) 4 times and each step #3 and
      #4 (and #2, #5) 4 times, pred_masks and the prompt gradient held
      against the plain versions with phases 5–6's limits (fp32: phase 12's);
- 16. one JSON line of per-kernel numbers (one entry per kernel, geometry
+ 16. the full-size fp32 ViT-H (BeachSegConfig(backbone="huge"), its default
+     compute dtype): 2 predict_step calls (the second is the warm time), 32
+     packed-attention launches each (#3 on its split-TF32 body), pred_masks
+     held against the plain versions with phase 5's limits;
+ 17. one JSON line of per-kernel numbers (one entry per kernel, geometry
      and dtype), then the card's name and power limit, then
      {"ok": true, "device": {...}} as the last line.
 
@@ -102,9 +108,12 @@ PEAK_TF32 = 495e12  # H100 SXM dense TF32 tensor-core FLOP/s (NVIDIA data sheet)
 # (the FP32 units' 67 TF/s is slower)
 PEAK_FP32_TC = PEAK_TF32 / 3
 FP32_ROUTE = "tensor cores, split TF32: 3 x FLOPs at 495 TF/s"
-TF32X3 = "mma.sync m16n8k8 tf32x3"  # the design of the fp32 #1 and #4 instances
+TF32X3 = "mma.sync m16n8k8 tf32x3"  # the design of the fp32 #1, #3, #4, #6 and #7 instances
 # the design of the bf16 #3, #4, #6 and #7 instances (wgmma.cuh)
 WGMMA = "wgmma m64nNk16, one warpgroup a block, cp.async ring, rel terms as k steps against the 0/1 slot matrix"
+# #1 bf16: attn_flash.cuh's wgmma kernel, its qkv-rel instances
+WGMMA_QKV_REL = WGMMA + "; qkv bias added in place, rel terms formed by mma.sync over gathered rows into the slot rows"
+SOFTMAX_MODES = ("stable", "clamp", "fast")
 HBM = 3.35e12  # bytes/s
 B = 8  # tiles per batch (the predict step's batch)
 GRID = (56, 28)  # ViT-L and ViT-H canvas 896×448 at 16-pixel patches
@@ -242,16 +251,16 @@ def mlp_bound(n: int, c: int = C, m: int = MLP) -> tuple[float, str]:
     return bound(flops, nbytes, PEAK_BF16)
 
 
-def attn_inputs(dtype, device, b=B, seed=0):
+def attn_inputs(dtype, device, b=B, seed=0, grid=GRID):
     from beach_seg_tpu_torch.ops.attention import rel_tables_padded
 
     g = torch.Generator(device=device).manual_seed(seed)
-    gh, gw = GRID
+    gh, gw = grid
     qkv = torch.randn((b, gh * gw, 3, C), generator=g, device=device)
     bias = 0.1 * torch.randn((3, C), generator=g, device=device)
     rph = 0.1 * torch.randn((2 * gh - 1, HD), generator=g, device=device)
     rpw = 0.1 * torch.randn((2 * gw - 1, HD), generator=g, device=device)
-    rh, rw = rel_tables_padded(rph, rpw, GRID, GRID)
+    rh, rw = rel_tables_padded(rph, rpw, grid, grid)
     return [t.to(dtype).contiguous() for t in (qkv, bias, rh, rw)]
 
 
@@ -359,20 +368,22 @@ def phase_kernels(device) -> dict:
 
     res = {}
     gw = GRID[1]
-    for dtype, softmax in ((torch.float32, "stable"), (torch.bfloat16, "clamp")):
-        args = (*attn_inputs(dtype, device), HD**-0.5, gw, HEADS, softmax)
-        got = cuda_attn.attn_qkv_rel(*args)
-        torch.cuda.synchronize()
-        want = cuda_attn.attn_qkv_rel_plain(*args)
-        res[f"attn_err_{softmax}"] = attn_out_check(f"attn_qkv_rel {dtype} {softmax}", got, want)
-        del got, want
-        if dtype == torch.float32:  # the instance the default (fp32) configuration runs
-            res["attn32_ms"] = time_ms(lambda: cuda_attn.attn_qkv_rel(*args), iters=3, warmup=1)
-            res["attn32_plain_ms"] = time_ms(lambda: cuda_attn.attn_qkv_rel_plain(*args), iters=2)
-            res["attn32_library_ms"] = time_ms(sdpa_yardstick(*args[:4]), iters=3, warmup=1)
-            res["attn32_bound"] = attn_bound(B, 4, PEAK_FP32_TC)
-            torch.cuda.empty_cache()
-    # bf16 times at the main path's shapes (args still hold the bf16 inputs)
+    shape = (B, GRID[0] * gw, C)
+    # fp32 stable: the instance the default (fp32) configuration runs
+    args = (*attn_inputs(torch.float32, device), HD**-0.5, gw, HEADS, "stable")
+    res["attn32_err"] = fwd_check("attn_qkv_rel fp32 stable", cuda_attn.attn_qkv_rel, cuda_attn.attn_qkv_rel_plain, args, shape)
+    res["attn32_ms"] = time_ms(lambda: cuda_attn.attn_qkv_rel(*args), iters=3, warmup=1)
+    res["attn32_plain_ms"] = time_ms(lambda: cuda_attn.attn_qkv_rel_plain(*args), iters=2)
+    res["attn32_library_ms"] = time_ms(sdpa_yardstick(*args[:4]), iters=3, warmup=1)
+    res["attn32_bound"] = attn_bound(B, 4, PEAK_FP32_TC)
+    torch.cuda.empty_cache()
+    # bf16 in every softmax mode (a template instance each), then timed in the main path's (clamp)
+    inputs = attn_inputs(torch.bfloat16, device)
+    for softmax in SOFTMAX_MODES:
+        args = (*inputs, HD**-0.5, gw, HEADS, softmax)
+        res[f"attn_err_{softmax}"] = fwd_check(f"attn_qkv_rel bf16 {softmax}", cuda_attn.attn_qkv_rel,
+                                               cuda_attn.attn_qkv_rel_plain, args, shape)
+    args = (*inputs, HD**-0.5, gw, HEADS, "clamp")
     res["attn_ms"] = time_ms(lambda: cuda_attn.attn_qkv_rel(*args), iters=20, warmup=2)
     res["attn_plain_ms"] = time_ms(lambda: cuda_attn.attn_qkv_rel_plain(*args), iters=3)
     res["attn_library_ms"] = time_ms(sdpa_yardstick(*args[:4]), iters=20, warmup=2)
@@ -525,10 +536,10 @@ def phase_kernels_vit_h(device) -> dict:
         args = (*packed_inputs(device, dtype, bh, HD_H), HD_H**-0.5, HEADS)
         res[f"packed_err_{name}"] = fwd_check(f"attn_packed {name} (ViT-H)", cuda_attn.attn_packed, attention_packed_plain,
                                               args, (B, s, C_H))
-        res[f"packed_ms_{name}"] = time_ms(lambda: cuda_attn.attn_packed(*args), iters=20 if name == "bf16" else 3, warmup=2)
+        res[f"packed_ms_{name}"] = time_ms(lambda: cuda_attn.attn_packed(*args), iters=20 if name == "bf16" else 10, warmup=2)
         res[f"packed_plain_ms_{name}"] = time_ms(lambda: attention_packed_plain(*args), iters=2)
         if name == "fp32":
-            res["packed_library_ms_fp32"] = time_ms(sdpa_packed_yardstick(*args[:5]), iters=3, warmup=1)
+            res["packed_library_ms_fp32"] = time_ms(sdpa_packed_yardstick(*args[:5]), iters=10, warmup=1)
         res[f"packed_bound_{name}"] = packed_bound(bh, s, gh, gw, HD_H, dtype.itemsize, PEAK_BF16 if name == "bf16" else PEAK_FP32_TC)
         torch.cuda.empty_cache()
     # SDPA yardstick on the bf16 inputs (args still hold them)
@@ -609,7 +620,7 @@ def phase_library_kernels(device) -> dict:
     for dtype, name in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
         fp32 = name == "fp32"
         peak = PEAK_FP32_TC if fp32 else PEAK_BF16
-        iters = 3 if fp32 else 20
+        iters = 10 if fp32 else 20
         q, k, v, rel_h, rel_w = packed_inputs(device, dtype, bh, HD, seed=8)
         args = (q, k, v, rel_h, rel_w, HD**-0.5)
         res[f"fused_err_{name}"] = fwd_check(f"attn_fused {name}", cuda_attn.attn_fused, attention_fused_plain, args, (bh, s, HD))
@@ -757,10 +768,11 @@ def phase_small_head_dims(device) -> dict:
 
 
 def phase_chunk_crossing(device) -> dict:
-    """#3, #7 and #4 at head dims 64 and 80, and #6, in bf16 and fp32 at B=8
-    tiles of 16 heads on GRID_CROSS, where key tiles cross rel_h slot chunks
-    and the last tile is ragged, against their plain versions with the
-    phases' tolerances. Returns the largest errors by kernel and dtype."""
+    """#3, #7 and #4 at head dims 64 and 80, and #6, in bf16 and fp32, and
+    #1 bf16 in its three softmax modes, at B=8 tiles of 16 heads on
+    GRID_CROSS, where key tiles cross rel_h slot chunks and the last tile is
+    ragged, against their plain versions with the phases' tolerances.
+    Returns the largest errors by kernel and dtype."""
     from beach_seg_tpu_torch.ops import cuda_attn
     from beach_seg_tpu_torch.ops.attention import (attention_bwd_plain, attention_fused_plain, attention_packed_plain,
                                                    attention_qkv_plain)
@@ -786,6 +798,13 @@ def phase_chunk_crossing(device) -> dict:
                                        (qkv, rh64, rw64, HD**-0.5, gh, gw, HEADS), (B, s, C))
         del qkv, rh64, rw64
         torch.cuda.empty_cache()
+    inputs = attn_inputs(torch.bfloat16, device, seed=15, grid=GRID_CROSS)
+    for softmax in SOFTMAX_MODES:
+        res[f"qkv_rel_bf16_{softmax}"] = fwd_check(f"attn_qkv_rel bf16 {softmax} grid {GRID_CROSS}", cuda_attn.attn_qkv_rel,
+                                                   cuda_attn.attn_qkv_rel_plain, (*inputs, HD**-0.5, gw, HEADS, softmax),
+                                                   (B, s, C))
+    del inputs
+    torch.cuda.empty_cache()
     return res
 
 
@@ -1099,6 +1118,18 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
 
+    # the full-size ViT-H at its default fp32: #3 on its split-TF32 body
+    t = time.perf_counter()
+    conf_h32 = BeachSegConfig(batch_size=B, backbone="huge")
+    check(conf_h32.compute_dtype == "float32", f"ViT-H default config {conf_h32}")
+    model, cfg_h32 = model_for_config(conf_h32, device=device, seed=0)
+    check(cfg_h32.head_dim == HD_H and cfg_h32.num_hidden_layers == 32, f"fp32 ViT-H config {cfg_h32}")
+    log(f"fp32 ViT-H predict path: {cfg_h32.num_hidden_layers} layers, built in {time.perf_counter() - t:.3f} s")
+    mh32 = phase_main_path(device, model, conf_h32, {"attn_packed": 32}, n_batches=2)
+    log(f"fp32 ViT-H predict path phase: {time.perf_counter() - t:.3f} s")
+    del model
+    torch.cuda.empty_cache()
+
     kernels = [
         {
             "name": "attn_qkv_rel", "geometry": "vit_l", "route": "cuda",
@@ -1106,7 +1137,9 @@ def main() -> int:
             "replaces": "beach_seg_tpu/ops/pallas_attn.py:389",
             "launches": m["launches"]["attn_qkv_rel"], "launches_train": tr["launches"]["attn_qkv_rel"],
             "max_abs_err": k["attn_err_clamp"], "max_abs_diff": k["attn_err_clamp"],
-            "max_abs_err_fp32_stable": k["attn_err_stable"],
+            "max_abs_err_by_softmax": {mode: k[f"attn_err_{mode}"] for mode in SOFTMAX_MODES},
+            f"max_abs_err_grid_{GRID_CROSS[0]}x{GRID_CROSS[1]}": {mode: kc[f"qkv_rel_bf16_{mode}"] for mode in SOFTMAX_MODES},
+            "max_abs_err_fp32_stable": k["attn32_err"], "design": WGMMA_QKV_REL,
             "launches_fp32_predict": m32["launches"]["attn_qkv_rel"], "launches_fp32_train": tr32["launches"]["attn_qkv_rel"],
             "ms": k["attn_ms"], "plain_ms": k["attn_plain_ms"],
             "bound_ms": k["attn_bound"][0], "bound_by": k["attn_bound"][1],
@@ -1118,7 +1151,7 @@ def main() -> int:
             "source": "beach_seg_tpu_torch/ops/csrc/attn_qkv_rel.cu",
             "replaces": "beach_seg_tpu/ops/pallas_attn.py:389",
             "launches": m32["launches"]["attn_qkv_rel"], "launches_train": tr32["launches"]["attn_qkv_rel"],
-            "max_abs_err": k["attn_err_stable"],
+            "max_abs_err": k["attn32_err"],
             "ms": k["attn32_ms"], "plain_ms": k["attn32_plain_ms"],
             "bound_ms": k["attn32_bound"][0], "bound_by": k["attn32_bound"][1], "bound_route": FP32_ROUTE,
             "library_ms": k["attn32_library_ms"], "design": TF32X3,
@@ -1135,7 +1168,8 @@ def main() -> int:
             "library_ms": kh["packed_library_ms"],
             "fp32_ms": kh["packed_ms_fp32"], "fp32_plain_ms": kh["packed_plain_ms_fp32"],
             "fp32_bound_ms": kh["packed_bound_fp32"][0], "fp32_bound_route": FP32_ROUTE,
-            "fp32_library_ms": kh["packed_library_ms_fp32"],
+            "fp32_library_ms": kh["packed_library_ms_fp32"], "fp32_design": TF32X3,
+            "launches_fp32_predict": mh32["launches"]["attn_packed"],
             "shape": f"bf16, q/k/v ({B * HEADS}, {GRID[0] * GRID[1]}, {HD_H}), rel ({GRID[0]}, {GRID[1]})",
         },
     ]
@@ -1180,7 +1214,7 @@ def main() -> int:
                 "max_abs_err": kl[f"{key}_err_{dt}"], "ms": kl[f"{key}_ms_{dt}"], "plain_ms": kl[f"{key}_plain_ms_{dt}"],
                 "bound_ms": kl[f"{key}_bound_{dt}"][0], "bound_by": kl[f"{key}_bound_{dt}"][1],
                 "library_ms": kl[f"{key}_library_ms_{dt}"], "shape": f"{dt}, {shape}",
-                **({"bound_route": FP32_ROUTE} if dt == "fp32" else {}),
+                **({"bound_route": FP32_ROUTE, "design": TF32X3} if dt == "fp32" else {}),
             })
     for hd, launches in ((HD, tr32["launches"]["attn_bwd"]), (HD_H, ke[f"fused_attention fp32 head_dim {HD_H}"]["launches"]["attn_bwd"])):
         r = kl[f"bwd32_{hd}"]
@@ -1224,6 +1258,8 @@ def main() -> int:
     log(f"fp32 ViT-L: predict_step seconds per call {m32['seconds']} (warm {m32['seconds'][-1]:.4f}); train_step seconds per step {tr32['seconds']}, "
         f"peak memory {tr32['peak_bytes']} bytes, prompt gradient 1 - cosine kernels vs plain {1 - tr32['grad_cos']:.4e}, "
         f"max_abs_err {tr32['grad_err']:.4e}")
+    log(f"fp32 ViT-H: predict_step seconds per call {mh32['seconds']} (warm {mh32['seconds'][-1]:.4f}), "
+        f"attn_packed launches {mh32['launches']['attn_packed']} in {len(mh32['seconds'])} calls")
     log(f"total: {time.perf_counter() - t_start:.3f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,7 +1,9 @@
 """Two trees of the torch port on one card, in turns: the attention kernels
-the bf16 redesigns replace (#4 at head dims 64 and 80, #6, #7, #3) by CUDA
-events, and the end-to-end steps (ViT-L and ViT-H bf16 predict_step and
-train_step, the default fp32 ViT-L config's) by the host clock around
+of ``attn_flash.cuh`` (#1 bf16 clamp, the fp32 #3 at head_dim 80, #6 and #7,
+and the bf16 #3, #6 and #7 that share the header) and the bf16 attention
+backward (#4 at head dims 64 and 80) by CUDA events, and the end-to-end
+steps (ViT-L and ViT-H bf16 predict_step and train_step, the default fp32
+ViT-L config's, and the fp32 ViT-H predict_step) by the host clock around
 synchronized calls, with each train step's peak device memory.
 
     python3 scripts/ab_torch_trees.py OLD_ROOT NEW_ROOT
@@ -42,26 +44,34 @@ def measure(root: Path) -> dict:
     res = {"root": str(root), "build_s": time.perf_counter() - t}
     gh, gw = cs.GRID
     bh = cs.B * cs.HEADS
+    qkv4, bias, rh_tab, rw_tab = cs.attn_inputs(torch.bfloat16, dev)
+    res["attn_qkv_rel_bf16_ms"] = cs.time_ms(
+        lambda: cuda_attn.attn_qkv_rel(qkv4, bias, rh_tab, rw_tab, cs.HD**-0.5, gw, cs.HEADS, "clamp"), iters=20, warmup=2)
+    del qkv4, bias, rh_tab, rw_tab
     for hd in (cs.HD, cs.HD_H):
         args = (*cs.attn_bwd_inputs(dev, bh, hd=hd), hd**-0.5)
         res[f"attn_bwd_bf16_hd{hd}_ms"] = cs.time_ms(lambda: cuda_attn.attn_bwd(*args), iters=10, warmup=2)
         del args
-    qkv, _, _, (rh64, rw64) = cs.qkv_slot_inputs(dev, torch.bfloat16)
-    res["attn_qkv_bf16_ms"] = cs.time_ms(lambda: cuda_attn.attn_qkv(qkv, rh64, rw64, cs.HD**-0.5, gh, gw, cs.HEADS), iters=20, warmup=2)
-    del qkv, rh64, rw64
-    q, k, v, rh, rw = cs.packed_inputs(dev, torch.bfloat16, bh, cs.HD, seed=8)
-    res["attn_fused_bf16_ms"] = cs.time_ms(lambda: cuda_attn.attn_fused(q, k, v, rh, rw, cs.HD**-0.5), iters=20, warmup=2)
-    q, k, v, rh, rw = cs.packed_inputs(dev, torch.bfloat16, bh, cs.HD_H)
-    res["attn_packed_bf16_hd80_ms"] = cs.time_ms(lambda: cuda_attn.attn_packed(q, k, v, rh, rw, cs.HD_H**-0.5, cs.HEADS), iters=20, warmup=2)
-    del q, k, v, rh, rw
-    torch.cuda.empty_cache()
+    for dtype, dt, iters in ((torch.bfloat16, "bf16", 20), (torch.float32, "fp32", 10)):
+        qkv, _, _, (rh64, rw64) = cs.qkv_slot_inputs(dev, dtype)
+        res[f"attn_qkv_{dt}_ms"] = cs.time_ms(lambda: cuda_attn.attn_qkv(qkv, rh64, rw64, cs.HD**-0.5, gh, gw, cs.HEADS),
+                                               iters=iters, warmup=2)
+        del qkv, rh64, rw64
+        q, k, v, rh, rw = cs.packed_inputs(dev, dtype, bh, cs.HD, seed=8)
+        res[f"attn_fused_{dt}_ms"] = cs.time_ms(lambda: cuda_attn.attn_fused(q, k, v, rh, rw, cs.HD**-0.5), iters=iters, warmup=2)
+        q, k, v, rh, rw = cs.packed_inputs(dev, dtype, bh, cs.HD_H)
+        res[f"attn_packed_{dt}_hd80_ms"] = cs.time_ms(lambda: cuda_attn.attn_packed(q, k, v, rh, rw, cs.HD_H**-0.5, cs.HEADS),
+                                                       iters=iters, warmup=2)
+        del q, k, v, rh, rw
+        torch.cuda.empty_cache()
 
     for name, conf in (("vit_l_bf16", BeachSegConfig(batch_size=cs.B, compute_dtype="bfloat16")),
                        ("vit_h_bf16", BeachSegConfig(batch_size=cs.B, backbone="huge", compute_dtype="bfloat16")),
-                       ("vit_l_fp32", BeachSegConfig(batch_size=cs.B))):
+                       ("vit_l_fp32", BeachSegConfig(batch_size=cs.B)),
+                       ("vit_h_fp32", BeachSegConfig(batch_size=cs.B, backbone="huge"))):
         model, _ = model_for_config(conf, device=dev, seed=0)
         tuner = PromptTuner(model, conf, device=dev)
-        prompts, batches = cs.main_path_inputs(conf, 4, 3)
+        prompts, batches = cs.main_path_inputs(conf, 4, 5)  # the first call is cold
         secs = []
         for batch in batches:
             t = time.perf_counter()
@@ -69,6 +79,10 @@ def measure(root: Path) -> dict:
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t)
         res[f"{name}_predict_s"] = secs
+        if name == "vit_h_fp32":  # predict only: no train step of it is driven
+            del model, tuner
+            torch.cuda.empty_cache()
+            continue
         prompts, batches = cs.train_path_inputs(conf, 4, 3)
         state = tuner.init_state(prompts[0])
         gen = torch.Generator(device=dev).manual_seed(0)

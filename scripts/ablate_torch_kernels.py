@@ -1,12 +1,13 @@
 """Where the time of the torch port's CUDA kernels goes: each is rebuilt
 with one part removed or cheapened and timed beside the intact one at the
-main path's shapes (B=8 tiles). bf16: the ViT-L qkv-rel forward (#1) and
-LN→MLP (#2); the bf16 flash forward (attn_flash.cuh) as the ViT-H packed
+main path's shapes (B=8 tiles). bf16: LN→MLP (#2); the bf16 flash forward
+(attn_flash.cuh) as the ViT-L qkv-rel attention (#1, clamp), the ViT-H packed
 attention (#3, head_dim 80) and the ViT-L qkv-layout attention (#6), and the
 bf16 attention backward (#4) at head dims 80 and 64, each without its rel
 terms (the slot chunks on the tensor cores), without its ring's prefetch
-(every step waits for its next stage's loads), and the forward without PV,
-the backward without drh/drw or without its k-major kernel. fp32: the
+(every step waits for its next stage's loads), and the forward without PV
+(#1 also without its rel-term prologue or its k/v bias passes), the
+backward without drh/drw or without its k-major kernel. fp32: the
 qkv-rel attention and the attention backward (split-TF32 products,
 ``csrc/tf32x3.cuh``) with one part removed or cheapened (one TF32 product
 instead of three, no split, the hardware exp, ...) or with the split done
@@ -24,7 +25,8 @@ line per variant. Exits non-zero without a CUDA device.
 
 ``check`` instead holds faulty builds of the bf16 flash forward (#3, #6, #7:
 no rel terms, a crossing slot chunk dropped, a key tile dropped, no tail
-mask) against their plain versions by chip_smoke.py's forward limits, which
+mask; #1: no rel terms, a crossing slot chunk dropped, no tail mask, no v
+bias) against their plain versions by chip_smoke.py's forward limits, which
 each must fail.
 """
 
@@ -43,17 +45,6 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 # variant → edits: (old, new) in the kernel's source, or (header, old, new)
-ATTN = {  # attn_qkv_rel.cu, bf16 instance
-    "no_rel_terms": [("    const int nrows = min(BQ, S - q0);", "    const int nrows = 0;")],
-    "no_rel_lookups": [(
-        "          s[j][e] += __bfloat162float(sRh[rA * RLD + kh]) + __bfloat162float(sRw[rA * RLD + kw]);\n"
-        "          s[j][2 + e] += __bfloat162float(sRh[rB * RLD + kh]) + __bfloat162float(sRw[rB * RLD + kw]);\n",
-        "",
-    )],
-    "no_bias_pass": [("    for (int i = tid; i < 2 * BK * 8; i += NT) {\n      const int which = i / (BK * 8), r = (i / 8) % BK, c8 = (i % 8) * 8;\n      uint4* t",
-                      "    for (int i = tid; i < 0; i += NT) {\n      const int which = i / (BK * 8), r = (i / 8) % BK, c8 = (i % 8) * 8;\n      uint4* t")],
-    "no_pv": [("        mma(o[2 * jj], pa[t], vb[0], vb[1]);\n        mma(o[2 * jj + 1], pa[t], vb[2], vb[3]);", "")],
-}
 MLP = {  # ln_mlp.cu
     "no_weight_loads": [("  auto issue = [&](int s, int st) {\n", "  auto issue = [&](int s, int st) {\n    return;\n")],
     "no_lin1_products": [("      for (int kk = 0; kk < KC / 16; ++kk) {\n        uint32_t b[4];",
@@ -69,6 +60,12 @@ FLASH = {
                      "    if (kt + NS - 1 < nk) load_stage(kt + NS - 1);\n    cp_async_commit();\n    cp_async_wait<0>();\n")],
     "no_pv": [("attn_flash.cuh", "    for (int ks = 0; ks < 4; ++ks) mma_rs<HD>(o, pa[ks], mndesc(sb + TB + ks * 16 * 32, 64), 1);\n", "")],
 }
+V_BIAS = ("attn_flash.cuh", "  add_bias<HD>(stage + Cfg<HD>::TB, bk + C, tid);\n", "")
+ATTN = {  # attn_qkv_rel.cu, bf16: attn_flash.cuh's qkv-rel instances
+    **FLASH,
+    "no_rel_prologue": [("attn_flash.cuh", "    rel_prologue(sQ0, gbase + (sR0 - base), rbytes, rh, rw, q0, S, hk, wk, hkp, tid);\n", "")],
+    "no_bias_passes": [("attn_flash.cuh", "  add_bias<HD>(stage, bk, tid);\n", ""), V_BIAS],
+}
 # faults of the bf16 flash forward, for the `check` mode: each must fail
 # chip_smoke's forward limits, or the limits see too little
 FLASH_FAULTS = {
@@ -78,6 +75,10 @@ FLASH_FAULTS = {
                        "        if (key >= S || kt == nk / 2) x = -INFINITY;\n")],
     "no_tail_mask": [("attn_flash.cuh", "        if (key >= S) x = -INFINITY;\n", "")],
 }
+# and of #1 bf16 (a dropped k bias is not among them: it adds q·bk to every
+# score of a row, which the softmax cancels up to rounding)
+QKV_REL_FAULTS = {name: FLASH_FAULTS[name] for name in ("no_rel_terms", "drop_crossing_chunk", "no_tail_mask")}
+QKV_REL_FAULTS["no_v_bias"] = [V_BIAS]
 BWD = {  # attn_bwd.cu, bf16 instance
     "no_rel_terms": [
         ("      if (touched(c, nx, hkp, c_lo, c_hi)) mma_ss<64>(s, kdesc(sR + c * BT * 32), kdesc(sb + 2 * TB + c * BT * 32), 1);\n", ""),
@@ -187,9 +188,10 @@ def loaded(lib: ctypes.CDLL):
 
 
 def check_faults() -> int:
-    """Each FLASH_FAULTS variant of #3, #7 and #6 (and the intact source)
-    through its wrapper at B=8 bf16 on the ViT grid and on GRID_CROSS,
-    against the plain version: one JSON line each with chip_smoke's readings
+    """Each FLASH_FAULTS variant of #3, #7 and #6 and each QKV_REL_FAULTS
+    variant of #1 (clamp, its default), and the intact sources, through the
+    wrappers at B=8 bf16 on the ViT grid and on GRID_CROSS, against the
+    plain versions: one JSON line each with chip_smoke's readings
     (largest error, max|plain|, error norm over the output's) and whether
     they pass its limits. Exits non-zero if the intact kernel fails or a
     fault passes at a grid where it changes what the kernel computes (a
@@ -203,15 +205,19 @@ def check_faults() -> int:
     bh, scale = chip_smoke.B * heads, hd**-0.5
     bad = 0
     with tempfile.TemporaryDirectory() as tmp:
-        libs = build_variants([(name, name, FLASH_FAULTS) for name in ("attn_packed", "attn_fused", "attn_qkv")], Path(tmp))
+        libs = build_variants([(name, name, FLASH_FAULTS) for name in ("attn_packed", "attn_fused", "attn_qkv")]
+                              + [("attn_qkv_rel", "attn_qkv_rel", QKV_REL_FAULTS)], Path(tmp))
         for grid in (chip_smoke.GRID, chip_smoke.GRID_CROSS):
             gh, gw = grid
             q, k, v, rh, rw = chip_smoke.packed_inputs(dev, torch.bfloat16, bh, hd, seed=8, grid=grid)
             qkv, _, _, (rh64, rw64) = chip_smoke.qkv_slot_inputs(dev, torch.bfloat16, grid=grid)
+            qkv4, bias, rh_tab, rw_tab = chip_smoke.attn_inputs(torch.bfloat16, dev, grid=grid)
             calls = {
                 "attn_packed": (cuda_attn.attn_packed, attention_packed_plain, (q, k, v, rh, rw, scale, heads)),
                 "attn_fused": (cuda_attn.attn_fused, attention_fused_plain, (q, k, v, rh, rw, scale)),
                 "attn_qkv": (cuda_attn.attn_qkv, attention_qkv_plain, (qkv, rh64, rw64, scale, gh, gw, heads)),
+                "attn_qkv_rel": (cuda_attn.attn_qkv_rel, cuda_attn.attn_qkv_rel_plain,
+                                 (qkv4, bias, rh_tab, rw_tab, scale, gw, heads, "clamp")),
             }
             for name, (fn, plain, args) in calls.items():
                 want = plain(*args)
@@ -273,11 +279,11 @@ def main() -> int:
             b1 = torch.zeros(m, dtype=torch.bfloat16, device=dev)
             b2 = torch.zeros(c, dtype=torch.bfloat16, device=dev)
             y = torch.empty_like(x)
-            calls["attn"] = ("attn_qkv_rel_bf16", cuda_attn._PROTO, (qkv, bias, rh, rw, out, b, s, c, chip_smoke.HEADS,
+            e, slots = cuda_attn._slots_scratch(s, gh, gw, dev, rows=bh * s)
+            calls["attn"] = ("attn_qkv_rel_bf16", cuda_attn._PROTO, (qkv, bias, rh, rw, e, out, b, s, c, chip_smoke.HEADS,
                                                                       gh, gw, chip_smoke.HD**-0.5, 1), 20)
             calls["mlp"] = ("ln_mlp_bf16", cuda_mlp._PROTO["ln_mlp_bf16"], (x, ls, lb, w1, b1, w2, b2, y, b * s, c, m,
                                                                              1e-6, 1), 20)
-            e, slots = cuda_attn._slots_scratch(s, gh, gw, dev, rows=bh * s)
             calls["packed"] = ("attn_packed_bf16", cuda_attn._PACKED_PROTO, (hq, hk_, hv, hrh, hrw, e, hout, bh, s, hd,
                                                                              chip_smoke.HEADS, gh, gw, hd**-0.5), 20)
             calls["bwd"] = ("attn_bwd_bf16", cuda_attn._BWD_PROTO,
@@ -299,7 +305,7 @@ def main() -> int:
             fq, fk, fv, frh, frw, fg = chip_smoke.attn_bwd_inputs(dev, bh, hd=hd, dtype=torch.float32)
             dq, dk, dv = (torch.empty_like(fq) for _ in range(3))
             drh, drw, stats = torch.empty_like(frh), torch.empty_like(frw), torch.empty((3, bh, s), device=dev)
-            calls["attn32"] = ("attn_qkv_rel_f32", cuda_attn._PROTO, (qkv, bias, rh, rw, out, b, s, c, chip_smoke.HEADS,
+            calls["attn32"] = ("attn_qkv_rel_f32", cuda_attn._PROTO, (qkv, bias, rh, rw, None, out, b, s, c, chip_smoke.HEADS,
                                                                       gh, gw, hd**-0.5, 0), 5)
             calls["bwd32"] = ("attn_bwd_f32", cuda_attn._BWD_PROTO,
                               (fq, fk, fv, frh, frw, fg, None, None, dq, dk, dv, drh, drw, stats, bh, s, hd, gh, gw, hd**-0.5), 3)

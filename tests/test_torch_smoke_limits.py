@@ -2,14 +2,16 @@
 plain version, on the CPU: outputs that differ from the plain ones by a bf16
 neighbour at a few elements pass them, and the errors that a kernel with a
 missing part would make (rel terms left out, a slot chunk dropped, the
-padded keys past S left in every row's sum) fail them."""
+padded keys past S left in every row's sum; for the qkv-rel attention, the
+v bias left out) fail them."""
 
 import numpy as np
 import pytest
 import torch
 
 import chip_smoke
-from beach_seg_tpu_torch.ops.attention import attention_packed_plain
+from beach_seg_tpu_torch.ops.attention import attention_packed_plain, rel_tables_padded
+from beach_seg_tpu_torch.ops.cuda_attn import attn_qkv_rel_plain
 
 GRID = chip_smoke.GRID_CROSS
 HEADS, HD = 2, 64
@@ -63,5 +65,38 @@ def test_bf16_forward_limits(case, passes):
         got = _neighbours(want)
     else:
         got = {"no_rel_terms": _no_rel_terms, "dropped_chunk": _dropped_chunk, "padded_keys_in_sums": _padded_keys_in_sums}[case](*args)
+    assert got.dtype == want.dtype == torch.bfloat16 and got.shape == want.shape
+    assert chip_smoke.attn_within(chip_smoke.attn_errors(got, want), torch.bfloat16) is passes
+
+
+def _qkv_rel_inputs(seed=1):
+    rng = np.random.default_rng(seed)
+    gh, gw = GRID
+    r = lambda *shape, sc=1.0: torch.from_numpy(sc * rng.standard_normal(shape, dtype=np.float32))  # noqa: E731
+    qkv4, bias = r(1, gh * gw, 3, HEADS * HD).bfloat16(), r(3, HEADS * HD, sc=0.1).bfloat16()
+    rh, rw = rel_tables_padded(r(2 * gh - 1, HD, sc=0.1), r(2 * gw - 1, HD, sc=0.1), GRID, GRID)
+    return qkv4, bias, rh.bfloat16(), rw.bfloat16()
+
+
+@pytest.mark.parametrize(
+    "case,passes", [("neighbours", True), ("no_v_bias", False), ("no_rel_terms", False), ("dropped_chunk", False)]
+)
+def test_qkv_rel_bf16_limits(case, passes):
+    """The faults of the bf16 qkv-rel kernel that `scripts/ablate_torch_kernels.py
+    check` builds, made in its plain version (clamp softmax, the default):
+    the v bias left out, the rel terms left out, rel_h's slot chunk 1 dropped."""
+    qkv4, bias, rh, rw = _qkv_rel_inputs()
+    call = lambda qkv4, bias, rh, rw: attn_qkv_rel_plain(qkv4, bias, rh, rw, HD**-0.5, GRID[1], HEADS, "clamp")  # noqa: E731
+    want = call(qkv4, bias, rh, rw)
+    if case == "neighbours":
+        got = _neighbours(want)
+    elif case == "no_v_bias":
+        got = call(qkv4, torch.cat([bias[:2], torch.zeros_like(bias[2:])]), rh, rw)
+    elif case == "no_rel_terms":
+        got = call(qkv4, bias, torch.zeros_like(rh), torch.zeros_like(rw))
+    else:
+        rh = rh.clone()
+        rh[:, 16:32] = 0
+        got = call(qkv4, bias, rh, rw)
     assert got.dtype == want.dtype == torch.bfloat16 and got.shape == want.shape
     assert chip_smoke.attn_within(chip_smoke.attn_errors(got, want), torch.bfloat16) is passes
