@@ -1,17 +1,27 @@
 """Fused LN → Lin1 → GELU → Lin2 and its input gradient (counterpart of
 ``pallas_mlp.fused_ln_mlp`` and its custom VJP).
 
-Two CUDA kernels, each with a plain PyTorch version:
+Two kernels, each with a plain PyTorch version:
 
 - :func:`ln_mlp` (``csrc/ln_mlp.cu``) replaces the TPU kernel ``_kernel``
-  (``beach_seg_tpu/ops/pallas_mlp.py:37``). It is compute-bound at ViT-L
-  and ViT-H (4·C·M FLOP per row); the hidden dimension streams through
-  shared memory so the (rows, 4C) activations never reach device memory.
+  (``beach_seg_tpu/ops/pallas_mlp.py:37``): 4·C·M FLOP a row,
+  compute-bound at ViT-L and ViT-H.
 - :func:`ln_mlp_dx` (``csrc/ln_mlp_dx.cu``) replaces ``_kernel_dx``
-  (``pallas_mlp.py:167``): dx only, 6·C·M FLOP per row.
+  (``pallas_mlp.py:167``): dx only, 6·C·M FLOP a row.
 
-Each wrapper launches its kernel for CUDA tensors and takes its plain version
-only for CPU tensors; ``<wrapper>.launches`` counts kernel launches.
+For C a multiple of 256 each is a chain of stage kernels: row passes and
+warp-specialized TMA + wgmma products (``csrc/gemm_sm90.cuh``), the
+intermediates in device memory at the precision the TPU kernel gives them
+(ln, h, dh bf16; dln fp32). Every stage has a public wrapper and a plain
+twin (``ln_rows``, ``lin1_gelu``, ``lin2``, ``dual_dh``, ``dln``,
+``ln_vjp``), and the two plain versions are those chains. C = 64 or 128 (the
+debug backbone) takes one narrow SIMT kernel each.
+
+Each wrapper launches for CUDA tensors and takes its plain version only for
+CPU tensors; ``<wrapper>.launches`` counts its kernel launches
+(``ln_mlp.launches`` and ``ln_mlp_dx.launches`` one a call, the stage
+wrappers' one a stage kernel, from either path). The wrappers allocate
+every output and scratch; a build or launch error raises.
 :func:`fused_ln_mlp` is the differentiable entry the model calls.
 """
 
@@ -25,8 +35,23 @@ from beach_seg_tpu_torch.ops import build
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_PROTO = {"ln_mlp_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _P]}
-_DX_PROTO = {"ln_mlp_dx_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _P]}
+_F = ctypes.c_float
+_LN_ROWS = {"mlp_ln_rows_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _P]}
+_NARROW = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P]
+_PROTO = {
+    **_LN_ROWS,
+    "mlp_lin1_gelu_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "mlp_lin2_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "ln_mlp_narrow_bf16": _NARROW,
+}
+_DX_PROTO = {
+    **_LN_ROWS,
+    "mlp_dual_dh_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "mlp_dln_f32": [_P, _P, _P, _I, _I, _I, _P],
+    "mlp_ln_vjp_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "ln_mlp_dx_narrow_bf16": _NARROW,
+}
+NARROW_C = (64, 128)
 
 
 def _gelu_f32(h: torch.Tensor, approx: bool) -> torch.Tensor:
@@ -35,67 +60,6 @@ def _gelu_f32(h: torch.Tensor, approx: bool) -> torch.Tensor:
         k = 0.7978845608028654  # sqrt(2/pi)
         return h * (0.5 * (1.0 + torch.tanh(k * (h + 0.044715 * h**3))))
     return 0.5 * h * torch.erfc(-h * 0.7071067811865476)
-
-
-def ln_mlp_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float, approx: bool) -> torch.Tensor:
-    """The kernel's function in plain PyTorch with the TPU kernel's rounding
-    points (``pallas_mlp.py:38-50``): LN in fp32 rounded to x's dtype, both
-    products accumulated in fp32, GELU in fp32 rounded to x's dtype."""
-    dt = x.dtype
-    xf = x.float()
-    mean = xf.mean(-1, keepdim=True)
-    var = ((xf - mean) ** 2).mean(-1, keepdim=True)
-    ln = ((xf - mean) * torch.rsqrt(var + eps) * ln_scale.float() + ln_bias.float()).to(dt)
-    h = ln.float() @ w1.float() + b1.float()
-    h = _gelu_f32(h, approx).to(dt)
-    y = h.float() @ w2.float() + b2.float()
-    return y.to(dt)
-
-
-def _check_kernel_args(what, x, ln_scale, ln_bias, w1, b1, w2, last):
-    """The checks both kernels share; ``last`` is (name, tensor, dtype,
-    shape) of the seventh argument (b2 or g)."""
-    c = x.shape[-1]
-    m = w1.shape[-1]
-    if (c % 256 and c not in (64, 128)) or c > 1280 or m % 128:
-        raise ValueError(f"{what} kernel needs C % 256 == 0 (or C 64 or 128), C <= 1280 and M % 128 == 0, got C={c}, M={m}")
-    want = (
-        ("x", x, torch.bfloat16, None), ("ln_scale", ln_scale, torch.float32, (c,)),
-        ("ln_bias", ln_bias, torch.float32, (c,)), ("w1", w1, torch.bfloat16, (c, m)),
-        ("b1", b1, torch.bfloat16, (m,)), ("w2", w2, torch.bfloat16, (m, c)), last,
-    )
-    for name, t, dt, shape in want:
-        if t.device != x.device or t.dtype != dt or (shape is not None and tuple(t.shape) != shape):
-            raise ValueError(f"{name}: want {shape or 'any shape'} {dt} on {x.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
-        if not t.is_contiguous() or t.data_ptr() % 32:
-            raise ValueError(f"{what} kernel needs contiguous, 32-byte aligned inputs ({name})")
-    return c, m
-
-
-def ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float, approx: bool) -> torch.Tensor:
-    """LN → Lin1 → GELU → Lin2 on (..., C) input; returns the MLP output (no
-    residual). CUDA tensors launch the kernel (bf16 x and weights, fp32 LN
-    params, C % 256 == 0, C ≤ 1280, M % 128 == 0); CPU tensors take the
-    plain version."""
-    if x.device.type == "cpu":
-        return ln_mlp_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, eps, approx)
-    if x.device.type != "cuda":
-        raise ValueError(f"ln_mlp takes CPU or CUDA tensors, got {x.device}")
-    c, m = _check_kernel_args("ln_mlp", x, ln_scale, ln_bias, w1, b1, w2, ("b2", b2, torch.bfloat16, (x.shape[-1],)))
-    lib = build.load("ln_mlp", _PROTO)
-    n = x.numel() // c
-    out = torch.empty_like(x)
-    err = lib.ln_mlp_bf16(
-        x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-        w2.data_ptr(), b2.data_ptr(), out.data_ptr(), n, c, m, float(eps), int(approx),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    build.check(err, "ln_mlp launch")
-    ln_mlp.launches += 1
-    return out
-
-
-ln_mlp.launches = 0
 
 
 def _gelu_grad_f32(h: torch.Tensor, approx: bool) -> torch.Tensor:
@@ -107,52 +71,313 @@ def _gelu_grad_f32(h: torch.Tensor, approx: bool) -> torch.Tensor:
     return 0.5 * (1.0 + torch.erf(h * 0.7071067811865476)) + h * torch.exp(-0.5 * h * h) * 0.3989422804014327
 
 
-def ln_mlp_dx_plain(x, ln_scale, ln_bias, w1, b1, w2, g, eps: float, approx: bool) -> torch.Tensor:
-    """dx of :func:`ln_mlp_plain` for output cotangent ``g``, with the TPU
-    kernel's rounding points (``pallas_mlp.py:173-199``): LN in fp32 rounded
-    to x's dtype before ·w1; hpre = ln·w1 + b1 and gelu′ in fp32;
-    dh = (g·w2ᵀ)∘gelu′ rounded before ·w1ᵀ; dln and the LN VJP in fp32; dx
-    rounded to x's dtype."""
-    dt = x.dtype
+# ------------------------------------------------------------- plain stages
+
+
+def ln_rows_plain(x, ln_scale, ln_bias, eps: float):
+    """LN with fp32 two-pass statistics, rounded to x's dtype; returns (ln,
+    mean, rstd), mean and rstd fp32 of shape ``x.shape[:-1]``."""
     xf = x.float()
-    ls = ln_scale.float()
     mean = xf.mean(-1, keepdim=True)
     var = ((xf - mean) ** 2).mean(-1, keepdim=True)
     rstd = torch.rsqrt(var + eps)
-    xhat = (xf - mean) * rstd
-    ln = (xhat * ls + ln_bias.float()).to(dt)
+    ln = ((xf - mean) * rstd * ln_scale.float() + ln_bias.float()).to(x.dtype)
+    return ln, mean[..., 0], rstd[..., 0]
+
+
+def lin1_gelu_plain(ln, w1, b1, approx: bool):
+    """h = gelu(ln·w1 + b1): fp32 product and GELU, rounded to ln's dtype."""
+    return _gelu_f32(ln.float() @ w1.float() + b1.float(), approx).to(ln.dtype)
+
+
+def lin2_plain(h, w2, b2):
+    """out = h·w2 + b2 in fp32, rounded to h's dtype."""
+    return (h.float() @ w2.float() + b2.float()).to(h.dtype)
+
+
+def dual_dh_plain(ln, g, w1, b1, w2, approx: bool):
+    """dh = (g·w2ᵀ) ∘ gelu′(ln·w1 + b1) in fp32, rounded to ln's dtype."""
     hpre = ln.float() @ w1.float() + b1.float()
-    dh = (g.float() @ w2.float().transpose(0, 1)) * _gelu_grad_f32(hpre, approx)
-    dln = dh.to(dt).float() @ w1.float().transpose(0, 1)
-    dxhat = dln * ls
+    return ((g.float() @ w2.float().transpose(0, 1)) * _gelu_grad_f32(hpre, approx)).to(ln.dtype)
+
+
+def dln_plain(dh, w1):
+    """dln = dh·w1ᵀ in fp32 (not rounded)."""
+    return dh.float() @ w1.float().transpose(0, 1)
+
+
+def ln_vjp_plain(dln, x, ln_scale, mean, rstd):
+    """The LN VJP in fp32 from dln, rounded to x's dtype."""
+    mean, rstd = mean[..., None], rstd[..., None]
+    xhat = (x.float() - mean) * rstd
+    dxhat = dln * ln_scale.float()
     c = x.shape[-1]
     dx = (dxhat - dxhat.mean(-1, keepdim=True) - xhat * (dxhat * xhat).sum(-1, keepdim=True) / c) * rstd
-    return dx.to(dt)
+    return dx.to(x.dtype)
+
+
+def ln_mlp_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float, approx: bool) -> torch.Tensor:
+    """The kernel's function in plain PyTorch with the TPU kernel's rounding
+    points (``pallas_mlp.py:38-50``), as the chain of its stages: LN in fp32
+    rounded to x's dtype, both products accumulated in fp32, GELU in fp32
+    rounded to x's dtype."""
+    ln, _, _ = ln_rows_plain(x, ln_scale, ln_bias, eps)
+    return lin2_plain(lin1_gelu_plain(ln, w1, b1, approx), w2, b2)
+
+
+def ln_mlp_dx_plain(x, ln_scale, ln_bias, w1, b1, w2, g, eps: float, approx: bool) -> torch.Tensor:
+    """dx of :func:`ln_mlp_plain` for output cotangent ``g``, with the TPU
+    kernel's rounding points (``pallas_mlp.py:173-199``), as the chain of its
+    stages: LN in fp32 rounded to x's dtype before ·w1; hpre = ln·w1 + b1 and
+    gelu′ in fp32; dh = (g·w2ᵀ)∘gelu′ rounded before ·w1ᵀ; dln and the LN VJP
+    in fp32; dx rounded to x's dtype."""
+    ln, mean, rstd = ln_rows_plain(x, ln_scale, ln_bias, eps)
+    dh = dual_dh_plain(ln, g, w1, b1, w2, approx)
+    return ln_vjp_plain(dln_plain(dh, w1), x, ln_scale, mean, rstd)
+
+
+# ------------------------------------------------------------ device stages
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _need(what: str, device, *specs) -> None:
+    """Each (name, tensor, dtype, shape) on ``device``, of that dtype and
+    shape (None: any), contiguous and 32-byte aligned, or raise."""
+    for name, t, dt, shape in specs:
+        if t.device != device or t.dtype != dt or (shape is not None and tuple(t.shape) != tuple(shape)):
+            raise ValueError(f"{what}: {name} wants {shape or 'any shape'} {dt} on {device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+        if not t.is_contiguous() or t.data_ptr() % 32:
+            raise ValueError(f"{what} kernel needs contiguous, 32-byte aligned inputs ({name})")
+
+
+def _cuda_or_cpu(what: str, t: torch.Tensor) -> bool:
+    """True for CUDA tensors; False for CPU ones (the plain version); raise otherwise."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} takes CPU or CUDA tensors, got {t.device}")
+    return t.device.type == "cuda"
+
+
+def _launch_ln_rows(lib, x, ln_scale, ln_bias, eps):
+    c = x.shape[-1]
+    n = x.numel() // c
+    ln = torch.empty_like(x)
+    mean = torch.empty(x.shape[:-1], device=x.device)
+    rstd = torch.empty_like(mean)
+    err = lib.mlp_ln_rows_bf16(x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), ln.data_ptr(), mean.data_ptr(),
+                               rstd.data_ptr(), n, c, float(eps), _stream(x))
+    build.check(err, "ln_rows launch")
+    ln_rows.launches += 1
+    return ln, mean, rstd
+
+
+def _launch_lin1_gelu(lib, ln, w1, b1, approx):
+    c, m = w1.shape
+    h = torch.empty((*ln.shape[:-1], m), device=ln.device, dtype=ln.dtype)
+    err = lib.mlp_lin1_gelu_bf16(ln.data_ptr(), w1.data_ptr(), b1.data_ptr(), h.data_ptr(), ln.numel() // c, c, m,
+                                 int(approx), _stream(ln))
+    build.check(err, "lin1_gelu launch")
+    lin1_gelu.launches += 1
+    return h
+
+
+def _launch_lin2(lib, h, w2, b2):
+    m, c = w2.shape
+    out = torch.empty((*h.shape[:-1], c), device=h.device, dtype=h.dtype)
+    err = lib.mlp_lin2_bf16(h.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(), h.numel() // m, m, c, _stream(h))
+    build.check(err, "lin2 launch")
+    lin2.launches += 1
+    return out
+
+
+def _launch_dual_dh(lib, ln, g, w1, b1, w2, approx):
+    c, m = w1.shape
+    dh = torch.empty((*ln.shape[:-1], m), device=ln.device, dtype=ln.dtype)
+    err = lib.mlp_dual_dh_bf16(ln.data_ptr(), g.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), dh.data_ptr(),
+                               ln.numel() // c, c, m, int(approx), _stream(ln))
+    build.check(err, "dual_dh launch")
+    dual_dh.launches += 1
+    return dh
+
+
+def _launch_dln(lib, dh, w1):
+    c, m = w1.shape
+    out = torch.empty((*dh.shape[:-1], c), device=dh.device)
+    err = lib.mlp_dln_f32(dh.data_ptr(), w1.data_ptr(), out.data_ptr(), dh.numel() // m, m, c, _stream(dh))
+    build.check(err, "dln launch")
+    dln.launches += 1
+    return out
+
+
+def _launch_ln_vjp(lib, dln_, x, ln_scale, mean, rstd):
+    c = x.shape[-1]
+    dx = torch.empty_like(x)
+    err = lib.mlp_ln_vjp_bf16(dln_.data_ptr(), x.data_ptr(), ln_scale.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+                              dx.data_ptr(), x.numel() // c, c, _stream(x))
+    build.check(err, "ln_vjp launch")
+    ln_vjp.launches += 1
+    return dx
+
+
+def _check_width(what: str, c: int, m: int = 128, narrow: bool = True) -> None:
+    if (c % 256 and not (narrow and c in NARROW_C)) or c > 1280 or m % 128:
+        want = "C % 256 == 0 (or C 64 or 128)" if narrow else "C % 256 == 0"
+        raise ValueError(f"{what} kernel needs {want}, C <= 1280 and M % 128 == 0, got C={c}, M={m}")
+
+
+def ln_rows(x, ln_scale, ln_bias, eps: float):
+    """Stage 1 of both kernels: (ln, mean, rstd) as :func:`ln_rows_plain`.
+    CUDA: bf16 x, fp32 LN params, C % 256 == 0, C ≤ 1280."""
+    if not _cuda_or_cpu("ln_rows", x):
+        return ln_rows_plain(x, ln_scale, ln_bias, eps)
+    c = x.shape[-1]
+    _check_width("ln_rows", c, narrow=False)
+    _need("ln_rows", x.device, ("x", x, torch.bfloat16, None), ("ln_scale", ln_scale, torch.float32, (c,)),
+          ("ln_bias", ln_bias, torch.float32, (c,)))
+    return _launch_ln_rows(build.load("ln_mlp", _PROTO), x, ln_scale, ln_bias, eps)
+
+
+def lin1_gelu(ln, w1, b1, approx: bool):
+    """Stage 2 of :func:`ln_mlp` as :func:`lin1_gelu_plain`; CUDA: bf16, w1 (C, M) as stored."""
+    if not _cuda_or_cpu("lin1_gelu", ln):
+        return lin1_gelu_plain(ln, w1, b1, approx)
+    c, m = w1.shape
+    _check_width("lin1_gelu", c, m, narrow=False)
+    _need("lin1_gelu", ln.device, ("ln", ln, torch.bfloat16, None), ("w1", w1, torch.bfloat16, (c, m)),
+          ("b1", b1, torch.bfloat16, (m,)))
+    if ln.shape[-1] != c:
+        raise ValueError(f"lin1_gelu: ln has {ln.shape[-1]} channels, w1 {c}")
+    return _launch_lin1_gelu(build.load("ln_mlp", _PROTO), ln, w1, b1, approx)
+
+
+def lin2(h, w2, b2):
+    """Stage 3 of :func:`ln_mlp` as :func:`lin2_plain`; CUDA: bf16, w2 (M, C) as stored."""
+    if not _cuda_or_cpu("lin2", h):
+        return lin2_plain(h, w2, b2)
+    m, c = w2.shape
+    _check_width("lin2", c, m, narrow=False)
+    _need("lin2", h.device, ("h", h, torch.bfloat16, None), ("w2", w2, torch.bfloat16, (m, c)),
+          ("b2", b2, torch.bfloat16, (c,)))
+    if h.shape[-1] != m:
+        raise ValueError(f"lin2: h has {h.shape[-1]} units, w2 {m}")
+    return _launch_lin2(build.load("ln_mlp", _PROTO), h, w2, b2)
+
+
+def dual_dh(ln, g, w1, b1, w2, approx: bool):
+    """Stage 2 of :func:`ln_mlp_dx` as :func:`dual_dh_plain`; CUDA: bf16, w1 and w2 as stored."""
+    if not _cuda_or_cpu("dual_dh", ln):
+        return dual_dh_plain(ln, g, w1, b1, w2, approx)
+    c, m = w1.shape
+    _check_width("dual_dh", c, m, narrow=False)
+    _need("dual_dh", ln.device, ("ln", ln, torch.bfloat16, None), ("g", g, torch.bfloat16, tuple(ln.shape)),
+          ("w1", w1, torch.bfloat16, (c, m)), ("b1", b1, torch.bfloat16, (m,)), ("w2", w2, torch.bfloat16, (m, c)))
+    if ln.shape[-1] != c:
+        raise ValueError(f"dual_dh: ln has {ln.shape[-1]} channels, w1 {c}")
+    return _launch_dual_dh(build.load("ln_mlp_dx", _DX_PROTO), ln, g, w1, b1, w2, approx)
+
+
+def dln(dh, w1):
+    """Stage 3 of :func:`ln_mlp_dx` as :func:`dln_plain`; CUDA: bf16 dh, w1 (C, M) as stored, fp32 out."""
+    if not _cuda_or_cpu("dln", dh):
+        return dln_plain(dh, w1)
+    c, m = w1.shape
+    _check_width("dln", c, m, narrow=False)
+    _need("dln", dh.device, ("dh", dh, torch.bfloat16, None), ("w1", w1, torch.bfloat16, (c, m)))
+    if dh.shape[-1] != m:
+        raise ValueError(f"dln: dh has {dh.shape[-1]} units, w1 {m}")
+    return _launch_dln(build.load("ln_mlp_dx", _DX_PROTO), dh, w1)
+
+
+def ln_vjp(dln_, x, ln_scale, mean, rstd):
+    """Stage 4 of :func:`ln_mlp_dx` as :func:`ln_vjp_plain`; CUDA: fp32 dln, bf16 x, fp32 statistics."""
+    if not _cuda_or_cpu("ln_vjp", x):
+        return ln_vjp_plain(dln_, x, ln_scale, mean, rstd)
+    c = x.shape[-1]
+    _check_width("ln_vjp", c, narrow=False)
+    _need("ln_vjp", x.device, ("dln", dln_, torch.float32, tuple(x.shape)), ("x", x, torch.bfloat16, None),
+          ("ln_scale", ln_scale, torch.float32, (c,)), ("mean", mean, torch.float32, tuple(x.shape[:-1])),
+          ("rstd", rstd, torch.float32, tuple(x.shape[:-1])))
+    return _launch_ln_vjp(build.load("ln_mlp_dx", _DX_PROTO), dln_, x, ln_scale, mean, rstd)
+
+
+for _fn in (ln_rows, lin1_gelu, lin2, dual_dh, dln, ln_vjp):
+    _fn.launches = 0
+
+# ----------------------------------------------------------------- the pair
+
+
+def _check_kernel_args(what, x, ln_scale, ln_bias, w1, b1, w2, last):
+    """The checks both kernels share; ``last`` is (name, tensor, dtype,
+    shape) of the seventh argument (b2 or g)."""
+    c = x.shape[-1]
+    m = w1.shape[-1]
+    _check_width(what, c, m)
+    _need(what, x.device, ("x", x, torch.bfloat16, None), ("ln_scale", ln_scale, torch.float32, (c,)),
+          ("ln_bias", ln_bias, torch.float32, (c,)), ("w1", w1, torch.bfloat16, (c, m)),
+          ("b1", b1, torch.bfloat16, (m,)), ("w2", w2, torch.bfloat16, (m, c)), last)
+    return c, m
+
+
+def _narrow(lib, entry, x, ln_scale, ln_bias, w1, b1, w2, last, eps, approx):
+    c, m = w1.shape
+    out = torch.empty_like(x)
+    err = getattr(lib, entry)(x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+                              w2.data_ptr(), last.data_ptr(), out.data_ptr(), x.numel() // c, c, m, float(eps),
+                              int(approx), _stream(x))
+    build.check(err, f"{entry} launch")
+    return out
+
+
+def ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float, approx: bool) -> torch.Tensor:
+    """LN → Lin1 → GELU → Lin2 on (..., C) input; returns the MLP output (no
+    residual). CUDA tensors launch the kernels (bf16 x and weights, fp32 LN
+    params, C % 256 == 0 or C 64 / 128, C ≤ 1280, M % 128 == 0): three stage
+    kernels, or the narrow one; CPU tensors take the plain version."""
+    if not _cuda_or_cpu("ln_mlp", x):
+        return ln_mlp_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, eps, approx)
+    c, _ = _check_kernel_args("ln_mlp", x, ln_scale, ln_bias, w1, b1, w2, ("b2", b2, torch.bfloat16, (x.shape[-1],)))
+    lib = build.load("ln_mlp", _PROTO)
+    if x.numel() == 0:
+        out = torch.empty_like(x)
+    elif c in NARROW_C:
+        out = _narrow(lib, "ln_mlp_narrow_bf16", x, ln_scale, ln_bias, w1, b1, w2, b2, eps, approx)
+    else:
+        ln, _, _ = _launch_ln_rows(lib, x, ln_scale, ln_bias, eps)
+        out = _launch_lin2(lib, _launch_lin1_gelu(lib, ln, w1, b1, approx), w2, b2)
+    ln_mlp.launches += 1
+    return out
+
+
+ln_mlp.launches = 0
 
 
 def ln_mlp_dx(x, ln_scale, ln_bias, w1, b1, w2, g, eps: float, approx: bool) -> torch.Tensor:
     """Same contract as :func:`ln_mlp_dx_plain`. CUDA tensors launch the
-    kernel (the forward kernel's dtypes and widths, g like x); CPU tensors
-    take the plain version."""
-    if x.device.type == "cpu":
+    kernels (the forward's dtypes and widths, g like x): four stage kernels,
+    or the narrow one; CPU tensors take the plain version."""
+    if not _cuda_or_cpu("ln_mlp_dx", x):
         return ln_mlp_dx_plain(x, ln_scale, ln_bias, w1, b1, w2, g, eps, approx)
-    if x.device.type != "cuda":
-        raise ValueError(f"ln_mlp_dx takes CPU or CUDA tensors, got {x.device}")
-    c, m = _check_kernel_args("ln_mlp_dx", x, ln_scale, ln_bias, w1, b1, w2, ("g", g, torch.bfloat16, tuple(x.shape)))
+    c, _ = _check_kernel_args("ln_mlp_dx", x, ln_scale, ln_bias, w1, b1, w2, ("g", g, torch.bfloat16, tuple(x.shape)))
     lib = build.load("ln_mlp_dx", _DX_PROTO)
-    n = x.numel() // c
-    dx = torch.empty_like(x)
-    err = lib.ln_mlp_dx_bf16(
-        x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-        w2.data_ptr(), g.data_ptr(), dx.data_ptr(), n, c, m, float(eps), int(approx),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    build.check(err, "ln_mlp_dx launch")
+    if x.numel() == 0:
+        dx = torch.empty_like(x)
+    elif c in NARROW_C:
+        dx = _narrow(lib, "ln_mlp_dx_narrow_bf16", x, ln_scale, ln_bias, w1, b1, w2, g, eps, approx)
+    else:
+        ln, mean, rstd = _launch_ln_rows(lib, x, ln_scale, ln_bias, eps)
+        dh = _launch_dual_dh(lib, ln, g, w1, b1, w2, approx)
+        del ln
+        dx = _launch_ln_vjp(lib, _launch_dln(lib, dh, w1), x, ln_scale, mean, rstd)
     ln_mlp_dx.launches += 1
     return dx
 
 
 ln_mlp_dx.launches = 0
+
+# device launches a call of ln_mlp / ln_mlp_dx at C % 256 == 0
+DEVICE_LAUNCHES = {"ln_mlp": 3, "ln_mlp_dx": 4}
 
 
 class _LnMlp(torch.autograd.Function):

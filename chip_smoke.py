@@ -13,14 +13,19 @@ Phases (any failure exits non-zero before the result lines):
      attention, scaled_dot_product_attention with the materialized bias (a
      yardstick the port never calls); the qkv-rel attention in bf16 in all
      three softmax modes (stable, clamp: the default, timed; fast) and in
-     fp32 (the instance phase 12 runs);
+     fp32 (the instance phase 12 runs); the LN→MLP is held to a largest
+     error and an error norm (MLP_BF16_REL_TOL, MLP_NORM_TOL) and timed
+     beside the bf16 chain of PyTorch calls (F.layer_norm → addmm → GELU →
+     addmm, chain_ms, a yardstick the port never calls);
   4. the same for the two backward kernels (attention backward at B·H=128,
      LN→MLP dx at 12544 rows); the attention yardstick is SDPA's backward
-     with the bias as a mask that takes a gradient;
+     with the bias as a mask that takes a gradient, the MLP's the chain's
+     autograd dx;
   5. the predict path: full-width ViT-L (24 layers, seeded random weights,
      bf16) through PromptTuner.predict_step on 3 batches of 8 uint8 112×112
      crops; ids checked for shape, dtype and range; the launch counters must
-     rise by 24 attention and 24 MLP launches per call and the backward
+     rise by 24 attention and 24 MLP launches per call (and 24 of each of
+     the MLP's stage kernels ln_rows, lin1_gelu, lin2) and the backward
      kernels stay idle; pred_masks of one batch held against the same
      forward through the plain versions on the card;
   6. the train path: the same model through PromptTuner.train_step, 3 steps
@@ -34,7 +39,10 @@ Phases (any failure exits non-zero before the result lines):
      80, M=5120): the packed attention (bf16 and fp32, yardstick SDPA with
      the materialized bias), the attention backward at head_dim 80
      (yardstick SDPA's backward), the LN→MLP and its dx at C=1280, each
-     against its plain version on the card, then timed;
+     against its plain version on the card, then timed; then each stage
+     kernel of the two MLP kernels (ln_rows, lin1_gelu, lin2, dual_dh, dln,
+     ln_vjp) against its stage plain version at the ViT-L and ViT-H B=8
+     shapes (then timed) and at a ragged N = S + 9 rows;
   8. the ViT-H predict path: model_for_config(backbone="huge", bf16) at full
      width (32 layers, seeded random weights) through predict_step on 3
      batches of 8 crops, 32 packed-attention and 32 MLP launches per call,
@@ -145,6 +153,21 @@ ATTN_BF16_NORM_TOL = BF16_EPS
 ATTN_FP32_TOL = 1e-4
 # MLP bf16: four bf16 steps of the output's scale
 MLP_BF16_REL_TOL = 4 * BF16_EPS
+# and the error's norm within one rounding step of the output's
+# (BF16_EPS·‖plain‖), for #2, #5 and each of their stage kernels: ln, h and
+# dh are rounded at the same points as in the plain versions, so intact
+# kernels differ by a neighbour at a few elements (error norms 4.0e-4 to
+# 6.8e-4 of the output's for #2 and #5 at C=1024 and 1280, N=45 to 12544, on
+# an H100), while a 64-channel K tile or a 128-unit hidden tile left out, or
+# gelu' or the LN VJP's xhat term left out, moves every row it reaches
+# (scripts/ablate_torch_kernels.py check)
+MLP_NORM_TOL = BF16_EPS
+# the stage kernels behind #2 and #5 at C % 256 == 0
+MLP_STAGES = ("ln_rows", "lin1_gelu", "lin2", "dual_dh", "dln", "ln_vjp")
+# the design of #2 and #5 at C % 256 == 0 (gemm_sm90.cuh)
+MLP_DESIGN = ("row passes and warp-specialized products: TMA (128-byte swizzle) into a 4-6 stage mbarrier ring, "
+              "one producer warp, two consumer warpgroups of wgmma m64nNk16 (128 x 256 or 2 x 128 x 128 tiles), "
+              "intermediates in device memory at the TPU kernel's precisions")
 # attention backward, kernel vs plain: p (for dV) and dS (for dQ, dK) are bf16
 # mma operands in the kernel (fp32 in the plain version), a relative 2^-9 per
 # term; dq is rounded to bf16 too: 1% of each output's scale. drh/drw are
@@ -185,15 +208,24 @@ ID_AGREEMENT_MIN = 0.98
 
 
 def counters():
-    """The launch-counting wrappers, by kernel name."""
+    """The launch-counting wrappers, by kernel name (ln_mlp and ln_mlp_dx
+    count calls; their stage wrappers count stage-kernel launches)."""
     from beach_seg_tpu_torch.ops import cuda_attn, cuda_mlp
 
     return {
         "attn_qkv_rel": cuda_attn.attn_qkv_rel, "ln_mlp": cuda_mlp.ln_mlp,
         "attn_bwd": cuda_attn.attn_bwd, "ln_mlp_dx": cuda_mlp.ln_mlp_dx,
         "attn_packed": cuda_attn.attn_packed, "attn_fused": cuda_attn.attn_fused,
-        "attn_qkv": cuda_attn.attn_qkv,
+        "attn_qkv": cuda_attn.attn_qkv, **{name: getattr(cuda_mlp, name) for name in MLP_STAGES},
     }
+
+
+def with_stages(expect: dict) -> dict:
+    """``expect`` (launches a call or step) with the stage kernels that its
+    ln_mlp and ln_mlp_dx calls launch at C % 256 == 0."""
+    f, b = expect.get("ln_mlp", 0), expect.get("ln_mlp_dx", 0)
+    stages = {"ln_rows": f + b, "lin1_gelu": f, "lin2": f, "dual_dh": b, "dln": b, "ln_vjp": b}
+    return {**expect, **{k: v for k, v in stages.items() if v}}
 
 
 def reset_counts() -> None:
@@ -336,30 +368,124 @@ def bwd_out_check(name: str, got, want, fp32: bool) -> dict:
 
 def mlp_inputs(device, seed: int, n: int, c: int, m: int):
     """x, LN scale and bias, W1, b1, W2, b2 and an output cotangent g for n
-    rows of width c and m hidden units, seeded."""
+    rows of width c and m hidden units, seeded; x and g (B, n / B, c), or
+    (n, c) where B does not divide n."""
     g = torch.Generator(device=device).manual_seed(seed)
     rnd = lambda *shape: torch.randn(shape, generator=g, device=device)  # noqa: E731
     bf = torch.bfloat16
+    rows = (B, n // B) if n % B == 0 else (n,)
     return (
-        rnd(B, n // B, c).to(bf), 1 + 0.1 * rnd(c), 0.1 * rnd(c), (rnd(c, m) / c**0.5).to(bf),
-        (0.1 * rnd(m)).to(bf), (rnd(m, c) / m**0.5).to(bf), (0.1 * rnd(c)).to(bf), rnd(B, n // B, c).to(bf),
+        rnd(*rows, c).to(bf), 1 + 0.1 * rnd(c), 0.1 * rnd(c), (rnd(c, m) / c**0.5).to(bf),
+        (0.1 * rnd(m)).to(bf), (rnd(m, c) / m**0.5).to(bf), (0.1 * rnd(c)).to(bf), rnd(*rows, c).to(bf),
     )
+
+
+def mlp_within(e: dict, tol_rel: float) -> bool:
+    """Whether ``attn_errors``' readings of an MLP kernel or stage meet its
+    limits: the largest error within ``tol_rel`` of max|plain|, the error's
+    norm within MLP_NORM_TOL of the output's."""
+    return e["err"] <= tol_rel * e["scale"] and e["norm"] <= MLP_NORM_TOL
+
+
+def mlp_out_check(name: str, got: torch.Tensor, want: torch.Tensor, tol_rel: float) -> dict:
+    """An MLP kernel's or stage's output against its plain version: finite,
+    within ``mlp_within``'s limits. Returns the readings."""
+    check(tuple(got.shape) == tuple(want.shape) and got.dtype == want.dtype, f"{name}: {got.shape} {got.dtype}")
+    check(bool(torch.isfinite(got).all()), f"{name} output not finite")
+    e = attn_errors(got, want)
+    log(f"{name}: max_abs_err {e['err']:.3e} (tol {tol_rel * e['scale']:.3e} = {tol_rel:.4f}·max|plain| {e['scale']:.3f}); "
+        f"error norm {e['norm']:.3e} of the output's (tol {MLP_NORM_TOL:.3e})")
+    check(mlp_within(e, tol_rel), f"{name} disagrees with its plain version: {e}")
+    return e
+
+
+def mlp_chain_yardstick(x, ln_scale, ln_bias, w1, b1, w2, b2, g=None):
+    """A chain of bf16 PyTorch calls computing the same function, which the
+    port never calls: F.layer_norm → addmm → GELU (tanh form) → addmm
+    (cuBLAS), or, given ``g``, its autograd dx. Returns a closure over
+    prepared inputs (the backward over a retained graph)."""
+    from torch.nn import functional as F
+
+    c = x.shape[-1]
+    x2 = x.reshape(-1, c).detach().requires_grad_(g is not None)
+    lsb, lbb = ln_scale.to(x.dtype), ln_bias.to(x.dtype)
+    b2 = torch.zeros(c, dtype=x.dtype, device=x.device) if b2 is None else b2  # dx does not depend on it
+
+    def chain():
+        ln = F.layer_norm(x2, (c,), lsb, lbb, 1e-6)
+        return torch.addmm(b2, F.gelu(torch.addmm(b1, ln, w1), approximate="tanh"), w2)
+
+    if g is None:
+        return chain
+    out, g2 = chain(), g.reshape(-1, c)
+    return lambda: torch.autograd.grad(out, x2, g2, retain_graph=True)
 
 
 def mlp_check(key: str, fn, plain, args, tol_rel: float, where: str) -> dict:
     """An MLP kernel (``ln_mlp`` or ``ln_mlp_dx``) against its plain version
-    within ``tol_rel`` of the output's scale, then both timed."""
+    with ``mlp_within``'s limits, then it, the plain version and the bf16
+    chain of PyTorch calls timed."""
     got = fn(*args)
     torch.cuda.synchronize()
-    want = plain(*args)
-    err = (got.float() - want.float()).abs().max().item()
-    scale = want.float().abs().max().item()
-    log(f"{fn.__name__} bf16{where}: max_abs_err {err:.3e} (tol {tol_rel * scale:.3e} = {tol_rel:.4f}·max|plain| {scale:.3f})")
-    check(bool(torch.isfinite(got).all()), f"{fn.__name__}{where} kernel output not finite")
-    check(err <= tol_rel * scale, f"{fn.__name__}{where} kernel disagrees with its plain version: {err}")
-    del got, want
-    return {f"{key}_err": err, f"{key}_ms": time_ms(lambda: fn(*args), iters=10, warmup=2),
-            f"{key}_plain_ms": time_ms(lambda: plain(*args), iters=3)}
+    e = mlp_out_check(f"{fn.__name__} bf16{where}", got, plain(*args), tol_rel)
+    del got
+    dx = fn.__name__ == "ln_mlp_dx"
+    chain = mlp_chain_yardstick(*args[:6], None if dx else args[6], args[6] if dx else None)
+    res = {f"{key}_err": e["err"], f"{key}_norm": e["norm"], f"{key}_ms": time_ms(lambda: fn(*args), iters=10, warmup=2),
+           f"{key}_plain_ms": time_ms(lambda: plain(*args), iters=3), f"{key}_chain_ms": time_ms(chain, iters=10, warmup=2)}
+    del chain
+    return res
+
+
+def mlp_stage_check(device, n: int, c: int, m: int, seed: int, timed: bool) -> dict:
+    """Each stage kernel of #2 and #5 against its stage plain version on the
+    plain chain's own intermediates, with ``mlp_within``'s limits (the LN
+    statistics and dln in fp32 too); then, if ``timed``, each kernel's ms."""
+    from beach_seg_tpu_torch.ops import cuda_mlp as M
+
+    x, ls, lb, w1, b1, w2, b2, gy = mlp_inputs(device, seed, n, c, m)
+    ln, mean, rstd = M.ln_rows_plain(x, ls, lb, 1e-6)
+    h = M.lin1_gelu_plain(ln, w1, b1, True)
+    dh = M.dual_dh_plain(ln, gy, w1, b1, w2, True)
+    dln = M.dln_plain(dh, w1)
+    calls = {
+        "ln_rows": (lambda: M.ln_rows(x, ls, lb, 1e-6), (ln, mean, rstd)),
+        "lin1_gelu": (lambda: M.lin1_gelu(ln, w1, b1, True), h),
+        "lin2": (lambda: M.lin2(h, w2, b2), M.lin2_plain(h, w2, b2)),
+        "dual_dh": (lambda: M.dual_dh(ln, gy, w1, b1, w2, True), dh),
+        "dln": (lambda: M.dln(dh, w1), dln),
+        "ln_vjp": (lambda: M.ln_vjp(dln, x, ls, mean, rstd), M.ln_vjp_plain(dln, x, ls, mean, rstd)),
+    }
+    res = {}
+    for name, (fn, want) in calls.items():
+        got = fn()
+        torch.cuda.synchronize()
+        pairs = zip(("", " mean", " rstd"), got, want) if name == "ln_rows" else [("", got, want)]
+        for part, gt, wt in pairs:
+            e = mlp_out_check(f"{name}{part} (N={n}, C={c})", gt, wt, MLP_BF16_REL_TOL)
+            res[f"{name}{part.replace(' ', '_')}_err"] = e["err"]
+        if timed:
+            res[f"{name}_ms"] = time_ms(fn, iters=10, warmup=2)
+    # and with approx=False (GELU and gelu' in their erf forms)
+    for name, fn, want in (("lin1_gelu_erf", lambda: M.lin1_gelu(ln, w1, b1, False), M.lin1_gelu_plain(ln, w1, b1, False)),
+                           ("dual_dh_erf", lambda: M.dual_dh(ln, gy, w1, b1, w2, False),
+                            M.dual_dh_plain(ln, gy, w1, b1, w2, False))):
+        res[f"{name}_err"] = mlp_out_check(f"{name} (N={n}, C={c})", fn(), want, MLP_BF16_REL_TOL)["err"]
+    return res
+
+
+def phase_mlp_stages(device) -> dict:
+    """The stage kernels of #2 and #5 against their stage plain versions at
+    the main paths' B=8 shapes (ViT-L, ViT-H; then timed) and at a ragged
+    N = S + 9 rows of each width."""
+    s = GRID[0] * GRID[1]
+    res = {}
+    for geo, c, m in (("vit_l", C, MLP), ("vit_h", C_H, MLP_H)):
+        res[geo] = mlp_stage_check(device, B * s, c, m, seed=11, timed=True)
+        res[f"{geo}_ragged"] = mlp_stage_check(device, s + 9, c, m, seed=12, timed=False)
+        torch.cuda.empty_cache()
+        log(f"stage times (ms, {geo}, B={B}): " + ", ".join(f"{k} {res[geo][f'{k}_ms']:.4f}" for k in MLP_STAGES))
+    return res
 
 
 def phase_kernels(device) -> dict:
@@ -398,7 +524,7 @@ def phase_kernels(device) -> dict:
         f"times (ms, B={B}): attn kernel {res['attn_ms']:.4f} plain {res['attn_plain_ms']:.4f} "
         f"sdpa {res['attn_library_ms']:.4f} bound {res['attn_bound'][0]:.4f} ({res['attn_bound'][1]}); "
         f"attn fp32 {res['attn32_ms']:.4f} plain {res['attn32_plain_ms']:.4f} sdpa {res['attn32_library_ms']:.4f} "
-        f"bound {res['attn32_bound'][0]:.4f}; mlp kernel {res['mlp_ms']:.4f} plain {res['mlp_plain_ms']:.4f} bound {res['mlp_bound'][0]:.4f} ({res['mlp_bound'][1]})"
+        f"bound {res['attn32_bound'][0]:.4f}; mlp kernel {res['mlp_ms']:.4f} plain {res['mlp_plain_ms']:.4f} bound {res['mlp_bound'][0]:.4f} ({res['mlp_bound'][1]}) chain {res['mlp_chain_ms']:.4f}"
     )
     return res
 
@@ -487,7 +613,7 @@ def phase_bwd_kernels(device) -> dict:
         f"times (ms, B={B}): attn_bwd kernel {res['attn_bwd_ms']:.4f} plain {res['attn_bwd_plain_ms']:.4f} "
         f"sdpa bwd {res['attn_bwd_library_ms']:.4f} bound {res['attn_bwd_bound'][0]:.4f} ({res['attn_bwd_bound'][1]}); "
         f"ln_mlp_dx kernel {res['mlp_dx_ms']:.4f} plain {res['mlp_dx_plain_ms']:.4f} "
-        f"bound {res['mlp_dx_bound'][0]:.4f} ({res['mlp_dx_bound'][1]})"
+        f"bound {res['mlp_dx_bound'][0]:.4f} ({res['mlp_dx_bound'][1]}) chain {res['mlp_dx_chain_ms']:.4f}"
     )
     return res
 
@@ -562,8 +688,8 @@ def phase_kernels_vit_h(device) -> dict:
         f"sdpa {res['packed_library_ms_fp32']:.4f} bound {res['packed_bound_fp32'][0]:.4f} ({res['packed_bound_fp32'][1]}); "
         f"attn_bwd {res['attn_bwd_ms']:.4f} plain {res['attn_bwd_plain_ms']:.4f} sdpa bwd {res['attn_bwd_library_ms']:.4f} "
         f"bound {res['attn_bwd_bound'][0]:.4f}; ln_mlp {res['mlp_ms']:.4f} plain {res['mlp_plain_ms']:.4f} "
-        f"bound {res['mlp_bound'][0]:.4f}; ln_mlp_dx {res['mlp_dx_ms']:.4f} plain {res['mlp_dx_plain_ms']:.4f} "
-        f"bound {res['mlp_dx_bound'][0]:.4f}"
+        f"bound {res['mlp_bound'][0]:.4f} chain {res['mlp_chain_ms']:.4f}; ln_mlp_dx {res['mlp_dx_ms']:.4f} "
+        f"plain {res['mlp_dx_plain_ms']:.4f} bound {res['mlp_dx_bound'][0]:.4f} chain {res['mlp_dx_chain_ms']:.4f}"
     )
     torch.cuda.empty_cache()
     return res
@@ -1027,7 +1153,7 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from beach_seg_tpu_torch.config import BeachSegConfig
     from beach_seg_tpu_torch.models.seggpt import SegGPTConfig, build_model
-    from beach_seg_tpu_torch.ops import build
+    from beach_seg_tpu_torch.ops import build, cuda_mlp
     from beach_seg_tpu_torch.train.loop import model_for_config
     from beach_seg_tpu_torch.utils import resolve_device
 
@@ -1055,6 +1181,9 @@ def main() -> int:
     kh = phase_kernels_vit_h(device)
     log(f"ViT-H kernel phase: {time.perf_counter() - t:.3f} s")
     t = time.perf_counter()
+    kst = phase_mlp_stages(device)
+    log(f"MLP stage kernel phase: {time.perf_counter() - t:.3f} s")
+    t = time.perf_counter()
     kl = phase_library_kernels(device)
     log(f"library kernel phase: {time.perf_counter() - t:.3f} s")
     t = time.perf_counter()
@@ -1068,10 +1197,10 @@ def main() -> int:
     conf = BeachSegConfig(batch_size=B)
     model = build_model(SegGPTConfig(), torch.bfloat16, device=device, seed=0)
     log(f"main path: ViT-L {model.config.num_hidden_layers} layers bf16 built in {time.perf_counter() - t:.3f} s")
-    m = phase_main_path(device, model, conf, large)
+    m = phase_main_path(device, model, conf, with_stages(large))
     log(f"main path phase: {time.perf_counter() - t:.3f} s")
     t = time.perf_counter()
-    tr = phase_train_path(device, model, conf, dict(large, **{k: 24 for k in backward}))
+    tr = phase_train_path(device, model, conf, with_stages(dict(large, **{k: 24 for k in backward})))
     log(f"train path phase: {time.perf_counter() - t:.3f} s")
     del model
     torch.cuda.empty_cache()
@@ -1082,10 +1211,10 @@ def main() -> int:
     check(cfg_h.head_dim == HD_H and cfg_h.hidden_size == C_H and cfg_h.num_hidden_layers == 32, f"ViT-H config {cfg_h}")
     log(f"ViT-H predict path: {cfg_h.num_hidden_layers} layers, C={cfg_h.hidden_size}, head_dim {cfg_h.head_dim}, "
         f"bf16, built in {time.perf_counter() - t:.3f} s")
-    mh = phase_main_path(device, model, conf_h, huge)
+    mh = phase_main_path(device, model, conf_h, with_stages(huge))
     log(f"ViT-H predict path phase: {time.perf_counter() - t:.3f} s")
     t = time.perf_counter()
-    trh = phase_train_path(device, model, conf_h, dict(huge, **{k: 32 for k in backward}))
+    trh = phase_train_path(device, model, conf_h, with_stages(dict(huge, **{k: 32 for k in backward})))
     log(f"ViT-H train path phase: {time.perf_counter() - t:.3f} s")
     del model
     torch.cuda.empty_cache()
@@ -1193,6 +1322,19 @@ def main() -> int:
             "bound_ms": res[f"{key}_bound"][0], "bound_by": res[f"{key}_bound"][1],
             "library_ms": res.get(f"{key}_library_ms"),
         }
+        if name in ("ln_mlp", "ln_mlp_dx"):
+            stages = MLP_STAGES[:3] if fwd else ("ln_rows",) + MLP_STAGES[3:]
+            path = pred if fwd else train
+            entry.update({
+                "design": MLP_DESIGN, "device_launches_per_call": cuda_mlp.DEVICE_LAUNCHES[name],
+                "chain_ms": res[f"{key}_chain_ms"],
+                "chain": "bf16 F.layer_norm -> addmm -> GELU -> addmm" + (", autograd dx" if not fwd else ""),
+                "error_norm": res[f"{key}_norm"],
+                "stage_launches": {st: path["launches"][st] for st in stages},
+                "stage_ms": {st: kst[geo][f"{st}_ms"] for st in stages},
+                "max_abs_err_by_stage": {st: kst[geo][f"{st}_err"] for st in stages},
+                "max_abs_err_by_stage_ragged": {st: kst[f"{geo}_ragged"][f"{st}_err"] for st in stages},
+            })
         if name == "attn_bwd":
             hd = c // HEADS
             entry["max_abs_err_by_output"] = res["attn_bwd_errs"]

@@ -1,7 +1,8 @@
 """Two trees of the torch port on one card, in turns: the attention kernels
 of ``attn_flash.cuh`` (#1 bf16 clamp, the fp32 #3 at head_dim 80, #6 and #7,
-and the bf16 #3, #6 and #7 that share the header) and the bf16 attention
-backward (#4 at head dims 64 and 80) by CUDA events, and the end-to-end
+and the bf16 #3, #6 and #7 that share the header), the bf16 attention
+backward (#4 at head dims 64 and 80) and the LN→MLP (#2) and its dx (#5) at
+ViT-L and ViT-H widths by CUDA events, and the end-to-end
 steps (ViT-L and ViT-H bf16 predict_step and train_step, the default fp32
 ViT-L config's, and the fp32 ViT-H predict_step) by the host clock around
 synchronized calls, with each train step's peak device memory.
@@ -34,7 +35,7 @@ def measure(root: Path) -> dict:
 
     import chip_smoke as cs
     from beach_seg_tpu_torch.config import BeachSegConfig
-    from beach_seg_tpu_torch.ops import build, cuda_attn
+    from beach_seg_tpu_torch.ops import build, cuda_attn, cuda_mlp
     from beach_seg_tpu_torch.train import PromptTuner
     from beach_seg_tpu_torch.train.loop import model_for_config
 
@@ -63,6 +64,13 @@ def measure(root: Path) -> dict:
         res[f"attn_packed_{dt}_hd80_ms"] = cs.time_ms(lambda: cuda_attn.attn_packed(q, k, v, rh, rw, cs.HD_H**-0.5, cs.HEADS),
                                                        iters=iters, warmup=2)
         del q, k, v, rh, rw
+        torch.cuda.empty_cache()
+    for geo, c, m in (("vit_l", cs.C, cs.MLP), ("vit_h", cs.C_H, cs.MLP_H)):
+        x, ls, lb, w1, b1, w2, b2, gy = cs.mlp_inputs(dev, 1, cs.B * gh * gw, c, m)
+        res[f"ln_mlp_{geo}_ms"] = cs.time_ms(lambda: cuda_mlp.ln_mlp(x, ls, lb, w1, b1, w2, b2, 1e-6, True), iters=20, warmup=2)
+        res[f"ln_mlp_dx_{geo}_ms"] = cs.time_ms(lambda: cuda_mlp.ln_mlp_dx(x, ls, lb, w1, b1, w2, gy, 1e-6, True),
+                                                iters=20, warmup=2)
+        del x, w1, w2, gy
         torch.cuda.empty_cache()
 
     for name, conf in (("vit_l_bf16", BeachSegConfig(batch_size=cs.B, compute_dtype="bfloat16")),

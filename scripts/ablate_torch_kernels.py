@@ -1,33 +1,41 @@
 """Where the time of the torch port's CUDA kernels goes: each is rebuilt
 with one part removed or cheapened and timed beside the intact one at the
-main path's shapes (B=8 tiles). bf16: LN→MLP (#2); the bf16 flash forward
-(attn_flash.cuh) as the ViT-L qkv-rel attention (#1, clamp), the ViT-H packed
-attention (#3, head_dim 80) and the ViT-L qkv-layout attention (#6), and the
-bf16 attention backward (#4) at head dims 80 and 64, each without its rel
-terms (the slot chunks on the tensor cores), without its ring's prefetch
-(every step waits for its next stage's loads), and the forward without PV
-(#1 also without its rel-term prologue or its k/v bias passes), the
-backward without drh/drw or without its k-major kernel. fp32: the
-qkv-rel attention and the attention backward (split-TF32 products,
-``csrc/tf32x3.cuh``) with one part removed or cheapened (one TF32 product
-instead of three, no split, the hardware exp, ...) or with the split done
-the costlier ways (the small part rounded too; both parts by
+main path's shapes (B=8 tiles). bf16: the LN→MLP (#2, ln_mlp.cu) and its dx
+(#5, ln_mlp_dx.cu) at ViT-L and ViT-H widths, whole and by stage kernel,
+with gemm_sm90.cuh's ring cut to one stage, without its producer warpgroup
+(the consumers' first thread loads), without the epilogue's GELU or gelu',
+without dual_dh's second product (g·W2ᵀ) or without the epilogue's stores;
+the bf16 flash forward (attn_flash.cuh) as the ViT-L qkv-rel attention (#1,
+clamp), the ViT-H packed attention (#3, head_dim 80) and the ViT-L
+qkv-layout attention (#6), and the bf16 attention backward (#4) at head dims
+80 and 64, each without its rel terms (the slot chunks on the tensor cores),
+without its ring's prefetch (every step waits for its next stage's loads),
+and the forward without PV (#1 also without its rel-term prologue or its k/v
+bias passes), the backward without drh/drw or without its k-major kernel.
+fp32: the qkv-rel attention and the attention backward (split-TF32
+products, ``csrc/tf32x3.cuh``) with one part removed or cheapened (one TF32
+product instead of three, no split, the hardware exp, ...) or with the split
+done the costlier ways (the small part rounded too; both parts by
 ``cvt.rna.tf32.f32``), at ViT-L's shapes in fp32. One CUDA card.
 
-    python3 scripts/ablate_torch_kernels.py [bf16|fp32|check]
+    python3 scripts/ablate_torch_kernels.py [bf16|fp32|mlp|check]
 
-(no argument: both groups). The variants are text edits of
-``beach_seg_tpu_torch/ops/csrc/`` (a source or a shared header), each compiled
-in its own temporary directory; the outputs of a variant with a part removed
-are wrong by construction and only their times mean anything. Prints the
-card, ptxas' register and spill lines of the fp32 instances, then one JSON
-line per variant. Exits non-zero without a CUDA device.
+(no argument: bf16 and fp32; ``mlp``: the two MLP groups alone). The
+variants are text edits of ``beach_seg_tpu_torch/ops/csrc/`` (a source or a
+shared header), each compiled in its own temporary directory; the outputs of
+a variant with a part removed are wrong by construction and only their times
+mean anything. Prints the card, ptxas' register and spill lines of the fp32
+instances, then one JSON line per variant. Exits non-zero without a CUDA
+device.
 
-``check`` instead holds faulty builds of the bf16 flash forward (#3, #6, #7:
-no rel terms, a crossing slot chunk dropped, a key tile dropped, no tail
-mask; #1: no rel terms, a crossing slot chunk dropped, no tail mask, no v
-bias) against their plain versions by chip_smoke.py's forward limits, which
-each must fail.
+``check`` instead holds faulty builds against their plain versions by
+chip_smoke.py's limits, which each must fail: the bf16 flash forward (#3,
+#6, #7: no rel terms, a crossing slot chunk dropped, a key tile dropped, no
+tail mask; #1: no rel terms, a crossing slot chunk dropped, no tail mask, no
+v bias) by the forward attention limits, and the LN→MLP (the last 64-channel
+K tile of W1 or 128-unit hidden tile of W2 dropped) and its dx (gelu' or the
+LN VJP's xhat term left out) by the MLP limits, at ViT-L and ViT-H shapes
+and a ragged N.
 """
 
 from __future__ import annotations
@@ -45,12 +53,43 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 # variant → edits: (old, new) in the kernel's source, or (header, old, new)
-MLP = {  # ln_mlp.cu
-    "no_weight_loads": [("  auto issue = [&](int s, int st) {\n", "  auto issue = [&](int s, int st) {\n    return;\n")],
-    "no_lin1_products": [("      for (int kk = 0; kk < KC / 16; ++kk) {\n        uint32_t b[4];",
-                          "      for (int kk = 0; kk < 0; ++kk) {\n        uint32_t b[4];")],
-    "no_lin2_products": [("      for (int cf = 0; cf < WC / 16; ++cf) {\n        uint32_t b[4];",
-                          "      for (int cf = 0; cf < 0; ++cf) {\n        uint32_t b[4];")],
+# the LN→MLP stage kernels (gemm_sm90.cuh's TMA + wgmma products): ln_mlp.cu,
+# then ln_mlp_dx.cu, each with its ring cut to one stage, without its
+# producer warpgroup (the consumers' first thread loads), and without its
+# epilogue's activation (GELU; gelu') or, for dual_dh, its second product
+# (g·W2ᵀ); "no_global_stores" keeps the products and the staging in shared
+# memory and drops the epilogue's stores to device memory
+NO_PRODUCER = ("gemm_sm90.cuh", "constexpr bool PRODUCER_WARP = true;", "constexpr bool PRODUCER_WARP = false;")
+NO_STORES = ("gemm_sm90.cuh", "    if (row < N && col < NOUT) {\n      uint4 u;", "    if (row < 0) {\n      uint4 u;")
+MLP = {
+    "ring_1": [("constexpr int RING = 4;", "constexpr int RING = 1;")],
+    "no_producer_warp": [NO_PRODUCER],
+    "no_gelu": [("return pack(gelu_epi<APPROX>(v[0][0] + b.x), gelu_epi<APPROX>(v[0][1] + b.y));", "return pack(v[0][0] + b.x, v[0][1] + b.y);")],
+    "no_global_stores": [NO_STORES],
+}
+NO_GELU_GRAD = ("v[NP - 1][0] * gelu_grad_epi<APPROX>(v[0][0] + b.x), v[NP - 1][1] * gelu_grad_epi<APPROX>(v[0][1] + b.y)",
+                "v[NP - 1][0] * v[0][0], v[NP - 1][1] * v[0][1]")
+MLP_DX = {
+    "ring_1": [("constexpr int RING_DUAL = 6;", "constexpr int RING_DUAL = 1;"), ("constexpr int RING_DLN = 4;", "constexpr int RING_DLN = 1;")],
+    "no_producer_warp": [NO_PRODUCER],
+    "no_second_accumulator": [("constexpr int DUAL = 2;", "constexpr int DUAL = 1;")],
+    "no_gelu_grad": [NO_GELU_GRAD],
+    "no_global_stores": [NO_STORES],
+}
+# faults of the LN→MLP kernels, for the `check` mode: each must fail
+# chip_smoke's MLP limits: the last 64-channel K tile of ln·W1 and the last
+# 128-unit hidden tile (two k steps) of h·W2 left out of the forward's
+# products (the kernel walks fewer k steps of full-size operands; in
+# ln_mlp.cu's library only lin1 has K = C ≤ 1280 and only lin2 K = M > 1280),
+# gelu' left out of dh, the xhat term left out of the LN VJP
+KSTEPS = "maps[2], maps[3], N, NOUT, K / BK, epi);"
+MLP_FAULTS = {
+    "drop_w1_k_tile": [("gemm_sm90.cuh", KSTEPS, "maps[2], maps[3], N, NOUT, K / BK - (K <= 1280), epi);")],
+    "drop_w2_hidden_tile": [("gemm_sm90.cuh", KSTEPS, "maps[2], maps[3], N, NOUT, K / BK - 2 * (K > 1280), epi);")],
+}
+MLP_DX_FAULTS = {
+    "no_gelu_grad": [NO_GELU_GRAD],
+    "no_xhat_term": [("(d[i][e] - dmean - xh[i][e] * s2 / C) * rs", "(d[i][e] - dmean) * rs")],
 }
 # the bf16 wgmma designs (attn_flash.cuh behind #3, #6, #7; attn_bwd.cu's bf16 instance)
 FLASH = {
@@ -197,7 +236,7 @@ def check_faults() -> int:
     fault passes at a grid where it changes what the kernel computes (a
     dropped crossing chunk changes nothing on the ViT grid)."""
     import chip_smoke
-    from beach_seg_tpu_torch.ops import cuda_attn
+    from beach_seg_tpu_torch.ops import cuda_attn, cuda_mlp
     from beach_seg_tpu_torch.ops.attention import attention_fused_plain, attention_packed_plain, attention_qkv_plain
 
     dev = torch.device("cuda")
@@ -206,7 +245,8 @@ def check_faults() -> int:
     bad = 0
     with tempfile.TemporaryDirectory() as tmp:
         libs = build_variants([(name, name, FLASH_FAULTS) for name in ("attn_packed", "attn_fused", "attn_qkv")]
-                              + [("attn_qkv_rel", "attn_qkv_rel", QKV_REL_FAULTS)], Path(tmp))
+                              + [("attn_qkv_rel", "attn_qkv_rel", QKV_REL_FAULTS), ("ln_mlp", "ln_mlp", MLP_FAULTS),
+                                 ("ln_mlp_dx", "ln_mlp_dx", MLP_DX_FAULTS)], Path(tmp))
         for grid in (chip_smoke.GRID, chip_smoke.GRID_CROSS):
             gh, gw = grid
             q, k, v, rh, rw = chip_smoke.packed_inputs(dev, torch.bfloat16, bh, hd, seed=8, grid=grid)
@@ -231,6 +271,30 @@ def check_faults() -> int:
                     bad += passes != (variant == "intact" or inert)
                     print(json.dumps({"kernel": name, "variant": variant, "grid": list(grid), **e, "passes": passes}), flush=True)
                     del got
+        # the LN→MLP and its dx (tanh GELU, the bf16 model's) at the B=8
+        # shapes of ViT-L and ViT-H and at a ragged N = S + 9
+        s = chip_smoke.GRID[0] * chip_smoke.GRID[1]
+        for geo, c, m, n in (("vit_l", chip_smoke.C, chip_smoke.MLP, chip_smoke.B * s),
+                             ("vit_h", chip_smoke.C_H, chip_smoke.MLP_H, chip_smoke.B * s),
+                             ("vit_l_ragged", chip_smoke.C, chip_smoke.MLP, s + 9)):
+            x, ls, lb, w1, b1, w2, b2, gy = chip_smoke.mlp_inputs(dev, 9, n, c, m)
+            for name, fn, plain, last, tol in (
+                ("ln_mlp", cuda_mlp.ln_mlp, cuda_mlp.ln_mlp_plain, b2, chip_smoke.MLP_BF16_REL_TOL),
+                ("ln_mlp_dx", cuda_mlp.ln_mlp_dx, cuda_mlp.ln_mlp_dx_plain, gy, chip_smoke.MLP_DX_REL_TOL),
+            ):
+                args = (x, ls, lb, w1, b1, w2, last, 1e-6, True)
+                want = plain(*args)
+                for variant, lib in libs[name].items():
+                    with loaded(lib):
+                        got = fn(*args)
+                    torch.cuda.synchronize()
+                    e = chip_smoke.attn_errors(got, want)
+                    passes = chip_smoke.mlp_within(e, tol)
+                    bad += passes != (variant == "intact")
+                    print(json.dumps({"kernel": name, "variant": variant, "shape": geo, **e, "passes": passes}), flush=True)
+                    del got
+            del x, w1, w2, gy
+            torch.cuda.empty_cache()
     return int(bad > 0)
 
 
@@ -239,8 +303,8 @@ def main() -> int:
         print("ablate_torch_kernels: no CUDA device", file=sys.stderr)
         return 2
     which = sys.argv[1] if len(sys.argv) > 1 else "all"
-    if which not in ("all", "bf16", "fp32", "check"):
-        print("usage: ablate_torch_kernels.py [bf16|fp32|check]", file=sys.stderr)
+    if which not in ("all", "bf16", "fp32", "mlp", "check"):
+        print("usage: ablate_torch_kernels.py [bf16|fp32|mlp|check]", file=sys.stderr)
         return 2
     import chip_smoke
 
@@ -255,8 +319,10 @@ def main() -> int:
     s, c, m, b = gh * gw, chip_smoke.C, chip_smoke.MLP, chip_smoke.B
     specs = []
     if which in ("all", "bf16"):
-        specs += [("attn", "attn_qkv_rel", ATTN), ("mlp", "ln_mlp", MLP), ("packed", "attn_packed", FLASH),
+        specs += [("attn", "attn_qkv_rel", ATTN), ("packed", "attn_packed", FLASH),
                   ("qkv", "attn_qkv", FLASH), ("bwd", "attn_bwd", BWD), ("bwd64", "attn_bwd", BWD)]
+    if which in ("all", "bf16", "mlp"):
+        specs += [("mlp", "ln_mlp", MLP), ("mlp_dx", "ln_mlp_dx", MLP_DX)]
     if which in ("all", "fp32"):
         specs += [("attn32", "attn_qkv_rel", ATTN32), ("bwd32", "attn_bwd", BWD32)]
     with tempfile.TemporaryDirectory() as tmp:
@@ -271,19 +337,9 @@ def main() -> int:
             drh, drw, stats = torch.empty_like(hrh), torch.empty_like(hrw), torch.empty((3, bh, s), device=dev)
             qkv, bias, rh, rw = chip_smoke.attn_inputs(torch.bfloat16, dev)
             out = torch.empty((b, s, c), dtype=torch.bfloat16, device=dev)
-            g = torch.Generator(device=dev).manual_seed(1)
-            x = torch.randn((b * s, c), generator=g, device=dev).to(torch.bfloat16)
-            ls, lb = torch.ones(c, device=dev), torch.zeros(c, device=dev)
-            w1 = (torch.randn((c, m), generator=g, device=dev) / c**0.5).to(torch.bfloat16)
-            w2 = (torch.randn((m, c), generator=g, device=dev) / m**0.5).to(torch.bfloat16)
-            b1 = torch.zeros(m, dtype=torch.bfloat16, device=dev)
-            b2 = torch.zeros(c, dtype=torch.bfloat16, device=dev)
-            y = torch.empty_like(x)
             e, slots = cuda_attn._slots_scratch(s, gh, gw, dev, rows=bh * s)
             calls["attn"] = ("attn_qkv_rel_bf16", cuda_attn._PROTO, (qkv, bias, rh, rw, e, out, b, s, c, chip_smoke.HEADS,
                                                                       gh, gw, chip_smoke.HD**-0.5, 1), 20)
-            calls["mlp"] = ("ln_mlp_bf16", cuda_mlp._PROTO["ln_mlp_bf16"], (x, ls, lb, w1, b1, w2, b2, y, b * s, c, m,
-                                                                             1e-6, 1), 20)
             calls["packed"] = ("attn_packed_bf16", cuda_attn._PACKED_PROTO, (hq, hk_, hv, hrh, hrw, e, hout, bh, s, hd,
                                                                              chip_smoke.HEADS, gh, gw, hd**-0.5), 20)
             calls["bwd"] = ("attn_bwd_bf16", cuda_attn._BWD_PROTO,
@@ -297,6 +353,25 @@ def main() -> int:
             calls["bwd64"] = ("attn_bwd_bf16", cuda_attn._BWD_PROTO,
                               (lq, lk, lv, lrh, lrw, lg, e, slots, ldq, ldk, ldv, torch.empty_like(lrh), torch.empty_like(lrw),
                                stats, bh, s, chip_smoke.HD, gh, gw, chip_smoke.HD**-0.5), 10)
+        wrapped = {"mlp": {}, "mlp_dx": {}}  # group → label → a call through the wrappers
+        if which in ("all", "bf16", "mlp"):
+            # the LN→MLP at ViT-L and ViT-H widths, B=8: whole and by stage
+            for geo, cw, mw in (("vit_l", c, m), ("vit_h", chip_smoke.C_H, chip_smoke.MLP_H)):
+                x, ls, lb, w1, b1, w2, b2, gy = chip_smoke.mlp_inputs(dev, 1, b * s, cw, mw)
+                ln, mean, rstd = cuda_mlp.ln_rows_plain(x, ls, lb, 1e-6)
+                h = cuda_mlp.lin1_gelu_plain(ln, w1, b1, True)
+                dh = cuda_mlp.dual_dh_plain(ln, gy, w1, b1, w2, True)
+                args = (x, ls, lb, w1, b1, w2)
+                wrapped["mlp"].update({
+                    f"ln_mlp_{geo}": lambda a=args, b2=b2: cuda_mlp.ln_mlp(*a, b2, 1e-6, True),
+                    f"lin1_gelu_{geo}": lambda ln=ln, w1=w1, b1=b1: cuda_mlp.lin1_gelu(ln, w1, b1, True),
+                    f"lin2_{geo}": lambda h=h, w2=w2, b2=b2: cuda_mlp.lin2(h, w2, b2),
+                })
+                wrapped["mlp_dx"].update({
+                    f"ln_mlp_dx_{geo}": lambda a=args, gy=gy: cuda_mlp.ln_mlp_dx(*a, gy, 1e-6, True),
+                    f"dual_dh_{geo}": lambda ln=ln, gy=gy, w1=w1, b1=b1, w2=w2: cuda_mlp.dual_dh(ln, gy, w1, b1, w2, True),
+                    f"dln_{geo}": lambda dh=dh, w1=w1: cuda_mlp.dln(dh, w1),
+                })
         if which in ("all", "fp32"):
             # ViT-L in fp32: the qkv-rel forward at B=8 and the backward at head_dim 64
             bh, hd = b * chip_smoke.HEADS, chip_smoke.HD
@@ -311,6 +386,13 @@ def main() -> int:
                               (fq, fk, fv, frh, frw, fg, None, None, dq, dk, dv, drh, drw, stats, bh, s, hd, gh, gw, hd**-0.5), 3)
         for rep in range(2):  # two passes, to show the spread
             for group, variants in libs.items():
+                if group in wrapped:
+                    for variant, lib in variants.items():
+                        with loaded(lib):
+                            for label, fn in wrapped[group].items():
+                                ms = chip_smoke.time_ms(fn, iters=10, warmup=2)
+                                print(json.dumps({"kernel": label, "variant": variant, "pass": rep, "ms": ms}), flush=True)
+                    continue
                 entry, argtypes, args, iters = calls[group]
                 ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args] + [stream]  # None: a null pointer
                 for variant, lib in variants.items():

@@ -94,7 +94,7 @@ def test_attn_kernel_matches_plain(cuda, dtype, softmax, grid):
     _assert_attn_close(got, want)
 
 
-@pytest.mark.parametrize("c", [64, 256, C])  # the debug backbone's narrow width, the smallest cluster width, ViT-L's
+@pytest.mark.parametrize("c", [64, 256, C])  # the debug backbone's narrow width, the smallest stage-kernel width, ViT-L's
 def test_mlp_kernel_matches_plain(cuda, c):
     g = torch.Generator(device="cpu").manual_seed(0)
     n, m = S_GRID[0] * S_GRID[1], 4 * c
@@ -304,11 +304,11 @@ def test_mlp_dx_kernel_matches_plain(cuda, n, c):
         assert (got.float() - want.float()).abs().max().item() <= 4 * BF16_EPS * want.float().abs().max().item()
 
 
-@pytest.mark.parametrize("n", [S_GRID[0] * S_GRID[1] + 9, 45])  # not a multiple of the 32- or 16-row tile
+@pytest.mark.parametrize("n", [S_GRID[0] * S_GRID[1] + 9, 45])  # not a multiple of the 128-row tile
 def test_mlp_kernels_at_vit_h_width(cuda, n):
-    """C=1280, M=5120 (ViT-H): the forward kernel's 32-row clusters and the
-    dx kernel's 16-row blocks, against their plain versions within four bf16
-    steps of the output's scale."""
+    """C=1280, M=5120 (ViT-H): the forward and dx stage chains at a ragged
+    last 128-row tile, against their plain versions within four bf16 steps
+    of the output's scale."""
     g = torch.Generator(device="cpu").manual_seed(1)
     c, m = 1280, 5120
     x = torch.randn((n, c), generator=g)
@@ -599,3 +599,101 @@ def test_fp32_train_step_on_card(cuda, hidden, fwd):
     assert np.isfinite(metrics["loss"].item())
     assert torch.isfinite(state.prompt_pixels).all()
     assert getattr(cuda_attn, fwd).launches > a0 and cuda_attn.attn_bwd.launches > b0
+
+
+_STAGE_PLAINS = ("ln_rows_plain", "lin1_gelu_plain", "lin2_plain", "dual_dh_plain", "dln_plain", "ln_vjp_plain",
+                 "ln_mlp_plain", "ln_mlp_dx_plain")
+
+
+def _mlp_stage_inputs(cuda, n, c, seed=3):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    m = 4 * c
+    r = lambda *shape, sc=1.0: sc * torch.randn(shape, generator=g)  # noqa: E731
+    bf = lambda t: t.to(device=cuda, dtype=torch.bfloat16)  # noqa: E731
+    return (bf(r(n, c)), (1 + r(c, sc=0.1)).to(cuda), r(c, sc=0.1).to(cuda), bf(r(c, m, sc=c**-0.5)),
+            bf(r(m, sc=0.1)), bf(r(m, c, sc=m**-0.5)), bf(r(c, sc=0.1)), bf(r(n, c)))
+
+
+def _assert_mlp_close(got, want):
+    """chip_smoke.py's MLP limits: four bf16 steps of max|plain|, the error's
+    norm within one rounding step of the output's."""
+    assert got.shape == want.shape and got.dtype == want.dtype and got.device == want.device
+    d = got.float() - want.float()
+    assert d.abs().max().item() <= 4 * BF16_EPS * want.float().abs().max().item()
+    assert (d.norm() / want.float().norm()).item() <= BF16_EPS
+
+
+@pytest.mark.parametrize("n", [77, 45, S_GRID[0] * S_GRID[1] + 9, S_GRID[0] * S_GRID[1]])
+@pytest.mark.parametrize("c", [256, 768, 1024, 1280])
+def test_mlp_stage_kernels_match_plain(cuda, c, n):
+    """Each stage kernel behind ln_mlp and ln_mlp_dx against its stage plain
+    version on the plain chain's intermediates, both GELU forms, rows that
+    are and are not a multiple of the 128-row tile."""
+    x, ls, lb, w1, b1, w2, b2, gy = _mlp_stage_inputs(cuda, n, c)
+    ln, mean, rstd = cuda_mlp.ln_rows_plain(x, ls, lb, 1e-6)
+    for got, want in zip(cuda_mlp.ln_rows(x, ls, lb, 1e-6), (ln, mean, rstd)):
+        _assert_mlp_close(got, want)
+    for approx in (True, False):
+        h = cuda_mlp.lin1_gelu_plain(ln, w1, b1, approx)
+        _assert_mlp_close(cuda_mlp.lin1_gelu(ln, w1, b1, approx), h)
+        _assert_mlp_close(cuda_mlp.lin2(h, w2, b2), cuda_mlp.lin2_plain(h, w2, b2))
+        dh = cuda_mlp.dual_dh_plain(ln, gy, w1, b1, w2, approx)
+        _assert_mlp_close(cuda_mlp.dual_dh(ln, gy, w1, b1, w2, approx), dh)
+        dln = cuda_mlp.dln_plain(dh, w1)
+        _assert_mlp_close(cuda_mlp.dln(dh, w1), dln)
+        _assert_mlp_close(cuda_mlp.ln_vjp(dln, x, ls, mean, rstd), cuda_mlp.ln_vjp_plain(dln, x, ls, mean, rstd))
+    torch.cuda.synchronize()
+
+
+def test_mlp_wrappers_never_run_plain_code_on_the_card(cuda, monkeypatch):
+    """With every plain version, torch.matmul, the @ operator and
+    F.layer_norm patched to raise, ln_mlp, ln_mlp_dx and each stage wrapper
+    still run on CUDA tensors (every launch is a kernel of csrc/), and each
+    wrapper's count rises by one a call."""
+    x, ls, lb, w1, b1, w2, b2, gy = _mlp_stage_inputs(cuda, 300, 1024)
+    ln, mean, rstd = cuda_mlp.ln_rows(x, ls, lb, 1e-6)
+    h = cuda_mlp.lin1_gelu(ln, w1, b1, True)
+    dh = cuda_mlp.dual_dh(ln, gy, w1, b1, w2, True)
+    dln = cuda_mlp.dln(dh, w1)
+
+    def boom(*a, **k):
+        raise AssertionError("plain code ran on the card")
+
+    for name in _STAGE_PLAINS:
+        monkeypatch.setattr(cuda_mlp, name, boom)
+    monkeypatch.setattr(torch, "matmul", boom)
+    monkeypatch.setattr(torch.Tensor, "__matmul__", boom)
+    monkeypatch.setattr(torch.nn.functional, "layer_norm", boom)
+    calls = {
+        "ln_mlp": lambda: cuda_mlp.ln_mlp(x, ls, lb, w1, b1, w2, b2, 1e-6, True),
+        "ln_mlp_dx": lambda: cuda_mlp.ln_mlp_dx(x, ls, lb, w1, b1, w2, gy, 1e-6, True),
+        "ln_rows": lambda: cuda_mlp.ln_rows(x, ls, lb, 1e-6),
+        "lin1_gelu": lambda: cuda_mlp.lin1_gelu(ln, w1, b1, True),
+        "lin2": lambda: cuda_mlp.lin2(h, w2, b2),
+        "dual_dh": lambda: cuda_mlp.dual_dh(ln, gy, w1, b1, w2, True),
+        "dln": lambda: cuda_mlp.dln(dh, w1),
+        "ln_vjp": lambda: cuda_mlp.ln_vjp(dln, x, ls, mean, rstd),
+    }
+    for name, call in calls.items():
+        before = getattr(cuda_mlp, name).launches
+        call()
+        assert getattr(cuda_mlp, name).launches == before + 1, name
+    torch.cuda.synchronize()
+
+
+def test_mlp_wrappers_raise_on_misaligned_or_strided_inputs(cuda):
+    x, ls, lb, w1, b1, w2, b2, gy = _mlp_stage_inputs(cuda, 64, 256)
+    ln, mean, rstd = cuda_mlp.ln_rows(x, ls, lb, 1e-6)
+    shifted = torch.empty(64 * 256 + 8, device=cuda, dtype=torch.bfloat16)[8:].view(64, 256)  # 16-byte offset
+    with pytest.raises(ValueError, match="contiguous, 32-byte aligned"):
+        cuda_mlp.ln_mlp(shifted, ls, lb, w1, b1, w2, b2, 1e-6, True)
+    with pytest.raises(ValueError, match="contiguous, 32-byte aligned"):
+        cuda_mlp.lin1_gelu(ln, w1.T.contiguous().T, b1, True)
+    with pytest.raises(ValueError, match="contiguous, 32-byte aligned"):
+        cuda_mlp.dual_dh(ln, gy.T.contiguous().T, w1, b1, w2, True)
+    with pytest.raises(ValueError, match="units"):
+        cuda_mlp.dln(ln, w1)  # dh has C, not M, columns
+    with pytest.raises(ValueError, match="want"):
+        cuda_mlp.ln_vjp(ln, x, ls, mean, rstd)  # dln must be fp32
+    with pytest.raises(ValueError, match="C % 256"):
+        cuda_mlp.ln_rows(x[:, :128].contiguous(), ls[:128], lb[:128], 1e-6)

@@ -1,9 +1,11 @@
-"""chip_smoke.py's limits for a bf16 forward attention kernel against its
-plain version, on the CPU: outputs that differ from the plain ones by a bf16
-neighbour at a few elements pass them, and the errors that a kernel with a
-missing part would make (rel terms left out, a slot chunk dropped, the
-padded keys past S left in every row's sum; for the qkv-rel attention, the
-v bias left out) fail them."""
+"""chip_smoke.py's limits for a bf16 forward attention kernel and for the
+LN→MLP kernels against their plain versions, on the CPU: outputs that differ
+from the plain ones by a bf16 neighbour at a few elements pass them, and the
+errors that a kernel with a missing part would make (rel terms left out, a
+slot chunk dropped, the padded keys past S left in every row's sum; for the
+qkv-rel attention, the v bias left out; for the MLP, a K tile of W1 or a
+hidden tile of W2 dropped, gelu' or the LN VJP's xhat term left out) fail
+them."""
 
 import numpy as np
 import pytest
@@ -12,6 +14,14 @@ import torch
 import chip_smoke
 from beach_seg_tpu_torch.ops.attention import attention_packed_plain, rel_tables_padded
 from beach_seg_tpu_torch.ops.cuda_attn import attn_qkv_rel_plain
+from beach_seg_tpu_torch.ops.cuda_mlp import (
+    dln_plain,
+    dual_dh_plain,
+    ln_mlp_dx_plain,
+    ln_mlp_plain,
+    ln_rows_plain,
+    ln_vjp_plain,
+)
 
 GRID = chip_smoke.GRID_CROSS
 HEADS, HD = 2, 64
@@ -100,3 +110,55 @@ def test_qkv_rel_bf16_limits(case, passes):
         got = call(qkv4, bias, rh, rw)
     assert got.dtype == want.dtype == torch.bfloat16 and got.shape == want.shape
     assert chip_smoke.attn_within(chip_smoke.attn_errors(got, want), torch.bfloat16) is passes
+
+
+def _mlp_inputs(seed=2, n=77, c=1024):
+    rng = np.random.default_rng(seed)
+    m = 4 * c
+    r = lambda *shape, sc=1.0: torch.from_numpy(sc * rng.standard_normal(shape, dtype=np.float32))  # noqa: E731
+    return (r(n, c).bfloat16(), 1 + r(c, sc=0.1), r(c, sc=0.1), r(c, m, sc=c**-0.5).bfloat16(), r(m, sc=0.1).bfloat16(),
+            r(m, c, sc=m**-0.5).bfloat16(), r(c, sc=0.1).bfloat16(), r(n, c).bfloat16())
+
+
+def _mlp_passes(got, want):
+    assert got.dtype == want.dtype == torch.bfloat16 and got.shape == want.shape
+    return chip_smoke.mlp_within(chip_smoke.attn_errors(got, want), chip_smoke.MLP_BF16_REL_TOL)
+
+
+@pytest.mark.parametrize("case,passes", [("neighbours", True), ("drop_w1_k_tile", False), ("drop_w2_hidden_tile", False)])
+def test_mlp_forward_limits(case, passes):
+    """The faults of the LN→MLP forward that `scripts/ablate_torch_kernels.py
+    check` builds, made in its plain version: the last 64-channel K tile of
+    W1 left out of ln·W1, the last 128-unit hidden tile of W2 left out of
+    h·W2."""
+    x, ls, lb, w1, b1, w2, b2, _ = _mlp_inputs()
+    want = ln_mlp_plain(x, ls, lb, w1, b1, w2, b2, 1e-6, True)
+    if case == "neighbours":
+        got = _neighbours(want)
+    elif case == "drop_w1_k_tile":
+        w1 = w1.clone()
+        w1[-64:] = 0
+        got = ln_mlp_plain(x, ls, lb, w1, b1, w2, b2, 1e-6, True)
+    else:
+        w2 = w2.clone()
+        w2[-128:] = 0
+        got = ln_mlp_plain(x, ls, lb, w1, b1, w2, b2, 1e-6, True)
+    assert _mlp_passes(got, want) is passes
+
+
+@pytest.mark.parametrize("case,passes", [("neighbours", True), ("no_gelu_grad", False), ("no_xhat_term", False)])
+def test_mlp_dx_limits(case, passes):
+    """The faults of the LN→MLP dx that the `check` mode builds, made in its
+    stage plain versions: gelu' left out of dh, the xhat term left out of the
+    LN VJP."""
+    x, ls, lb, w1, b1, w2, _, g = _mlp_inputs()
+    want = ln_mlp_dx_plain(x, ls, lb, w1, b1, w2, g, 1e-6, True)
+    ln, mean, rstd = ln_rows_plain(x, ls, lb, 1e-6)
+    if case == "neighbours":
+        got = _neighbours(want)
+    elif case == "no_gelu_grad":
+        got = ln_vjp_plain(dln_plain((g.float() @ w2.float().T).bfloat16(), w1), x, ls, mean, rstd)
+    else:
+        dxh = dln_plain(dual_dh_plain(ln, g, w1, b1, w2, True), w1) * ls
+        got = ((dxh - dxh.mean(-1, keepdim=True)) * rstd[:, None]).bfloat16()
+    assert _mlp_passes(got, want) is passes
