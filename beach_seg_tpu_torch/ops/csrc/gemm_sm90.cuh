@@ -30,9 +30,12 @@
 //   MN-major (B as (K, NOUT) rows): TMA boxes of 64 k × 64 output columns,
 //            panels 8192 B apart (LBO), a k row of 64 columns is 128 B, 8-k
 //            groups 1024 B apart (SBO); a k16 step is +2048 B.
-// These are written beside wgmma.cuh's 32-byte-swizzle forms, which the
-// attention kernels' cp.async tiles keep. Rows at or past N arrive as zeros
-// (TMA's out-of-bounds fill); the epilogue's stores skip them.
+// Both are wgmma.cuh's descriptor with layout type 1 (the attention kernels'
+// cp.async tiles keep its 32-byte swizzle, type 3); the fences, commits and
+// waits are wgmma.cuh's too. Rows at or past N arrive as zeros (TMA's
+// out-of-bounds fill); the epilogue's stores skip them. Columns at or past
+// NOUT (the last tile of a width not a multiple of BN) are formed as column
+// NOUT − 2 is, so that no epilogue reads a bias past its end, and never stored.
 //
 // The TMA descriptors are encoded on the host at each call
 // (cuTensorMapEncodeTiled, fetched through cudaGetDriverEntryPoint, so no
@@ -45,16 +48,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "wgmma.cuh"
+
 namespace g90 {
 
 typedef __nv_bfloat16 bf16;
 
 constexpr int BM = 128;           // rows of a block's tile (two consumer warpgroups of 64)
 constexpr int BK = 64;            // k of a ring entry: one 128-byte swizzle row of bf16
-// a producer warpgroup beside the two consumer warpgroups (false: the
-// consumers' first thread issues the loads, for the ablation that times it)
-constexpr bool PRODUCER_WARP = true;
-constexpr int NT = PRODUCER_WARP ? 384 : 256;
+constexpr int NT = 384;           // a producer warpgroup and two consumer warpgroups
 constexpr int A_BYTES = BM * BK * 2;
 constexpr int PANEL = 64 * BK * 2;  // an MN-major 64 k × 64 column box
 constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
@@ -62,9 +64,7 @@ constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 // setmaxnreg.inc finds its registers: 128·40 + 256·232 = 384·168
 constexpr int LAUNCH_REGS = (128 * PRODUCER_REGS + 256 * CONSUMER_REGS) / NT;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+using wg::smem_u32;
 
 // ----------------------------------------------------------------- mbarriers
 
@@ -114,30 +114,16 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, i
 
 // ------------------------------------------------------------------- wgmma
 
-__device__ __forceinline__ uint64_t desc128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFFu) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFFu) << 32) | (1ull << 62);
-}
 // K-major operand at `addr` (a 1024-aligned tile plus the k16 step's 32 B)
-__device__ __forceinline__ uint64_t kdesc128(uint32_t addr) { return desc128(addr, 16, 1024); }
+__device__ __forceinline__ uint64_t kdesc128(uint32_t addr) { return wg::desc(addr, 16, 1024, wg::SWIZZLE_128B); }
 // MN-major operand at `addr` (a 1024-aligned tile plus the k16 step's 2048 B)
-__device__ __forceinline__ uint64_t mndesc128(uint32_t addr) { return desc128(addr, PANEL, 1024); }
+__device__ __forceinline__ uint64_t mndesc128(uint32_t addr) { return wg::desc(addr, PANEL, 1024, wg::SWIZZLE_128B); }
 
 __device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
   asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
 }
 __device__ __forceinline__ void st_shared(uint32_t addr, float2 v) {
   asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(v.x), "f"(v.y) : "memory");
-}
-
-__device__ __forceinline__ void wg_arrive() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void wg_wait() { asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory"); }
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d (N/2 floats) [+]= A·B, m64nNk16, A K-major, B MN-major when MN
@@ -201,18 +187,18 @@ struct Cfg {
 // the four k16 products of one ring entry, committed as one group
 template <int BN, bool MN>
 __device__ __forceinline__ void ring_step(float (&acc)[BN / 2], uint32_t sa, uint32_t sb) {
-  wg_arrive();
+  wg::arrive();
 #pragma unroll
   for (int ks = 0; ks < BK / 16; ++ks)
     mma_ss<BN, MN>(acc, kdesc128(sa + ks * 32), MN ? mndesc128(sb + ks * 2048) : kdesc128(sb + ks * 32), 1);
-  wg_commit();
+  wg::commit();
 }
 
 // out tile (blockIdx.y: 128 rows, blockIdx.x: BN columns); KB ring entries
 // of each product (K / 64). Epi: Out epi(col, v), the output of columns col
 // and col + 1 (a bf16 pair, or two floats) from v[p][0..1], the fp32 sums of
-// product p there; epi.out (row stride epi.ld elements) takes rows < N and
-// columns < NOUT of it.
+// product p there, col < NOUT; epi.out (row stride epi.ld elements) takes
+// rows < N and columns < NOUT of it.
 template <int BN, int NPROD, bool MN0, bool MN1, int NS, class Epi>
 __global__ void __launch_bounds__(NT, 1) gemm_kernel(const __grid_constant__ CUtensorMap ta0,
                                                      const __grid_constant__ CUtensorMap tb0,
@@ -250,19 +236,15 @@ __global__ void __launch_bounds__(NT, 1) gemm_kernel(const __grid_constant__ CUt
     }
   };
 
-  if (PRODUCER_WARP && wg == 0) {
+  if (wg == 0) {
     // producer: one thread keeps the ring full
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
     if (threadIdx.x == 0)
       for (int i = 0; i < total; ++i) load_entry(i);
     return;
   }
-  if (PRODUCER_WARP) asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
-  const int cw = PRODUCER_WARP ? wg - 1 : wg;  // this consumer warpgroup: rows 64·cw of the tile
-  // without a producer warp the consumers' first thread loads, NS entries ahead
-  const bool loads = !PRODUCER_WARP && threadIdx.x == 0;
-  if (loads)
-    for (int i = 0; i < NS && i < total; ++i) load_entry(i);
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  const int cw = wg - 1;  // this consumer warpgroup: rows 64·cw of the tile
   float acc[NPROD][BN / 2];
 #pragma unroll
   for (int p = 0; p < NPROD; ++p)
@@ -284,18 +266,17 @@ __global__ void __launch_bounds__(NT, 1) gemm_kernel(const __grid_constant__ CUt
       // (one group stays in flight), or with one stage this entry's
       int done = i - 1;
       if (NS == 1) {
-        wg_wait<0>();
+        wg::wait<0>();
         done = i;
       } else {
-        wg_wait<1>();
+        wg::wait<1>();
       }
       if (done >= 0 && signals) bar_arrive(smem_u32(&empty[done % NS]));
-      if (loads && done >= 0 && done + NS < total) load_entry(done + NS);
     }
   }
-  wg_wait<0>();
+  wg::wait<0>();
 #pragma unroll
-  for (int p = 0; p < NPROD; ++p) fence_regs(acc[p]);
+  for (int p = 0; p < NPROD; ++p) wg::fence_regs(acc[p]);
 
   // epilogue through shared memory: the ring's stages are free once both
   // consumer warpgroups' last products are done (the producer has no load
@@ -317,8 +298,9 @@ __global__ void __launch_bounds__(NT, 1) gemm_kernel(const __grid_constant__ CUt
         v[p][0] = acc[p][4 * j + 2 * h];
         v[p][1] = acc[p][4 * j + 2 * h + 1];
       }
-      const typename Epi::Out o = epi(n0 + 8 * j + 2 * c, v);
-      st_shared(srow + (8 * j + 2 * c) * OB, o);
+      // a clamp, not a branch: every bias load stays unconditional, so the
+      // compiler issues them together (a branch here cost lin1_gelu 30%)
+      st_shared(srow + (8 * j + 2 * c) * OB, epi(min(n0 + 8 * j + 2 * c, NOUT - 2), v));
     }
   }
   asm volatile("bar.sync %0, 128;\n" ::"r"(2 + cw) : "memory");
@@ -391,7 +373,7 @@ int launch_gemm(const Operands* ops, int N, int NOUT, int K, const Epi& epi, cud
   cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return (int)err;
   // fewer registers at launch and setmaxnreg.inc would wait for ever
-  if (PRODUCER_WARP && attr.numRegs != LAUNCH_REGS) return (int)cudaErrorInvalidConfiguration;
+  if (attr.numRegs != LAUNCH_REGS) return (int)cudaErrorInvalidConfiguration;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
   if (err != cudaSuccess) return (int)err;
   CUtensorMap maps[4];

@@ -33,7 +33,6 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
-#include <string.h>
 
 #include "gemm_sm90.cuh"
 #include "mlp_rows.cuh"
@@ -67,12 +66,7 @@ __device__ __forceinline__ float gelu_epi(float x) {
   return gelu(x, 0);
 }
 
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  uint32_t u;
-  memcpy(&u, &v, 4);
-  return u;
-}
+using wg::pack;
 
 constexpr int BN = 256;  // output columns of a block
 constexpr int RING = 4;  // ring stages (48 KB each)

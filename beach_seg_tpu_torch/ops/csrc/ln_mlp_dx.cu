@@ -38,7 +38,6 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
-#include <string.h>
 
 #include "gemm_sm90.cuh"
 #include "mlp_rows.cuh"
@@ -71,12 +70,7 @@ __device__ __forceinline__ float gelu_grad_epi(float h) {
   return gelu_grad(h, 0);
 }
 
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  uint32_t u;
-  memcpy(&u, &v, 4);
-  return u;
-}
+using wg::pack;
 
 constexpr int DUAL = 2;        // products of dual_dh: hpre and g·W2ᵀ
 constexpr int RING_DUAL = 6;   // ring stages of dual_dh (32 KB each)

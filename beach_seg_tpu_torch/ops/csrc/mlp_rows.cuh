@@ -8,7 +8,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-#include <string.h>
+
+#include "wgmma.cuh"
 
 namespace rows {
 
@@ -34,18 +35,11 @@ __device__ __forceinline__ void unpack8(const uint4& u, float (&v)[8]) {
 }
 
 __device__ __forceinline__ uint4 pack8(const float (&v)[8]) {
-  uint4 u;
-  uint32_t* w = reinterpret_cast<uint32_t*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const __nv_bfloat162 b = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-    memcpy(&w[i], &b, 4);
-  }
-  return u;
+  return make_uint4(wg::pack(v[0], v[1]), wg::pack(v[2], v[3]), wg::pack(v[4], v[5]), wg::pack(v[6], v[7]));
 }
 
 // ln = bf16((x - mean) · rsqrt(var + eps) · ln_scale + ln_bias), fp32
-// two-pass statistics; mean and rstd (fp32, one a row) where not null
+// two-pass statistics; mean and rstd (fp32, one a row)
 __global__ void __launch_bounds__(WARPS * 32) ln_rows(const bf16* __restrict__ x, const float* __restrict__ ln_scale,
                                                       const float* __restrict__ ln_bias, bf16* __restrict__ ln,
                                                       float* __restrict__ mean_out, float* __restrict__ rstd_out, int N,
@@ -92,7 +86,7 @@ __global__ void __launch_bounds__(WARPS * 32) ln_rows(const bf16* __restrict__ x
       *reinterpret_cast<uint4*>(ln + (size_t)row * C + 8 * ch) = pack8(y);
     }
   }
-  if (lane == 0 && mean_out) {
+  if (lane == 0) {
     mean_out[row] = mean;
     rstd_out[row] = rstd;
   }
@@ -100,8 +94,7 @@ __global__ void __launch_bounds__(WARPS * 32) ln_rows(const bf16* __restrict__ x
 
 }  // namespace rows
 
-// the LN rows of both kernels: (N, C) bf16 ln, and (N,) fp32 mean and rstd
-// where those pointers are not null
+// the LN rows of both kernels: (N, C) bf16 ln, (N,) fp32 mean and rstd
 extern "C" int mlp_ln_rows_bf16(const void* x, const void* ln_scale, const void* ln_bias, void* ln, void* mean,
                                 void* rstd, int N, int C, float eps, void* stream) {
   if (C % 8 || C > 8 * 32 * rows::MAXCH) return (int)cudaErrorInvalidValue;

@@ -1,5 +1,7 @@
 // Hopper warpgroup products (wgmma) on bf16 tiles in shared memory, for the
-// bf16 attention kernels (attn_flash.cuh, attn_bwd.cu).
+// bf16 attention kernels (attn_flash.cuh, attn_bwd.cu); the LN→MLP products
+// (gemm_sm90.cuh) take its fences, descriptor and pack with TMA's 128-byte
+// swizzle.
 //
 // Tile layout. A tile of R rows × W columns (W a multiple of 16) is stored
 // as W/16 panels, panel p holding columns [16p, 16p + 16) of every row as
@@ -12,7 +14,7 @@
 //   MN-major (contraction over its rows: O += P·V, 16 rows a k step at
 //            512 B; the output columns run across panels R·32 B apart)
 // so a K or V tile loaded once serves every product of a step. Every
-// descriptor here is layout type 3 (32-byte swizzle), base offset 0.
+// descriptor of these tiles is layout type 3 (32-byte swizzle), base offset 0.
 //
 // Accumulators of m64nNk16 (f32): thread t of the warpgroup, warp w = t/32,
 // lane = 4g + c: d[4j + e] is row 16w + g (e = 0, 1) or 16w + g + 8 (e = 2,
@@ -69,9 +71,12 @@ __device__ __forceinline__ void load_tile(uint32_t tile, const bf16* src, size_t
 // generic-proxy writes (cp.async, st.shared) made visible to wgmma's reads
 __device__ __forceinline__ void fence_async_smem() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
 
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+// a shared-memory matrix descriptor: start address, leading and stride byte
+// offsets, layout type (3: 32-byte swizzle, 1: 128-byte swizzle)
+constexpr uint64_t SWIZZLE_32B = 3, SWIZZLE_128B = 1;
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo, uint64_t layout = SWIZZLE_32B) {
   return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32) |
-         (3ull << 62);
+         (layout << 62);
 }
 // K-major operand: 64 rows from `addr` (a row inside a panel), one k step
 __device__ __forceinline__ uint64_t kdesc(uint32_t addr) { return desc(addr, 16, 256); }

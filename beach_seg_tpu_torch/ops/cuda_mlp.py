@@ -376,9 +376,6 @@ def ln_mlp_dx(x, ln_scale, ln_bias, w1, b1, w2, g, eps: float, approx: bool) -> 
 
 ln_mlp_dx.launches = 0
 
-# device launches a call of ln_mlp / ln_mlp_dx at C % 256 == 0
-DEVICE_LAUNCHES = {"ln_mlp": 3, "ln_mlp_dx": 4}
-
 
 class _LnMlp(torch.autograd.Function):
     """``fused_ln_mlp``'s custom VJP (``pallas_mlp.py:232-266``): saves the

@@ -55,15 +55,36 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 # variant → edits: (old, new) in the kernel's source, or (header, old, new)
 # the LN→MLP stage kernels (gemm_sm90.cuh's TMA + wgmma products): ln_mlp.cu,
 # then ln_mlp_dx.cu, each with its ring cut to one stage, without its
-# producer warpgroup (the consumers' first thread loads), and without its
-# epilogue's activation (GELU; gelu') or, for dual_dh, its second product
-# (g·W2ᵀ); "no_global_stores" keeps the products and the staging in shared
-# memory and drops the epilogue's stores to device memory
-NO_PRODUCER = ("gemm_sm90.cuh", "constexpr bool PRODUCER_WARP = true;", "constexpr bool PRODUCER_WARP = false;")
+# producer warpgroup (two warpgroups a block, the first consumer thread
+# issuing the loads NS entries ahead, each once the entry it replaces is
+# done), and without its epilogue's activation (GELU; gelu') or, for
+# dual_dh, its second product (g·W2ᵀ); "no_global_stores" keeps the products
+# and the staging in shared memory and drops the epilogue's stores to device
+# memory
+HAND_BACK = "      if (done >= 0 && signals) bar_arrive(smem_u32(&empty[done % NS]));\n"
+NO_PRODUCER = [
+    ("gemm_sm90.cuh", "constexpr int NT = 384;", "constexpr int NT = 256;"),
+    ("gemm_sm90.cuh", """  if (wg == 0) {
+    // producer: one thread keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x == 0)
+      for (int i = 0; i < total; ++i) load_entry(i);
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\\n" ::"n"(CONSUMER_REGS));
+  const int cw = wg - 1;  // this consumer warpgroup: rows 64·cw of the tile
+""", """  const int cw = wg;
+  const bool loads = threadIdx.x == 0;
+  if (loads)
+    for (int i = 0; i < NS && i < total; ++i) load_entry(i);
+"""),
+    ("gemm_sm90.cuh", HAND_BACK, HAND_BACK + "      if (loads && done >= 0 && done + NS < total) load_entry(done + NS);\n"),
+    ("gemm_sm90.cuh", "  if (attr.numRegs != LAUNCH_REGS) return (int)cudaErrorInvalidConfiguration;\n", ""),
+]
 NO_STORES = ("gemm_sm90.cuh", "    if (row < N && col < NOUT) {\n      uint4 u;", "    if (row < 0) {\n      uint4 u;")
 MLP = {
     "ring_1": [("constexpr int RING = 4;", "constexpr int RING = 1;")],
-    "no_producer_warp": [NO_PRODUCER],
+    "no_producer_warp": NO_PRODUCER,
     "no_gelu": [("return pack(gelu_epi<APPROX>(v[0][0] + b.x), gelu_epi<APPROX>(v[0][1] + b.y));", "return pack(v[0][0] + b.x, v[0][1] + b.y);")],
     "no_global_stores": [NO_STORES],
 }
@@ -71,7 +92,7 @@ NO_GELU_GRAD = ("v[NP - 1][0] * gelu_grad_epi<APPROX>(v[0][0] + b.x), v[NP - 1][
                 "v[NP - 1][0] * v[0][0], v[NP - 1][1] * v[0][1]")
 MLP_DX = {
     "ring_1": [("constexpr int RING_DUAL = 6;", "constexpr int RING_DUAL = 1;"), ("constexpr int RING_DLN = 4;", "constexpr int RING_DLN = 1;")],
-    "no_producer_warp": [NO_PRODUCER],
+    "no_producer_warp": NO_PRODUCER,
     "no_second_accumulator": [("constexpr int DUAL = 2;", "constexpr int DUAL = 1;")],
     "no_gelu_grad": [NO_GELU_GRAD],
     "no_global_stores": [NO_STORES],

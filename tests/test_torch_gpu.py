@@ -605,22 +605,29 @@ _STAGE_PLAINS = ("ln_rows_plain", "lin1_gelu_plain", "lin2_plain", "dual_dh_plai
                  "ln_mlp_plain", "ln_mlp_dx_plain")
 
 
-def _mlp_stage_inputs(cuda, n, c, seed=3):
+def _mlp_stage_inputs(cuda, n, c, seed=3, m=None):
     g = torch.Generator(device="cpu").manual_seed(seed)
-    m = 4 * c
+    m = m or 4 * c
     r = lambda *shape, sc=1.0: sc * torch.randn(shape, generator=g)  # noqa: E731
     bf = lambda t: t.to(device=cuda, dtype=torch.bfloat16)  # noqa: E731
     return (bf(r(n, c)), (1 + r(c, sc=0.1)).to(cuda), r(c, sc=0.1).to(cuda), bf(r(c, m, sc=c**-0.5)),
             bf(r(m, sc=0.1)), bf(r(m, c, sc=m**-0.5)), bf(r(c, sc=0.1)), bf(r(n, c)))
 
 
-def _assert_mlp_close(got, want):
-    """chip_smoke.py's MLP limits: four bf16 steps of max|plain|, the error's
-    norm within one rounding step of the output's."""
+# chip_smoke.py's limits for the MLP stages' fp32 outputs (MLP_STATS_TOL,
+# MLP_DLN_TOL): the largest error over max|plain| and the error norm over
+# the output's, where only the order of fp32 sums differs
+STATS_TOL, DLN_TOL = 1e-6, 1e-4
+
+
+def _assert_mlp_close(got, want, tol_rel=4 * BF16_EPS, tol_norm=BF16_EPS):
+    """chip_smoke.py's MLP limits: for bf16 outputs four bf16 steps of
+    max|plain| and the error's norm within one rounding step of the
+    output's; fp32 outputs pass their own ``tol_rel`` and ``tol_norm``."""
     assert got.shape == want.shape and got.dtype == want.dtype and got.device == want.device
     d = got.float() - want.float()
-    assert d.abs().max().item() <= 4 * BF16_EPS * want.float().abs().max().item()
-    assert (d.norm() / want.float().norm()).item() <= BF16_EPS
+    assert d.abs().max().item() <= tol_rel * want.float().abs().max().item()
+    assert (d.norm() / want.float().norm()).item() <= tol_norm
 
 
 @pytest.mark.parametrize("n", [77, 45, S_GRID[0] * S_GRID[1] + 9, S_GRID[0] * S_GRID[1]])
@@ -631,8 +638,10 @@ def test_mlp_stage_kernels_match_plain(cuda, c, n):
     are and are not a multiple of the 128-row tile."""
     x, ls, lb, w1, b1, w2, b2, gy = _mlp_stage_inputs(cuda, n, c)
     ln, mean, rstd = cuda_mlp.ln_rows_plain(x, ls, lb, 1e-6)
-    for got, want in zip(cuda_mlp.ln_rows(x, ls, lb, 1e-6), (ln, mean, rstd)):
-        _assert_mlp_close(got, want)
+    got_ln, got_mean, got_rstd = cuda_mlp.ln_rows(x, ls, lb, 1e-6)
+    _assert_mlp_close(got_ln, ln)
+    _assert_mlp_close(got_mean, mean, STATS_TOL, STATS_TOL)
+    _assert_mlp_close(got_rstd, rstd, STATS_TOL, STATS_TOL)
     for approx in (True, False):
         h = cuda_mlp.lin1_gelu_plain(ln, w1, b1, approx)
         _assert_mlp_close(cuda_mlp.lin1_gelu(ln, w1, b1, approx), h)
@@ -640,8 +649,30 @@ def test_mlp_stage_kernels_match_plain(cuda, c, n):
         dh = cuda_mlp.dual_dh_plain(ln, gy, w1, b1, w2, approx)
         _assert_mlp_close(cuda_mlp.dual_dh(ln, gy, w1, b1, w2, approx), dh)
         dln = cuda_mlp.dln_plain(dh, w1)
-        _assert_mlp_close(cuda_mlp.dln(dh, w1), dln)
+        _assert_mlp_close(cuda_mlp.dln(dh, w1), dln, DLN_TOL, DLN_TOL)
         _assert_mlp_close(cuda_mlp.ln_vjp(dln, x, ls, mean, rstd), cuda_mlp.ln_vjp_plain(dln, x, ls, mean, rstd))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("n", [77, 300])
+def test_mlp_kernels_at_hidden_width_not_a_multiple_of_256(cuda, n):
+    """C=256 with M=384: the last 256-column tile of lin1_gelu (and of
+    dual_dh's 128-column tiles, the products over K = M for lin2 and dln)
+    runs past M, and neither its bias reads nor its stores may reach past
+    it. Each stage kernel and the two whole kernels against their plain
+    versions."""
+    x, ls, lb, w1, b1, w2, b2, gy = _mlp_stage_inputs(cuda, n, 256, m=384)
+    ln, mean, rstd = cuda_mlp.ln_rows_plain(x, ls, lb, 1e-6)
+    h = cuda_mlp.lin1_gelu_plain(ln, w1, b1, True)
+    _assert_mlp_close(cuda_mlp.lin1_gelu(ln, w1, b1, True), h)
+    _assert_mlp_close(cuda_mlp.lin2(h, w2, b2), cuda_mlp.lin2_plain(h, w2, b2))
+    dh = cuda_mlp.dual_dh_plain(ln, gy, w1, b1, w2, True)
+    _assert_mlp_close(cuda_mlp.dual_dh(ln, gy, w1, b1, w2, True), dh)
+    _assert_mlp_close(cuda_mlp.dln(dh, w1), cuda_mlp.dln_plain(dh, w1), DLN_TOL, DLN_TOL)
+    _assert_mlp_close(cuda_mlp.ln_mlp(x, ls, lb, w1, b1, w2, b2, 1e-6, True),
+                      cuda_mlp.ln_mlp_plain(x, ls, lb, w1, b1, w2, b2, 1e-6, True))
+    _assert_mlp_close(cuda_mlp.ln_mlp_dx(x, ls, lb, w1, b1, w2, gy, 1e-6, True),
+                      cuda_mlp.ln_mlp_dx_plain(x, ls, lb, w1, b1, w2, gy, 1e-6, True))
     torch.cuda.synchronize()
 
 

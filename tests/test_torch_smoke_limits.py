@@ -4,8 +4,9 @@ from the plain ones by a bf16 neighbour at a few elements pass them, and the
 errors that a kernel with a missing part would make (rel terms left out, a
 slot chunk dropped, the padded keys past S left in every row's sum; for the
 qkv-rel attention, the v bias left out; for the MLP, a K tile of W1 or a
-hidden tile of W2 dropped, gelu' or the LN VJP's xhat term left out) fail
-them."""
+hidden tile of W2 dropped, gelu' or the LN VJP's xhat term left out; for
+the MLP stages' fp32 outputs, an LN statistic off by 1% or dln rounded to
+bf16) fail them."""
 
 import numpy as np
 import pytest
@@ -162,3 +163,36 @@ def test_mlp_dx_limits(case, passes):
         dxh = dln_plain(dual_dh_plain(ln, g, w1, b1, w2, True), w1) * ls
         got = ((dxh - dxh.mean(-1, keepdim=True)) * rstd[:, None]).bfloat16()
     assert _mlp_passes(got, want) is passes
+
+
+@pytest.mark.parametrize("output,case,passes", [
+    ("mean", "exact", True), ("mean", "off_1pct", False),
+    ("rstd", "exact", True), ("rstd", "off_1pct", False),
+    ("dln", "exact", True), ("dln", "rounded_to_bf16", False),
+])
+def test_mlp_fp32_stage_limits(output, case, passes):
+    """chip_smoke.py's limits for the MLP stages' fp32 outputs (the LN
+    statistics, MLP_STATS_TOL; dln, MLP_DLN_TOL), made in the plain versions:
+    the same output summed in float64 and rounded once to fp32 (an fp32 sum
+    in another order, as the kernels' are) passes; an LN statistic off by 1%
+    or a dln rounded to bf16 fails."""
+    x, ls, lb, w1, b1, w2, _, g = _mlp_inputs()
+    _, mean, rstd = ln_rows_plain(x, ls, lb, 1e-6)
+    if output == "dln":
+        dh = dual_dh_plain(ln_rows_plain(x, ls, lb, 1e-6)[0], g, w1, b1, w2, True)
+        want, tol = dln_plain(dh, w1), chip_smoke.MLP_DLN_TOL
+        exact = (dh.double() @ w1.double().T).float()
+    else:
+        xd = x.double()
+        exact_mean = xd.mean(-1)
+        exact_rstd = torch.rsqrt(((xd - exact_mean[:, None]) ** 2).mean(-1) + 1e-6)
+        want, exact = (mean, exact_mean.float()) if output == "mean" else (rstd, exact_rstd.float())
+        tol = chip_smoke.MLP_STATS_TOL
+    if case == "exact":
+        got = exact
+    elif case == "off_1pct":
+        got = want * 1.01
+    else:
+        got = want.bfloat16().float()
+    assert got.dtype == want.dtype == torch.float32 and got.shape == want.shape
+    assert chip_smoke.mlp_within(chip_smoke.attn_errors(got, want), tol, tol) is passes
