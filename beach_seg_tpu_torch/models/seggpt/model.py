@@ -31,6 +31,8 @@ The model stacks prompt‖query along height into a (B, 2H, W, 3) canvas.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -366,7 +368,7 @@ class SegGPT(nn.Module):
         ``Encoder.forward`` takes them (:meth:`sample_drop_masks` draws them),
         required when the config's rate is positive."""
         if feature_ensemble:
-            raise NotImplementedError("feature ensembles are not ported yet")
+            raise NotImplementedError("feature ensembles are not ported yet (ROADMAP.md §A item 2)")
         cfg, dt = self.config, self.compute_dtype
         pixel_canvas = torch.cat([prompt_pixel_values, pixel_values], dim=1)
         mask_canvas = torch.cat([prompt_masks, labels if labels is not None else prompt_masks], dim=1)
@@ -410,15 +412,13 @@ class SegGPT(nn.Module):
         return masks
 
 
-def random_state(config: SegGPTConfig, seed: int = 0) -> dict[str, torch.Tensor]:
-    """Seeded random weights (numpy, so CPU and GPU builds agree): LayerNorm
-    scales 1, biases 0, everything else normal with the config's
-    initializer range, clipped at ±2σ like the flax truncated-normal init."""
+@functools.lru_cache(maxsize=4)
+def _random_tensors(config: SegGPTConfig, seed: int) -> tuple[tuple[str, torch.Tensor], ...]:
     rng = np.random.default_rng(seed)
     std = config.initializer_range
     with torch.device("meta"):
         shapes = {k: tuple(v.shape) for k, v in SegGPT(config).state_dict().items()}
-    state = {}
+    state = []
     for name, shape in shapes.items():
         leaf = name.rsplit(".", 1)[-1]
         if leaf == "scale":
@@ -427,8 +427,18 @@ def random_state(config: SegGPTConfig, seed: int = 0) -> dict[str, torch.Tensor]
             arr = np.zeros(shape, np.float32)
         else:
             arr = np.clip(rng.standard_normal(shape, dtype=np.float32) * np.float32(std), -2 * std, 2 * std)
-        state[name] = torch.from_numpy(arr)
-    return state
+        state.append((name, torch.from_numpy(arr)))
+    return tuple(state)
+
+
+def random_state(config: SegGPTConfig, seed: int = 0) -> dict[str, torch.Tensor]:
+    """Seeded random weights (numpy, so CPU and GPU builds agree): LayerNorm
+    scales 1, biases 0, everything else normal with the config's
+    initializer range, clipped at ±2σ like the flax truncated-normal init.
+    A draw is kept per (config, seed), since ViT-L's takes seconds on the
+    host: the CPU tensors are shared between calls, so treat them as
+    read-only (``build_model`` and ``load_model_params`` copy them)."""
+    return dict(_random_tensors(config, seed))
 
 
 def build_model(

@@ -12,9 +12,12 @@ The only trainable weights are the prompt pixels: all prompt crops live in one
 - ``predict_step``: the inference forward: raw uint8 crops (or eval-augmented
   float crops) → SegGPT on the prompt‖query canvas → palette-distance decode
   → optional cv2-nearest back-resize to uint8 ids.
+- ``predict_step_probs``: the same forward → soft class probabilities, the
+  overlap-blend engine's input, optionally back-resized (cv2 bicubic) and
+  multiplied by a feather window on the device.
 
-``predict_step_probs`` comes with a later slice. Random numbers come from an
-explicit ``torch.Generator``; a test can pass the draws JAX took instead.
+Random numbers come from an explicit ``torch.Generator``; a test can pass the
+draws JAX took instead.
 """
 
 from __future__ import annotations
@@ -427,3 +430,22 @@ class PromptTuner:
             sel = self._tensor(resize_matrix(ids.shape[1], out_size, "nearest_cv2").argmax(1))
             ids = ids.index_select(1, sel).index_select(2, sel)
         return ids.to(torch.uint8) if out_size is not None else ids
+
+    @torch.inference_mode()
+    def predict_step_probs(self, prompt_pixels, prompt_masks, prompt_nodata, batch, out_size: int | None = None,
+                           feather=None) -> torch.Tensor:
+        """Like :meth:`predict_step` but soft class probabilities (B, S, S, C)
+        fp32: a softmax over negative palette distances in place of the hard
+        argmin. ``out_size`` back-resizes on the device with the cv2-bicubic
+        matrices as two fp32 products, clipped at 0; ``feather`` (out, out, 1)
+        is multiplied on the device."""
+        pred_masks, palette_norm = self.predict_masks(prompt_pixels, prompt_masks, prompt_nodata, batch)
+        probs = soft_class_probs(pred_masks, palette_norm)
+        if out_size is not None and out_size != probs.shape[1]:
+            m = torch.tensor(resize_matrix(probs.shape[1], out_size, "bicubic_cv2"), device=self.device)
+            probs = torch.einsum("oh,bhwc->bowc", m, probs)
+            probs = torch.einsum("pw,bhwc->bhpc", m, probs)
+            probs = torch.clamp(probs, min=0)
+        if feather is not None:
+            probs = probs * self._tensor(feather).float()[None]
+        return probs

@@ -33,3 +33,13 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             )
         _exact_fp32()
     return dev
+
+
+def device_for_platform(platform: str) -> torch.device:
+    """``BeachSegConfig.platform`` as the device rule: ``""`` → CUDA
+    (raising without it), ``"cpu"`` → the CPU, anything else raises."""
+    if platform == "":
+        return resolve_device(None)
+    if platform == "cpu":
+        return resolve_device("cpu")
+    raise ValueError(f"platform={platform!r}: the port takes '' (the CUDA device) or 'cpu'")

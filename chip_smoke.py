@@ -87,7 +87,19 @@ Phases (any failure exits non-zero before the result lines):
      compute dtype): 2 predict_step calls (the second is the warm time), 32
      packed-attention launches each (#3 on its split-TF32 body), pred_masks
      held against the plain versions with phase 5's limits;
- 17. one JSON line of per-kernel numbers (one entry per kernel, geometry
+ 17. the tuned-predict scene engine (infer.predict.run_predict) end to end
+     at full width: a 2048×1024-pixel, 4-band uint16 scene at 3 m (a wavy
+     shoreline across the full width; one reference date and 8 predict
+     dates, each two overlapping GeoTIFF tiles) written to disk with the
+     port's geo writers, then ViT-L (seeded random weights, batch 8) in bf16
+     vote mode, bf16 blend mode (overlap 56), bf16 vote mode through the
+     plain versions and fp32 vote mode: per-date GeoTIFFs of the scene's
+     shape and CRS with ids in 0..3, mask PNGs and overlays; 24 #1 and 24 #2
+     launches (and 24 of each MLP stage kernel) per batch under bf16, 24 #1
+     under fp32, the others idle; timings.json's tile count; the bf16 vote
+     mosaics equal to the plain run's on ID_AGREEMENT_MIN of the voted
+     pixels; stream_tiles_per_sec and the phase seconds of each run;
+ 18. one JSON line of per-kernel numbers (one entry per kernel, geometry
      and dtype), then the card's name and power limit, then
      {"ok": true, "device": {...}} as the last line.
 
@@ -103,6 +115,7 @@ import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -1181,6 +1194,155 @@ def phase_train_path(device, model, conf, expect: dict, n_steps: int = 3,
     return {"launches": launches, "seconds": seconds, "losses": losses, "peak_bytes": peak, "grad_cos": cos, "grad_err": err}
 
 
+# the scene engine's synthetic scene: a 6 km stretch of coast at 3 m pixels,
+# 4-band uint16, one reference date and SCENE_DATES predict dates, each date
+# two overlapping GeoTIFF tiles
+SCENE_W, SCENE_H, SCENE_PIX = 2048, 1024, 3.0
+SCENE_DATES = 8
+SCENE_EPSG = 32611
+SCENE_ORIGIN = (500000.0, 4100000.0)
+
+
+def shoreline_row(x: np.ndarray, shift: float = 0.0) -> np.ndarray:
+    """The wavy water line's row at column ``x`` (two waves, ±85 rows)."""
+    return 0.55 * SCENE_H + 60 * np.sin(2 * np.pi * x / 700) + 25 * np.sin(2 * np.pi * x / 230 + 1) + shift
+
+
+def write_scene(root: Path, n_dates: int = SCENE_DATES, seed: int = 0) -> list[str]:
+    """The reference's data layout under ``root``, written with the port's
+    geo writers (Masks/Mask_<DATE>.shp, Masks/WaterMask_<DATE>.shp,
+    SatelliteImagery/files/<DATE>_{a,b}.tif): water below a wavy shoreline
+    across the full width, vegetation above a second wavy line, sand between;
+    each date shifts the shoreline a little. → the dates, reference first."""
+    from beach_seg_tpu_torch.geo.affine import Affine
+    from beach_seg_tpu_torch.geo.geometry import Polygon
+    from beach_seg_tpu_torch.geo.shapefile import save_shapefile
+    from beach_seg_tpu_torch.geo.tiff import write
+
+    rng = np.random.default_rng(seed)
+    x0, y0 = SCENE_ORIGIN
+    dates = [f"2024{1 + i // 2:02d}{1 + 14 * (i % 2):02d}" for i in range(n_dates + 1)]
+    mask_dir, img_dir = root / "Masks", root / "SatelliteImagery" / "files"
+    mask_dir.mkdir(parents=True)
+    img_dir.mkdir(parents=True)
+
+    def world(col, row):
+        return np.stack([x0 + np.asarray(col) * SCENE_PIX, y0 - np.asarray(row) * SCENE_PIX], axis=1)
+
+    xs = np.linspace(2, SCENE_W - 2, 257)
+    water = np.concatenate([world(xs, shoreline_row(xs)), world([SCENE_W - 2, 2], [SCENE_H, SCENE_H])])
+    veg = np.concatenate([world(xs, shoreline_row(xs) - 220 + 30 * np.cos(2 * np.pi * xs / 500)), world([SCENE_W - 2, 2], [0, 0])])
+    save_shapefile([Polygon(water)], mask_dir / f"WaterMask_{dates[0]}.shp", crs=SCENE_EPSG)
+    save_shapefile([Polygon(veg)], mask_dir / f"Mask_{dates[0]}.shp", crs=SCENE_EPSG)
+
+    cols = np.arange(SCENE_W)[None, :]
+    rows = np.arange(SCENE_H)[:, None]
+    half, lap = SCENE_W // 2, 64
+    # the native encoder releases the GIL: the tiles are written on a pool,
+    # LZW (the writer's default) and deflate in turns
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        writes = []
+        for i, date in enumerate(dates):
+            wet = rows >= shoreline_row(cols, shift=6 * i)
+            green = rows < shoreline_row(cols) - 220 + 30 * np.cos(2 * np.pi * cols / 500)
+            dry = ~wet & ~green
+            bands = np.empty((4, SCENE_H, SCENE_W), np.uint16)
+            for b, (wv, sv, vv) in enumerate([(900, 2200, 1200), (1000, 2400, 1300), (1100, 2600, 1500), (400, 2800, 2300)]):
+                base = np.where(wet, wv, 0) + np.where(dry, sv, 0) + np.where(green, vv, 0)
+                bands[b] = np.clip(base + rng.integers(0, 120, (SCENE_H, SCENE_W)), 1, 65535)
+            for tag, c0, c1, compress in (("a", 0, half + lap, "lzw"), ("b", half - lap, SCENE_W, "deflate")):
+                t = Affine.from_origin(x0 + c0 * SCENE_PIX, y0, SCENE_PIX, SCENE_PIX)
+                writes.append(pool.submit(write, img_dir / f"{date}_{tag}.tif", bands[:, :, c0:c1], t, crs=SCENE_EPSG,
+                                          nodata=0, compress=compress))
+        for w in writes:
+            w.result()
+    return dates
+
+
+def scene_run(data: Path, out: Path, dtype: str, merge: str, overlap: int, expect: dict, crops_by_overlap: dict,
+              dates: list[str], plain: bool = False) -> dict:
+    """run_predict once on the card (``plain``: through the plain versions);
+    its outputs checked for every predict date (a GeoTIFF of the scene's
+    shape and CRS with ids in 0..3, the mask PNG, the overlay), timings.json's
+    tile count, and the launch counters: ``expect`` (launches per batch) times
+    the batches, every other kernel idle."""
+    from beach_seg_tpu_torch.config import PredictionConfig
+    from beach_seg_tpu_torch.geo.tiff import read
+    from beach_seg_tpu_torch.infer import run_predict
+
+    conf = PredictionConfig(data=data, model_training_root=out, checkpoint="random", batch_size=B,
+                            compute_dtype=dtype, merge=merge, overlap=overlap)
+    crops = crops_by_overlap[overlap]
+    n_batches = (len(dates) - 1) * math.ceil(len(crops) / B)
+    reset_counts()
+    t = time.perf_counter()
+    with plain_kernels() if plain else contextlib.nullcontext():
+        run_dir = run_predict(conf)
+    seconds = time.perf_counter() - t
+    launches = read_counts()
+    timings = json.loads((run_dir / "timings.json").read_text())
+    ids = {}
+    for date in dates[1:]:
+        r = read(run_dir / "tif" / f"{date}.tif")
+        check(r.data.shape == (1, SCENE_H, SCENE_W) and r.crs == f"EPSG:{SCENE_EPSG}", f"{date}: {r.data.shape} {r.crs}")
+        check(set(np.unique(r.data).tolist()) <= {0, 1, 2, 3}, f"{date}: ids {np.unique(r.data)}")
+        check((run_dir / "masks" / f"{date}.png").stat().st_size > 0 and (run_dir / "images" / f"{date}.png").stat().st_size > 0,
+              f"{date}: mask or overlay PNG missing")
+        ids[date] = r.data[0]
+    # every date covers the whole scene, so each (crop, date) pair whose crop
+    # meets the scene has data: the tiles that are not all nodata
+    meets = sum(1 for x0, y0, x1, y1 in crops if x1 > 0 and y1 > 0 and x0 < SCENE_W and y0 < SCENE_H)
+    check(timings["tiles"] == meets * (len(dates) - 1), f"timings tiles {timings['tiles']}, want {meets * (len(dates) - 1)}")
+    want = {name: expect.get(name, 0) * n_batches for name in counters()}
+    log(f"scene engine {dtype} {merge} overlap {overlap}{' plain' if plain else ''}: {len(crops)} crops x {len(dates) - 1} dates, {n_batches} batches "
+        f"of {B}, {seconds:.3f} s; timings.json {json.dumps(timings)}; launches {launches}")
+    check(launches == want, f"scene engine {dtype} {merge}: launches {launches}, want {want}")
+    return {"ids": ids, "timings": timings, "seconds": seconds, "launches": launches, "batches": n_batches}
+
+
+def vote_agreement(got: dict, want: dict, crops: list) -> float:
+    """Share of the voted pixels (inside some crop) whose ids are equal."""
+    voted = np.zeros((SCENE_H, SCENE_W), bool)
+    for x0, y0, x1, y1 in crops:
+        voted[max(y0, 0):max(y1, 0), max(x0, 0):max(x1, 0)] = True
+    same = sum(int((got[d] == want[d])[voted].sum()) for d in want)
+    return same / (int(voted.sum()) * len(want))
+
+
+def phase_scene_engine(large: dict, card: str) -> dict:
+    """infer.predict.run_predict end to end at full width (ViT-L, random
+    weights from the seed): a SCENE_W × SCENE_H, 1 + SCENE_DATES date scene on
+    disk → per-date GeoTIFFs, mask PNGs and overlays, in bf16 vote mode, bf16
+    blend mode (overlap 56), bf16 vote mode through the plain versions (the
+    ids held to ID_AGREEMENT_MIN of the voted pixels) and the default fp32
+    vote mode (#1 on its split-TF32 body)."""
+    import tempfile
+
+    from beach_seg_tpu_torch.config import BeachSegConfig
+    from beach_seg_tpu_torch.data.dataset import create_scene
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_scene_") as tmp:
+        root = Path(tmp)
+        t = time.perf_counter()
+        dates = write_scene(root / "scene")
+        crops = {ov: create_scene(BeachSegConfig(data=root / "scene"), train=True, crop_overlap=ov).crops for ov in (0, 56)}
+        log(f"scene engine: wrote {SCENE_W}x{SCENE_H} 4-band uint16 at {SCENE_PIX} m, {len(dates)} dates x 2 tiles in "
+            f"{time.perf_counter() - t:.3f} s; {len(crops[0])} crops at overlap 0, {len(crops[56])} at 56")
+        args = (crops, dates)
+        vote = scene_run(root / "scene", root / "out", "bfloat16", "vote", 0, large, *args)
+        blend = scene_run(root / "scene", root / "out", "bfloat16", "blend", 56, large, *args)
+        plain = scene_run(root / "scene", root / "out", "bfloat16", "vote", 0, {}, *args, plain=True)
+        agree = vote_agreement(vote["ids"], plain["ids"], crops[0])
+        log(f"scene engine: bf16 vote mosaics kernels vs plain: {agree:.6f} of voted pixels equal (min {ID_AGREEMENT_MIN})")
+        check(agree >= ID_AGREEMENT_MIN, f"bf16 vote mosaics agree on {agree} of voted pixels")
+        fp32 = scene_run(root / "scene", root / "out", "float32", "vote", 0, {"attn_qkv_rel": 24}, *args)
+    runs = {"bf16_vote": vote, "bf16_blend_overlap56": blend, "bf16_vote_plain": plain, "fp32_vote": fp32}
+    for name, r in runs.items():
+        log(f"scene engine {name}: stream_tiles_per_sec {r['timings']['stream_tiles_per_sec']}, run {r['seconds']:.3f} s, "
+            f"timings {json.dumps(r['timings'])} ({card})")
+    return {"runs": runs, "agreement_bf16": agree}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1293,6 +1455,11 @@ def main() -> int:
     log(f"fp32 ViT-H predict path phase: {time.perf_counter() - t:.3f} s")
     del model
     torch.cuda.empty_cache()
+
+    # the tuned-predict scene engine end to end (infer.predict.run_predict)
+    t = time.perf_counter()
+    sc = phase_scene_engine(with_stages(large), card)
+    log(f"scene engine phase: {time.perf_counter() - t:.3f} s")
 
     kernels = [
         {
@@ -1419,6 +1586,12 @@ def main() -> int:
     for key, name in (("packed", "attn_packed"), ("fused", "attn_fused"), ("bwd", "attn_bwd")):
         first[name][f"max_abs_err_grid_{grid}"] = {f"{dt}_hd{hd}": kc[f"{key}_{dt}_hd{hd}"] for dt in ("bf16", "fp32") for hd in (HD, HD_H)}
     first["attn_qkv"][f"max_abs_err_grid_{grid}"] = {dt: kc[f"qkv_{dt}"] for dt in ("bf16", "fp32")}
+    # the scene engine's launches: bf16 vote + blend for #1 and #2, fp32 vote for #1 fp32
+    scene_bf16 = [sc["runs"]["bf16_vote"]["launches"], sc["runs"]["bf16_blend_overlap56"]["launches"]]
+    for e in kernels:
+        if e["name"] in ("attn_qkv_rel", "ln_mlp") and e["geometry"] == "vit_l":
+            runs = [sc["runs"]["fp32_vote"]["launches"]] if e.get("dtype") == "fp32" else scene_bf16
+            e["launches_scene_engine"] = sum(r[e["name"]] for r in runs)
     first["attn_packed"]["ms_hd16_bf16"] = ks["packed_ms_hd16"]
     first["attn_bwd"]["ms_hd16_bf16"] = ks["bwd_ms_hd16"]
     for name in ("attn_packed", "attn_bwd", "ln_mlp", "ln_mlp_dx"):

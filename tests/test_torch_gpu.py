@@ -2,9 +2,12 @@
 ViT-L layer's shapes, at ViT-H's widths (head_dim 80, C=1280) and at ragged
 small ones, tiny bf16 and fp32 models (head_dim 64, and C=1280 with 16 heads
 of 80) through the kernels forward and backward, the library's attention
-entries, and the shapes the kernels refuse.
+entries, the shapes the kernels refuse, and the scene engine (run_predict)
+against its own run through the plain versions.
 Marked ``gpu``: they skip where no CUDA device is present (run them on the
 card with ``python -m pytest --noconftest -m gpu tests/test_torch_gpu.py``)."""
+
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -728,3 +731,35 @@ def test_mlp_wrappers_raise_on_misaligned_or_strided_inputs(cuda):
         cuda_mlp.ln_vjp(ln, x, ls, mean, rstd)  # dln must be fp32
     with pytest.raises(ValueError, match="C % 256"):
         cuda_mlp.ln_rows(x[:, :128].contiguous(), ls[:128], lb[:128], 1e-6)
+
+
+def test_scene_engine_on_card_matches_plain(cuda, tmp_path, monkeypatch):
+    """infer.predict.run_predict on the card: the small scene of
+    tests/synthetic_scene.py, the debug backbone in bf16 (#3 and #2 once per
+    layer per batch, from pinned uploads and per-date pinned downloads behind
+    CUDA events). Its GeoTIFFs agree with the same engine's through the plain
+    versions on at least 98% of the pixels (chip_smoke.py's id limit)."""
+    from beach_seg_tpu_torch.config import PredictionConfig
+    from beach_seg_tpu_torch.geo.tiff import read
+    from beach_seg_tpu_torch.infer import run_predict
+    from beach_seg_tpu_torch.ops import attention
+
+    # by its directory: a host may have a regular package named tests of its own
+    monkeypatch.syspath_prepend(str(Path(__file__).resolve().parent))
+    from synthetic_scene import OTHER_DATES, build_scene
+
+    scene = build_scene(tmp_path / "scene")
+    conf = PredictionConfig(data=scene, model_training_root=tmp_path / "out", batch_size=2, debug=True,
+                            compute_dtype="bfloat16", checkpoint="random", mesh_data=1)
+    p0, m0 = cuda_attn.attn_packed.launches, cuda_mlp.ln_mlp.launches
+    got_dir = run_predict(conf)
+    packed, mlp = cuda_attn.attn_packed.launches - p0, cuda_mlp.ln_mlp.launches - m0
+    assert packed > 0 and packed == mlp and packed % 4 == 0  # 4 layers a batch
+    monkeypatch.setattr(cuda_attn, "attn_packed", attention.attention_packed_plain)
+    monkeypatch.setattr(cuda_mlp, "ln_mlp", cuda_mlp.ln_mlp_plain)
+    want_dir = run_predict(conf)
+    for date in OTHER_DATES:
+        got, want = read(got_dir / "tif" / f"{date}.tif").data[0], read(want_dir / "tif" / f"{date}.tif").data[0]
+        assert got.shape == want.shape == (96, 128)
+        assert set(np.unique(got)) <= {0, 1, 2, 3}
+        assert (got == want).mean() >= 0.98
