@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from beach_seg_tpu_torch.geo.geometry import LineString, MultiLineString, linemerge
+from beach_seg_tpu_torch.geo.geometry import LineString, MultiLineString, merge_segments
 
 
 def _cell_segments(m: np.ndarray, level: float) -> list[tuple[tuple, tuple]]:
@@ -84,7 +84,7 @@ def _cell_segments(m: np.ndarray, level: float) -> list[tuple[tuple, tuple]]:
     return segs
 
 
-def _cell_segments_native(m: np.ndarray, level: float) -> list[tuple[tuple, tuple]] | None:
+def _cell_segments_native(m: np.ndarray, level: float) -> np.ndarray | None:
     try:
         import ctypes
 
@@ -107,24 +107,41 @@ def _cell_segments_native(m: np.ndarray, level: float) -> list[tuple[tuple, tupl
             cap,
         )
         if n >= 0:
-            return [((r0, c0), (r1, c1)) for r0, c0, r1, c1 in buf[:n]]
+            return buf[:n]
         cap = -n
+
+
+def _contour_chains(image: np.ndarray, level: float) -> tuple[np.ndarray, np.ndarray]:
+    """:func:`find_contours` flat: (points (m, 2) (row, col), offsets (k + 1,))."""
+    segs = _cell_segments_native(np.asarray(image), level)
+    if segs is None:
+        segs = np.asarray(_cell_segments(np.asarray(image), level), np.float64).reshape(-1, 4)
+    if not len(segs):
+        return np.zeros((0, 2)), np.zeros(1, np.int64)
+    return merge_segments(segs[:, :2], segs[:, 2:])
 
 
 def find_contours(image: np.ndarray, level: float = 0.5) -> list[np.ndarray]:
     """Iso-contours of a 2-D array at ``level`` → list of (N, 2) (row, col)."""
-    segs = _cell_segments_native(np.asarray(image), level)
-    if segs is None:
-        segs = _cell_segments(np.asarray(image), level)
-    if not segs:
-        return []
-    lines = [LineString([a, b]) for a, b in segs]
-    merged = linemerge(lines)
-    if merged is None:
-        return []
-    if isinstance(merged, LineString):
-        return [merged.coords]
-    return [g.coords for g in merged.geoms]
+    pts, offsets = _contour_chains(image, level)
+    return [pts[a:b] for a, b in zip(offsets[:-1].tolist(), offsets[1:].tolist())]
+
+
+def _near_nodata(nodata_mask: np.ndarray) -> np.ndarray:
+    """``nodata_mask[row - 1 : row + 2, col - 1 : col + 2].any()`` for every
+    (row, col): the 3×3 neighbourhood clipped at the far edges, and False in
+    row 0 and column 0, where the slice's negative start makes it empty
+    (the reference's numpy behavior; so for images at least 3 px wide)."""
+    nd = np.asarray(nodata_mask).astype(bool)
+    h, w = nd.shape
+    pad = np.pad(nd, 1)
+    near = np.zeros_like(nd)
+    for dr in range(3):
+        for dc in range(3):
+            near |= pad[dr : dr + h, dc : dc + w]
+    near[0, :] = False
+    near[:, 0] = False
+    return near
 
 
 def extract_linestring(
@@ -134,33 +151,36 @@ def extract_linestring(
     edge or within 1 px of nodata, merge, filter short pieces (exact
     behavioral port of ref geo_util.py:83-156; coords come out as (x, y))."""
     h, w = mask.shape
-    contours = find_contours(mask.astype(float), level=0.5)
-    if not contours:
+    pts, offsets = _contour_chains(mask.astype(float), 0.5)
+    if len(offsets) < 2:
         return None
 
-    all_segments = []
-    for contour in contours:
-        for i in range(len(contour) - 1):
-            p1 = contour[i]
-            p2 = contour[i + 1]
-            if p1[0] <= 0 or p1[0] >= h - 1 or p1[1] <= 0 or p1[1] >= w - 1:
-                continue
-            mid = (p1 + p2) / 2.0
-            row, col = int(round(mid[0])), int(round(mid[1]))
-            # NOTE: negative slice starts intentionally reproduce the
-            # reference's numpy behavior at the top/left borders
-            if nodata_mask[row - 1 : row + 2, col - 1 : col + 2].any():
-                continue
-            all_segments.append((tuple(p1[::-1]), tuple(p2[::-1])))  # (x, y)
-
-    if not all_segments:
+    # every step p1 → p2 within a contour is kept unless p1 lies on the image
+    # edge or the step's midpoint (rounded half to even) lies within 1 px of
+    # nodata
+    within = np.ones(len(pts) - 1, bool)
+    within[offsets[1:-1] - 1] = False  # no step from one contour's end to the next one's start
+    p1, p2 = pts[:-1][within], pts[1:][within]
+    keep = (p1[:, 0] > 0) & (p1[:, 0] < h - 1) & (p1[:, 1] > 0) & (p1[:, 1] < w - 1)
+    p1, p2 = p1[keep], p2[keep]
+    mid = (p1 + p2) / 2.0
+    rows, cols = np.rint(mid[:, 0]).astype(np.int64), np.rint(mid[:, 1]).astype(np.int64)
+    if h >= 3 and w >= 3:
+        clear = ~_near_nodata(nodata_mask)[rows, cols]
+    else:  # an image under 3 px wide: the reference's slices, one by one
+        clear = np.array([not nodata_mask[r - 1 : r + 2, c - 1 : c + 2].any() for r, c in zip(rows, cols)], bool)
+    if not clear.any():
         return None
+    chains, offsets = merge_segments(p1[clear, ::-1], p2[clear, ::-1])  # (x, y)
 
-    merged = linemerge([LineString([a, b]) for a, b in all_segments])
-    if merged is None:
-        return None
-    lines = [merged] if isinstance(merged, LineString) else list(merged.geoms)
-
+    # the chains' lengths, summed per chain (one vectorized pass), pick the
+    # candidates; the kept lines' lengths are then LineString.length's own
+    # (relative slack 1e-9, far above the two sums' rounding difference)
+    step = np.linalg.norm(np.diff(chains, axis=0), axis=1)
+    step[offsets[1:-1] - 1] = 0.0
+    approx = np.add.reduceat(step, offsets[:-1]) if len(step) else np.zeros(1)
+    cut = length_threshold * approx.max() * (1.0 - 1e-9)
+    lines = [LineString(chains[offsets[c] : offsets[c + 1]]) for c in np.nonzero(approx >= cut)[0].tolist()]
     max_len = max(line.length for line in lines)
     filtered = [line for line in lines if line.length >= length_threshold * max_len]
     if not filtered:

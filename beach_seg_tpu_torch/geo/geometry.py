@@ -153,6 +153,108 @@ def linemerge(lines: list[LineString]) -> LineString | MultiLineString | None:
     return MultiLineString([LineString(m) for m in merged])
 
 
+def _merge_chains_native(key: np.ndarray, n: int):
+    try:
+        import ctypes
+
+        from beach_seg_tpu_torch.native.build import load
+
+        lib = load()
+    except Exception:
+        return None
+    fn = lib.bst_merge_chains
+    fn.restype = ctypes.c_int64
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p]
+    key = np.ascontiguousarray(key, np.int64)
+    idx = np.empty(2 * n, np.int64)
+    offsets = np.empty(n + 1, np.int64)
+    k = fn(key.ctypes.data, n, idx.ctypes.data, offsets.ctypes.data)
+    return idx[: offsets[k]], offsets[: k + 1]
+
+
+def _merge_chains_python(key: np.ndarray, n: int) -> tuple[np.ndarray, np.ndarray]:
+    """The chain walk of :func:`merge_segments` in Python (the native one's
+    fallback and reference)."""
+    _, first, node = np.unique(key, return_index=True, return_inverse=True)
+    n_nodes = len(first)
+    rank = np.empty(n_nodes, np.int64)
+    rank[np.argsort(first, kind="stable")] = np.arange(n_nodes)
+    node = rank[node.reshape(-1)]  # endpoint 2i + e → its node, in appearance order
+    deg = np.bincount(node, minlength=n_nodes)
+    adj = np.argsort(node, kind="stable").tolist()  # endpoints grouped by node, in appearance order
+    first_ep = np.concatenate([[0], np.cumsum(deg)]).tolist()
+    deg = deg.tolist()
+    ends = node.tolist()
+    used = [False] * n
+    idx: list[int] = []
+    offsets: list[int] = []
+
+    def walk(i: int, e: int) -> None:
+        offsets.append(len(idx))
+        used[i] = True
+        idx.extend((2 * i + e, 2 * i + 1 - e))
+        tail = ends[2 * i + 1 - e]
+        while deg[tail] == 2:
+            a, b = adj[first_ep[tail]], adj[first_ep[tail] + 1]
+            if not used[a >> 1]:
+                ep = a
+            elif not used[b >> 1]:
+                ep = b
+            else:
+                break
+            used[ep >> 1] = True
+            idx.append(ep ^ 1)
+            tail = ends[ep ^ 1]
+
+    # chains between non-degree-2 nodes
+    for v in range(n_nodes):
+        if deg[v] == 2:
+            continue
+        for ep in adj[first_ep[v] : first_ep[v] + deg[v]]:
+            if not used[ep >> 1]:
+                walk(ep >> 1, ep & 1)
+    # remaining cycles
+    for i in range(n):
+        if not used[i]:
+            walk(i, 0)
+    offsets.append(len(idx))
+    return np.asarray(idx, np.int64), np.asarray(offsets, np.int64)
+
+
+def _endpoint_keys(pts: np.ndarray) -> np.ndarray:
+    """One int64 key per (x, y) point, equal exactly where linemerge's keys
+    are (each coordinate rounded to 9 decimals by Python's ``round``): on
+    the half-pixel grid that contours of a 0/1 map lie on, the doubled
+    coordinates themselves (``round`` keeps them); elsewhere the rank of the
+    rounded value, rounding once per distinct value."""
+    twice = pts * 2.0
+    if len(pts) and twice.min() >= 0 and twice.max() < 2.0**31 and np.array_equal(twice, np.floor(twice)):
+        g = twice.astype(np.int64)
+        return g[:, 0] * (int(g[:, 1].max()) + 1) + g[:, 1]
+    vals, inv = np.unique(pts, return_inverse=True)
+    rounded = np.array([round(float(v), 9) for v in vals]) + 0.0  # -0.0 keys as 0.0
+    ids, key_of_val = np.unique(rounded, return_inverse=True)
+    key = key_of_val[inv.reshape(pts.shape)].astype(np.int64)
+    return key[:, 0] * len(ids) + key[:, 1]
+
+
+def merge_segments(p0: np.ndarray, p1: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """:func:`linemerge` of the two-point lines ``p0[i]`` → ``p1[i]`` ((n, 2)
+    each, n ≥ 1) → (points (m, 2), offsets (k + 1,)): chain c is
+    ``points[offsets[c]:offsets[c + 1]]``, the same chains in the same order
+    as linemerge's. The endpoints are keyed as linemerge keys them
+    (:func:`_endpoint_keys`) and the walk runs on those integers, natively
+    (``bst_merge_chains``) or in Python where the native library is off.
+    Contour extraction calls this: its segment lists run to 10⁵-10⁶ on a
+    noisy class map."""
+    n = len(p0)
+    pts = np.stack([np.asarray(p0, np.float64), np.asarray(p1, np.float64)], axis=1).reshape(-1, 2)
+    key = _endpoint_keys(pts)
+    chains = _merge_chains_native(key, n)
+    idx, offsets = chains if chains is not None else _merge_chains_python(key, n)
+    return pts[idx], offsets
+
+
 def generate_square_crops_along_line(
     line: LineString | MultiLineString, crop_size: int, overlap: int
 ) -> list[tuple[int, int, int, int]]:

@@ -68,13 +68,43 @@ def resolve_config(pred_conf: PredictionConfig) -> BeachSegConfig:
     return dataclasses.replace(conf, **updates)
 
 
-def _upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+def upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     """Host array → ``dev``: from pinned memory without blocking on CUDA
     (a non-blocking copy from pageable memory would be synchronous)."""
     t = torch.from_numpy(np.ascontiguousarray(a))
     if dev.type != "cuda":
         return t.to(dev)
     return t.pin_memory().to(dev, non_blocking=True)
+
+
+def copy_to_host(t: torch.Tensor) -> tuple[torch.Tensor, torch.cuda.Event | None]:
+    """Start ``t``'s copy to the host: on CUDA into pinned memory without
+    blocking, with an event recorded after it (wait on the event before
+    reading the host tensor); elsewhere a plain copy and no event."""
+    pinned = t.device.type == "cuda"
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=pinned)
+    host.copy_(t, non_blocking=pinned)
+    event = None
+    if pinned:
+        event = torch.cuda.Event()
+        event.record()
+    return host, event
+
+
+def write_timings(run_dir: Path, setup_s: float, stream_s: float, timers: dict, n_tiles: int) -> None:
+    """``timings.json``: the phase seconds (``timers``: mosaic, dispatch,
+    fetch, paste) and tile rate of a scene run, the JAX engines' keys."""
+    (run_dir / "timings.json").write_text(json.dumps({
+        "setup_s": round(setup_s, 3),
+        "stream_s": round(stream_s, 3),
+        "mosaic_wait_s": round(timers["mosaic"], 3),
+        "dispatch_s": round(timers["dispatch"], 3),
+        "fetch_s": round(timers["fetch"], 3),
+        "paste_s": round(timers["paste"], 3),
+        "tiles": n_tiles,
+        "stream_tiles_per_sec": round(n_tiles / stream_s, 3) if stream_s > 0 else None,
+    }))
+    logger.info("done: %d tiles in %.2fs streaming", n_tiles, stream_s)
 
 
 def run_predict(pred_conf: PredictionConfig, device=None) -> Path:
@@ -133,7 +163,6 @@ def run_predict(pred_conf: PredictionConfig, device=None) -> Path:
     pmasks = torch.as_tensor(pb["mask"], dtype=torch.int32).to(dev)
     pnodata = torch.as_tensor(pb["nodata"]).to(dev)
     feather_dev = torch.from_numpy(feather).to(dev) if use_blend else None
-    pinned = dev.type == "cuda"
 
     with VoteAccumulator(
         train_scene.out_shape, predict_dir, train_scene.out_transform,
@@ -172,13 +201,7 @@ def run_predict(pred_conf: PredictionConfig, device=None) -> Path:
             if not date_results:
                 return
             dcat = torch.cat(date_results) if len(date_results) > 1 else date_results[0]
-            host = torch.empty(dcat.shape, dtype=dcat.dtype, pin_memory=pinned)
-            host.copy_(dcat, non_blocking=pinned)
-            event = None
-            if pinned:
-                event = torch.cuda.Event()
-                event.record()
-            pending.append((list(date_batches), host, event))
+            pending.append((list(date_batches), *copy_to_host(dcat)))
             date_batches.clear()
             date_results.clear()
 
@@ -193,7 +216,7 @@ def run_predict(pred_conf: PredictionConfig, device=None) -> Path:
                 if not batch["valid"].any():
                     continue
                 # upload only the raw uint8 crops and their indices
-                dev_batch = {k: _upload(batch[k], dev) for k in ("image_u8", "crop_idx")}
+                dev_batch = {k: upload(batch[k], dev) for k in ("image_u8", "crop_idx")}
                 t0 = time.perf_counter()
                 if use_blend:
                     result = tuner.predict_step_probs(pixels, pmasks, pnodata, dev_batch, conf.crop_size, feather_dev)
@@ -223,17 +246,6 @@ def run_predict(pred_conf: PredictionConfig, device=None) -> Path:
             t_paste += time.perf_counter() - t0
         t_stream = time.perf_counter()
 
-    # phase timings, the keys of the JAX engine's timings.json
-    stream_s = t_stream - t_setup
-    (predict_dir / "timings.json").write_text(json.dumps({
-        "setup_s": round(t_setup - t_start, 3),
-        "stream_s": round(stream_s, 3),
-        "mosaic_wait_s": round(t_mosaic, 3),
-        "dispatch_s": round(t_dispatch, 3),
-        "fetch_s": round(t_fetch, 3),
-        "paste_s": round(t_paste, 3),
-        "tiles": n_tiles,
-        "stream_tiles_per_sec": round(n_tiles / stream_s, 3) if stream_s > 0 else None,
-    }))
-    logger.info("done: %d tiles in %.2fs streaming", n_tiles, stream_s)
+    timers = {"mosaic": t_mosaic, "dispatch": t_dispatch, "fetch": t_fetch, "paste": t_paste}
+    write_timings(predict_dir, t_setup - t_start, t_stream - t_setup, timers, n_tiles)
     return predict_dir

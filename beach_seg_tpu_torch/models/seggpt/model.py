@@ -222,8 +222,37 @@ def drop_path_rates(config: SegGPTConfig) -> list[float]:
     return [float(r) for r in dpr]
 
 
+def ensemble_mean(attn_out: torch.Tensor, ensemble_cond: int, ensemble_groups: int, streams: int) -> torch.Tensor:
+    """The feature ensemble (HF modeling_seggpt.py:426-436, JAX model.py:344-370):
+    the query (bottom) half of the attention output averaged over each
+    ensemble's prompts. The batch holds ``ensemble_groups`` ensembles of P
+    prompts, rows group-major within each of its ``streams`` stacked streams
+    [pixel, mask]. Before the merge (``ensemble_cond`` 2) each stream is
+    averaged within each group; at ``merge_index`` (cond 1, still two
+    streams) the mean spans both streams' rows of each group, HF's quirk;
+    after the merge it is taken within each group. Unchanged when an
+    ensemble is too small for its cond (HF's ``shape[0] // 2 >= cond``).
+    Each mean is taken in fp32 and rounded once into the compute dtype."""
+    per_group = attn_out.shape[0] // (streams * ensemble_groups)
+    if streams * per_group // 2 < ensemble_cond:
+        return attn_out
+    half = attn_out.shape[1] // 2
+    query = attn_out[:, half:].float()
+    if ensemble_cond == 2:
+        qp = query.reshape(2 * ensemble_groups, per_group, -1)
+        qp = qp.mean(dim=1, keepdim=True).expand(qp.shape)
+    elif streams == 2:
+        qp = query.reshape(2, ensemble_groups, per_group, -1)
+        qp = qp.mean(dim=(0, 2), keepdim=True).expand(qp.shape)
+    else:
+        qp = query.reshape(ensemble_groups, per_group, -1)
+        qp = qp.mean(dim=1, keepdim=True).expand(qp.shape)
+    return torch.cat([attn_out[:, :half], qp.reshape(query.shape).to(attn_out.dtype)], dim=1)
+
+
 class Block(nn.Module):
-    """Pre-LN transformer block (HF SegGptLayer, modeling_seggpt.py:403-447)."""
+    """Pre-LN transformer block with the optional feature ensemble (HF
+    SegGptLayer, modeling_seggpt.py:403-447)."""
 
     def __init__(self, config: SegGPTConfig, dtype: torch.dtype, drop_path_rate: float = 0.0):
         super().__init__()
@@ -234,11 +263,17 @@ class Block(nn.Module):
         self.layernorm_after = LayerNorm(config.hidden_size, config.layer_norm_eps)
         self.mlp = Mlp(config, dtype)
 
-    def forward(self, x: torch.Tensor, drop_masks=(None, None)) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, drop_masks=(None, None), ensemble_cond: int = 1,
+                feature_ensemble: bool = False, ensemble_groups: int = 1, streams: int = 1) -> torch.Tensor:
         """``drop_masks``: (B,) keep masks of the attention and MLP branches,
-        or None for no drop-path."""
+        or None for no drop-path. ``feature_ensemble``: :func:`ensemble_mean`
+        on the attention output, with ``streams`` the stream count the batch
+        still carries (2 up to and including ``merge_index``)."""
         rate = self.drop_path_rate
-        x = x + drop_path(self.attention(self.layernorm_before(x)), rate, drop_masks[0])
+        attn_out = self.attention(self.layernorm_before(x))
+        if feature_ensemble:
+            attn_out = ensemble_mean(attn_out, ensemble_cond, ensemble_groups, streams)
+        x = x + drop_path(attn_out, rate, drop_masks[0])
         if self.compute_dtype == torch.bfloat16:
             ln = self.layernorm_after
             mlp_out = self.mlp(x, ln_params=(ln.scale, ln.bias))
@@ -258,14 +293,20 @@ class Encoder(nn.Module):
         for i, rate in enumerate(drop_path_rates(config)):
             self.add_module(f"layers_{i}", Block(config, dtype, rate))
 
-    def forward(self, x: torch.Tensor, drop_masks: list | None = None) -> list[torch.Tensor]:
+    def forward(self, x: torch.Tensor, drop_masks: list | None = None, feature_ensemble: bool = False,
+                ensemble_groups: int = 1) -> list[torch.Tensor]:
         """``drop_masks``: one (attention, MLP) pair of keep masks per layer,
         each of the batch size the layer sees (2B up to ``merge_index``), or
-        None for no drop-path."""
+        None for no drop-path. ``feature_ensemble``, ``ensemble_groups``: as
+        :func:`ensemble_mean` takes them."""
         cfg = self.config
         intermediates = []
         for i in range(cfg.num_hidden_layers):
-            x = getattr(self, f"layers_{i}")(x, drop_masks[i] if drop_masks is not None else (None, None))
+            x = getattr(self, f"layers_{i}")(
+                x, drop_masks[i] if drop_masks is not None else (None, None),
+                ensemble_cond=2 if cfg.merge_index > i else 1, feature_ensemble=feature_ensemble,
+                ensemble_groups=ensemble_groups, streams=2 if cfg.merge_index >= i else 1,
+            )
             if i == cfg.merge_index:
                 half = x.shape[0] // 2
                 x = (x[:half] + x[half:]) * 0.5
@@ -342,7 +383,7 @@ class SegGPT(nn.Module):
 
     ``forward`` returns ``{"pred_masks": (B, 2H, W, 3) fp32, "loss"}``: the
     painted NHWC canvas, and the masked smooth-L1 when ``labels`` is given
-    (else None). Feature ensembles are not ported yet and raise."""
+    (else None)."""
 
     def __init__(self, config: SegGPTConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -363,12 +404,14 @@ class SegGPT(nn.Module):
         deterministic: bool = True,
         decode_query_only: bool = False,
         drop_masks: list | None = None,
+        ensemble_groups: int = 1,
     ) -> dict[str, torch.Tensor | None]:
         """``deterministic=False`` turns drop-path on: ``drop_masks`` as
         ``Encoder.forward`` takes them (:meth:`sample_drop_masks` draws them),
-        required when the config's rate is positive."""
-        if feature_ensemble:
-            raise NotImplementedError("feature ensembles are not ported yet (ROADMAP.md §A item 2)")
+        required when the config's rate is positive. ``feature_ensemble``
+        averages the query half across each ensemble's prompts in every
+        layer (:func:`ensemble_mean`): the batch holds ``ensemble_groups``
+        ensembles, rows group-major."""
         cfg, dt = self.config, self.compute_dtype
         pixel_canvas = torch.cat([prompt_pixel_values, pixel_values], dim=1)
         mask_canvas = torch.cat([prompt_masks, labels if labels is not None else prompt_masks], dim=1)
@@ -379,7 +422,7 @@ class SegGPT(nn.Module):
         elif drop_masks is None and cfg.drop_path_rate > 0.0:
             raise ValueError("drop-path (deterministic=False) needs drop_masks")
         x = self.embeddings(pixel_canvas.to(dt), mask_canvas.to(dt), bool_masked_pos, embedding_type)
-        feats = torch.cat(self.encoder(x, drop_masks), dim=-1)
+        feats = torch.cat(self.encoder(x, drop_masks, feature_ensemble, ensemble_groups), dim=-1)
         if decode_query_only:
             # decode the query patch rows plus a one-row halo for the 3×3
             # conv, then drop the halo: equal to the bottom half of a full

@@ -1,4 +1,5 @@
-// Native geometry engine: scanline rasterization + marching squares.
+// Native geometry engine: scanline rasterization, marching squares and the
+// chain walk of linemerge over two-point segments.
 //
 // Host-side hot spots of the geo data plane for production-size scenes
 // (10k×10k rasters, shapefile masks with 10^4-10^5 vertices): the Python
@@ -11,10 +12,13 @@
 //     (c+0.5, r+0.5) is inside by even-odd counting, half-open edge spans.
 //   - marching squares: case table with level interpolation, saddle cells
 //     disambiguated by cell mean (skimage default).
+//   - merge chains: linemerge's walk (geo/geometry.py merge_segments) on
+//     integer node ids, the Python walk's chains in the same order.
 
 #include <algorithm>
 #include <cmath>
 #include <cstdint>
+#include <unordered_map>
 #include <vector>
 
 extern "C" {
@@ -156,6 +160,65 @@ int bst_marching_squares(const float* img, int h, int w, double level,
     }
   }
   return count <= max_segs ? count : -count;
+}
+
+// key[2n]: the key of endpoint 2i + e of segment i (e = 0 start, 1 end);
+// endpoints with equal keys are one node, nodes numbered in order of first
+// appearance. Walks the chains as linemerge does: from every endpoint of
+// each node of degree != 2 (nodes in order, endpoints in appearance order),
+// through degree-2 nodes, then the remaining cycles from their lowest
+// segment. Writes each chain's endpoint indices in walk order to idx
+// (n + chains <= 2n entries) and the chain starts to offsets (chains + 1 <=
+// n + 1 entries); returns the chain count.
+int64_t bst_merge_chains(const int64_t* key, int64_t n, int64_t* idx, int64_t* offsets) {
+  std::vector<int64_t> node(2 * n);
+  std::unordered_map<int64_t, int64_t> number;
+  number.reserve(2 * n);
+  for (int64_t p = 0; p < 2 * n; ++p) {
+    node[p] = number.emplace(key[p], static_cast<int64_t>(number.size())).first->second;
+  }
+  const int64_t n_nodes = static_cast<int64_t>(number.size());
+  std::vector<int64_t> first(n_nodes + 1, 0), adj(2 * n);
+  for (int64_t p = 0; p < 2 * n; ++p) first[node[p] + 1]++;
+  for (int64_t v = 0; v < n_nodes; ++v) first[v + 1] += first[v];
+  std::vector<int64_t> fill(first.begin(), first.end() - 1);
+  for (int64_t p = 0; p < 2 * n; ++p) adj[fill[node[p]]++] = p;
+  std::vector<char> used(n, 0);
+  int64_t m = 0, k = 0;
+  auto walk = [&](int64_t i, int64_t e) {
+    offsets[k++] = m;
+    used[i] = 1;
+    idx[m++] = 2 * i + e;
+    int64_t other = 2 * i + 1 - e;
+    idx[m++] = other;
+    int64_t tail = node[other];
+    while (first[tail + 1] - first[tail] == 2) {
+      const int64_t a = adj[first[tail]], b = adj[first[tail] + 1];
+      int64_t ep;
+      if (!used[a >> 1]) {
+        ep = a;
+      } else if (!used[b >> 1]) {
+        ep = b;
+      } else {
+        break;
+      }
+      used[ep >> 1] = 1;
+      other = ep ^ 1;
+      idx[m++] = other;
+      tail = node[other];
+    }
+  };
+  for (int64_t v = 0; v < n_nodes; ++v) {
+    if (first[v + 1] - first[v] == 2) continue;
+    for (int64_t q = first[v]; q < first[v + 1]; ++q) {
+      if (!used[adj[q] >> 1]) walk(adj[q] >> 1, adj[q] & 1);
+    }
+  }
+  for (int64_t i = 0; i < n; ++i) {
+    if (!used[i]) walk(i, 0);
+  }
+  offsets[k] = m;
+  return k;
 }
 
 }  // extern "C"

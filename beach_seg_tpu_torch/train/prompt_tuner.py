@@ -392,14 +392,16 @@ class PromptTuner:
         return q_img
 
     @torch.inference_mode()
-    def predict_masks(self, prompt_pixels, prompt_masks, prompt_nodata, batch) -> tuple[torch.Tensor, torch.Tensor]:
+    def predict_masks(self, prompt_pixels, prompt_masks, prompt_nodata, batch, palette=None) -> tuple[torch.Tensor, torch.Tensor]:
         """The model half of the predict step: → (pred_masks (B, 2H, W, 3)
         fp32, normalized palette (B, N, 3)). Prompt = the tile's own crop
-        index; Painter palette."""
+        index; ``palette`` (B, N, 3) uint8, else the Painter palette."""
         conf = self.conf
         q_img = self._query_pixels(batch)
         b = q_img.shape[0]
-        palette = self._tensor(build_palette(self.num_classes - 1))[None].expand(b, self.num_classes, 3)
+        if palette is None:
+            palette = self._tensor(build_palette(self.num_classes - 1))[None].expand(b, self.num_classes, 3)
+        palette = self._tensor(palette)
         palette_norm = normalize_palette(palette)
 
         idx = self._tensor(batch["crop_idx"]).to(torch.int64)
@@ -419,11 +421,23 @@ class PromptTuner:
         return out["pred_masks"], palette_norm
 
     @torch.inference_mode()
-    def predict_step(self, prompt_pixels, prompt_masks, prompt_nodata, batch, out_size: int | None = None) -> torch.Tensor:
+    def predict_step(self, prompt_pixels, prompt_masks, prompt_nodata, batch, out_size: int | None = None,
+                     painter_palette: bool = True, generator: torch.Generator | None = None,
+                     palette=None) -> torch.Tensor:
         """Inference forward: (B, S, S) int32 ids, or with ``out_size``
         (B, out, out) uint8 ids back-resized on the device with the
-        cv2-nearest selection."""
-        pred_masks, palette_norm = self.predict_masks(prompt_pixels, prompt_masks, prompt_nodata, batch)
+        cv2-nearest selection. ``painter_palette=False`` paints the prompts
+        with a random palette (class 0 black): ``palette`` (B, N, 3) uint8,
+        or drawn from ``generator`` (``transforms.random_palette``)."""
+        if painter_palette and (palette is not None or generator is not None):
+            raise ValueError("predict_step: a palette or a generator paints a random palette; pass painter_palette=False")
+        if not painter_palette and palette is None:
+            if generator is None:
+                raise ValueError("predict_step(painter_palette=False) needs a generator or a palette")
+            b = batch["crop_idx"].shape[0]
+            palette = random_palette(generator, self.num_classes, b)
+        pred_masks, palette_norm = self.predict_masks(prompt_pixels, prompt_masks, prompt_nodata, batch,
+                                                      palette=None if painter_palette else palette)
         h = pred_masks.shape[1] // 2
         ids = decode_by_palette(pred_masks[:, h:], palette_norm)
         if out_size is not None and out_size != ids.shape[1]:

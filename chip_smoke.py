@@ -91,7 +91,8 @@ Phases (any failure exits non-zero before the result lines):
      at full width: a 2048×1024-pixel, 4-band uint16 scene at 3 m (a wavy
      shoreline across the full width; one reference date and 8 predict
      dates, each two overlapping GeoTIFF tiles) written to disk with the
-     port's geo writers, then ViT-L (seeded random weights, batch 8) in bf16
+     port's geo writers, of which this phase runs the first 4 dates, then
+     ViT-L (seeded random weights, batch 8) in bf16
      vote mode, bf16 blend mode (overlap 56), bf16 vote mode through the
      plain versions and fp32 vote mode: per-date GeoTIFFs of the scene's
      shape and CRS with ids in 0..3, mask PNGs and overlays; 24 #1 and 24 #2
@@ -99,7 +100,25 @@ Phases (any failure exits non-zero before the result lines):
      under fp32, the others idle; timings.json's tile count; the bf16 vote
      mosaics equal to the plain run's on ID_AGREEMENT_MIN of the voted
      pixels; stream_tiles_per_sec and the phase seconds of each run;
- 18. one JSON line of per-kernel numbers (one entry per kernel, geometry
+ 18. the zero-shot and legacy scene engines (infer.zero_shot.run_zero_shot,
+     infer.legacy.run_legacy) end to end at full width on all 8 dates of
+     phase 17's scene: ViT-L (seeded random weights, batch 8) zero-shot in
+     bf16 (crops of 336, 2 prompts a query: 32 rows before the stream merge,
+     the feature ensemble grouped by query), in fp32 and in bf16 through the
+     plain versions; legacy in bf16 (crops of 224 at overlap 112, the reference
+     date's first 2 crops as prompts): per-date GeoTIFFs of the scene's shape
+     and CRS (zero-shot ids in 0..3, legacy 1-bit masks per exported class),
+     timings.json's tile count, 24 #1 and 24 #2 launches (and 24 of each MLP
+     stage kernel) per batch under bf16, 24 #1 under fp32, the others idle;
+     the zero-shot bf16 mosaics equal to the plain run's on ID_AGREEMENT_MIN
+     of the voted pixels; #1 at the engines' batches (8 queries by 2
+     prompts: 32 rows, then 16) and at the odd batches of 3 queries by 3
+     prompts (18 rows, then 9) against its plain version in bf16 and fp32,
+     and the three stage kernels of #2 at 32·S and 16·S rows against
+     theirs (phase 7's stage limits); the
+     device votes (infer.device_votes.scatter_votes) on the card equal to
+     the CPU's; stream_tiles_per_sec and the phase seconds of each run;
+ 19. one JSON line of per-kernel numbers (one entry per kernel, geometry
      and dtype), then the card's name and power limit, then
      {"ok": true, "device": {...}} as the last line.
 
@@ -114,6 +133,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -137,6 +157,9 @@ WGMMA_QKV_REL = WGMMA + "; qkv bias added in place, rel terms formed by mma.sync
 SOFTMAX_MODES = ("stable", "clamp", "fast")
 HBM = 3.35e12  # bytes/s
 B = 8  # tiles per batch (the predict step's batch)
+# rows of #1 and #2 in the zero-shot and legacy engines: 8 queries by 2 prompts
+# before the stream merge and after it, then the odd batch of 3 queries by 3
+ENGINE_ROWS = (2 * B * 2, B * 2, 2 * 3 * 3, 3 * 3)
 GRID = (56, 28)  # ViT-L and ViT-H canvas 896×448 at 16-pixel patches
 # a grid whose 64-key tiles cross rel_h slot chunks (16 rows of 27 keys) and
 # whose last tile is ragged (999 = 15·64 + 39); ViT's 16·28 keys are 7 tiles
@@ -461,27 +484,30 @@ def mlp_check(key: str, fn, plain, args, tol_rel: float, where: str) -> dict:
     return res
 
 
-def mlp_stage_check(device, n: int, c: int, m: int, seed: int, timed: bool) -> dict:
+def mlp_stage_check(device, n: int, c: int, m: int, seed: int, timed: bool, forward_only: bool = False) -> dict:
     """Each stage kernel of #2 and #5 against its stage plain version on the
     plain chain's own intermediates, with ``mlp_within``'s limits: the bf16
     outputs' (MLP_BF16_REL_TOL, MLP_NORM_TOL), the fp32 LN statistics'
     (MLP_STATS_TOL) and dln's (MLP_DLN_TOL); then, if ``timed``, each
-    kernel's ms."""
+    kernel's ms. ``forward_only``: the three stages of #2 alone."""
     from beach_seg_tpu_torch.ops import cuda_mlp as M
 
     x, ls, lb, w1, b1, w2, b2, gy = mlp_inputs(device, seed, n, c, m)
     ln, mean, rstd = M.ln_rows_plain(x, ls, lb, 1e-6)
     h = M.lin1_gelu_plain(ln, w1, b1, True)
-    dh = M.dual_dh_plain(ln, gy, w1, b1, w2, True)
-    dln = M.dln_plain(dh, w1)
     calls = {
         "ln_rows": (lambda: M.ln_rows(x, ls, lb, 1e-6), (ln, mean, rstd)),
         "lin1_gelu": (lambda: M.lin1_gelu(ln, w1, b1, True), h),
         "lin2": (lambda: M.lin2(h, w2, b2), M.lin2_plain(h, w2, b2)),
-        "dual_dh": (lambda: M.dual_dh(ln, gy, w1, b1, w2, True), dh),
-        "dln": (lambda: M.dln(dh, w1), dln),
-        "ln_vjp": (lambda: M.ln_vjp(dln, x, ls, mean, rstd), M.ln_vjp_plain(dln, x, ls, mean, rstd)),
     }
+    if not forward_only:
+        dh = M.dual_dh_plain(ln, gy, w1, b1, w2, True)
+        dln = M.dln_plain(dh, w1)
+        calls.update({
+            "dual_dh": (lambda: M.dual_dh(ln, gy, w1, b1, w2, True), dh),
+            "dln": (lambda: M.dln(dh, w1), dln),
+            "ln_vjp": (lambda: M.ln_vjp(dln, x, ls, mean, rstd), M.ln_vjp_plain(dln, x, ls, mean, rstd)),
+        })
     res = {}
     for name, (fn, want) in calls.items():
         got = fn()
@@ -498,6 +524,8 @@ def mlp_stage_check(device, n: int, c: int, m: int, seed: int, timed: bool) -> d
             res[f"{name}{part.replace(' ', '_')}_err"] = e["err"]
         if timed:
             res[f"{name}_ms"] = time_ms(fn, iters=10, warmup=2)
+    if forward_only:
+        return res
     # and with approx=False (GELU and gelu' in their erf forms)
     for name, fn, want in (("lin1_gelu_erf", lambda: M.lin1_gelu(ln, w1, b1, False), M.lin1_gelu_plain(ln, w1, b1, False)),
                            ("dual_dh_erf", lambda: M.dual_dh(ln, gy, w1, b1, w2, False),
@@ -1194,11 +1222,13 @@ def phase_train_path(device, model, conf, expect: dict, n_steps: int = 3,
     return {"launches": launches, "seconds": seconds, "losses": losses, "peak_bytes": peak, "grad_cos": cos, "grad_err": err}
 
 
-# the scene engine's synthetic scene: a 6 km stretch of coast at 3 m pixels,
+# the scene engines' synthetic scene: a 6 km stretch of coast at 3 m pixels,
 # 4-band uint16, one reference date and SCENE_DATES predict dates, each date
-# two overlapping GeoTIFF tiles
+# two overlapping GeoTIFF tiles; the tuned-predict phase runs on the first
+# TUNED_DATES of them (a view of the same files)
 SCENE_W, SCENE_H, SCENE_PIX = 2048, 1024, 3.0
 SCENE_DATES = 8
+TUNED_DATES = 4
 SCENE_EPSG = 32611
 SCENE_ORIGIN = (500000.0, 4100000.0)
 
@@ -1309,38 +1339,176 @@ def vote_agreement(got: dict, want: dict, crops: list) -> float:
     return same / (int(voted.sum()) * len(want))
 
 
-def phase_scene_engine(large: dict, card: str) -> dict:
-    """infer.predict.run_predict end to end at full width (ViT-L, random
-    weights from the seed): a SCENE_W × SCENE_H, 1 + SCENE_DATES date scene on
-    disk → per-date GeoTIFFs, mask PNGs and overlays, in bf16 vote mode, bf16
-    blend mode (overlap 56), bf16 vote mode through the plain versions (the
-    ids held to ID_AGREEMENT_MIN of the voted pixels) and the default fp32
-    vote mode (#1 on its split-TF32 body)."""
-    import tempfile
+def scene_view(src: Path, dst: Path, dates: list[str]) -> Path:
+    """``dst``: the scene under ``src`` cut to ``dates`` (the reference date
+    first), as symbolic links to its files."""
+    (dst / "SatelliteImagery" / "files").mkdir(parents=True)
+    (dst / "Masks").symlink_to(src / "Masks", target_is_directory=True)
+    for date in dates:
+        for tif in (src / "SatelliteImagery" / "files").glob(f"{date}_*.tif"):
+            (dst / "SatelliteImagery" / "files" / tif.name).symlink_to(tif)
+    return dst
 
+
+def phase_scene_engine(root: Path, dates: list[str], large: dict, card: str) -> dict:
+    """infer.predict.run_predict end to end at full width (ViT-L, random
+    weights from the seed): the SCENE_W × SCENE_H scene of the reference date
+    and the predict dates ``dates[1:]`` under ``root / "scene"`` → per-date
+    GeoTIFFs, mask PNGs and overlays, in
+    bf16 vote mode, bf16 blend mode (overlap 56), bf16 vote mode through the
+    plain versions (the ids held to ID_AGREEMENT_MIN of the voted pixels) and
+    the default fp32 vote mode (#1 on its split-TF32 body)."""
     from beach_seg_tpu_torch.config import BeachSegConfig
     from beach_seg_tpu_torch.data.dataset import create_scene
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_scene_") as tmp:
-        root = Path(tmp)
-        t = time.perf_counter()
-        dates = write_scene(root / "scene")
-        crops = {ov: create_scene(BeachSegConfig(data=root / "scene"), train=True, crop_overlap=ov).crops for ov in (0, 56)}
-        log(f"scene engine: wrote {SCENE_W}x{SCENE_H} 4-band uint16 at {SCENE_PIX} m, {len(dates)} dates x 2 tiles in "
-            f"{time.perf_counter() - t:.3f} s; {len(crops[0])} crops at overlap 0, {len(crops[56])} at 56")
-        args = (crops, dates)
-        vote = scene_run(root / "scene", root / "out", "bfloat16", "vote", 0, large, *args)
-        blend = scene_run(root / "scene", root / "out", "bfloat16", "blend", 56, large, *args)
-        plain = scene_run(root / "scene", root / "out", "bfloat16", "vote", 0, {}, *args, plain=True)
-        agree = vote_agreement(vote["ids"], plain["ids"], crops[0])
-        log(f"scene engine: bf16 vote mosaics kernels vs plain: {agree:.6f} of voted pixels equal (min {ID_AGREEMENT_MIN})")
-        check(agree >= ID_AGREEMENT_MIN, f"bf16 vote mosaics agree on {agree} of voted pixels")
-        fp32 = scene_run(root / "scene", root / "out", "float32", "vote", 0, {"attn_qkv_rel": 24}, *args)
+    crops = {ov: create_scene(BeachSegConfig(data=root / "scene"), train=True, crop_overlap=ov).crops for ov in (0, 56)}
+    log(f"scene engine: {len(crops[0])} crops at overlap 0, {len(crops[56])} at 56")
+    args = (crops, dates)
+    vote = scene_run(root / "scene", root / "out", "bfloat16", "vote", 0, large, *args)
+    blend = scene_run(root / "scene", root / "out", "bfloat16", "blend", 56, large, *args)
+    plain = scene_run(root / "scene", root / "out", "bfloat16", "vote", 0, {}, *args, plain=True)
+    agree = vote_agreement(vote["ids"], plain["ids"], crops[0])
+    log(f"scene engine: bf16 vote mosaics kernels vs plain: {agree:.6f} of voted pixels equal (min {ID_AGREEMENT_MIN})")
+    check(agree >= ID_AGREEMENT_MIN, f"bf16 vote mosaics agree on {agree} of voted pixels")
+    fp32 = scene_run(root / "scene", root / "out", "float32", "vote", 0, {"attn_qkv_rel": 24}, *args)
     runs = {"bf16_vote": vote, "bf16_blend_overlap56": blend, "bf16_vote_plain": plain, "fp32_vote": fp32}
     for name, r in runs.items():
         log(f"scene engine {name}: stream_tiles_per_sec {r['timings']['stream_tiles_per_sec']}, run {r['seconds']:.3f} s, "
             f"timings {json.dumps(r['timings'])} ({card})")
     return {"runs": runs, "agreement_bf16": agree}
+
+
+def meeting(crops: list) -> int:
+    """The crops that meet the scene: every date covers the whole scene, so
+    these are the tiles of a date that are not all nodata."""
+    return sum(1 for x0, y0, x1, y1 in crops if x1 > 0 and y1 > 0 and x0 < SCENE_W and y0 < SCENE_H)
+
+
+def engine_run(engine: str, data: Path, out: Path, dtype: str, expect: dict, crops: list, dates: list[str],
+               plain: bool = False) -> dict:
+    """run_zero_shot or run_legacy once on the card (``plain``: through the
+    plain versions); its outputs checked for every predict date (zero-shot: a
+    GeoTIFF of the scene's shape and CRS with ids in 0..3 and the mask PNG;
+    legacy: a 1-bit GeoTIFF per exported class), timings.json's tile count,
+    and the launch counters: ``expect`` (launches per batch) times the
+    batches, every other kernel idle."""
+    from beach_seg_tpu_torch.config import LegacyConfig, PredConfig
+    from beach_seg_tpu_torch.geo.tiff import read
+    from beach_seg_tpu_torch.infer import run_legacy, run_zero_shot
+
+    common = dict(data=data, model_training_root=out, checkpoint="random", batch_size=B, compute_dtype=dtype)
+    tiles = meeting(crops) * (len(dates) - 1)
+    n_batches = (len(dates) - 1) * math.ceil(meeting(crops) / B)
+    reset_counts()
+    t = time.perf_counter()
+    with plain_kernels() if plain else contextlib.nullcontext():
+        run_dir = run_zero_shot(PredConfig(**common)) if engine == "zero_shot" else run_legacy(LegacyConfig(**common))
+    seconds = time.perf_counter() - t
+    launches = read_counts()
+    timings = json.loads((run_dir / "timings.json").read_text())
+    ids = {}
+    for date in dates[1:]:
+        if engine == "zero_shot":
+            files = {"ids": run_dir / "tif" / f"{date}.tif"}
+            check((run_dir / "masks" / f"{date}.png").stat().st_size > 0, f"{date}: mask PNG missing")
+        else:
+            files = {name: run_dir / f"{name}_{date}.tif" for name in ("WetDryLine", "VegLine")}
+        for name, path in files.items():
+            r = read(path)
+            check(r.data.shape == (1, SCENE_H, SCENE_W) and r.crs == f"EPSG:{SCENE_EPSG}", f"{path.name}: {r.data.shape} {r.crs}")
+            allowed = {0, 1, 2, 3} if engine == "zero_shot" else {0, 1}
+            check(set(np.unique(r.data).tolist()) <= allowed, f"{path.name}: ids {np.unique(r.data)}")
+            ids[(date, name)] = r.data[0]
+    check(timings["tiles"] == tiles, f"{engine} timings tiles {timings['tiles']}, want {tiles}")
+    want = {name: expect.get(name, 0) * n_batches for name in counters()}
+    tag = f"{engine} {dtype}{' plain' if plain else ''}"
+    log(f"{tag}: {len(crops)} crops x {len(dates) - 1} dates, {n_batches} batches of {B} queries, {seconds:.3f} s; "
+        f"timings.json {json.dumps(timings)}; launches {launches}")
+    check(launches == want, f"{tag}: launches {launches}, want {want}")
+    return {"ids": ids, "timings": timings, "seconds": seconds, "launches": launches, "batches": n_batches}
+
+
+def engine_batch_check(device) -> dict:
+    """#1 and #2 at the batches the zero-shot and legacy engines give them,
+    each against its plain version: 8 queries by 2 prompts, 2·Q·P = 32 rows
+    before the stream merge and Q·P = 16 after, and the odd batches of Q=3
+    by P=3, 18 rows then 9. #1 in bf16 (clamp) and fp32 (stable) with
+    ``fwd_check``'s limits; the three stage kernels of #2 at N = 32·S and
+    16·S rows with ``mlp_stage_check``'s. Returns the largest errors, keyed
+    "<kernel> <dtype> B=<rows>"."""
+    from beach_seg_tpu_torch.ops import cuda_attn
+
+    s = GRID[0] * GRID[1]
+    errs = {}
+    for dtype, softmax in ((torch.bfloat16, "clamp"), (torch.float32, "stable")):
+        for b in ENGINE_ROWS:
+            args = (*attn_inputs(dtype, device, b=b, seed=b), HD**-0.5, GRID[1], HEADS, softmax)
+            name = f"attn_qkv_rel {'bf16' if dtype == torch.bfloat16 else 'fp32'} B={b}"
+            errs[name] = fwd_check(name, cuda_attn.attn_qkv_rel, cuda_attn.attn_qkv_rel_plain, args, (b, s, C))
+    for b in ENGINE_ROWS[:2]:
+        for stage, err in mlp_stage_check(device, b * s, C, MLP, seed=b, timed=False, forward_only=True).items():
+            errs[f"{stage.removesuffix('_err')} bf16 B={b}"] = err
+        torch.cuda.empty_cache()
+    return errs
+
+
+def votes_check(device, crops: list) -> None:
+    """scatter_votes on the card against the same call on the CPU, bit for
+    bit: a batch of B zero-shot crops (some reaching past the scene's edge)
+    of seeded ids, one row not valid, added twice into a scene-sized counter."""
+    from beach_seg_tpu_torch.infer.device_votes import scatter_votes, zero_counter
+
+    rng = np.random.default_rng(5)
+    cs = crops[0][2] - crops[0][0]
+    picked = [crops[i % len(crops)] for i in range(B)]
+    one_hot = torch.from_numpy(np.eye(4, dtype=np.int32)[rng.integers(0, 4, (B, cs, cs))])
+    xmins = torch.tensor([c[0] for c in picked], dtype=torch.int32)
+    ymins = torch.tensor([c[1] for c in picked], dtype=torch.int32)
+    valid = torch.ones(B, dtype=torch.bool)
+    valid[-1] = False
+    want, got = zero_counter((SCENE_H, SCENE_W), 4), zero_counter((SCENE_H, SCENE_W), 4, device=device)
+    for _ in range(2):
+        scatter_votes(want, one_hot, xmins, ymins, valid)
+        scatter_votes(got, one_hot.to(device), xmins.to(device), ymins.to(device), valid.to(device))
+    same = torch.equal(got.cpu(), want)
+    log(f"scatter_votes: ({SCENE_H}, {SCENE_W}, 4) counter, {B} crops of {cs}, card equals CPU: {same}; "
+        f"{int(want.sum())} votes")
+    check(same and int(want.sum()) > 0, "scatter_votes on the card differs from the CPU's")
+
+
+def phase_other_engines(device, root: Path, dates: list[str], large: dict, card: str) -> dict:
+    """infer.zero_shot.run_zero_shot and infer.legacy.run_legacy end to end at
+    full width (ViT-L, random weights from the seed, batch 8) on the whole
+    scene of phase 17 (all SCENE_DATES dates): zero-shot in bf16 (crops of 336, 2 prompts: 8 queries a batch,
+    32 rows before the stream merge), in fp32, and in bf16 through the plain
+    versions (the bf16 mosaics held to ID_AGREEMENT_MIN of the voted pixels);
+    legacy in bf16 (crops of 224 at overlap 112, the reference date's first 2
+    crops as prompts); then #1 and #2 at the engines' batch shapes
+    (``engine_batch_check``) and scatter_votes on the card against the CPU."""
+    from beach_seg_tpu_torch.config import BeachSegConfig
+    from beach_seg_tpu_torch.data.dataset import create_scene
+
+    data = root / "scene"
+    zs_crops = create_scene(BeachSegConfig(data=data, crop_size=336), train=True).crops
+    lg_crops = create_scene(BeachSegConfig(data=data, crop_size=224), train=True, crop_overlap=112).crops
+    log(f"zero-shot and legacy engines: {len(zs_crops)} crops of 336, {len(lg_crops)} of 224 at overlap 112")
+    runs = {
+        "zero_shot_bf16": engine_run("zero_shot", data, root / "out", "bfloat16", large, zs_crops, dates),
+        "zero_shot_fp32": engine_run("zero_shot", data, root / "out", "float32", {"attn_qkv_rel": 24}, zs_crops, dates),
+        "legacy_bf16": engine_run("legacy", data, root / "out", "bfloat16", large, lg_crops, dates),
+        "zero_shot_bf16_plain": engine_run("zero_shot", data, root / "out", "bfloat16", {}, zs_crops, dates, plain=True),
+    }
+    got = {d: runs["zero_shot_bf16"]["ids"][(d, "ids")] for d in dates[1:]}
+    want = {d: runs["zero_shot_bf16_plain"]["ids"][(d, "ids")] for d in dates[1:]}
+    agree = vote_agreement(got, want, zs_crops)
+    log(f"zero-shot bf16 mosaics kernels vs plain: {agree:.6f} of voted pixels equal (min {ID_AGREEMENT_MIN})")
+    check(agree >= ID_AGREEMENT_MIN, f"zero-shot bf16 mosaics agree on {agree} of voted pixels")
+    batches = engine_batch_check(device)
+    votes_check(device, zs_crops)
+    for name, r in runs.items():
+        log(f"{name}: stream_tiles_per_sec {r['timings']['stream_tiles_per_sec']}, run {r['seconds']:.3f} s, "
+            f"timings {json.dumps(r['timings'])} ({card})")
+    return {"runs": runs, "agreement_bf16": agree, "engine_batches": batches}
 
 
 def main() -> int:
@@ -1456,10 +1624,22 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
 
-    # the tuned-predict scene engine end to end (infer.predict.run_predict)
-    t = time.perf_counter()
-    sc = phase_scene_engine(with_stages(large), card)
-    log(f"scene engine phase: {time.perf_counter() - t:.3f} s")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_scene_") as tmp:
+        root = Path(tmp)
+        t = time.perf_counter()
+        dates = write_scene(root / "all" / "scene")
+        log(f"scene: wrote {SCENE_W}x{SCENE_H} 4-band uint16 at {SCENE_PIX} m, {len(dates)} dates x 2 tiles in "
+            f"{time.perf_counter() - t:.3f} s")
+        # the tuned-predict scene engine end to end (infer.predict.run_predict)
+        t = time.perf_counter()
+        tuned = dates[: 1 + TUNED_DATES]
+        scene_view(root / "all" / "scene", root / "tuned" / "scene", tuned)
+        sc = phase_scene_engine(root / "tuned", tuned, with_stages(large), card)
+        log(f"scene engine phase: {time.perf_counter() - t:.3f} s")
+        # the zero-shot and legacy scene engines end to end
+        t = time.perf_counter()
+        oe = phase_other_engines(device, root / "all", dates, with_stages(large), card)
+        log(f"zero-shot and legacy engine phase: {time.perf_counter() - t:.3f} s")
 
     kernels = [
         {
@@ -1592,6 +1772,17 @@ def main() -> int:
         if e["name"] in ("attn_qkv_rel", "ln_mlp") and e["geometry"] == "vit_l":
             runs = [sc["runs"]["fp32_vote"]["launches"]] if e.get("dtype") == "fp32" else scene_bf16
             e["launches_scene_engine"] = sum(r[e["name"]] for r in runs)
+            fp32 = e.get("dtype") == "fp32"
+            zs = oe["runs"]["zero_shot_fp32" if fp32 else "zero_shot_bf16"]
+            e["launches_zero_shot"] = zs["launches"][e["name"]]
+            e["launches_zero_shot_per_batch"] = zs["launches"][e["name"]] // zs["batches"]
+            if not fp32:
+                lg = oe["runs"]["legacy_bf16"]
+                e["launches_legacy"] = lg["launches"][e["name"]]
+                e["launches_legacy_per_batch"] = lg["launches"][e["name"]] // lg["batches"]
+            e["max_abs_err_engine_batches"] = {
+                k.split(" ", 1)[1] if e["name"] == "attn_qkv_rel" else k: v for k, v in oe["engine_batches"].items()
+                if (k.startswith("attn_qkv_rel")) == (e["name"] == "attn_qkv_rel") and (k.split()[1] == "fp32") == fp32}
     first["attn_packed"]["ms_hd16_bf16"] = ks["packed_ms_hd16"]
     first["attn_bwd"]["ms_hd16_bf16"] = ks["bwd_ms_hd16"]
     for name in ("attn_packed", "attn_bwd", "ln_mlp", "ln_mlp_dx"):

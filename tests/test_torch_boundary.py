@@ -38,8 +38,10 @@ import chip_smoke
 print(" ".join(names))
 """
 
-# the subpackages and modules of the scene engine's slice
+# the subpackages and modules of the scene engines' slices
 ENGINE_MODULES = {
+    "beach_seg_tpu_torch.infer.zero_shot", "beach_seg_tpu_torch.infer.legacy", "beach_seg_tpu_torch.infer.processor",
+    "beach_seg_tpu_torch.infer.device_votes", "beach_seg_tpu_torch.geo.line_metrics",
     "beach_seg_tpu_torch.geo", "beach_seg_tpu_torch.geo.tiff", "beach_seg_tpu_torch.geo.mosaic",
     "beach_seg_tpu_torch.native", "beach_seg_tpu_torch.native.build", "beach_seg_tpu_torch.data",
     "beach_seg_tpu_torch.data.dataset", "beach_seg_tpu_torch.data.prefetch", "beach_seg_tpu_torch.infer",

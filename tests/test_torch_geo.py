@@ -130,3 +130,61 @@ def test_native_library_builds_into_the_port_build_dir(tmp_path, monkeypatch):
     assert set(pbuild._NATIVE_DIR.iterdir()) == before
     monkeypatch.undo()
     assert pbuild.lib_path().parent == Path(pgeo.__file__).resolve().parents[1] / "_build"
+
+
+def _masks(seed: int):
+    """Class maps a random model paints: per-pixel noise, blocky noise and a
+    smooth shoreline, with nodata specks and nodata along the top and left
+    edges (the reference's negative-slice rule), at sizes down to 2 px."""
+    rng = np.random.default_rng(seed)
+    cases = []
+    for h, w in ((2, 5), (3, 7), (5, 2), (97, 131), (240, 320)):
+        cells = rng.integers(0, 2, (h // 4 + 1, w // 4 + 1))
+        shore = np.arange(h)[:, None] >= (h / 2 + 0.2 * h * np.sin(np.arange(w) / 9.0))[None, :]
+        for mask in (rng.random((h, w)) < 0.5, np.repeat(np.repeat(cells, 4, 0), 4, 1)[:h, :w] == 1, shore):
+            nodata = rng.random((h, w)) < 0.02
+            nodata[0, :] = nodata[:, 0] = True
+            cases.append((mask, nodata))
+    return cases
+
+
+@pytest.mark.parametrize("fallback", [False, True], ids=["native", "numpy"])
+def test_contours_of_noisy_masks_match_jax(fallback):
+    """find_contours and extract_linestring (the port merges its segments
+    with merge_segments, natively or in Python) give the JAX package's
+    contours and lines bit for bit on noisy class maps."""
+    lines = lambda ln: None if ln is None else (type(ln).__name__, [g.coords for g in getattr(ln, "geoms", [ln])])  # noqa: E731
+    with _fallback(fallback):
+        # a float field: contour points off the half-pixel grid (the keys by rounded value)
+        field = np.random.default_rng(6).random((40, 60))
+        want, got = jgeo.find_contours(field, 0.3), pgeo.find_contours(field, 0.3)
+        assert len(got) == len(want) > 10
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+        for mask, nodata in _masks(4):
+            want, got = jgeo.find_contours(mask.astype(float)), pgeo.find_contours(mask.astype(float))
+            assert len(got) == len(want)
+            for a, b in zip(got, want):
+                np.testing.assert_array_equal(a, b)
+            want, got = lines(jgeo.extract_linestring(mask, nodata)), lines(pgeo.extract_linestring(mask, nodata))
+            assert (got is None) == (want is None)
+            if want is not None:
+                assert got[0] == want[0] and len(got[1]) == len(want[1])
+                for a, b in zip(got[1], want[1]):
+                    np.testing.assert_array_equal(a, b)
+
+
+def test_merge_segments_native_walk_equals_python():
+    """bst_merge_chains against the Python walk on the segments of a noisy
+    map, and merge_segments against linemerge."""
+    from beach_seg_tpu_torch.geo import contours, geometry
+
+    mask = np.random.default_rng(5).random((60, 80)) < 0.4
+    segs = contours._cell_segments_native(mask.astype(float), 0.5)
+    pts, offsets = geometry.merge_segments(segs[:, :2], segs[:, 2:])
+    with _fallback(True):
+        pts_py, offsets_py = geometry.merge_segments(segs[:, :2], segs[:, 2:])
+    np.testing.assert_array_equal(offsets, offsets_py)
+    np.testing.assert_array_equal(pts, pts_py)
+    merged = pgeo.linemerge([pgeo.LineString(s.reshape(2, 2)) for s in segs])
+    assert [g.coords.tolist() for g in merged.geoms] == [pts[a:b].tolist() for a, b in zip(offsets[:-1], offsets[1:])]

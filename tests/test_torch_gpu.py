@@ -2,8 +2,9 @@
 ViT-L layer's shapes, at ViT-H's widths (head_dim 80, C=1280) and at ragged
 small ones, tiny bf16 and fp32 models (head_dim 64, and C=1280 with 16 heads
 of 80) through the kernels forward and backward, the library's attention
-entries, the shapes the kernels refuse, and the scene engine (run_predict)
-against its own run through the plain versions.
+entries, the shapes the kernels refuse, the scene engine (run_predict)
+against its own run through the plain versions, the grouped feature
+ensemble at an odd batch, and the device votes against the CPU's.
 Marked ``gpu``: they skip where no CUDA device is present (run them on the
 card with ``python -m pytest --noconftest -m gpu tests/test_torch_gpu.py``)."""
 
@@ -763,3 +764,62 @@ def test_scene_engine_on_card_matches_plain(cuda, tmp_path, monkeypatch):
         assert got.shape == want.shape == (96, 128)
         assert set(np.unique(got)) <= {0, 1, 2, 3}
         assert (got == want).mean() >= 0.98
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_feature_ensemble_on_card_matches_plain(cuda, dtype, monkeypatch):
+    """The grouped feature ensemble (G=3 groups of P=3, the odd batch: 18
+    rows before the stream merge, 9 after) at head_dim 64, C=256, on the
+    card through #1 (and #2 under bf16) against the same model through the
+    plain versions on the card: bf16 within 8 steps of the output's scale
+    (the limit of test_tiny_bf16_model_on_card_matches_cpu), fp32 within
+    1e-4 of it (split-TF32 attention)."""
+    from beach_seg_tpu_torch.ops import attention
+
+    cfg = tiny_config(hidden_size=256, num_attention_heads=4)
+    g, p = 3, 3
+    rng = np.random.default_rng(2)
+    h, w = cfg.image_size[0] // 2, cfg.image_size[1]
+    q = np.repeat(rng.standard_normal((g, h, w, 3)).astype(np.float32), p, axis=0)
+    inputs = [torch.from_numpy(a).to(cuda) for a in (q, *(rng.standard_normal((g * p, h, w, 3)).astype(np.float32)
+                                                            for _ in range(2)))]
+    model = build_model(cfg, dtype, device=cuda, seed=1)
+    kw = dict(feature_ensemble=True, ensemble_groups=g, decode_query_only=True)
+    a0, m0 = cuda_attn.attn_qkv_rel.launches, cuda_mlp.ln_mlp.launches
+    with torch.inference_mode():
+        got = model(*inputs, **kw)["pred_masks"]
+        off = model(*inputs, decode_query_only=True)["pred_masks"]
+    assert cuda_attn.attn_qkv_rel.launches - a0 == 2 * cfg.num_hidden_layers
+    assert cuda_mlp.ln_mlp.launches - m0 == (2 * cfg.num_hidden_layers if dtype == torch.bfloat16 else 0)
+    monkeypatch.setattr(cuda_attn, "attn_qkv_rel", cuda_attn.attn_qkv_rel_plain)
+    monkeypatch.setattr(cuda_mlp, "ln_mlp", cuda_mlp.ln_mlp_plain)
+    with torch.inference_mode():
+        want = model(*inputs, **kw)["pred_masks"]
+    scale = want.abs().max().item()
+    tol = 8 * BF16_EPS if dtype == torch.bfloat16 else 1e-4
+    assert (got - want).abs().max().item() <= tol * scale
+    assert (off - want).abs().max().item() > tol * scale  # the ensemble moved the output
+    # the P canvases of a group share their query half after the ensemble,
+    # but for its first pixel row, which the decoder's 3×3 conv takes from
+    # the prompt half
+    grouped = got.reshape(g, p, *got.shape[1:])[:, :, got.shape[1] // 2 + 1:]
+    assert (grouped - grouped[:, :1]).abs().max().item() <= tol * scale
+
+
+def test_scatter_votes_on_card_equals_cpu(cuda):
+    """The device votes on the card equal the CPU's bit for bit: crops past
+    every edge (negative origins too), overlaps and rows that are not
+    valid."""
+    from beach_seg_tpu_torch.infer.device_votes import scatter_votes, zero_counter
+
+    rng = np.random.default_rng(3)
+    b, cs, nc = 16, 112, 4
+    one_hot = torch.from_numpy(np.eye(nc, dtype=np.int32)[rng.integers(0, nc, (b, cs, cs))])
+    xmins = torch.from_numpy(rng.integers(-60, 300, b).astype(np.int32))
+    ymins = torch.from_numpy(rng.integers(-60, 200, b).astype(np.int32))
+    valid = torch.from_numpy(rng.random(b) < 0.8)
+    want, got = zero_counter((200, 300), nc), zero_counter((200, 300), nc, device=cuda)
+    for _ in range(2):
+        scatter_votes(want, one_hot, xmins, ymins, valid)
+        scatter_votes(got, one_hot.to(cuda), xmins.to(cuda), ymins.to(cuda), valid.to(cuda))
+    assert torch.equal(got.cpu(), want) and want.sum() > 0

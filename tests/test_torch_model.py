@@ -92,13 +92,11 @@ def test_kernel_routing(setup, monkeypatch):
 
 
 def test_unported_options_raise(setup):
-    """Feature ensembles are not ported yet; drop-path needs its keep masks
-    passed in."""
+    """Drop-path needs its keep masks passed in (the feature ensemble is
+    tested in tests/test_torch_ensemble.py)."""
     _, over, _, params, inputs = setup
     model = build_model(tiny_config(**over), device="cpu", state=from_jax_params(params, device="cpu"))
     args = [torch.from_numpy(a) for a in inputs]
-    with pytest.raises(NotImplementedError):
-        model(*args, feature_ensemble=True)
     with pytest.raises(ValueError, match="drop_masks"):
         model(*args, deterministic=False)
 
