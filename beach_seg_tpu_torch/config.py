@@ -2,8 +2,8 @@
 (copied, not imported), field for field with the same names and defaults, so a
 JAX run's ``conf.yaml`` merges into it (``utils.confix.merge_yaml_into``).
 
-Fields the port does not act on yet raise on the path they would change when
-set to anything but their default (``check_ported``); the mesh fields and
+The mesh fields are the one thing the port does not act on yet: wider than one
+device, they raise on every entry point (``check_ported``); they and
 ``platform`` have a device meaning here (below). ``nodata`` must remain class
 index 0 (asserted by the data layer, ref data.py:153).
 """
@@ -50,9 +50,12 @@ class BeachSegConfig:
     deterministic: bool = False
     # observability (SURVEY.md §5: absent in the reference, first-class here)
     profile: bool = False  # profiler trace → <run_dir>/profile
-    debug_nans: bool = False  # fail fast on a NaN (the engines raise when set)
-    # rematerialize encoder blocks in backward (trade FLOPs for memory); it
-    # changes only the backward, which the predict path never runs
+    # fail fast on a NaN: run_training checks each step's loss, prompt
+    # gradient and updated pixels and raises FloatingPointError; the engines
+    # ignore the field, as the JAX engines do
+    debug_nans: bool = False
+    # recompute each encoder block in the backward (torch.utils.checkpoint):
+    # less activation memory for more FLOPs; the predict path never runs it
     remat: bool = False
     num_viz_images: int = 9
     viz_size: int = 224
@@ -69,7 +72,8 @@ class BeachSegConfig:
     checkpoint: str = "BAAI/seggpt-vit-large"
     # resume a preempted run: path to a previous train run dir — restores the
     # full PromptState (pixels, EMA, optimizer, step) from its latest
-    # checkpoint and continues from the next epoch (not ported yet)
+    # checkpoint (the port's own format, train.checkpoint) and continues from
+    # the next epoch
     resume_from: Path | None = None
 
     monitor_metric: str = "val/f1"
@@ -212,15 +216,12 @@ def num_workers(conf: BeachSegConfig) -> int:
 
 
 def check_ported(conf: BeachSegConfig, path: str) -> None:
-    """Raise where ``conf`` sets a field that would change what ``path``
-    does and that the port does not act on yet, naming the ROADMAP.md item
-    that will port it."""
+    """Raise where ``conf`` asks ``path`` for more than one device, which
+    the port does not run yet, naming the ROADMAP.md item that will port
+    it. ``debug_nans`` is acted on by ``run_training`` and, as in the JAX
+    package, ignored by the engines."""
     if conf.mesh_data not in (-1, 1) or conf.mesh_model != 1:
         raise NotImplementedError(
             f"{path}: mesh_data={conf.mesh_data}, mesh_model={conf.mesh_model}: the port runs on one device "
             "(mesh_data -1 or 1, mesh_model 1); multi-GPU is ROADMAP.md §A item 9"
-        )
-    if conf.debug_nans:
-        raise NotImplementedError(
-            f"{path}: debug_nans=True is not ported yet (ROADMAP.md §A item 4, with utils/profiling.py)"
         )

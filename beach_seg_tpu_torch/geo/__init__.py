@@ -1,3 +1,7 @@
+"""The host geo/raster data plane (counterpart of ``beach_seg_tpu/geo``,
+copied). Not ported yet: ``notebook_utils``, the notebooks' helpers
+(ROADMAP.md §A 2)."""
+
 from beach_seg_tpu_torch.geo.affine import Affine, bounds
 from beach_seg_tpu_torch.geo.contours import extract_linestring, find_contours
 from beach_seg_tpu_torch.geo.extent import (

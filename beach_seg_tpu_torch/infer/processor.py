@@ -18,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from beach_seg_tpu_torch.ops.resize import resize_matrix, resize_pil_uint8
+from beach_seg_tpu_torch.ops.resize import nearest_indices, resize_matrix, resize_pil_uint8
 from beach_seg_tpu_torch.transforms import (
     IMAGENET_MEAN,
     IMAGENET_STD,
@@ -77,8 +77,8 @@ def preprocess_mask_u8(mask: np.ndarray, num_labels: int, size: int = 448) -> np
     the uint8 stays exact)."""
     palette = build_palette(num_labels)
     rgb = palette[mask.astype(np.int64)]
-    m = resize_matrix(rgb.shape[0], size, "nearest_pil").argmax(1)
-    mw = resize_matrix(rgb.shape[1], size, "nearest_pil").argmax(1)
+    m = nearest_indices(rgb.shape[0], size, "nearest_pil")
+    mw = nearest_indices(rgb.shape[1], size, "nearest_pil")
     return rgb[m][:, mw]
 
 
@@ -113,8 +113,8 @@ def post_process_semantic_device(pred_masks: torch.Tensor, target_size: tuple[in
     th, tw = target_size
     if (th, tw) != tuple(masks.shape[1:3]):
         # nearest matrices are one-hot row selectors → exact gathers
-        idx_h = torch.from_numpy(resize_matrix(masks.shape[1], th, "nearest_torch").argmax(1)).to(dev)
-        idx_w = torch.from_numpy(resize_matrix(masks.shape[2], tw, "nearest_torch").argmax(1)).to(dev)
+        idx_h = torch.from_numpy(nearest_indices(masks.shape[1], th, "nearest_torch")).to(dev)
+        idx_w = torch.from_numpy(nearest_indices(masks.shape[2], tw, "nearest_torch")).to(dev)
         masks = masks.index_select(1, idx_h).index_select(2, idx_w)
     palette = torch.from_numpy(build_palette(num_labels).astype(np.float32)).to(dev)  # (N, 3)
     # HF clips the denormalized colors to the palette range BEFORE the

@@ -73,6 +73,10 @@ def load_npz(path: Path | str, device: str | torch.device | None = None) -> dict
 
 
 
+# the JAX package's name for the reader of save_params files
+load_params = load_npz
+
+
 def _np(t) -> np.ndarray:
     if hasattr(t, "detach"):
         return t.detach().cpu().numpy()

@@ -24,6 +24,10 @@ from beach_seg_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
 
+# the JAX package's name for the seeded random weights (its init_random
+# takes the flax module; the port's random_state takes the config)
+init_random = random_state
+
 
 def _torch_state_dict(local_dir: Path) -> dict:
     st = local_dir / "model.safetensors"

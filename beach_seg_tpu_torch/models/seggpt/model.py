@@ -37,6 +37,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from beach_seg_tpu_torch.models.seggpt.config import SegGPTConfig
 from beach_seg_tpu_torch.ops import cuda_attn, cuda_mlp
@@ -286,9 +287,9 @@ class Encoder(nn.Module):
     """ViT with the pixel/mask stream merge at ``merge_index`` and
     LayerNormed intermediate collection (HF SegGptEncoder :450-507)."""
 
-    def __init__(self, config: SegGPTConfig, dtype: torch.dtype):
+    def __init__(self, config: SegGPTConfig, dtype: torch.dtype, remat: bool = False):
         super().__init__()
-        self.config = config
+        self.config, self.remat = config, remat
         self.layernorm = LayerNorm(config.hidden_size, config.layer_norm_eps)
         for i, rate in enumerate(drop_path_rates(config)):
             self.add_module(f"layers_{i}", Block(config, dtype, rate))
@@ -300,13 +301,21 @@ class Encoder(nn.Module):
         None for no drop-path. ``feature_ensemble``, ``ensemble_groups``: as
         :func:`ensemble_mean` takes them."""
         cfg = self.config
+        # remat (JAX model.py:409-411, nn.remat(Block)): each block keeps only
+        # its input for the backward and runs its forward again there. The
+        # drop-path masks are arguments, so the recompute sees the same ones;
+        # the kernels' autograd Functions keep their tensors through
+        # save_for_backward, so the backward takes them from the recompute.
+        remat = self.remat and torch.is_grad_enabled()
         intermediates = []
         for i in range(cfg.num_hidden_layers):
-            x = getattr(self, f"layers_{i}")(
-                x, drop_masks[i] if drop_masks is not None else (None, None),
-                ensemble_cond=2 if cfg.merge_index > i else 1, feature_ensemble=feature_ensemble,
-                ensemble_groups=ensemble_groups, streams=2 if cfg.merge_index >= i else 1,
-            )
+            block = getattr(self, f"layers_{i}")
+            args = (x, drop_masks[i] if drop_masks is not None else (None, None),
+                    2 if cfg.merge_index > i else 1, feature_ensemble, ensemble_groups, 2 if cfg.merge_index >= i else 1)
+            if remat:
+                x = checkpoint(block, *args, use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = block(*args)
             if i == cfg.merge_index:
                 half = x.shape[0] // 2
                 x = (x[:half] + x[half:]) * 0.5
@@ -385,11 +394,11 @@ class SegGPT(nn.Module):
     painted NHWC canvas, and the masked smooth-L1 when ``labels`` is given
     (else None)."""
 
-    def __init__(self, config: SegGPTConfig, dtype: torch.dtype = torch.float32):
+    def __init__(self, config: SegGPTConfig, dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
         self.config, self.compute_dtype = config, dtype
         self.embeddings = Embeddings(config, dtype)
-        self.encoder = Encoder(config, dtype)
+        self.encoder = Encoder(config, dtype, remat)
         self.decoder = Decoder(config, dtype)
 
     def forward(
@@ -490,14 +499,15 @@ def build_model(
     device: str | torch.device | None = None,
     state: dict | None = None,
     seed: int = 0,
+    remat: bool = False,
 ) -> SegGPT:
     """The model builder: a SegGPT on ``device`` (None → CUDA, raising if
     absent) with ``state`` (from ``convert``) or seeded random weights, in
-    eval mode without gradients. On the ``meta`` device it has shapes and
-    no weights."""
+    eval mode without gradients; ``remat`` recomputes each encoder block in
+    the backward. On the ``meta`` device it has shapes and no weights."""
     dev = resolve_device(device)
     with torch.device(dev):
-        model = SegGPT(config, dtype)
+        model = SegGPT(config, dtype, remat)
     if dev.type != "meta":
         model.load_state_dict(state if state is not None else random_state(config, seed))
     return model.eval().requires_grad_(False)

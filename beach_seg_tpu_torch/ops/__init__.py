@@ -1,6 +1,9 @@
 """Resizes, the attention oracle, and the hand-written CUDA kernels
 (``cuda_attn``, ``cuda_mlp``; sources in ``csrc/``, built by ``build``).
-The names below are the JAX package's ``ops`` exports."""
+The names below are the JAX package's ``ops`` exports. Its ``pallas_attn``
+and ``pallas_mlp`` modules are TPU-only and have no module of that name here
+(``cuda_attn`` / ``cuda_mlp`` hold their counterparts); its ``sharding``
+comes with multi-GPU (ROADMAP.md §A 3)."""
 
 from beach_seg_tpu_torch.ops.attention import attention_reference, get_rel_pos, rel_pos_terms
 from beach_seg_tpu_torch.ops.cuda_attn import fused_attention

@@ -152,6 +152,12 @@ def _matrix(in_size: int, out_size: int, method: str, device: torch.device, **kw
     return torch.tensor(resize_matrix(in_size, out_size, method, **kw), device=device)
 
 
+def nearest_indices(in_size: int, out_size: int, method: str = "nearest_pil") -> np.ndarray:
+    """Source-index vector of a nearest resize: device resizes become exact
+    gathers (the matrices are one-hot row selectors)."""
+    return resize_matrix(in_size, out_size, method).argmax(1)
+
+
 def resize_2d(x: torch.Tensor, out_hw: tuple[int, int], method: str = "bicubic_torch", **kw) -> torch.Tensor:
     """Resize the last two axes of ``x`` (any leading dims) in fp32."""
     h_in, w_in = x.shape[-2], x.shape[-1]

@@ -31,7 +31,7 @@ import torch
 
 from beach_seg_tpu_torch.config import BeachSegConfig
 from beach_seg_tpu_torch.models.seggpt.model import SegGPT, default_bool_masked_pos, seggpt_loss
-from beach_seg_tpu_torch.ops.resize import resize_matrix, resize_pil_uint8_device
+from beach_seg_tpu_torch.ops.resize import nearest_indices, resize_matrix, resize_pil_uint8_device
 from beach_seg_tpu_torch.train.metrics import confusion_update
 from beach_seg_tpu_torch.transforms import (
     AugmentParams,
@@ -115,6 +115,15 @@ def dice_bce_loss(pred_masks, palette_norm, labels, yesdata, num_classes: int, s
         w = sample_weight.float()
         return bce + (dice.mean(-1) * w).sum() / w.sum().clamp(min=1.0)
     return bce + dice.mean()
+
+
+def check_finite(step: int, **tensors: torch.Tensor) -> None:
+    """``debug_nans``: raise ``FloatingPointError`` naming ``step`` and the
+    first of ``tensors`` that holds a NaN or an infinity (the counterpart of
+    JAX's ``jax_debug_nans``; each check waits for the device)."""
+    for name, t in tensors.items():
+        if not bool(torch.isfinite(t).all()):
+            raise FloatingPointError(f"debug_nans: train step {step}: {name} is not finite")
 
 
 def lr_schedule(conf: BeachSegConfig, steps_per_epoch: int):
@@ -320,15 +329,21 @@ class PromptTuner:
         {"loss", "confusion"}). ``state`` is updated in place and returned.
         Random numbers: ``draws`` as :meth:`step_draws` takes them, the rest
         from ``generator``. ``batch["valid"]`` (B,) bool, if present, marks
-        padded rows, which drop out of the loss and the confusion matrix."""
+        padded rows, which drop out of the loss and the confusion matrix.
+        With ``conf.debug_nans`` the loss, the prompt gradient and the updated
+        pixels must be finite, else ``FloatingPointError`` (the state is left
+        as it was); without it nothing is checked and nothing synchronizes."""
         draws = self.step_draws(batch, state.prompt_pixels.shape[0], generator, draws)
         loss, grads, pred_masks, q_mask, palette_norm = self.loss_and_grad(
             state.prompt_pixels, prompt_masks, prompt_nodata, batch, draws
         )
         with torch.no_grad():
             pixels = state.prompt_pixels
-            updates, state.opt_state = self.optimizer.update(grads, state.opt_state, pixels)
-            state.prompt_pixels = pixels + updates
+            updates, opt_state = self.optimizer.update(grads, state.opt_state, pixels)
+            pixels = pixels + updates
+            if self.conf.debug_nans:
+                check_finite(state.step, loss=loss, prompt_gradient=grads, prompt_pixels=pixels)
+            state.opt_state, state.prompt_pixels = opt_state, pixels
             state.ema_pixels = self.conf.ema_alpha * state.ema_pixels + (1.0 - self.conf.ema_alpha) * state.prompt_pixels
             state.step += 1
             h = pred_masks.shape[1] // 2
@@ -441,7 +456,7 @@ class PromptTuner:
         h = pred_masks.shape[1] // 2
         ids = decode_by_palette(pred_masks[:, h:], palette_norm)
         if out_size is not None and out_size != ids.shape[1]:
-            sel = self._tensor(resize_matrix(ids.shape[1], out_size, "nearest_cv2").argmax(1))
+            sel = self._tensor(nearest_indices(ids.shape[1], out_size, "nearest_cv2"))
             ids = ids.index_select(1, sel).index_select(2, sel)
         return ids.to(torch.uint8) if out_size is not None else ids
 

@@ -1,8 +1,10 @@
 from beach_seg_tpu_torch.transforms.augment import (
     AugmentParams,
     center_crop,
+    denormalize_imagenet,
     eval_augment,
     normalize_imagenet,
+    random_resized_crop,
     sample_draws,
     train_augment,
 )
@@ -24,10 +26,12 @@ __all__ = [
     "build_palette",
     "center_crop",
     "decode_by_palette",
+    "denormalize_imagenet",
     "eval_augment",
     "normalize_imagenet",
     "normalize_palette",
     "random_palette",
+    "random_resized_crop",
     "sample_draws",
     "train_augment",
 ]

@@ -1,8 +1,8 @@
 """Batched augmentations (counterpart of ``beach_seg_tpu/transforms/augment.py``).
 
-Train = VFlip → HFlip → (Jigsaw) → (ChannelShift) → ColorJiggle → Sharpness
-→ Erasing → GaussianNoise → Normalize on a batch, with an optional batch
-mosaic first; eval = CenterCrop → Normalize. Geometric ops move masks and
+Train = VFlip → HFlip → (Jigsaw) → (ResizedCrop) → (ChannelShift) →
+ColorJiggle → Sharpness → Erasing → GaussianNoise → Normalize on a batch,
+with an optional batch mosaic first; eval = CenterCrop → Normalize. Geometric ops move masks and
 nodata too; intensity ops touch the image only.
 
 Where the JAX package draws from a PRNG key inside each op, the port's ops
@@ -15,9 +15,11 @@ out. Clips are ``minimum(maximum(x, 0), 1)``, whose gradient at an exact 0 or
 extrema are ``amax``/``amin``, which split the gradient over ties as JAX's
 reductions do.
 
-``random_resized_crop`` (``augment.py:241-285``) is not ported: no
-configuration reaches it (``from_config`` never sets ``resized_crop_p``), and
-a positive ``resized_crop_p`` raises.
+``random_resized_crop`` resamples with weight matrices built as
+``jax.image.scale_and_translate`` builds them (triangle weights renormalised
+over the in-bounds source pixels), not with ``F.interpolate``, whose edge
+handling differs; no configuration sets ``resized_crop_p``
+(``from_config``), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -87,6 +89,11 @@ def normalize_imagenet(x: torch.Tensor, mean=IMAGENET_MEAN, std=IMAGENET_STD) ->
     mean = torch.tensor(mean, dtype=x.dtype, device=x.device)
     std = torch.tensor(std, dtype=x.dtype, device=x.device)
     return (x - mean) / std
+
+
+def denormalize_imagenet(x: torch.Tensor, mean=IMAGENET_MEAN, std=IMAGENET_STD) -> torch.Tensor:
+    """Inverse of :func:`normalize_imagenet`, arithmetic in ``x.dtype``."""
+    return x * torch.tensor(std, dtype=x.dtype, device=x.device) + torch.tensor(mean, dtype=x.dtype, device=x.device)
 
 
 def center_crop(x: torch.Tensor, size: int, spatial_axes: tuple[int, int] = (-3, -2)) -> torch.Tensor:
@@ -221,6 +228,60 @@ def random_gaussian_noise(img: torch.Tensor, z: torch.Tensor, apply: torch.Tenso
     return torch.where(_per_sample(apply, 4), img + noise, img)
 
 
+def _linear_weights(n: int, scale: torch.Tensor, translation: torch.Tensor) -> torch.Tensor:
+    """(B, n_in, n_out) fp32 weights of ``jax.image.scale_and_translate``'s
+    "linear" method (antialias on) for per-sample ``scale`` and
+    ``translation`` (B,): triangle weights at the sample points, divided by
+    their in-bounds sum, zero where a sample point lies outside the input."""
+    inv = 1.0 / scale
+    kernel_scale = torch.clamp(inv, min=1.0)
+    pos = torch.arange(n, dtype=torch.float32, device=scale.device)
+    sample_f = (pos + 0.5)[None, :] * inv[:, None] - (translation * inv)[:, None] - 0.5  # (B, n_out)
+    x = (sample_f[:, None, :] - pos[None, :, None]).abs() / kernel_scale[:, None, None]
+    w = torch.clamp(1 - x, min=0)
+    total = w.sum(1, keepdim=True)
+    zero = torch.zeros((), dtype=w.dtype, device=w.device)
+    w = torch.where(total.abs() > 1000.0 * torch.finfo(torch.float32).eps,
+                    w / torch.where(total != 0, total, torch.ones_like(total)), zero)
+    inside = (sample_f >= -0.5) & (sample_f <= n - 0.5)
+    return torch.where(inside[:, None, :], w, zero)
+
+
+def random_resized_crop(img, mask, nodata, draws: dict):
+    """Crop a square area fraction ``draws["crop_area"]`` (B,) ~ U(scale) at
+    ``draws["crop_top"|"crop_left"]`` (B,) ~ U(0, 1) of the free range and
+    resize it back to full size, where ``draws["crop_apply"]`` (B,)
+    (``augment.py:241-285``, kornia RandomResizedCrop with the config's
+    ``scale``): linear for the image (clipped to [0, 1]), nearest for mask
+    and nodata, by the JAX function's index gather."""
+    b, h, w = img.shape[:3]
+    side = torch.sqrt(draws["crop_area"].float())
+    ch, cw = side * h, side * w
+    top = draws["crop_top"].float() * (h - ch)
+    left = draws["crop_left"].float() * (w - cw)
+    sy, sx = h / ch, w / cw
+    ty, tx = -top * sy, -left * sx
+    wy, wx = _linear_weights(h, sy, ty), _linear_weights(w, sx, tx)
+    img_c = _clip(torch.einsum("bijc,bio,bjp->bopc", img.float(), wy, wx), 0.0, 1.0)
+
+    def index(n, s, t):
+        pos = torch.arange(n, dtype=torch.float32, device=img.device)
+        return torch.clamp(torch.round((pos[None, :] + 0.5 - t[:, None]) / s[:, None] - 0.5).to(torch.int64), 0, n - 1)
+
+    yi, xi = index(h, sy, ty), index(w, sx, tx)
+
+    def nearest(x):
+        rows = torch.gather(x, 1, yi[:, :, None].expand(b, h, x.shape[2]))
+        return torch.gather(rows, 2, xi[:, None, :].expand(b, h, w))
+
+    apply = draws["crop_apply"]
+    return (
+        torch.where(_per_sample(apply, 4), img_c, img),
+        torch.where(_per_sample(apply, 3), nearest(mask), mask),
+        torch.where(_per_sample(apply, 3), nearest(nodata), nodata),
+    )
+
+
 def random_channel_shift(img: torch.Tensor, shift: torch.Tensor, apply: torch.Tensor) -> torch.Tensor:
     """Per-channel additive ``shift`` (B, 3) where ``apply`` (B,) (kornia
     RandomRGBShift)."""
@@ -306,6 +367,12 @@ def sample_draws(generator: torch.Generator, shape: tuple[int, int, int], p: Aug
         "jigsaw_perm": perm(p.jigsaw_grid[0] * p.jigsaw_grid[1]),
         "jigsaw_apply": bernoulli(p.jigsaw_p),
     }
+    if p.resized_crop_p > 0:
+        # the order random_resized_crop uses its keys: area, top, left, apply
+        draws["crop_area"] = uniform(*p.scale)
+        draws["crop_top"] = uniform(0.0, 1.0)
+        draws["crop_left"] = uniform(0.0, 1.0)
+        draws["crop_apply"] = bernoulli(p.resized_crop_p)
     if p.mosaic_p > 0:
         draws["mosaic_perms"] = torch.stack(
             [torch.randperm(b, generator=generator, device=dev) for _ in range(4)]
@@ -331,14 +398,14 @@ def train_augment(
     [0,1]; mask/nodata (B,H,W). ``draws`` from :func:`sample_draws`. Returns
     (normalized image, mask, nodata); differentiable in the image."""
     p = params
-    if p.resized_crop_p > 0:
-        raise NotImplementedError("random_resized_crop (augment.py:241-285) is not ported")
     img = image.float()
     if p.mosaic_p > 0:
         img, mask, nodata = batch_mosaic(img, mask, nodata, draws["mosaic_perms"], draws["mosaic_apply"])
     img, mask, nodata = (_flip(_flip(x, 1, draws["vflip"]), 2, draws["hflip"]) for x in (img, mask, nodata))
     if p.jigsaw_p > 0:
         img, mask, nodata = random_jigsaw(img, mask, nodata, draws["jigsaw_perm"], draws["jigsaw_apply"], p)
+    if p.resized_crop_p > 0:
+        img, mask, nodata = random_resized_crop(img, mask, nodata, draws)
     if p.channel_shift_p > 0:
         img = random_channel_shift(img, draws["shift"], draws["shift_apply"])
     img = color_jiggle(img, draws, p)

@@ -118,7 +118,21 @@ Phases (any failure exits non-zero before the result lines):
      theirs (phase 7's stage limits); the
      device votes (infer.device_votes.scatter_votes) on the card equal to
      the CPU's; stream_tiles_per_sec and the phase seconds of each run;
- 19. one JSON line of per-kernel numbers (one entry per kernel, geometry
+ 19. the training runtime (train.loop.run_training) end to end at full width
+     on phase 17's scene: ViT-L (seeded random weights) in bf16, the
+     reference date's 19 crops of 112 tiled to 448, batch 8, 2 epochs of 3
+     steps and 3 eval batches, the profiler on: the JAX run dir's artifacts,
+     one metrics.csv row a step with a finite train/loss, the tuned pixels
+     moved and the EMA pixels nearer the initial ones, the trace, 24 launches
+     of #1, #2, #4 and #5 (and of their stage kernels) a train step and of #1
+     and #2 an eval batch, nothing else; a resume to 3 epochs (starts at step
+     6, writes step_9); one train step with remat and one without from the
+     same state and draws (gradients bit-equal or within phase 6's limits,
+     #1 and #2 48 times under remat, the peak memory of each, lower under
+     remat); run_predict from the run's EMA export on one date, bf16 vote;
+     the phase's seconds, StepTimer's steps/sec, the peak memories and the
+     loggers that ran, beside the card's name and power limit;
+ 20. one JSON line of per-kernel numbers (one entry per kernel, geometry
      and dtype), then the card's name and power limit, then
      {"ok": true, "device": {...}} as the last line.
 
@@ -129,6 +143,8 @@ repository, torch, numpy and the CUDA toolkit.
 from __future__ import annotations
 
 import contextlib
+import csv
+import dataclasses
 import json
 import math
 import subprocess
@@ -1511,6 +1527,175 @@ def phase_other_engines(device, root: Path, dates: list[str], large: dict, card:
     return {"runs": runs, "agreement_bf16": agree, "engine_batches": batches}
 
 
+# the training runtime's run: the reference date's crops at full width
+TRAIN_EPOCHS, RESUME_EPOCHS = 2, 3
+# the artifacts of the JAX package's train run dir (its loop.py), here with
+# the port's own state checkpoints under checkpoints/step_N
+RUN_DIR_FILES = ("conf.yaml", "classes.txt", "log.log", "metrics.csv", "prompt_batch.npz", "prompt_batch_tuned.npz",
+                 "prompt_batch_ema.npz", "prompt_batch_best.npz", "best.json")
+
+
+def count_calls(fn, log_to: list):
+    """``fn`` wrapped to append the launch counters' rise over each call to
+    ``log_to`` (a chip-smoke probe around the tuner's steps)."""
+    def wrapped(*args, **kwargs):
+        before = read_counts()
+        out = fn(*args, **kwargs)
+        now = read_counts()
+        log_to.append({k: now[k] - before[k] for k in now if now[k] != before[k]})
+        return out
+    return wrapped
+
+
+def remat_check(device, conf, card: str) -> dict:
+    """One ViT-L bf16 train_step with remat and one without (the same model,
+    ``encoder.remat`` switched), from the same fresh state and draws: the
+    prompt gradients (Adam's first moment after one step, 0.1·g) bit-equal
+    or within phase 6's limits, the launches (remat runs #1 and #2 a second
+    time in the backward), and the peak device memory of each, which remat
+    must lower."""
+    from beach_seg_tpu_torch.train import PromptTuner
+    from beach_seg_tpu_torch.train.loop import model_for_config
+
+    model, _ = model_for_config(conf, device)
+    tuner = PromptTuner(model, conf, device=device)
+    prompts, batches = train_path_inputs(conf, 4, 1)
+    draws = tuner.step_draws(batches[0], 4, torch.Generator(device=device).manual_seed(11))
+    out = {}
+    for remat in (False, True):
+        model.encoder.remat = remat
+        state = tuner.init_state(prompts[0])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        state, metrics = tuner.train_step(state, prompts[1], prompts[2], batches[0], draws=draws)
+        torch.cuda.synchronize()
+        out[remat] = {"mu": state.opt_state["mu"], "loss": metrics["loss"].item(), "peak": torch.cuda.max_memory_allocated(),
+                      "launches": {k: v for k, v in read_counts().items() if v}}
+    got, want = out[True]["mu"], out[False]["mu"]
+    equal = torch.equal(got, want)
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    a, b = got.double().flatten(), want.double().flatten()  # in fp64: cosine_similarity clamps norms below 1e-8
+    cos = (torch.dot(a, b) / (a.norm() * b.norm())).item()
+    log(f"remat: train_step peak memory {out[False]['peak']} bytes without remat, {out[True]['peak']} with "
+        f"({out[True]['peak'] / out[False]['peak']:.4f}); prompt gradient bit-equal {equal}, max_abs_err {err:.4e} "
+        f"(max|g| {scale / 0.1:.4e}), 1 - cosine {1 - cos:.4e}; losses {out[False]['loss']} / {out[True]['loss']}; "
+        f"launches without {out[False]['launches']}, with {out[True]['launches']} ({card})")
+    check(scale > 0 and (equal or (1 - cos <= GRAD_1MCOS_MAX and err <= GRAD_REL_TOL * scale)),
+          "the remat step's prompt gradient disagrees with the plain step's")
+    want_launches = with_stages({"attn_qkv_rel": 24, "ln_mlp": 24, "attn_bwd": 24, "ln_mlp_dx": 24})
+    remat_launches = with_stages({"attn_qkv_rel": 48, "ln_mlp": 48, "attn_bwd": 24, "ln_mlp_dx": 24})
+    check(out[False]["launches"] == want_launches and out[True]["launches"] == remat_launches,
+          f"remat launches {out[True]['launches']}, want {remat_launches}; without {out[False]['launches']}")
+    check(out[True]["peak"] < out[False]["peak"], "remat did not lower the train step's peak memory")
+    model.encoder.remat = False
+    return {"peak_bytes": out[False]["peak"], "peak_bytes_remat": out[True]["peak"], "grad_bit_equal": equal,
+            "grad_err": err, "launches": out[False]["launches"], "launches_remat": out[True]["launches"]}
+
+
+def phase_training(device, root: Path, dates: list[str], card: str) -> dict:
+    """train.loop.run_training end to end at full width on phase 17's scene
+    (ViT-L, random weights from the seed, bf16, crops of 112 tiled to 448,
+    batch 8, 2 epochs, the profiler on, every step logged): the JAX run
+    dir's artifacts, one metrics row a step with a finite train/loss, the
+    tuned pixels moved and the EMA nearer the initial pixels than they are,
+    the profiler's trace, 24 launches of #1, #2, #4 and #5 a train step and
+    of #1 and #2 an eval batch, nothing else; then a resume to 3 epochs
+    (starts at step 6, writes step_9 only), the remat step
+    (``remat_check``), and run_predict from the run's EMA export on one date
+    in bf16 vote mode."""
+    from beach_seg_tpu_torch.config import BeachSegConfig, PredictionConfig
+    from beach_seg_tpu_torch.geo.tiff import read
+    from beach_seg_tpu_torch.infer import run_predict
+    from beach_seg_tpu_torch.train import PromptTuner, run_training
+    from beach_seg_tpu_torch.train.checkpoint import load_prompt_batch
+    from beach_seg_tpu_torch.train.loggers import MetricsLogger
+    from beach_seg_tpu_torch.utils.profiling import TRACE_NAME
+
+    conf = BeachSegConfig(data=root / "all" / "scene", model_training_root=root / "train_out", checkpoint="random",
+                          compute_dtype="bfloat16", crop_size=112, inpt_size=448, batch_size=B, epochs=TRAIN_EPOCHS,
+                          profile=True, log_every_n_steps=1, num_viz_images=2)
+    steps, evals = [], []
+    train_step, eval_step = PromptTuner.train_step, PromptTuner.eval_step
+    PromptTuner.train_step, PromptTuner.eval_step = count_calls(train_step, steps), count_calls(eval_step, evals)
+    try:
+        reset_counts()
+        t = time.perf_counter()
+        run_dir = run_training(conf)
+        train_s = time.perf_counter() - t
+        launches = read_counts()
+        t = time.perf_counter()
+        resumed = run_training(dataclasses.replace(conf, epochs=RESUME_EPOCHS, resume_from=run_dir, profile=False,
+                                                   model_training_root=root / "resume_out"))
+        resume_s = time.perf_counter() - t
+    finally:
+        PromptTuner.train_step, PromptTuner.eval_step = train_step, eval_step
+    per_epoch = math.ceil(len(load_prompt_batch(run_dir / "prompt_batch.npz")["image"]) / B)
+    log(f"training runtime: {TRAIN_EPOCHS} epochs of {per_epoch} steps in {train_s:.3f} s, the resume to "
+        f"{RESUME_EPOCHS} in {resume_s:.3f} s; launches per train step {steps}; per eval batch {evals} ({card})")
+    train_want = with_stages({"attn_qkv_rel": 24, "ln_mlp": 24, "attn_bwd": 24, "ln_mlp_dx": 24})
+    eval_want = with_stages({"attn_qkv_rel": 24, "ln_mlp": 24})
+    n_train = per_epoch * RESUME_EPOCHS  # both runs' steps: the resume continues at epoch TRAIN_EPOCHS
+    check(len(steps) == n_train and len(evals) == n_train, f"{len(steps)} train steps, {len(evals)} eval batches, want {n_train}")
+    check(all(st == train_want for st in steps), f"launches per train step {steps}, want {train_want}")
+    check(all(ev == eval_want for ev in evals), f"launches per eval batch {evals}, want {eval_want}")
+    run_want = {k: per_epoch * TRAIN_EPOCHS * (train_want.get(k, 0) + eval_want.get(k, 0)) for k in counters()}
+    check(launches == run_want, f"run_training launches {launches}, want {run_want}")
+
+    missing = [f for f in RUN_DIR_FILES if not (run_dir / f).is_file()]
+    ckpts = sorted(p.name for p in (run_dir / "checkpoints").iterdir())
+    trace = run_dir / "profile" / TRACE_NAME
+    check(not missing, f"run dir lacks {missing}")
+    check(ckpts == [f"step_{per_epoch * (e + 1)}" for e in range(TRAIN_EPOCHS)], f"checkpoints {ckpts}")
+    check(trace.is_file() and trace.stat().st_size > 0, "no profiler trace")
+    events = json.loads(trace.read_text()).get("traceEvents", [])
+    kernel_events = sum(1 for ev in events if ev.get("cat") == "kernel")
+    logger_kind = "tensorboardX+csv" if (run_dir / "tb").is_dir() and any((run_dir / "tb").iterdir()) else "csv"
+    probe = MetricsLogger(root / "probe_logger")
+    probe.close()
+    check(logger_kind == probe.kind, f"the run wrote {logger_kind}, but MetricsLogger here is {probe.kind}")
+    with open(run_dir / "metrics.csv") as f:
+        rows = list(csv.DictReader(f))
+    losses = [float(r["train/loss"]) for r in rows if r.get("train/loss")]
+    rates = [float(r["perf/steps_per_sec"]) for r in rows if r.get("perf/steps_per_sec")]
+    check(len(losses) == per_epoch * TRAIN_EPOCHS and all(math.isfinite(x) for x in losses), f"train/loss rows {losses}")
+    pre, tuned, ema = (load_prompt_batch(run_dir / f"prompt_batch{s}.npz")["image"] for s in ("", "_tuned", "_ema"))
+    d_tuned, d_ema = np.abs(tuned - pre).mean(), np.abs(ema - pre).mean()
+    check(np.isfinite(tuned).all() and np.isfinite(ema).all() and d_tuned > 0, "tuned pixels did not move or are not finite")
+    check(0 < d_ema < d_tuned and not np.array_equal(ema, tuned), f"EMA not between the initial and tuned pixels: {d_ema} vs {d_tuned}")
+    with open(resumed / "metrics.csv") as f:
+        first_step = int(next(csv.DictReader(f))["step"])
+    resumed_ckpts = sorted(p.name for p in (resumed / "checkpoints").iterdir())
+    check(first_step == per_epoch * TRAIN_EPOCHS and resumed_ckpts == [f"step_{per_epoch * RESUME_EPOCHS}"],
+          f"the resume started at step {first_step} and wrote {resumed_ckpts}")
+    log(f"training runtime: loggers {logger_kind}; StepTimer steps/sec {rates}; train/loss {losses}; mean |tuned - initial| "
+        f"{d_tuned:.4e}, |EMA - initial| {d_ema:.4e}; trace {trace.stat().st_size} bytes, {kernel_events} kernel events; "
+        f"resume from step {first_step} to {resumed_ckpts} ({card})")
+
+    remat = remat_check(device, conf, card)
+
+    scene_view(root / "all" / "scene", root / "train_pred" / "scene", dates[:2])
+    pred_conf = PredictionConfig(data=root / "train_pred" / "scene", model_training_root=root / "train_pred" / "out",
+                                 train_run_dir=run_dir, use_ema=True, checkpoint="random", batch_size=B,
+                                 compute_dtype="bfloat16")
+    reset_counts()
+    t = time.perf_counter()
+    pred_dir = run_predict(pred_conf)
+    pred_s = time.perf_counter() - t
+    pred_launches = read_counts()
+    r = read(pred_dir / "tif" / f"{dates[1]}.tif")
+    check(r.data.shape == (1, SCENE_H, SCENE_W) and r.crs == f"EPSG:{SCENE_EPSG}", f"EMA predict: {r.data.shape} {r.crs}")
+    check(set(np.unique(r.data).tolist()) <= {0, 1, 2, 3}, f"EMA predict ids {np.unique(r.data)}")
+    pred_batches = math.ceil(len(pre) / B)
+    check(pred_launches == {k: eval_want.get(k, 0) * pred_batches for k in counters()}, f"EMA predict launches {pred_launches}")
+    log(f"training runtime: run_predict from the EMA export, 1 date, {pred_batches} batches, {pred_s:.3f} s, "
+        f"timings {(pred_dir / 'timings.json').read_text()} ({card})")
+    return {"launches": launches, "train_steps": steps, "eval_batches": evals, "train_s": train_s, "resume_s": resume_s,
+            "steps_per_sec": rates, "logger": logger_kind, "kernel_events": kernel_events, "remat": remat,
+            "predict_s": pred_s, "per_epoch": per_epoch}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1640,6 +1825,10 @@ def main() -> int:
         t = time.perf_counter()
         oe = phase_other_engines(device, root / "all", dates, with_stages(large), card)
         log(f"zero-shot and legacy engine phase: {time.perf_counter() - t:.3f} s")
+        # the training runtime end to end, then predict from its EMA export
+        t = time.perf_counter()
+        trn = phase_training(device, root, dates, card)
+        log(f"training runtime phase: {time.perf_counter() - t:.3f} s ({card})")
 
     kernels = [
         {
@@ -1783,6 +1972,13 @@ def main() -> int:
             e["max_abs_err_engine_batches"] = {
                 k.split(" ", 1)[1] if e["name"] == "attn_qkv_rel" else k: v for k, v in oe["engine_batches"].items()
                 if (k.startswith("attn_qkv_rel")) == (e["name"] == "attn_qkv_rel") and (k.split()[1] == "fp32") == fp32}
+    # the training runtime's launches: its 2-epoch run_training (train steps and
+    # eval batches), and one remat train step
+    for e in kernels:
+        if e["name"] in ("attn_qkv_rel", "ln_mlp", "attn_bwd", "ln_mlp_dx") and e["geometry"] == "vit_l" and e.get("dtype") != "fp32":
+            e["launches_run_training"] = trn["launches"][e["name"]]
+            e["launches_run_training_per_epoch"] = trn["launches"][e["name"]] // TRAIN_EPOCHS
+            e["launches_remat_train_step"] = trn["remat"]["launches_remat"][e["name"]]
     first["attn_packed"]["ms_hd16_bf16"] = ks["packed_ms_hd16"]
     first["attn_bwd"]["ms_hd16_bf16"] = ks["bwd_ms_hd16"]
     for name in ("attn_packed", "attn_bwd", "ln_mlp", "ln_mlp_dx"):
@@ -1801,6 +1997,9 @@ def main() -> int:
         f"max_abs_err {tr32['grad_err']:.4e}")
     log(f"fp32 ViT-H: predict_step seconds per call {mh32['seconds']} (warm {mh32['seconds'][-1]:.4f}), "
         f"attn_packed launches {mh32['launches']['attn_packed']} in {len(mh32['seconds'])} calls")
+    log(f"run_training ViT-L bf16: {TRAIN_EPOCHS} epochs in {trn['train_s']:.3f} s, StepTimer steps/sec "
+        f"{trn['steps_per_sec']}, peak memory of a train step {trn['remat']['peak_bytes']} bytes without remat and "
+        f"{trn['remat']['peak_bytes_remat']} with, loggers {trn['logger']} ({card})")
     log(f"total: {time.perf_counter() - t_start:.3f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

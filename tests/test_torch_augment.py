@@ -24,6 +24,8 @@ ALL_ON = dict(
     sharpness=1.0, sharpness_p=0.7, erasing_scale=(0.1, 0.3), erasing_p=0.7, gauss_p=0.5,
     channel_shift_limit=0.05, channel_shift_p=0.7, jigsaw_p=0.6, mosaic_p=0.6,
 )
+# every op on, the resized crop too (no configuration sets resized_crop_p)
+CROP_ON = dict(ALL_ON, resized_crop_p=0.7)
 IDENTITY = dict(
     vertical_flip=0.0, horizontal_flip=0.0, hue=0.0, saturation=0.0, contrast=0.0, brightness=0.0,
     sharpness_p=0.0, erasing_p=0.0, gauss_p=0.0, channel_shift_p=0.0,
@@ -47,6 +49,8 @@ def jax_aug_draws(key, shape, p) -> dict:
         kperm, kp = random.split(kj)
         e["jigsaw_perm"] = random.permutation(kperm, p.jigsaw_grid[0] * p.jigsaw_grid[1])
         e["jigsaw_apply"] = random.bernoulli(kp, float(p.jigsaw_p))
+        if p.resized_crop_p > 0:
+            e.update(resized_crop_draws(random.fold_in(k, 99), p))
         kss, kp = random.split(kcs)
         e["shift"] = random.uniform(kss, (1, 1, 3), minval=-p.channel_shift_limit, maxval=p.channel_shift_limit).reshape(3)
         e["shift_apply"] = random.bernoulli(kp, float(p.channel_shift_p))
@@ -73,6 +77,17 @@ def jax_aug_draws(key, shape, p) -> dict:
     return d
 
 
+def resized_crop_draws(key, p) -> dict:
+    """The draws ``jaug.random_resized_crop(key, …)`` takes (augment.py:250-256)."""
+    ka, ky, kx, kp = random.split(key, 4)
+    return {
+        "crop_area": random.uniform(ka, (), minval=p.scale[0], maxval=p.scale[1]),
+        "crop_top": random.uniform(ky, ()),
+        "crop_left": random.uniform(kx, ()),
+        "crop_apply": random.bernoulli(kp, float(p.resized_crop_p)),
+    }
+
+
 def to_torch_draws(d: dict) -> dict:
     return {k: torch.from_numpy(np.array(v)) for k, v in d.items()}
 
@@ -89,10 +104,10 @@ def _inputs(seed=0, extremes=True):
     return img, mask, nodata
 
 
-@pytest.mark.parametrize("knobs", ["all_on", "identity", "defaults"])
+@pytest.mark.parametrize("knobs", ["all_on", "identity", "defaults", "crop_on"])
 @pytest.mark.parametrize("seed", [0, 1])
 def test_train_augment_matches_jax_on_its_draws(knobs, seed):
-    p = jaug.AugmentParams(**{"all_on": ALL_ON, "identity": IDENTITY, "defaults": {}}[knobs])
+    p = jaug.AugmentParams(**{"all_on": ALL_ON, "identity": IDENTITY, "defaults": {}, "crop_on": CROP_ON}[knobs])
     img, mask, nodata = _inputs(seed)
     key = random.PRNGKey(10 + seed)
     want = jaug.train_augment(key, jnp.asarray(img), jnp.asarray(mask), jnp.asarray(nodata), p)
@@ -104,12 +119,12 @@ def test_train_augment_matches_jax_on_its_draws(knobs, seed):
     np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
 
 
-@pytest.mark.parametrize("knobs", ["all_on", "defaults"])
+@pytest.mark.parametrize("knobs", ["all_on", "defaults", "crop_on"])
 def test_train_augment_gradient_matches_jax(knobs):
     """The gradient through every op, on an image with exact 0.0 and 1.0
     (the clips' boundaries, where jnp.clip's gradient is 0.5), within 1e-4
     of its scale: the HSV round trip divides by small channel spreads."""
-    p = jaug.AugmentParams(**{"all_on": ALL_ON, "defaults": {}}[knobs])
+    p = jaug.AugmentParams(**{"all_on": ALL_ON, "defaults": {}, "crop_on": CROP_ON}[knobs])
     img, mask, nodata = _inputs(2)
     key = random.PRNGKey(3)
     wts = np.random.default_rng(5).standard_normal((B, H, W, 3)).astype(np.float32)
@@ -148,8 +163,44 @@ def test_sample_draws_shapes_and_ranges():
     draws = taug.sample_draws(torch.Generator().manual_seed(1), tuple(mask.shape), p)
     out = taug.train_augment(img, mask, nodata, p, draws)
     assert out[0].shape == (B, H, W, 3) and torch.isfinite(out[0]).all()
-    with pytest.raises(NotImplementedError, match="random_resized_crop"):
-        taug.train_augment(img, mask, nodata, taug.AugmentParams(resized_crop_p=0.5), draws=d)
+    assert "crop_area" not in d  # the crop draws only where the crop can run
+    pc = taug.AugmentParams(**CROP_ON)
+    dc = taug.sample_draws(torch.Generator().manual_seed(2), (B, H, W), pc)
+    assert ((dc["crop_area"] >= 0.4) & (dc["crop_area"] <= 1.0)).all() and dc["crop_apply"].dtype == torch.bool
+    assert ((dc["crop_top"] >= 0) & (dc["crop_top"] < 1) & (dc["crop_left"] >= 0) & (dc["crop_left"] < 1)).all()
+    out = taug.train_augment(img, mask, nodata, pc, dc)
+    assert out[0].shape == (B, H, W, 3) and torch.isfinite(out[0]).all()
+
+
+# the crop's image is one fp32 product of two weight matrices in either
+# package, summed in other orders: within 1e-6 (measured 6e-8)
+CROP_IMG_TOL = 1e-6
+
+
+@pytest.mark.parametrize("scale", [(0.4, 1.0), (0.98, 1.0)], ids=["default_scale", "border"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_random_resized_crop_matches_jax(scale, seed):
+    """The op alone on JAX's draws, per sample as the JAX op runs: image
+    within CROP_IMG_TOL, mask and nodata equal. At scale (0.98, 1.0) the crop
+    spans nearly the whole tile, so the output's edge pixels sample within
+    half a pixel of the tile's border, where the weights are renormalised
+    over the in-bounds source pixels."""
+    p = jaug.AugmentParams(resized_crop_p=0.5, scale=scale)
+    img, mask, nodata = _inputs(seed)
+    keys = random.split(random.PRNGKey(20 + seed), B)
+    want = [jaug.random_resized_crop(k, jnp.asarray(img[i]), jnp.asarray(mask[i]), jnp.asarray(nodata[i]), p)
+            for i, k in enumerate(keys)]
+    per = [resized_crop_draws(k, p) for k in keys]
+    draws = to_torch_draws({name: np.stack([np.asarray(e[name]) for e in per]) for name in per[0]})
+    assert draws["crop_apply"].any()
+    got = taug.random_resized_crop(torch.from_numpy(img), torch.from_numpy(mask), torch.from_numpy(nodata), draws)
+    for j, tol in ((0, CROP_IMG_TOL), (1, 0), (2, 0)):
+        w = np.stack([np.asarray(o[j]) for o in want])
+        assert np.abs(got[j].numpy().astype(np.float64) - w).max() <= tol
+    assert not np.array_equal(got[0].numpy(), img)  # the applied rows moved
+    if scale[0] > 0.9:
+        side = np.sqrt(draws["crop_area"].numpy()) * H
+        assert (side > H - 1).all()  # each crop reaches within a pixel of two opposite borders
 
 
 def test_augment_params_from_config():

@@ -49,6 +49,12 @@ ENGINE_MODULES = {
     "beach_seg_tpu_torch.utils.logging", "beach_seg_tpu_torch.models.seggpt.load", "beach_seg_tpu_torch.train.checkpoint",
 }
 
+# the modules of the training runtime's slice
+TRAINING_MODULES = {
+    "beach_seg_tpu_torch.train.loop", "beach_seg_tpu_torch.train.loggers", "beach_seg_tpu_torch.train.checkpoint",
+    "beach_seg_tpu_torch.utils.profiling", "beach_seg_tpu_torch.utils.env",
+}
+
 
 def _run(code: str) -> subprocess.CompletedProcess:
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -59,8 +65,8 @@ def test_port_imports_with_jax_blocked():
     res = _run(_IMPORT_ALL)
     assert res.returncode == 0, res.stderr
     names = set(res.stdout.split())
-    assert len(names) >= 45  # every module of the package was imported
-    assert ENGINE_MODULES <= names
+    assert len(names) >= 52  # every module of the package was imported
+    assert ENGINE_MODULES <= names and TRAINING_MODULES <= names
 
 
 def test_engine_imports_without_pyyaml():

@@ -330,10 +330,28 @@ def test_run_predict_needs_cuda_unless_asked_for_the_cpu(no_cuda, world):
 @pytest.mark.parametrize("field, value, error, match", [
     ("mesh_data", 2, NotImplementedError, "§A item 9"),
     ("mesh_model", 2, NotImplementedError, "§A item 9"),
-    ("debug_nans", True, NotImplementedError, "§A item 4"),
     ("platform", "tpu", ValueError, "platform='tpu'"),
 ])
 def test_unported_fields_raise(world, field, value, error, match):
     conf = PredictionConfig(**{**world["kw"], field: value}, model_training_root=world["root"] / "unported")
     with pytest.raises(error, match=match):
         run_predict(conf)
+
+
+
+@pytest.fixture(scope="module")
+def port_vote_debug_nans(world):
+    conf = PredictionConfig(**world["kw"], **world["runs"]["vote"], debug_nans=True,
+                            model_training_root=world["root"] / "port_debug_nans")
+    return run_predict(conf, device="cpu")
+
+
+@pytest.mark.parametrize("date", OTHER_DATES)
+def test_debug_nans_changes_no_output(port_vote, port_vote_debug_nans, date):
+    """debug_nans is a training field: the engine ignores it, as the JAX
+    engine does, so a run with it set writes bit-equal GeoTIFFs and mask
+    PNGs."""
+    want, got = read(port_vote / "tif" / f"{date}.tif"), read(port_vote_debug_nans / "tif" / f"{date}.tif")
+    np.testing.assert_array_equal(got.data, want.data)
+    png = lambda d: np.asarray(Image.open(d / "masks" / f"{date}.png"))  # noqa: E731
+    np.testing.assert_array_equal(png(port_vote_debug_nans), png(port_vote))

@@ -2,8 +2,9 @@
 ViT-L layer's shapes, at ViT-H's widths (head_dim 80, C=1280) and at ragged
 small ones, tiny bf16 and fp32 models (head_dim 64, and C=1280 with 16 heads
 of 80) through the kernels forward and backward, the library's attention
-entries, the shapes the kernels refuse, the scene engine (run_predict)
-against its own run through the plain versions, the grouped feature
+entries, the shapes the kernels refuse, the scene engine (run_predict) and
+the training runtime (run_training) against their own runs through the
+plain versions, the grouped feature
 ensemble at an odd batch, and the device votes against the CPU's.
 Marked ``gpu``: they skip where no CUDA device is present (run them on the
 card with ``python -m pytest --noconftest -m gpu tests/test_torch_gpu.py``)."""
@@ -765,6 +766,57 @@ def test_scene_engine_on_card_matches_plain(cuda, tmp_path, monkeypatch):
         assert set(np.unique(got)) <= {0, 1, 2, 3}
         assert (got == want).mean() >= 0.98
 
+
+def test_run_training_on_card_matches_plain(cuda, tmp_path, monkeypatch):
+    """train.loop.run_training on the card: the small scene of
+    tests/synthetic_scene.py, the debug backbone in bf16, 1 epoch (3 train
+    steps of 2 tiles, 3 eval batches). Each step launches #3, #2, #4 and #5
+    once a layer (each eval batch #3 and #2), and each step's prompt
+    gradient through the kernels is held against the same step's through
+    the plain versions, on the same state and draws, with chip_smoke.py's
+    phase-6 limits (1 - cosine <= 1e-3, max error <= 5e-2 of max|plain|):
+    those gradients are what moved the tuned pixels."""
+    from beach_seg_tpu_torch.ops import attention
+    from beach_seg_tpu_torch.train import run_training
+
+    monkeypatch.syspath_prepend(str(Path(__file__).resolve().parent))
+    from synthetic_scene import build_scene
+
+    conf = BeachSegConfig(data=build_scene(tmp_path / "scene"), model_training_root=tmp_path / "out", crop_size=32,
+                          inpt_size=64, batch_size=2, epochs=1, debug=True, compute_dtype="bfloat16", checkpoint="random",
+                          num_viz_images=2, log_every_n_steps=1)
+    plain = {(cuda_attn, "attn_packed"): attention.attention_packed_plain, (cuda_attn, "attn_bwd"): attention.attention_bwd_plain,
+             (cuda_mlp, "ln_mlp"): cuda_mlp.ln_mlp_plain, (cuda_mlp, "ln_mlp_dx"): cuda_mlp.ln_mlp_dx_plain}
+    loss_and_grad, pairs = PromptTuner.loss_and_grad, []
+
+    def both(self, *args):
+        out = loss_and_grad(self, *args)
+        saved = {k: getattr(*k) for k in plain}
+        for (mod, name), fn in plain.items():
+            setattr(mod, name, fn)
+        try:
+            pairs.append((out[1], loss_and_grad(self, *args)[1]))
+        finally:
+            for (mod, name), fn in saved.items():
+                setattr(mod, name, fn)
+        return out
+
+    monkeypatch.setattr(PromptTuner, "loss_and_grad", both)
+    names = ("attn_packed", "ln_mlp", "attn_bwd", "ln_mlp_dx")
+    wrappers = {n: getattr(cuda_attn, n, None) or getattr(cuda_mlp, n) for n in names}
+    before = {n: w.launches for n, w in wrappers.items()}
+    rd = run_training(conf)
+    launches = {n: w.launches - before[n] for n, w in wrappers.items()}
+    assert launches == {"attn_packed": 4 * 6, "ln_mlp": 4 * 6, "attn_bwd": 4 * 3, "ln_mlp_dx": 4 * 3}, launches
+    assert len(pairs) == 3
+    for got, want in pairs:
+        assert torch.isfinite(got).all() and want.abs().max() > 0
+        cos = torch.nn.functional.cosine_similarity(got.flatten().float(), want.flatten().float(), dim=0).item()
+        assert 1 - cos <= 1e-3
+        assert (got - want).abs().max().item() <= 5e-2 * want.abs().max().item()
+    for name in ("prompt_batch.npz", "prompt_batch_tuned.npz", "prompt_batch_ema.npz", "metrics.csv", "best.json"):
+        assert (rd / name).exists()
+    assert (rd / "checkpoints" / "step_3" / "state.pt").exists()
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_feature_ensemble_on_card_matches_plain(cuda, dtype, monkeypatch):

@@ -60,7 +60,10 @@ def world(tmp_path_factory):
         mp.setattr(torch.cuda, "is_available", lambda: False)
         port["prompt_ckpt"] = run_legacy(LegacyConfig(**kw, **extra["prompt_ckpt"], platform="cpu",
                                                       model_training_root=root / "port_ckpt"))
-    return {"root": root, "kw": kw, "prompt_dir": prompt_dir, "jax": jax_out, "port": port}
+    port_debug_nans = run_legacy(LegacyConfig(**kw, debug_nans=True, model_training_root=root / "port_debug_nans"),
+                                 device="cpu")
+    return {"root": root, "kw": kw, "prompt_dir": prompt_dir, "jax": jax_out, "port": port,
+            "port_debug_nans": port_debug_nans}
 
 
 @pytest.mark.parametrize("run", RUNS)
@@ -121,7 +124,6 @@ def test_run_legacy_needs_cuda_unless_asked_for_the_cpu(world, monkeypatch):
 @pytest.mark.parametrize("field, value, error, match", [
     ("mesh_data", 4, NotImplementedError, "§A item 9"),
     ("mesh_model", 2, NotImplementedError, "§A item 9"),
-    ("debug_nans", True, NotImplementedError, "§A item 4"),
     ("platform", "tpu", ValueError, "platform='tpu'"),
 ])
 def test_run_legacy_unported_fields_raise(world, field, value, error, match):
@@ -129,3 +131,16 @@ def test_run_legacy_unported_fields_raise(world, field, value, error, match):
     with pytest.raises(error, match=match):
         run_legacy(conf)
     assert not (world["root"] / "unported").exists()
+
+
+def test_debug_nans_changes_no_output(world):
+    """debug_nans is a training field: the engine ignores it, as the JAX
+    engine does, so a run with it set writes the reference-crops run's
+    GeoTIFFs bit for bit, and the same files."""
+    want_dir, got_dir = world["port"]["reference_crops"], world["port_debug_nans"]
+    names = lambda d: sorted(p.name for p in d.iterdir() if p.suffix != ".log")  # noqa: E731
+    assert names(got_dir) == names(want_dir)
+    tifs = sorted(want_dir.glob("*.tif"))
+    assert tifs
+    for p in tifs:
+        np.testing.assert_array_equal(read(got_dir / p.name).data, read(p).data)

@@ -76,7 +76,9 @@ def world(tmp_path_factory):
         mp.setattr(torch.cuda, "is_available", lambda: False)
         port["compat"] = run_zero_shot(PredConfig(**kw, rank_compat=True, platform="cpu",
                                                   model_training_root=root / "port_compat"))
-    return {"root": root, "kw": kw, "jax": jax_out, "port": port, "sels": sels}
+    port_debug_nans = run_zero_shot(PredConfig(**kw, rank_compat=False, debug_nans=True,
+                                               model_training_root=root / "port_debug_nans"), device="cpu")
+    return {"root": root, "kw": kw, "jax": jax_out, "port": port, "sels": sels, "port_debug_nans": port_debug_nans}
 
 
 @pytest.mark.parametrize("date", OTHER_DATES)
@@ -156,7 +158,6 @@ def test_run_zero_shot_needs_cuda_unless_asked_for_the_cpu(world, monkeypatch):
 @pytest.mark.parametrize("field, value, error, match", [
     ("mesh_data", 2, NotImplementedError, "§A item 9"),
     ("mesh_model", 2, NotImplementedError, "§A item 9"),
-    ("debug_nans", True, NotImplementedError, "§A item 4"),
     ("platform", "tpu", ValueError, "platform='tpu'"),
 ])
 def test_run_zero_shot_unported_fields_raise(world, field, value, error, match):
@@ -164,3 +165,17 @@ def test_run_zero_shot_unported_fields_raise(world, field, value, error, match):
     with pytest.raises(error, match=match):
         run_zero_shot(conf)
     assert not (world["root"] / "unported").exists()
+
+
+@pytest.mark.parametrize("date", OTHER_DATES)
+def test_debug_nans_changes_no_output(world, date):
+    """debug_nans is a training field: the engine ignores it, as the JAX
+    engine does, so a run with it set writes the ranked run's GeoTIFFs and
+    PNGs bit for bit."""
+    out = world["port_debug_nans"]
+    want_dir = world["port"]["ranked"]
+    np.testing.assert_array_equal(read(out / "tif" / f"{date}.tif").data, read(want_dir / "tif" / f"{date}.tif").data)
+    for sub in ("masks", "images"):
+        png = lambda d: np.asarray(Image.open(d / sub / f"{date}.png"))  # noqa: E731
+        np.testing.assert_array_equal(png(out), png(want_dir))
+

@@ -6,6 +6,7 @@ indices the JAX train step draws from its key, handed to the port."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 from jax import random
 
@@ -85,13 +86,13 @@ def tuners(over, params, conf_kw, jdtype=jnp.float32, tdtype=torch.float32):
     return jtuner, tuner
 
 
-def step_draws(key, num_classes: int) -> dict:
+def step_draws(key, num_classes: int, b: int = B, n_prompts: int = N_PROMPTS) -> dict:
     """The palette and prompt indices JAX's train_step draws from ``key``
-    (prompt_tuner.py:232-248)."""
+    (prompt_tuner.py:232-248) for a batch of ``b`` and ``n_prompts`` prompts."""
     k_pal, k_idx, _, _, _, _ = random.split(key, 6)
     return {
-        "palette": torch.from_numpy(np.array(jrandom_palette(k_pal, num_classes, B))),
-        "prompt_idx": torch.from_numpy(np.array(random.randint(k_idx, (B,), 0, N_PROMPTS))),
+        "palette": torch.from_numpy(np.array(jrandom_palette(k_pal, num_classes, b))),
+        "prompt_idx": torch.from_numpy(np.array(random.randint(k_idx, (b,), 0, n_prompts))),
     }
 
 
@@ -162,3 +163,15 @@ def assert_states_close(jstate, state, rel: float, jm: list, lr: float) -> None:
         err = np.abs(got.numpy() - want).max()
         assert err <= rel * np.abs(want).max() + slack, (name, err, np.abs(want).max(), slack)
     assert int(jstate.step) == state.step
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run a module's tiny CPU models on one torch thread, then restore the
+    count: many small ops on 8 spinning threads slow to a crawl where
+    several test processes share the host's cores (measured: a 1 s run
+    took 88 s there)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
