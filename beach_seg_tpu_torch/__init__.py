@@ -8,24 +8,27 @@ Public surface:
 
     beach_seg_tpu_torch.config          structured configs (BeachSegConfig, …)
     beach_seg_tpu_torch.geo             host geo/raster data plane (native codec)
+    beach_seg_tpu_torch.geo.notebook_utils  the notebooks' helpers
     beach_seg_tpu_torch.models.seggpt   SegGPT nn.Module, weights bridge
     beach_seg_tpu_torch.ops             resizes, attention oracle, CUDA kernels
+    beach_seg_tpu_torch.ops.sharding    collectives of the (data, model) mesh
+    beach_seg_tpu_torch.parallel        the mesh over torch.distributed ranks,
+                                        tensor-parallel shards, process start
     beach_seg_tpu_torch.transforms      palettes + batched augmentations
     beach_seg_tpu_torch.data            scene → fixed-shape batches
     beach_seg_tpu_torch.train           PromptTuner, run_training, metrics,
                                         checkpoints, loggers
     beach_seg_tpu_torch.infer           predict / zero-shot / legacy engines
+    beach_seg_tpu_torch.cli             python -m beach_seg_tpu_torch.cli.<name>
     beach_seg_tpu_torch.utils           configs, run dirs, tracing, device rule
 
-Not ported yet, each deliberately absent:
+Deliberately absent:
 
-    parallel                  device mesh and shardings (multi-GPU, ROADMAP.md §A 3)
-    cli                       command-line entry points (ROADMAP.md §A 4)
-    geo.notebook_utils        notebook helpers (ROADMAP.md §A 2)
-    ops.pallas_attn, ops.pallas_mlp, ops.sharding
-                              TPU-only: the Pallas kernels' counterparts are
-                              ops.cuda_attn / ops.cuda_mlp, the sharding
-                              rules come with multi-GPU
+    ops.pallas_attn, ops.pallas_mlp   TPU-only: the Pallas kernels' counterparts
+                                      are ops.cuda_attn / ops.cuda_mlp
+    utils.profiling.enable_compilation_cache
+                                      no XLA compilation cache: the kernels
+                                      are built once into _build/
 
 Entry points (model builder, weight loaders, steps, run_training and the
 engines) run on the CUDA device unless the caller passes ``device="cpu"``; see

@@ -2,10 +2,9 @@
 (copied, not imported), field for field with the same names and defaults, so a
 JAX run's ``conf.yaml`` merges into it (``utils.confix.merge_yaml_into``).
 
-The mesh fields are the one thing the port does not act on yet: wider than one
-device, they raise on every entry point (``check_ported``); they and
-``platform`` have a device meaning here (below). ``nodata`` must remain class
-index 0 (asserted by the data layer, ref data.py:153).
+The mesh fields and ``platform`` have a device meaning here (below).
+``nodata`` must remain class index 0 (asserted by the data layer, ref
+data.py:153).
 """
 
 from __future__ import annotations
@@ -36,16 +35,15 @@ class BeachSegConfig:
     classes: tuple[str, ...] = CLASSES
 
     # --- runtime ---
-    # mesh shape of the JAX package (data axis × model axis). The port runs
-    # on one device: mesh_data -1 (all devices, here one) or 1, mesh_model 1;
-    # anything wider raises in the engines until multi-GPU lands
-    # (ROADMAP.md §A item 9).
+    # mesh shape (data axis × model axis) over the torch.distributed ranks,
+    # one process a device (parallel.mesh.make_mesh): mesh_data -1 = the
+    # ranks mesh_model leaves; data × model must be the number of ranks
     mesh_data: int = -1
     mesh_model: int = 1
     # compute dtype for the frozen backbone matmuls; params stay fp32.
     compute_dtype: str = "float32"  # "float32" | "bfloat16"
-    # device rule: "" = the CUDA device (raising without one), "cpu" = the
-    # CPU; anything else raises (utils.device.device_for_platform)
+    # device rule: "" or "gpu" = the CUDA device (raising without one),
+    # "cpu" = the CPU; anything else raises (utils.device.device_for_platform)
     platform: str = ""
     deterministic: bool = False
     # observability (SURVEY.md §5: absent in the reference, first-class here)
@@ -214,14 +212,3 @@ def num_workers(conf: BeachSegConfig) -> int:
         return per_proc
     return min(per_proc, conf.workers)
 
-
-def check_ported(conf: BeachSegConfig, path: str) -> None:
-    """Raise where ``conf`` asks ``path`` for more than one device, which
-    the port does not run yet, naming the ROADMAP.md item that will port
-    it. ``debug_nans`` is acted on by ``run_training`` and, as in the JAX
-    package, ignored by the engines."""
-    if conf.mesh_data not in (-1, 1) or conf.mesh_model != 1:
-        raise NotImplementedError(
-            f"{path}: mesh_data={conf.mesh_data}, mesh_model={conf.mesh_model}: the port runs on one device "
-            "(mesh_data -1 or 1, mesh_model 1); multi-GPU is ROADMAP.md §A item 9"
-        )

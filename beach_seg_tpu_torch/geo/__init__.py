@@ -1,6 +1,5 @@
 """The host geo/raster data plane (counterpart of ``beach_seg_tpu/geo``,
-copied). Not ported yet: ``notebook_utils``, the notebooks' helpers
-(ROADMAP.md §A 2)."""
+copied), and the notebooks' helpers (``geo.notebook_utils``)."""
 
 from beach_seg_tpu_torch.geo.affine import Affine, bounds
 from beach_seg_tpu_torch.geo.contours import extract_linestring, find_contours

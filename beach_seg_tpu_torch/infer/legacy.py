@@ -31,7 +31,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from beach_seg_tpu_torch.config import LegacyConfig, check_ported
+from beach_seg_tpu_torch.config import LegacyConfig
 from beach_seg_tpu_torch.data.dataset import create_scene
 from beach_seg_tpu_torch.data.prefetch import MosaicPrefetcher
 from beach_seg_tpu_torch.geo.contours import extract_linestring
@@ -51,8 +51,11 @@ from beach_seg_tpu_torch.infer.processor import (
 from beach_seg_tpu_torch.infer.zero_shot import INPT, zero_shot_model
 from beach_seg_tpu_torch.models.seggpt.model import SegGPT
 from beach_seg_tpu_torch.train.checkpoint import load_prompt_batch
+from beach_seg_tpu_torch.ops.sharding import data_sharded_call
+from beach_seg_tpu_torch.parallel.distributed import process_index, shared_run_dir
+from beach_seg_tpu_torch.parallel.mesh import make_mesh, shard_model
 from beach_seg_tpu_torch.utils.device import device_for_platform, resolve_device
-from beach_seg_tpu_torch.utils.logging import allocate_run_dir, setup_logger
+from beach_seg_tpu_torch.utils.logging import setup_logger
 
 logger = logging.getLogger(__name__)
 
@@ -111,12 +114,14 @@ def run_legacy(conf: LegacyConfig, device=None) -> Path:
     The device is ``device``, else ``conf.platform`` ("" → CUDA, raising
     without it; "cpu" → the CPU)."""
     t_start = time.perf_counter()
-    check_ported(conf, "run_legacy")
+    mesh = make_mesh(conf.mesh_data, conf.mesh_model)
     dev = resolve_device(device) if device is not None else device_for_platform(conf.platform)
     root = Path(conf.prediction_root or conf.model_training_root)
-    out_dir = allocate_run_dir(root, conf.project, "legacy")
-    setup_logger(out_dir)
-    logger.info("saving results to %s (device %s)", out_dir, dev)
+    writer = process_index() == 0
+    out_dir = shared_run_dir(root, conf.project, "legacy")
+    if writer:
+        setup_logger(out_dir)
+    logger.info("saving results to %s (device %s, mesh %s)", out_dir, dev, tuple(mesh.shape))
 
     buffer_px = int(conf.crop_size * conf.buffer_factor)
     scene = create_scene(conf, train=True, crop_overlap=conf.crop_size // 2)
@@ -138,6 +143,7 @@ def run_legacy(conf: LegacyConfig, device=None) -> Path:
     )
 
     model, _ = zero_shot_model(conf, dev)
+    shard_model(model, mesh)
     pp_dev, pm_dev = upload(p_pixels, dev), upload(p_masks, dev)
     timers = {"mosaic": 0.0, "dispatch": 0.0, "fetch": 0.0, "paste": 0.0}
     n_tiles = 0
@@ -204,9 +210,14 @@ def run_legacy(conf: LegacyConfig, device=None) -> Path:
                 chunk = queries[start : start + b]
                 batch_q = np.stack(chunk + [chunk[-1]] * (b - len(chunk)))  # one shape for every batch
                 t0 = time.perf_counter()
-                ids = legacy_batch(model, upload(batch_q, dev), pp_dev, pm_dev, conf.crop_size, num_classes)
+                ids = data_sharded_call(
+                    lambda q: legacy_batch(model, q, pp_dev, pm_dev, conf.crop_size, num_classes),
+                    (upload(batch_q, dev),), (True,), mesh,
+                )
                 results.append(ids[: len(chunk)])
                 timers["dispatch"] += time.perf_counter() - t0
+            if not writer:
+                continue
             dcat = torch.cat(results) if len(results) > 1 else results[0]
             sealed = (date, merged_nodata, metas, *copy_to_host(dcat))
             # this date's work is queued — now merge and write the previous date
@@ -217,5 +228,6 @@ def run_legacy(conf: LegacyConfig, device=None) -> Path:
             drain(sealed_prev)
         t_stream = time.perf_counter()
 
-    write_timings(out_dir, t_setup - t_start, t_stream - t_setup, timers, n_tiles)
+    if writer:
+        write_timings(out_dir, t_setup - t_start, t_stream - t_setup, timers, n_tiles)
     return out_dir

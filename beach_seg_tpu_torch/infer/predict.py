@@ -5,8 +5,15 @@ Pipeline: load the train run's conf + tuned prompt pixels (or rebuild untuned
 prompts from the reference date), build the predict scene (all non-reference
 dates), then fan the (date × crop) tiles through ``PromptTuner.predict_step``
 (or ``predict_step_probs`` for ``merge="blend"``) in batches of
-``batch_size`` crops on one device. Votes accumulate host-side into per-date
-mosaics (overlay/mask/GeoTIFF outputs).
+``batch_size`` crops. Votes accumulate host-side into per-date mosaics
+(overlay/mask/GeoTIFF outputs).
+
+On a mesh of several ranks (``mesh_data``, ``mesh_model``) every rank walks
+the same batches; each batch's rows are split over the data ranks
+(``ops.sharding.data_sharded_call``, padded where the batch does not divide
+them), the model axis splits the backbone, and rank 0 gathers the results
+and writes every output, exactly as one device does; the other ranks write
+nothing.
 
 Host↔device traffic: the prompts go up once; per batch only the raw uint8
 crops and their crop indices go up, from pinned memory without blocking.
@@ -18,6 +25,7 @@ next date's work and nothing synchronizes per batch.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -28,19 +36,22 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from beach_seg_tpu_torch.config import BeachSegConfig, PredictionConfig, check_ported, num_workers
+from beach_seg_tpu_torch.config import BeachSegConfig, PredictionConfig, num_workers
 from beach_seg_tpu_torch.data.dataset import BeachSegDataset, create_scene, iterate_batches, materialize_prompts
 from beach_seg_tpu_torch.data.prefetch import MosaicPrefetcher
 from beach_seg_tpu_torch.geo.extent import group_images_by_date
 from beach_seg_tpu_torch.geo.mosaic import merge_tifs
 from beach_seg_tpu_torch.infer.accumulator import VoteAccumulator
 from beach_seg_tpu_torch.models.seggpt.load import load_model_params
+from beach_seg_tpu_torch.ops.sharding import data_sharded_call
+from beach_seg_tpu_torch.parallel.distributed import process_index, shared_run_dir
+from beach_seg_tpu_torch.parallel.mesh import make_mesh, shard_model
 from beach_seg_tpu_torch.train.checkpoint import load_prompt_batch
 from beach_seg_tpu_torch.train.loop import config_for, model_for_config
 from beach_seg_tpu_torch.train.prompt_tuner import PromptTuner
 from beach_seg_tpu_torch.utils.confix import merge_yaml_into
 from beach_seg_tpu_torch.utils.device import device_for_platform, resolve_device
-from beach_seg_tpu_torch.utils.logging import allocate_run_dir, setup_logger
+from beach_seg_tpu_torch.utils.logging import setup_logger
 
 logger = logging.getLogger(__name__)
 
@@ -114,13 +125,14 @@ def run_predict(pred_conf: PredictionConfig, device=None) -> Path:
     "cpu" → the CPU)."""
     t_start = time.perf_counter()
     conf = resolve_config(pred_conf)
-    for c in (pred_conf, conf):  # resolve_config keeps only some of pred_conf's fields
-        check_ported(c, "run_predict")
+    mesh = make_mesh(conf.mesh_data, conf.mesh_model)
     dev = resolve_device(device) if device is not None else device_for_platform(conf.platform)
     root = Path(pred_conf.prediction_root or conf.model_training_root)
-    predict_dir = allocate_run_dir(root, conf.project, "predict")
-    setup_logger(predict_dir)
-    logger.info("saving results to %s (device %s)", predict_dir, dev)
+    writer = process_index() == 0
+    predict_dir = shared_run_dir(root, conf.project, "predict")
+    if writer:
+        setup_logger(predict_dir)
+    logger.info("saving results to %s (device %s, mesh %s)", predict_dir, dev, tuple(mesh.shape))
 
     # one scene for crops/prompts/extent; predict dates stream through the
     # mosaic prefetcher. Reading the reference imagery here builds the native
@@ -158,17 +170,19 @@ def run_predict(pred_conf: PredictionConfig, device=None) -> Path:
     state = load_model_params(conf.checkpoint, config_for(conf), dev)
     model, _ = model_for_config(conf, dev, state=state)
     del state
+    shard_model(model, mesh)
     tuner = PromptTuner(model, conf, device=dev)
     pixels = torch.as_tensor(pb["image"], dtype=torch.float32).to(dev)
     pmasks = torch.as_tensor(pb["mask"], dtype=torch.int32).to(dev)
     pnodata = torch.as_tensor(pb["nodata"]).to(dev)
     feather_dev = torch.from_numpy(feather).to(dev) if use_blend else None
 
-    with VoteAccumulator(
+    accumulator = VoteAccumulator(
         train_scene.out_shape, predict_dir, train_scene.out_transform,
         train_scene.crs, conf.classes,
         dtype=np.float32 if use_blend else np.int32,
-    ) as acc, torch.inference_mode():
+    ) if writer else contextlib.nullcontext()
+    with accumulator as acc, torch.inference_mode():
 
         def paste(batch, result: np.ndarray) -> None:
             """Vote paste of one batch's host-side result (already
@@ -187,6 +201,13 @@ def run_predict(pred_conf: PredictionConfig, device=None) -> Path:
                 else:
                     # class ids paste as C boolean compares, no one-hot
                     acc.update_ids(batch["date"][i], crop, result[i].astype(np.int32), img_crop=img_small[i])
+
+        def step(image_u8, crop_idx):
+            """The predict step on this data rank's rows of a batch."""
+            rows = {"image_u8": image_u8, "crop_idx": crop_idx}
+            if use_blend:
+                return tuner.predict_step_probs(pixels, pmasks, pnodata, rows, conf.crop_size, feather_dev)
+            return tuner.predict_step(pixels, pmasks, pnodata, rows, out_size=conf.crop_size)
 
         t_setup = time.perf_counter()
         n_tiles = 0
@@ -218,14 +239,12 @@ def run_predict(pred_conf: PredictionConfig, device=None) -> Path:
                 # upload only the raw uint8 crops and their indices
                 dev_batch = {k: upload(batch[k], dev) for k in ("image_u8", "crop_idx")}
                 t0 = time.perf_counter()
-                if use_blend:
-                    result = tuner.predict_step_probs(pixels, pmasks, pnodata, dev_batch, conf.crop_size, feather_dev)
-                else:
-                    result = tuner.predict_step(pixels, pmasks, pnodata, dev_batch, out_size=conf.crop_size)
+                result = data_sharded_call(step, (dev_batch["image_u8"], dev_batch["crop_idx"]), (True, True), mesh)
                 t_dispatch += time.perf_counter() - t0
-                date_batches.append(batch)
-                date_results.append(result)
                 n_tiles += int(batch["valid"].sum())
+                if writer:
+                    date_batches.append(batch)
+                    date_results.append(result)
             seal_date()
             t_mark = time.perf_counter()
         # drain: each date's copy was started when the date was sealed; only
@@ -247,5 +266,6 @@ def run_predict(pred_conf: PredictionConfig, device=None) -> Path:
         t_stream = time.perf_counter()
 
     timers = {"mosaic": t_mosaic, "dispatch": t_dispatch, "fetch": t_fetch, "paste": t_paste}
-    write_timings(predict_dir, t_setup - t_start, t_stream - t_setup, timers, n_tiles)
+    if writer:
+        write_timings(predict_dir, t_setup - t_start, t_stream - t_setup, timers, n_tiles)
     return predict_dir

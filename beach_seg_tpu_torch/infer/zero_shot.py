@@ -30,7 +30,7 @@ import numpy as np
 import torch
 from PIL import Image
 
-from beach_seg_tpu_torch.config import PredConfig, check_ported
+from beach_seg_tpu_torch.config import PredConfig
 from beach_seg_tpu_torch.data.dataset import create_scene
 from beach_seg_tpu_torch.data.prefetch import MosaicPrefetcher
 from beach_seg_tpu_torch.geo.display import overlay_prediction
@@ -49,8 +49,11 @@ from beach_seg_tpu_torch.models.seggpt.config import SegGPTConfig
 from beach_seg_tpu_torch.models.seggpt.convert import load_config
 from beach_seg_tpu_torch.models.seggpt.load import load_model_params
 from beach_seg_tpu_torch.models.seggpt.model import SegGPT, build_model
+from beach_seg_tpu_torch.ops.sharding import data_sharded_call
+from beach_seg_tpu_torch.parallel.distributed import process_index, shared_run_dir
+from beach_seg_tpu_torch.parallel.mesh import make_mesh, shard_model
 from beach_seg_tpu_torch.utils.device import device_for_platform, resolve_device
-from beach_seg_tpu_torch.utils.logging import allocate_run_dir, setup_logger
+from beach_seg_tpu_torch.utils.logging import setup_logger
 
 logger = logging.getLogger(__name__)
 
@@ -124,12 +127,14 @@ def run_zero_shot(conf: PredConfig, device=None) -> Path:
     ``tif/``, ``lines/``, ``timings.json``). The device is ``device``, else
     ``conf.platform`` ("" → CUDA, raising without it; "cpu" → the CPU)."""
     t_start = time.perf_counter()
-    check_ported(conf, "run_zero_shot")
+    mesh = make_mesh(conf.mesh_data, conf.mesh_model)
     dev = resolve_device(device) if device is not None else device_for_platform(conf.platform)
     root = Path(conf.prediction_root or conf.model_training_root)
-    predict_dir = allocate_run_dir(root, conf.project, "predict_no_prompt")
-    setup_logger(predict_dir)
-    logger.info("saving results to %s (device %s)", predict_dir, dev)
+    writer = process_index() == 0
+    predict_dir = shared_run_dir(root, conf.project, "predict_no_prompt")
+    if writer:
+        setup_logger(predict_dir)
+    logger.info("saving results to %s (device %s, mesh %s)", predict_dir, dev, tuple(mesh.shape))
 
     crop_size = conf.zero_shot_crop_size
     scene_conf = dataclasses.replace(conf, crop_size=crop_size)
@@ -145,8 +150,9 @@ def run_zero_shot(conf: PredConfig, device=None) -> Path:
     )
 
     # prompt viz (ref :218-222)
-    overlay_prediction(prompt_img, prompt_label, conf.classes).save(predict_dir / "prompt_w_label.png")
-    Image.fromarray(prompt_img).save(predict_dir / "prompt.png")
+    if writer:
+        overlay_prediction(prompt_img, prompt_label, conf.classes).save(predict_dir / "prompt_w_label.png")
+        Image.fromarray(prompt_img).save(predict_dir / "prompt.png")
 
     # every prompt candidate resized once on the host (PIL-exact), staged as
     # uint8; rescale + normalize run on the device
@@ -177,6 +183,7 @@ def run_zero_shot(conf: PredConfig, device=None) -> Path:
     )
 
     model, _ = zero_shot_model(conf, dev)
+    shard_model(model, mesh)
     pp = upload(np.stack(prompt_pixels), dev)
     pm = upload(np.stack(prompt_masks_rgb), dev)
     q_batch = max(1, conf.batch_size)
@@ -236,7 +243,11 @@ def run_zero_shot(conf: PredConfig, device=None) -> Path:
                 if n < q_batch:  # pad to the batch size: one shape for every batch
                     queries = np.concatenate([queries, np.repeat(queries[-1:], q_batch - n, 0)])
                     sel = np.concatenate([sel, np.repeat(sel[-1:], q_batch - n, 0)])
-                ids = zero_shot_batch(model, upload(queries, dev), pp, pm, upload(sel, dev), crop_size, num_classes)
+                # whole query ensembles split over the data ranks
+                ids = data_sharded_call(
+                    lambda q, s: zero_shot_batch(model, q, pp, pm, s, crop_size, num_classes),
+                    (upload(queries, dev), upload(sel, dev)), (True, True), mesh,
+                )
                 results.append(ids[:n])
                 done.extend(p[0] for p in pending)
                 pending.clear()
@@ -256,7 +267,7 @@ def run_zero_shot(conf: PredConfig, device=None) -> Path:
             dispatch()
 
             sealed = None
-            if results:
+            if results and writer:
                 dcat = torch.cat(results) if len(results) > 1 else results[0]
                 sealed = (date, merged_img, merged_nodata, done, *copy_to_host(dcat))
             # this date's work is queued — now paste the previous date
@@ -267,5 +278,6 @@ def run_zero_shot(conf: PredConfig, device=None) -> Path:
             drain(sealed_prev)
         t_stream = time.perf_counter()
 
-    write_timings(predict_dir, t_setup - t_start, t_stream - t_setup, timers, n_tiles)
+    if writer:
+        write_timings(predict_dir, t_setup - t_start, t_stream - t_setup, timers, n_tiles)
     return predict_dir

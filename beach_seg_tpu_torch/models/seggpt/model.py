@@ -43,6 +43,13 @@ from beach_seg_tpu_torch.models.seggpt.config import SegGPTConfig
 from beach_seg_tpu_torch.ops import cuda_attn, cuda_mlp
 from beach_seg_tpu_torch.ops.attention import attention_reference, rel_pos_terms, rel_tables_padded
 from beach_seg_tpu_torch.ops.resize import resize_2d
+from beach_seg_tpu_torch.ops.sharding import (
+    copy_to_model,
+    data_sum,
+    gather_from_model,
+    model_axis_size,
+    reduce_from_model,
+)
 from beach_seg_tpu_torch.utils.device import resolve_device
 
 
@@ -119,7 +126,13 @@ class Embeddings(nn.Module):
 
 
 class Attention(nn.Module):
-    """Global MHA with decomposed relative position bias (HF :210-349)."""
+    """Global MHA with decomposed relative position bias (HF :210-349).
+
+    Under tensor parallelism (``parallel.mesh.shard_model``) the module holds
+    whole heads of qkv and the matching rows of proj: it runs its local
+    heads through the same kernels, then sums the ranks' proj outputs."""
+
+    mesh = None
 
     def __init__(self, config: SegGPTConfig, dtype: torch.dtype):
         super().__init__()
@@ -137,21 +150,26 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cfg, dt = self.config, self.compute_dtype
         b, gh, gw, c = x.shape
-        nh, hd = cfg.num_attention_heads, cfg.head_dim
+        hd = cfg.head_dim
         s = gh * gw
         rel = cfg.use_relative_position_embeddings
         # the qkv-rel kernel's preconditions (JAX model.py:151-155)
         use_qkv_rel_kernel = rel and 2 * hd == 128 and c % 128 == 0 and gh <= 64 and gw <= 64
+        cl = self.qkv_kernel.shape[-1]  # this rank's channels: whole heads
+        if cl * model_axis_size(self.mesh) != c:
+            raise RuntimeError(f"qkv holds {cl} of {c} channels, but the mesh has {model_axis_size(self.mesh)} model ranks")
+        nh = cl // hd
 
-        qkv4 = (x.reshape(b, s, c).to(dt) @ self.qkv_kernel.reshape(c, 3 * c).to(dt)).reshape(b, s, 3, c)
+        x = copy_to_model(x, self.mesh)
+        qkv4 = (x.reshape(b, s, c).to(dt) @ self.qkv_kernel.reshape(c, 3 * cl).to(dt)).reshape(b, s, 3, cl)
         if self.qkv_bias is not None and not use_qkv_rel_kernel:
             qkv4 = qkv4 + self.qkv_bias.to(dt)  # the kernel adds the bias itself
         rel_params = (self.rel_pos_h.to(dt), self.rel_pos_w.to(dt)) if rel else None
 
         if use_qkv_rel_kernel:
-            bias = self.qkv_bias.to(dt) if self.qkv_bias is not None else torch.zeros((3, c), dtype=dt, device=x.device)
+            bias = self.qkv_bias.to(dt) if self.qkv_bias is not None else torch.zeros((3, cl), dtype=dt, device=x.device)
             rh_tab, rw_tab = rel_tables_padded(*rel_params, (gh, gw), (gh, gw))
-            out = cuda_attn.qkv_rel_attention(qkv4, bias, rh_tab, rw_tab, hd**-0.5, gw, nh).reshape(b, gh, gw, c)
+            out = cuda_attn.qkv_rel_attention(qkv4, bias, rh_tab, rw_tab, hd**-0.5, gw, nh).reshape(b, gh, gw, cl)
         else:
             # (B, S, 3, nH, hd) → (3, B·nH, S, hd)
             qkv = qkv4.reshape(b, s, 3, nh, hd).permute(2, 0, 3, 1, 4).reshape(3, b * nh, s, hd)
@@ -160,14 +178,19 @@ class Attention(nn.Module):
                 rel_h, rel_w = rel_pos_terms(q, *rel_params, (gh, gw), (gh, gw))
                 out = cuda_attn.packed_attention(
                     q, k, v, rel_h.reshape(b * nh, s, gh), rel_w.reshape(b * nh, s, gw), hd**-0.5, nh
-                ).reshape(b, gh, gw, c)
+                ).reshape(b, gh, gw, cl)
             else:
                 out = attention_reference(q, k, v, None, None, hd**-0.5)
-                out = out.reshape(b, nh, gh, gw, hd).permute(0, 2, 3, 1, 4).reshape(b, gh, gw, c)
-        return out @ self.proj_kernel.to(dt) + self.proj_bias.to(dt)
+                out = out.reshape(b, nh, gh, gw, hd).permute(0, 2, 3, 1, 4).reshape(b, gh, gw, cl)
+        return reduce_from_model(out @ self.proj_kernel.to(dt), self.mesh) + self.proj_bias.to(dt)
 
 
 class Mlp(nn.Module):
+    """Lin1 → GELU → Lin2; under tensor parallelism a column block of lin1
+    and the rows of lin2 (Megatron's split), the ranks' outputs summed."""
+
+    mesh = None
+
     def __init__(self, config: SegGPTConfig, dtype: torch.dtype):
         super().__init__()
         self.config, self.compute_dtype = config, dtype
@@ -181,14 +204,20 @@ class Mlp(nn.Module):
         dt = self.compute_dtype
         k1, b1 = self.lin1_kernel.to(dt), self.lin1_bias.to(dt)
         k2, b2 = self.lin2_kernel.to(dt), self.lin2_bias.to(dt)
+        mp = model_axis_size(self.mesh)
+        x = copy_to_model(x, self.mesh)
         if ln_params is not None:
-            # LN+Lin1+GELU+Lin2 in one kernel; the LN params go in uncast (fp32)
+            # LN+Lin1+GELU+Lin2 in one kernel; the LN params go in uncast
+            # (fp32). Each rank adds b2/mp to its partial output, so the sum
+            # over ranks adds b2 once (JAX pallas_mlp.py:133-137)
             ln_scale, ln_bias = ln_params
-            return cuda_mlp.fused_ln_mlp(
-                x, ln_scale, ln_bias, k1, b1, k2, b2, self.config.layer_norm_eps, dt == torch.bfloat16
+            out = cuda_mlp.fused_ln_mlp(
+                x, ln_scale, ln_bias, k1, b1, k2, b2 / mp if mp > 1 else b2, self.config.layer_norm_eps,
+                dt == torch.bfloat16,
             )
+            return reduce_from_model(out, self.mesh)
         h = _gelu(x @ k1 + b1, dt)
-        return h @ k2 + b2
+        return reduce_from_model(h @ k2, self.mesh) + b2
 
 
 class LayerNorm(nn.Module):
@@ -326,7 +355,10 @@ class Encoder(nn.Module):
 
 class Decoder(nn.Module):
     """Intermediate-concat → Linear → pixel-shuffle → Conv3×3+LN+GELU+Conv1×1
-    (HF SegGptDecoder :537-591). NHWC throughout."""
+    (HF SegGptDecoder :537-591). NHWC throughout. Under tensor parallelism
+    the embed is column-split and its blocks gathered before the shuffle."""
+
+    mesh = None
 
     def __init__(self, config: SegGPTConfig, dtype: torch.dtype):
         super().__init__()
@@ -345,7 +377,7 @@ class Decoder(nn.Module):
         cfg, dt = self.config, self.compute_dtype
         p, dh = cfg.patch_size, cfg.decoder_hidden_size
         b, gh, gw, _ = feats.shape
-        h = feats @ self.embed_kernel.to(dt) + self.embed_bias.to(dt)
+        h = gather_from_model(copy_to_model(feats, self.mesh) @ self.embed_kernel.to(dt) + self.embed_bias.to(dt), self.mesh)
         # pixel shuffle: (B, gh, gw, p, p, dh) → (B, gh·p, gw·p, dh)
         h = h.reshape(b, gh, gw, p, p, dh).permute(0, 1, 3, 2, 4, 5).reshape(b, gh * p, gw * p, dh)
         # 3×3 "SAME" conv, NHWC/HWIO in the JAX layout → NCHW/OIHW for F.conv2d
@@ -369,9 +401,11 @@ def seggpt_loss(
     labels: torch.Tensor,
     bool_masked_pos: torch.Tensor,
     sample_weight: torch.Tensor | None = None,
+    mesh=None,
 ) -> torch.Tensor:
     """Smooth-L1 on masked patches (HF SegGptLoss :804-843, JAX model.py:476-501).
-    ``sample_weight`` (B,) optionally down-weights rows."""
+    ``sample_weight`` (B,) optionally down-weights rows. With a data axis in
+    ``mesh`` the sums run over every rank's rows (``ops.sharding.data_sum``)."""
     ground_truth = torch.cat([prompt_masks, labels], dim=1)
     b, h2, w, c = ground_truth.shape
     p = config.patch_size
@@ -384,7 +418,7 @@ def seggpt_loss(
     beta = config.beta
     l1 = diff.abs()
     loss = torch.where(l1 < beta, 0.5 * diff * diff / beta, l1 - 0.5 * beta)
-    return (loss * mask).sum() / mask.sum().clamp(min=1.0)
+    return data_sum((loss * mask).sum(), mesh) / data_sum(mask.sum(), mesh).clamp(min=1.0)
 
 
 class SegGPT(nn.Module):
@@ -392,7 +426,9 @@ class SegGPT(nn.Module):
 
     ``forward`` returns ``{"pred_masks": (B, 2H, W, 3) fp32, "loss"}``: the
     painted NHWC canvas, and the masked smooth-L1 when ``labels`` is given
-    (else None)."""
+    (else None). ``parallel.mesh.shard_model`` puts it on a mesh."""
+
+    mesh = None
 
     def __init__(self, config: SegGPTConfig, dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
@@ -445,7 +481,7 @@ class SegGPT(nn.Module):
             pred_masks = self.decoder(feats).float()
         loss = None
         if labels is not None:
-            loss = seggpt_loss(cfg, prompt_masks, pred_masks, labels, bool_masked_pos)
+            loss = seggpt_loss(cfg, prompt_masks, pred_masks, labels, bool_masked_pos, mesh=self.mesh)
         return {"pred_masks": pred_masks, "loss": loss}
 
     def sample_drop_masks(self, generator: torch.Generator, batch: int) -> list:

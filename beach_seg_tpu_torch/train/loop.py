@@ -12,9 +12,12 @@ reference's ``trainer.fit``, ref src/train.py:27-132).
   before and after training (ref train.py:76-77,121-122), under the JAX run
   dir's file names, so either package's engines read a port run.
 
-It runs on one device: the CUDA device unless the caller passes
-``device="cpu"`` (or the config ``platform="cpu"``); multi-GPU is ROADMAP.md
-§A item 9.
+It runs on the CUDA device unless the caller passes ``device="cpu"`` (or the
+config ``platform="cpu"``), on the (``mesh_data``, ``mesh_model``) mesh over
+the process group's ranks (``parallel``): each data rank iterates its rows
+of every global batch, the model axis splits the backbone, every rank holds
+the same state, and rank 0 alone writes the run dir's files (the other
+ranks log to ``log.rank<r>.log``).
 
 Known intentional divergence (SURVEY.md quirk #1): the reference multiplies
 ``max_epochs`` by ``len(prompt_batch)``, the number of DICT KEYS (5), an
@@ -32,20 +35,23 @@ from pathlib import Path
 
 import torch
 
-from beach_seg_tpu_torch.config import BeachSegConfig, check_ported, num_workers
+from beach_seg_tpu_torch.config import BeachSegConfig, num_workers
 from beach_seg_tpu_torch.data.dataset import BeachSegDataset, create_scene, iterate_batches, materialize_prompts
 from beach_seg_tpu_torch.data.prefetch import prefetch_iterator
 from beach_seg_tpu_torch.models.seggpt.config import SegGPTConfig, huge_config
 from beach_seg_tpu_torch.models.seggpt.convert import load_config
 from beach_seg_tpu_torch.models.seggpt.load import load_model_params
 from beach_seg_tpu_torch.models.seggpt.model import SegGPT, build_model
+from beach_seg_tpu_torch.ops.sharding import DATA_AXIS, axis_size
+from beach_seg_tpu_torch.parallel.distributed import host_batch_slice, process_index, shared_run_dir
+from beach_seg_tpu_torch.parallel.mesh import make_mesh, put_batch, shard_model
 from beach_seg_tpu_torch.train.checkpoint import latest_checkpoint, restore_state, save_prompt_batch, save_state
 from beach_seg_tpu_torch.train.loggers import MetricsLogger, example_grid
 from beach_seg_tpu_torch.train.metrics import f1_from_confusion
 from beach_seg_tpu_torch.train.prompt_tuner import PromptTuner, lr_schedule
 from beach_seg_tpu_torch.utils.confix import save_yaml
 from beach_seg_tpu_torch.utils.device import device_for_platform, resolve_device
-from beach_seg_tpu_torch.utils.logging import allocate_run_dir, setup_logger
+from beach_seg_tpu_torch.utils.logging import setup_logger
 from beach_seg_tpu_torch.utils.profiling import StepTimer, maybe_trace
 
 logger = logging.getLogger(__name__)
@@ -133,7 +139,10 @@ def run_training(conf: BeachSegConfig, scene=None, device=None) -> Path:
     ``create_scene(conf, train=True)``) → the run dir. The device is
     ``device``, else ``conf.platform`` ("" → CUDA, raising without it;
     "cpu" → the CPU)."""
-    check_ported(conf, "run_training")
+    mesh = make_mesh(conf.mesh_data, conf.mesh_model)
+    data_size = axis_size(mesh, DATA_AXIS)
+    if conf.batch_size % data_size:
+        raise ValueError(f"batch_size={conf.batch_size} must divide data axis ({data_size})")
     dev = resolve_device(device) if device is not None else device_for_platform(conf.platform)
     if conf.precision != "32-true":
         logger.warning(
@@ -145,11 +154,14 @@ def run_training(conf: BeachSegConfig, scene=None, device=None) -> Path:
             "deterministic=true is a no-op: the port does not switch PyTorch to its "
             "deterministic algorithms; the draws follow the seed either way"
         )
-    run_dir = allocate_run_dir(Path(conf.model_training_root), conf.project, "train", 0)
-    setup_logger(run_dir)
-    logger.info("run dir: %s (device %s)", run_dir, dev)
-    save_yaml(conf, run_dir / "conf.yaml")
-    (run_dir / "classes.txt").write_text("\n".join(conf.classes))
+    rank = process_index()
+    writer = rank == 0
+    run_dir = shared_run_dir(Path(conf.model_training_root), conf.project, "train")
+    setup_logger(run_dir, rank=rank)
+    logger.info("run dir: %s (device %s, mesh %s)", run_dir, dev, tuple(mesh.shape))
+    if writer:
+        save_yaml(conf, run_dir / "conf.yaml")
+        (run_dir / "classes.txt").write_text("\n".join(conf.classes))
 
     if scene is None:
         scene = create_scene(conf, train=True)
@@ -159,6 +171,7 @@ def run_training(conf: BeachSegConfig, scene=None, device=None) -> Path:
     logger.info("%d crops / %d train items", num_prompts, len(dataset))
 
     model, _ = model_for_config(conf, dev, load_model_params(conf.checkpoint, config_for(conf), dev))
+    shard_model(model, mesh)
     steps_per_epoch = max(1, math.ceil(len(dataset) / conf.batch_size))
     tuner = PromptTuner(model, conf, device=dev, steps_per_epoch=steps_per_epoch)
     sched = lr_schedule(conf, steps_per_epoch)
@@ -175,16 +188,20 @@ def run_training(conf: BeachSegConfig, scene=None, device=None) -> Path:
         start_epoch = state.step // steps_per_epoch
         logger.info("resumed from %s (step %d, epoch %d)", ckpt, state.step, start_epoch)
 
+    # each data rank builds only its rows of every global batch (the shared
+    # seed gives every rank the same order)
+    row_slice = host_batch_slice(conf.batch_size, mesh) if data_size > 1 else None
     with PromptExports(run_dir, prompts, [scene.mask_date] * num_prompts) as exports:
-        exports.save("prompt_batch.npz", prompts["pixels"])
-        mlog = MetricsLogger(run_dir)
-        logger.info("loggers: %s", mlog.kind)
+        if writer:
+            exports.save("prompt_batch.npz", prompts["pixels"])
+        mlog = MetricsLogger(run_dir) if writer else None
+        logger.info("loggers: %s", mlog.kind if writer else f"none on rank {rank}")
         # the counterpart of PRNGKey(conf.seed): restarts from the seed on resume
         gen = torch.Generator(dev).manual_seed(conf.seed)
 
         def put(batch: dict) -> dict:
             # "valid" rides along so the steps can zero padded rows
-            return {k: torch.from_numpy(v).to(dev) for k, v in batch.items() if k != "date"}
+            return put_batch(mesh, {k: v for k, v in batch.items() if k != "date"}, dev)
 
         n_classes = len(conf.classes)
         timer = StepTimer()
@@ -198,28 +215,30 @@ def run_training(conf: BeachSegConfig, scene=None, device=None) -> Path:
             # the confusion matrices and the val loss accumulate on the device
             # and are fetched once an epoch, not once a step
             train_cm_dev = torch.zeros((n_classes, n_classes), dtype=torch.int32, device=dev)
-            with maybe_trace(conf.profile and epoch == 0, run_dir):
+            with maybe_trace(conf.profile and epoch == 0 and writer, run_dir):
                 batches = prefetch_iterator(
-                    iterate_batches(dataset, conf.batch_size, shuffle=True, seed=conf.seed + epoch, workers=num_workers(conf))
+                    iterate_batches(dataset, conf.batch_size, shuffle=True, seed=conf.seed + epoch,
+                                    workers=num_workers(conf), row_slice=row_slice)
                 )
                 for batch in batches:
                     state, metrics = tuner.train_step(state, pmasks, pnodata, put(batch), generator=gen)
                     train_cm_dev += metrics["confusion"]
                     timer.tick()
-                    if global_step % conf.log_every_n_steps == 0:
+                    if writer and global_step % conf.log_every_n_steps == 0:
                         scalars = {"train/loss": float(metrics["loss"]), "lr": sched(global_step)}
                         if timer.steps_per_sec:
                             scalars["perf/steps_per_sec"] = timer.steps_per_sec
                         mlog.log_scalars(scalars, global_step)
                     global_step += 1
-            mlog.log_scalars({"train/f1": float(f1_from_confusion(train_cm_dev.cpu()))}, global_step)
+            if writer:
+                mlog.log_scalars({"train/f1": float(f1_from_confusion(train_cm_dev.cpu()))}, global_step)
 
             # validation — same dataset as train (reference quirk #2)
             val_cm_dev = torch.zeros_like(train_cm_dev)
             val_loss_dev = torch.zeros((), dtype=torch.float32, device=dev)
             n_val = 0
             viz_src = None
-            for batch in iterate_batches(dataset, conf.batch_size, workers=num_workers(conf)):
+            for batch in iterate_batches(dataset, conf.batch_size, workers=num_workers(conf), row_slice=row_slice):
                 out = tuner.eval_step(state.prompt_pixels, pmasks, pnodata, put(batch), generator=gen)
                 val_cm_dev += out["confusion"]
                 val_loss_dev += out["loss"]
@@ -229,8 +248,9 @@ def run_training(conf: BeachSegConfig, scene=None, device=None) -> Path:
             val_cm = val_cm_dev.cpu()
             val_f1 = float(f1_from_confusion(val_cm))
             val_loss = float(val_loss_dev) / max(n_val, 1)
-            mlog.log_scalars({"val/f1": val_f1, "val/loss": val_loss}, global_step)
-            if viz_src is not None:
+            if writer:
+                mlog.log_scalars({"val/f1": val_f1, "val/loss": val_loss}, global_step)
+            if writer and viz_src is not None:
                 batch, pred_dev = viz_src
                 n = min(conf.num_viz_images, len(batch["image"]))
                 prompt_imgs = state.prompt_pixels.cpu().numpy()[batch["crop_idx"][:n] % num_prompts]
@@ -239,7 +259,8 @@ def run_training(conf: BeachSegConfig, scene=None, device=None) -> Path:
                     conf.classes, conf.viz_size,
                 )
                 mlog.log_image("val_images", viz, epoch)
-            save_state(run_dir, state)
+            if writer:
+                save_state(run_dir, state)
             # best-prompt tracking (the reference's commented-out ModelCheckpoint
             # on monitor_metric, ref train.py:82-89)
             monitored = {"val/f1": val_f1, "val/loss": val_loss}.get(conf.monitor_metric, val_f1)
@@ -248,6 +269,7 @@ def run_training(conf: BeachSegConfig, scene=None, device=None) -> Path:
             )
             if better:
                 best_metric = monitored
+            if better and writer:
                 best = json.dumps({"epoch": epoch, conf.monitor_metric: monitored})
                 exports.save("prompt_batch_best.npz", state.prompt_pixels,
                              after=lambda text=best: (run_dir / "best.json").write_text(text))
@@ -256,7 +278,8 @@ def run_training(conf: BeachSegConfig, scene=None, device=None) -> Path:
         # post-fit prompt exports: the tuned pixels (ref train.py:121-122) and
         # their EMA, what the reference's legacy trainer saves
         # (src/old/train.py:168,255-258), read by predict use_ema=true
-        exports.save("prompt_batch_tuned.npz", state.prompt_pixels)
-        exports.save("prompt_batch_ema.npz", state.ema_pixels)
-        mlog.close()
+        if writer:
+            exports.save("prompt_batch_tuned.npz", state.prompt_pixels)
+            exports.save("prompt_batch_ema.npz", state.ema_pixels)
+            mlog.close()
     return run_dir

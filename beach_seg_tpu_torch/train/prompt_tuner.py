@@ -18,6 +18,13 @@ The only trainable weights are the prompt pixels: all prompt crops live in one
 
 Random numbers come from an explicit ``torch.Generator``; a test can pass the
 draws JAX took instead.
+
+On a mesh (the model's, ``parallel.mesh.shard_model``) each data rank passes
+its own rows of the global batch. A step draws every random number for the
+global batch, from the same generator state on every rank, and takes its
+rows; the losses divide sums over every rank's rows, and the prompt
+gradient and the confusion matrix are summed over the data ranks, so every
+rank holds the state a one-device step on the global batch would give.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ import torch
 from beach_seg_tpu_torch.config import BeachSegConfig
 from beach_seg_tpu_torch.models.seggpt.model import SegGPT, default_bool_masked_pos, seggpt_loss
 from beach_seg_tpu_torch.ops.resize import nearest_indices, resize_matrix, resize_pil_uint8_device
+from beach_seg_tpu_torch.ops.sharding import DATA_AXIS, all_reduce_data, axis_rank, axis_size, data_sum
 from beach_seg_tpu_torch.train.metrics import confusion_update
 from beach_seg_tpu_torch.transforms import (
     AugmentParams,
@@ -53,21 +61,24 @@ def _smooth_l1(diff: torch.Tensor, beta: float) -> torch.Tensor:
     return torch.where(l1 < beta, 0.5 * diff * diff / beta, l1 - 0.5 * beta)
 
 
-def prompt_tune_loss(pred_masks, labels, yesdata, beta: float) -> torch.Tensor:
+def prompt_tune_loss(pred_masks, labels, yesdata, beta: float, mesh=None) -> torch.Tensor:
     """Nodata-masked smooth-L1 on the query half (ref src/model.py:40-64,
-    intended B>1 semantics). NHWC: pred (B,2H,W,3), labels (B,H,W,3)."""
+    intended B>1 semantics). NHWC: pred (B,2H,W,3), labels (B,H,W,3). With
+    a data axis in ``mesh`` (here and in the losses below) the sums run over
+    every rank's rows (``ops.sharding.data_sum``)."""
     h = pred_masks.shape[1] // 2
     loss = _smooth_l1(pred_masks[:, h:].float() - labels.float(), beta)
     keep = yesdata.float()[..., None]
-    denom = keep.sum() * pred_masks.shape[-1]
-    return (loss * keep).sum() / denom.clamp(min=1.0)
+    denom = data_sum(keep.sum(), mesh) * pred_masks.shape[-1]
+    return data_sum((loss * keep).sum(), mesh) / denom.clamp(min=1.0)
 
 
-def prompt_tune_loss_ref_compat(pred_masks, labels, yesdata, beta: float, sample_weight=None) -> torch.Tensor:
+def prompt_tune_loss_ref_compat(pred_masks, labels, yesdata, beta: float, sample_weight=None, mesh=None) -> torch.Tensor:
     """Bug-for-bug port of the reference's loss INCLUDING its ``unsqueeze(1)``
     broadcast (src/model.py:61): at B>1 every (sample_i loss × sample_j keep)
     pair is summed before dividing by keep.sum(). ``sample_weight`` zeroes
-    padded rows on both sides of the pair product."""
+    padded rows on both sides of the pair product. The pair sum is
+    Σ_hwc (Σ_i loss_i)(Σ_j keep_j), whose two batch sums span the ranks."""
     h = pred_masks.shape[1] // 2
     loss = _smooth_l1(pred_masks[:, h:].float() - labels.float(), beta)
     keep = yesdata.float()[..., None].expand(loss.shape)
@@ -75,8 +86,8 @@ def prompt_tune_loss_ref_compat(pred_masks, labels, yesdata, beta: float, sample
         w = sample_weight.float()[:, None, None, None]
         loss = loss * w
         keep = keep * w
-    pair = torch.einsum("ihwc,jhwc->", loss, keep)
-    return pair / keep.sum().clamp(min=1.0)
+    loss_sum, keep_sum = data_sum(loss.sum(0), mesh), data_sum(keep.sum(0), mesh)
+    return (loss_sum * keep_sum).sum() / keep_sum.sum().clamp(min=1.0)
 
 
 def soft_class_probs(pred_masks, palette_norm, tau: float = 0.05) -> torch.Tensor:
@@ -93,7 +104,8 @@ def soft_class_probs(pred_masks, palette_norm, tau: float = 0.05) -> torch.Tenso
     return torch.softmax(-d2 / tau, dim=-1)
 
 
-def dice_bce_loss(pred_masks, palette_norm, labels, yesdata, num_classes: int, sample_weight=None) -> torch.Tensor:
+def dice_bce_loss(pred_masks, palette_norm, labels, yesdata, num_classes: int, sample_weight=None,
+                  mesh=None) -> torch.Tensor:
     """Dice + BCE on soft class probabilities; labels (B, H, W) int ids,
     masked to yesdata pixels; ``sample_weight`` (B,) zeroes padded rows from
     both terms."""
@@ -107,14 +119,14 @@ def dice_bce_loss(pred_masks, palette_norm, labels, yesdata, num_classes: int, s
     hi = torch.tensor(1 - eps, device=probs.device)
     probs_c = torch.minimum(torch.maximum(probs, lo), hi)  # jnp.clip
     bce = -(onehot * torch.log(probs_c) + (1 - onehot) * torch.log(1 - probs_c))
-    bce = (bce * keep).sum() / (keep.sum() * num_classes).clamp(min=1.0)
+    bce = data_sum((bce * keep).sum(), mesh) / (data_sum(keep.sum(), mesh) * num_classes).clamp(min=1.0)
     inter = (probs * onehot * keep).sum(dim=(1, 2))
     denom = ((probs + onehot) * keep).sum(dim=(1, 2))
     dice = 1.0 - (2 * inter + eps) / (denom + eps)
     if sample_weight is not None:
         w = sample_weight.float()
-        return bce + (dice.mean(-1) * w).sum() / w.sum().clamp(min=1.0)
-    return bce + dice.mean()
+        return bce + data_sum((dice.mean(-1) * w).sum(), mesh) / data_sum(w.sum(), mesh).clamp(min=1.0)
+    return bce + data_sum(dice.sum(), mesh) / (dice.numel() * axis_size(mesh, DATA_AXIS))
 
 
 def check_finite(step: int, **tensors: torch.Tensor) -> None:
@@ -227,6 +239,7 @@ class PromptTuner:
         if param.device.type != self.device.type:
             raise ValueError(f"model is on {param.device}, the tuner on {self.device}")
         self.model, self.conf, self.steps_per_epoch = model, conf, steps_per_epoch
+        self.mesh = model.mesh
         self.aug = AugmentParams.from_config(conf)
         self.optimizer = make_optimizer(conf, steps_per_epoch)
 
@@ -236,6 +249,32 @@ class PromptTuner:
 
     def _tensor(self, x) -> torch.Tensor:
         return torch.as_tensor(x, device=self.device)
+
+    def _global_rows(self, b: int) -> tuple[int, int]:
+        """(global batch, first row of this rank's) for a local batch of ``b``."""
+        return b * axis_size(self.mesh, DATA_AXIS), b * axis_rank(self.mesh, DATA_AXIS)
+
+    def local_draws(self, draws: dict, b: int) -> dict:
+        """This rank's rows of a global step's ``draws`` (:meth:`step_draws`)
+        for a local batch of ``b``: the drop-path masks of the layers before
+        the stream merge hold the pixel stream's rows, then the mask
+        stream's."""
+        bg, lo = self._global_rows(b)
+        if bg == b:
+            return draws
+
+        def rows(t):
+            if t is None:
+                return None
+            if t.shape[0] == 2 * bg:
+                return torch.cat([t[lo : lo + b], t[bg + lo : bg + lo + b]])
+            return t[lo : lo + b]
+
+        out = {k: rows(draws[k]) for k in ("palette", "prompt_idx", "prompt_drop")}
+        out.update({k: {n: rows(v) for n, v in draws[k].items()} for k in ("aug_q", "aug_p")})
+        dm = draws["drop_masks"]
+        out["drop_masks"] = None if dm is None else [tuple(rows(m) for m in pair) for pair in dm]
+        return out
 
     def init_state(self, prompt_pixels) -> PromptState:
         pixels = self._tensor(prompt_pixels).float().clone()
@@ -249,10 +288,13 @@ class PromptTuner:
         (``transforms.sample_draws`` dicts for the query and prompt
         augmentations), ``prompt_drop`` (B,) bool, ``drop_masks``
         (``Encoder.forward``'s keep masks)), the rest drawn from
-        ``generator`` (on the tuner's device), all moved to the device."""
+        ``generator`` (on the tuner's device), all moved to the device. On a
+        data axis the draws are the global batch's (:meth:`local_draws`
+        takes this rank's rows)."""
         draws = dict(draws or {})
         mask = batch["mask"]
         b, h, w = mask.shape
+        b = self._global_rows(b)[0]
         dev = generator.device if generator is not None else self.device
         makers = {
             "palette": lambda: random_palette(generator, self.num_classes, b),
@@ -280,7 +322,9 @@ class PromptTuner:
         """The differentiable half of :meth:`train_step` on complete
         ``draws`` (:meth:`step_draws`): → (loss, d loss / d prompt_pixels,
         pred_masks, query mask, normalized palette). Runs with gradients on
-        whatever the caller's mode (not under ``inference_mode``)."""
+        whatever the caller's mode (not under ``inference_mode``). On a data
+        axis ``draws`` are this rank's rows and the gradient is this rank's
+        share of the global one."""
         conf, model = self.conf, self.model
         image = self._tensor(batch["image"]).float()
         b = image.shape[0]
@@ -314,13 +358,16 @@ class PromptTuner:
                     loss = out["loss"]
                 else:
                     bmp = default_bool_masked_pos(model.config, b, self.device)
-                    loss = seggpt_loss(model.config, p_color, pred_masks, labels_color, bmp, sample_weight=valid)
+                    loss = seggpt_loss(model.config, p_color, pred_masks, labels_color, bmp, sample_weight=valid,
+                                       mesh=self.mesh)
             elif conf.loss_variant == "dice_bce":
-                loss = dice_bce_loss(pred_masks, palette_norm, q_mask, q_mask != 0, self.num_classes, sample_weight=valid)
+                loss = dice_bce_loss(pred_masks, palette_norm, q_mask, q_mask != 0, self.num_classes, sample_weight=valid,
+                                     mesh=self.mesh)
             elif conf.loss_variant == "nodata_ref":
-                loss = prompt_tune_loss_ref_compat(pred_masks, labels_color, q_mask != 0, conf.loss_beta, sample_weight=valid)
+                loss = prompt_tune_loss_ref_compat(pred_masks, labels_color, q_mask != 0, conf.loss_beta,
+                                                   sample_weight=valid, mesh=self.mesh)
             else:
-                loss = prompt_tune_loss(pred_masks, labels_color, q_mask != 0, conf.loss_beta)
+                loss = prompt_tune_loss(pred_masks, labels_color, q_mask != 0, conf.loss_beta, mesh=self.mesh)
             (grads,) = torch.autograd.grad(loss, leaf)
         return loss.detach(), grads, pred_masks.detach(), q_mask, palette_norm
 
@@ -334,10 +381,12 @@ class PromptTuner:
         pixels must be finite, else ``FloatingPointError`` (the state is left
         as it was); without it nothing is checked and nothing synchronizes."""
         draws = self.step_draws(batch, state.prompt_pixels.shape[0], generator, draws)
+        draws = self.local_draws(draws, batch["mask"].shape[0])
         loss, grads, pred_masks, q_mask, palette_norm = self.loss_and_grad(
             state.prompt_pixels, prompt_masks, prompt_nodata, batch, draws
         )
         with torch.no_grad():
+            grads = all_reduce_data(grads, self.mesh)
             pixels = state.prompt_pixels
             updates, opt_state = self.optimizer.update(grads, state.opt_state, pixels)
             pixels = pixels + updates
@@ -348,7 +397,7 @@ class PromptTuner:
             state.step += 1
             h = pred_masks.shape[1] // 2
             pred_ids = decode_by_palette(pred_masks[:, h:], palette_norm)
-            cm = confusion_update(pred_ids, q_mask, self.num_classes)
+            cm = all_reduce_data(confusion_update(pred_ids, q_mask, self.num_classes), self.mesh)
         return state, {"loss": loss, "confusion": cm}
 
     # ----------------------------------------------------------------- eval
@@ -357,13 +406,16 @@ class PromptTuner:
     def eval_step(self, prompt_pixels, prompt_masks, prompt_nodata, batch, palette=None, generator=None):
         """Validation (ref src/model.py:271-308): eval augmentation, prompt =
         the sample's own crop, a random palette (``palette`` (B, N, 3) uint8,
-        or drawn from ``generator``) → {"loss", "confusion", "pred"}."""
+        or drawn from ``generator``) → {"loss", "confusion", "pred"}. On a
+        data axis the palette is drawn for the global batch, the loss and
+        the confusion are the global batch's, "pred" this rank's rows."""
         conf = self.conf
         image = self._tensor(batch["image"])
         b = image.shape[0]
         valid = self._tensor(batch["valid"]) if "valid" in batch else None
         if palette is None:
-            palette = random_palette(generator, self.num_classes, b)
+            bg, lo = self._global_rows(b)
+            palette = random_palette(generator, self.num_classes, bg)[lo : lo + b]
         palette = self._tensor(palette)
         palette_norm = normalize_palette(palette)
         q_img, q_mask, _ = eval_augment(image, self._tensor(batch["mask"]), self._tensor(batch["nodata"]), conf.inpt_size)
@@ -381,10 +433,11 @@ class PromptTuner:
             embedding_type="instance", decode_query_only=True,
         )
         pred_masks = out["pred_masks"]
-        loss = prompt_tune_loss(pred_masks, labels_color, q_mask != 0, conf.loss_beta)
+        loss = prompt_tune_loss(pred_masks, labels_color, q_mask != 0, conf.loss_beta, mesh=self.mesh)
         h = pred_masks.shape[1] // 2
         pred_ids = decode_by_palette(pred_masks[:, h:], palette_norm)
-        return {"loss": loss, "confusion": confusion_update(pred_ids, q_mask, self.num_classes), "pred": pred_ids}
+        cm = all_reduce_data(confusion_update(pred_ids, q_mask, self.num_classes), self.mesh)
+        return {"loss": loss, "confusion": cm, "pred": pred_ids}
 
     # -------------------------------------------------------------- predict
 

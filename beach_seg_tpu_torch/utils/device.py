@@ -36,10 +36,11 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
 
 
 def device_for_platform(platform: str) -> torch.device:
-    """``BeachSegConfig.platform`` as the device rule: ``""`` → CUDA
-    (raising without it), ``"cpu"`` → the CPU, anything else raises."""
-    if platform == "":
+    """``BeachSegConfig.platform`` as the device rule: ``""`` or ``"gpu"``
+    → CUDA (raising without it), ``"cpu"`` → the CPU, anything else
+    raises."""
+    if platform in ("", "gpu"):
         return resolve_device(None)
     if platform == "cpu":
         return resolve_device("cpu")
-    raise ValueError(f"platform={platform!r}: the port takes '' (the CUDA device) or 'cpu'")
+    raise ValueError(f"platform={platform!r}: the port takes '' or 'gpu' (the CUDA device) or 'cpu'")

@@ -101,8 +101,8 @@ Phases (any failure exits non-zero before the result lines):
      mosaics equal to the plain run's on ID_AGREEMENT_MIN of the voted
      pixels; stream_tiles_per_sec and the phase seconds of each run;
  18. the zero-shot and legacy scene engines (infer.zero_shot.run_zero_shot,
-     infer.legacy.run_legacy) end to end at full width on all 8 dates of
-     phase 17's scene: ViT-L (seeded random weights, batch 8) zero-shot in
+     infer.legacy.run_legacy) end to end at full width on the first 4
+     dates of phase 17's scene: ViT-L (seeded random weights, batch 8) zero-shot in
      bf16 (crops of 336, 2 prompts a query: 32 rows before the stream merge,
      the feature ensemble grouped by query), in fp32 and in bf16 through the
      plain versions; legacy in bf16 (crops of 224 at overlap 112, the reference
@@ -132,7 +132,22 @@ Phases (any failure exits non-zero before the result lines):
      remat); run_predict from the run's EMA export on one date, bf16 vote;
      the phase's seconds, StepTimer's steps/sec, the peak memories and the
      loggers that ran, beside the card's name and power limit;
- 20. one JSON line of per-kernel numbers (one entry per kernel, geometry
+ 20. two ranks sharing the card (torch.multiprocessing, gloo, started
+     through parallel.distributed.maybe_initialize) with ViT-L bf16 (seeded
+     random weights) at B=8: under (data=1, model=2) a predict_step and a
+     train_step, under (data=2, model=1) a train_step, each held against
+     the same step in one process on the same weights and draws (ids equal,
+     or ID_AGREEMENT_MIN with pred_masks within phase 5's limit; the prompt
+     gradient within phase 6's limits; the ranks' gradients equal), 24
+     launches of #1, #2, #4 and #5 a train step on each rank, the
+     collectives' time a step (replayed); on rank 0 #1, #2, #4 and #5 at the
+     widths of mesh_model=2 (8 heads at 512 channels, M = 2048 whole and by
+     stage, B·8 rows) against their plain versions, timed; then the CLIs at
+     full width on phase 17's scene (python -m beach_seg_tpu_torch.cli.*):
+     train for 1 epoch, predict from its run dir on one date, compare
+     against an in-process run_predict (pixel_agreement 1.0 where the
+     forward is deterministic from run to run), each command's seconds;
+ 21. one JSON line of per-kernel numbers (one entry per kernel, geometry
      and dtype), then the card's name and power limit, then
      {"ok": true, "device": {...}} as the last line.
 
@@ -331,11 +346,12 @@ def bound(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def attn_bound(b: int, itemsize: int, peak: float) -> tuple[float, str]:
+def attn_bound(b: int, itemsize: int, peak: float, heads: int = HEADS) -> tuple[float, str]:
     gh, gw = GRID
     s = gh * gw
-    flops = 4 * b * HEADS * s * s * HD + 2 * b * HEADS * s * (gh + gw) * HD  # QKᵀ, PV, rel terms
-    nbytes = itemsize * (b * s * 3 * C + b * s * C + 3 * C + (gh + gw) * 64 * HD)
+    c = heads * HD
+    flops = 4 * b * heads * s * s * HD + 2 * b * heads * s * (gh + gw) * HD  # QKᵀ, PV, rel terms
+    nbytes = itemsize * (b * s * 3 * c + b * s * c + 3 * c + (gh + gw) * 64 * HD)
     return bound(flops, nbytes, peak)
 
 
@@ -345,13 +361,13 @@ def mlp_bound(n: int, c: int = C, m: int = MLP) -> tuple[float, str]:
     return bound(flops, nbytes, PEAK_BF16)
 
 
-def attn_inputs(dtype, device, b=B, seed=0, grid=GRID):
+def attn_inputs(dtype, device, b=B, seed=0, grid=GRID, c=C):
     from beach_seg_tpu_torch.ops.attention import rel_tables_padded
 
     g = torch.Generator(device=device).manual_seed(seed)
     gh, gw = grid
-    qkv = torch.randn((b, gh * gw, 3, C), generator=g, device=device)
-    bias = 0.1 * torch.randn((3, C), generator=g, device=device)
+    qkv = torch.randn((b, gh * gw, 3, c), generator=g, device=device)
+    bias = 0.1 * torch.randn((3, c), generator=g, device=device)
     rph = 0.1 * torch.randn((2 * gh - 1, HD), generator=g, device=device)
     rpw = 0.1 * torch.randn((2 * gw - 1, HD), generator=g, device=device)
     rh, rw = rel_tables_padded(rph, rpw, grid, grid)
@@ -365,12 +381,13 @@ def sdpa_yardstick(qkv, bias, rh, rw):
     from torch.nn import functional as F
 
     b, s, _, c = qkv.shape
+    heads = c // HD
     gh, gw = GRID
     x = qkv + bias
-    q, k, v = (x[:, :, i].reshape(b, s, HEADS, HD).transpose(1, 2) for i in range(3))
-    q5 = q.reshape(b, HEADS, gh, gw, HD)
-    rel_h = torch.einsum("bnyxc,ykc->bnyxk", q5, rh).reshape(b, HEADS, s, 64)
-    rel_w = torch.einsum("bnyxc,xkc->bnyxk", q5, rw).reshape(b, HEADS, s, 64)
+    q, k, v = (x[:, :, i].reshape(b, s, heads, HD).transpose(1, 2) for i in range(3))
+    q5 = q.reshape(b, heads, gh, gw, HD)
+    rel_h = torch.einsum("bnyxc,ykc->bnyxk", q5, rh).reshape(b, heads, s, 64)
+    rel_w = torch.einsum("bnyxc,xkc->bnyxk", q5, rw).reshape(b, heads, s, 64)
     kidx = torch.arange(s, device=qkv.device)
     mask = (rel_h[..., kidx // gw] + rel_w[..., kidx % gw]).contiguous()
     return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=HD**-0.5)
@@ -645,7 +662,7 @@ def attn_bwd_inputs(device, bh: int, seed: int = 2, hd: int = HD, dtype=torch.bf
     return r(bh, s, hd), r(bh, s, hd), r(bh, s, hd), r(bh, s, gh, sc=0.5), r(bh, s, gw, sc=0.5), r(bh, s, hd)
 
 
-def sdpa_bwd_yardstick(q, k, v, rel_h, rel_w, g):
+def sdpa_bwd_yardstick(q, k, v, rel_h, rel_w, g, heads: int = HEADS):
     """One PyTorch call computing the same gradients: the backward of SDPA
     over (B, H, S, D) q, k, v with the rel bias materialized as a (B, H, S, S)
     mask that takes a gradient (its gradient is dS, from which drh/drw are
@@ -655,15 +672,15 @@ def sdpa_bwd_yardstick(q, k, v, rel_h, rel_w, g):
     bh, s, d = q.shape
     gw = GRID[1]
     kidx = torch.arange(s, device=q.device)
-    mask = (rel_h[..., kidx // gw] + rel_w[..., kidx % gw]).reshape(bh // HEADS, HEADS, s, s).detach().requires_grad_(True)
-    qq, kk, vv = (t.reshape(bh // HEADS, HEADS, s, d).detach().requires_grad_(True) for t in (q, k, v))
+    mask = (rel_h[..., kidx // gw] + rel_w[..., kidx % gw]).reshape(bh // heads, heads, s, s).detach().requires_grad_(True)
+    qq, kk, vv = (t.reshape(bh // heads, heads, s, d).detach().requires_grad_(True) for t in (q, k, v))
     out = F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask, scale=d**-0.5)
-    gg = g.reshape(bh // HEADS, HEADS, s, d)
+    gg = g.reshape(bh // heads, heads, s, d)
     return lambda: torch.autograd.grad(out, (qq, kk, vv, mask), gg, retain_graph=True)
 
 
-def attn_bwd_check(device, hd: int, where: str, dtype=torch.bfloat16) -> dict:
-    """The attention backward at B·H = B·HEADS and head_dim ``hd`` against
+def attn_bwd_check(device, hd: int, where: str, dtype=torch.bfloat16, heads: int = HEADS) -> dict:
+    """The attention backward at B·H = B·``heads`` and head_dim ``hd`` against
     its plain version (bf16: 1% of each output's scale for dq/dk/dv, two
     bf16 steps for drh/drw; fp32: ATTN_BWD_FP32_REL_TOL of each), then it,
     its plain version and SDPA's backward timed."""
@@ -671,7 +688,7 @@ def attn_bwd_check(device, hd: int, where: str, dtype=torch.bfloat16) -> dict:
     from beach_seg_tpu_torch.ops.attention import attention_bwd_plain
 
     gh, gw = GRID
-    bh = B * HEADS
+    bh = B * heads
     fp32 = dtype == torch.float32
     args = (*attn_bwd_inputs(device, bh, hd=hd, dtype=dtype), hd**-0.5)
     got = cuda_attn.attn_bwd(*args)
@@ -684,7 +701,7 @@ def attn_bwd_check(device, hd: int, where: str, dtype=torch.bfloat16) -> dict:
     res["attn_bwd_ms"] = time_ms(lambda: cuda_attn.attn_bwd(*args), iters=3 if fp32 else 10, warmup=1 if fp32 else 2)
     res["attn_bwd_plain_ms"] = time_ms(lambda: attention_bwd_plain(*args), iters=2)
     torch.cuda.empty_cache()
-    res["attn_bwd_library_ms"] = time_ms(sdpa_bwd_yardstick(*args[:6]), iters=3 if fp32 else 10, warmup=2)
+    res["attn_bwd_library_ms"] = time_ms(sdpa_bwd_yardstick(*args[:6], heads), iters=3 if fp32 else 10, warmup=2)
     res["attn_bwd_bound"] = attn_bwd_bound(bh, gh * gw, gh, gw, hd, dtype.itemsize, PEAK_FP32_TC if fp32 else PEAK_BF16)
     del args
     torch.cuda.empty_cache()
@@ -1245,6 +1262,9 @@ def phase_train_path(device, model, conf, expect: dict, n_steps: int = 3,
 SCENE_W, SCENE_H, SCENE_PIX = 2048, 1024, 3.0
 SCENE_DATES = 8
 TUNED_DATES = 4
+# the zero-shot and legacy phase's dates: 4 of the 8, which keeps the whole
+# script, the two-rank and CLI phase included, near its time budget
+ENGINE_DATES = 4
 SCENE_EPSG = 32611
 SCENE_ORIGIN = (500000.0, 4100000.0)
 
@@ -1495,7 +1515,7 @@ def votes_check(device, crops: list) -> None:
 def phase_other_engines(device, root: Path, dates: list[str], large: dict, card: str) -> dict:
     """infer.zero_shot.run_zero_shot and infer.legacy.run_legacy end to end at
     full width (ViT-L, random weights from the seed, batch 8) on the whole
-    scene of phase 17 (all SCENE_DATES dates): zero-shot in bf16 (crops of 336, 2 prompts: 8 queries a batch,
+    scene of phase 17 (the first ENGINE_DATES dates): zero-shot in bf16 (crops of 336, 2 prompts: 8 queries a batch,
     32 rows before the stream merge), in fp32, and in bf16 through the plain
     versions (the bf16 mosaics held to ID_AGREEMENT_MIN of the voted pixels);
     legacy in bf16 (crops of 224 at overlap 112, the reference date's first 2
@@ -1696,6 +1716,324 @@ def phase_training(device, root: Path, dates: list[str], card: str) -> dict:
             "predict_s": pred_s, "per_epoch": per_epoch}
 
 
+# phase 20: the CLIs at full width, and two ranks sharing the one card
+TP = 2  # the model axis of the two-rank steps
+TP_HEADS, TP_C, TP_MLP = HEADS // TP, C // TP, MLP // TP
+STEP_WANT = {"attn_qkv_rel": 24, "ln_mlp": 24, "attn_bwd": 24, "ln_mlp_dx": 24}
+
+
+def tp_kernel_check(device) -> dict:
+    """#1, #2, #4 and #5 at the widths a rank of mesh_model=2 gives them at
+    ViT-L, B=8 (#1: 8 heads, qkv (B, S, 3, 512); #2 and #5: M = 2048, whole
+    and by stage; #4: B·8 rows), each against its plain version with phases
+    5–6's limits (and #1 fp32 with phase 12's), then timed beside its plain
+    version and the PyTorch call for the same work."""
+    from beach_seg_tpu_torch.ops import cuda_attn, cuda_mlp
+
+    gw, s = GRID[1], GRID[0] * GRID[1]
+    res = {}
+    args32 = (*attn_inputs(torch.float32, device, c=TP_C), HD**-0.5, gw, TP_HEADS, "stable")
+    res["attn32_err"] = fwd_check(f"attn_qkv_rel fp32 stable, {TP_HEADS} heads", cuda_attn.attn_qkv_rel,
+                                  cuda_attn.attn_qkv_rel_plain, args32, (B, s, TP_C))
+    del args32
+    args = (*attn_inputs(torch.bfloat16, device, c=TP_C), HD**-0.5, gw, TP_HEADS, "clamp")
+    res["attn_err"] = fwd_check(f"attn_qkv_rel bf16 clamp, {TP_HEADS} heads", cuda_attn.attn_qkv_rel,
+                                cuda_attn.attn_qkv_rel_plain, args, (B, s, TP_C))
+    res["attn_ms"] = time_ms(lambda: cuda_attn.attn_qkv_rel(*args), iters=20, warmup=2)
+    res["attn_plain_ms"] = time_ms(lambda: cuda_attn.attn_qkv_rel_plain(*args), iters=3)
+    res["attn_library_ms"] = time_ms(sdpa_yardstick(*args[:4]), iters=20, warmup=2)
+    res["attn_bound"] = attn_bound(B, 2, PEAK_BF16, TP_HEADS)
+    del args
+    torch.cuda.empty_cache()
+    n = B * s
+    *head, b2, gy = mlp_inputs(device, 1, n, C, TP_MLP)
+    res.update(mlp_check("mlp", cuda_mlp.ln_mlp, cuda_mlp.ln_mlp_plain, (*head, b2, 1e-6, True), MLP_BF16_REL_TOL,
+                         f" at M={TP_MLP}"))
+    res["mlp_bound"] = mlp_bound(n, C, TP_MLP)
+    res.update(mlp_check("mlp_dx", cuda_mlp.ln_mlp_dx, cuda_mlp.ln_mlp_dx_plain, (*head, gy, 1e-6, True),
+                         MLP_DX_REL_TOL, f" at M={TP_MLP}"))
+    res["mlp_dx_bound"] = mlp_dx_bound(n, C, TP_MLP)
+    del head, b2, gy
+    torch.cuda.empty_cache()
+    res["stages"] = mlp_stage_check(device, n, C, TP_MLP, seed=13, timed=True)
+    res.update(attn_bwd_check(device, HD, f" at {TP_HEADS} heads", heads=TP_HEADS))
+    return res
+
+
+@contextlib.contextmanager
+def recording_collectives():
+    """Record every all-reduce and all-gather of ``ops.sharding`` made in
+    the block (the list it yields)."""
+    from beach_seg_tpu_torch.ops import sharding
+
+    calls = []
+    reduce_, gather = sharding._all_reduce, sharding._all_gather
+    sharding._all_reduce = lambda x, mesh, name: calls.append((reduce_, x, mesh, name)) or reduce_(x, mesh, name)
+    sharding._all_gather = lambda x, mesh, name, dim: calls.append((gather, x, mesh, name, dim)) or gather(x, mesh, name, dim)
+    try:
+        yield calls
+    finally:
+        sharding._all_reduce, sharding._all_gather = reduce_, gather
+
+
+def collective_ms(calls: list) -> tuple[float, int]:
+    """The recorded collectives alone, on tensors of the same shapes, timed
+    (host clock around a synchronized replay, mean of 3 after one) → (ms,
+    count): what the collectives add to the step that made them."""
+    replay = [(c[0], torch.zeros_like(c[1]), *c[2:]) for c in calls]
+    times = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for fn, x, *rest in replay:
+            fn(x, *rest)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    return 1e3 * sum(times[1:]) / 3, len(calls)
+
+
+def two_rank_steps(device, draws: dict) -> dict:
+    """On this rank of 2 sharing the card, for the meshes (data=1, model=2)
+    and (data=2, model=1): ViT-L bf16 (seeded random weights) cut to this
+    rank's shards; under model=2 a predict_step (ids and pred_masks of
+    phase 5's first batch, launches, warm seconds); a train_step on phase
+    6's first batch (this rank's rows under data=2) from a fresh state with
+    the parent's global ``draws`` (loss, Adam's first moment, launches,
+    warm seconds); the collectives' time in each warm call."""
+    from beach_seg_tpu_torch.config import BeachSegConfig
+    from beach_seg_tpu_torch.models.seggpt import SegGPTConfig, build_model
+    from beach_seg_tpu_torch.parallel.mesh import make_mesh, shard_batch, shard_model
+    from beach_seg_tpu_torch.train import PromptTuner
+
+    conf = BeachSegConfig(batch_size=B)
+    prompts, batches = main_path_inputs(conf, 4, 1)
+    tprompts, tbatches = train_path_inputs(conf, 4, 1)
+    out = {}
+    for shape in ((1, TP), (TP, 1)):
+        mesh = make_mesh(*shape)
+        model = shard_model(build_model(SegGPTConfig(), torch.bfloat16, device=device, seed=0), mesh)
+        tuner = PromptTuner(model, conf, device=device)
+        r = {}
+        if shape == (1, TP):
+            for warm in (False, True):  # the second call is timed and its collectives recorded
+                reset_counts()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                with recording_collectives() if warm else contextlib.nullcontext() as calls:
+                    ids = tuner.predict_step(*prompts, batches[0], out_size=conf.crop_size)
+                    torch.cuda.synchronize()
+                r["predict_s"] = time.perf_counter() - t
+                r["predict_launches"] = {k: v for k, v in read_counts().items() if v}
+            r["ids"] = ids.cpu()
+            r["pred"] = tuner.predict_masks(*prompts, batches[0])[0].cpu()
+            r["predict_collective_ms"], r["predict_collectives"] = collective_ms(calls)
+        rows = shard_batch(mesh, tbatches[0])
+        for warm in (False, True):
+            reset_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with recording_collectives() if warm else contextlib.nullcontext() as calls:
+                state, metrics = tuner.train_step(tuner.init_state(tprompts[0]), tprompts[1], tprompts[2], rows, draws=draws)
+                loss = metrics["loss"].item()
+                torch.cuda.synchronize()
+            r["train_s"] = time.perf_counter() - t
+            r["train_launches"] = {k: v for k, v in read_counts().items() if v}
+        r["loss"], r["mu"] = loss, state.opt_state["mu"].cpu()
+        r["train_collective_ms"], r["train_collectives"] = collective_ms(calls)
+        out[shape] = r
+        del model, tuner, state
+        torch.cuda.empty_cache()
+    return out
+
+
+def rank_main(rank: int, world: int, port: int, out_dir: str, draws_path: str) -> None:
+    """A rank of the two-rank phase: torch.distributed through the port's
+    own start (parallel.distributed.maybe_initialize, the launcher's
+    variables set here, gloo: NCCL takes one card a rank), the steps, and on
+    rank 0 the kernels at the tensor-parallel widths; results to
+    ``out_dir/rank<r>.pt``."""
+    import os
+
+    import torch.distributed as dist
+
+    from beach_seg_tpu_torch.parallel.distributed import maybe_initialize
+    from beach_seg_tpu_torch.utils import resolve_device
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    maybe_initialize(world, "", backend="gloo")
+    device = resolve_device("cuda")
+    try:
+        res = two_rank_steps(device, torch.load(draws_path, weights_only=False))
+        if rank == 0:
+            res["kernels"] = tp_kernel_check(device)
+    finally:
+        dist.destroy_process_group()
+    torch.save(res, Path(out_dir) / f"rank{rank}.pt")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def to_cpu(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.cpu()
+    if isinstance(tree, dict):
+        return {k: to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_cpu(v) for v in tree)
+    return tree
+
+
+def grad_agreement(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float, float]:
+    """(1 − cosine in fp64, max error, max|want|) of two prompt gradients."""
+    a, b = got.double().flatten(), want.double().flatten()
+    return 1 - (torch.dot(a, b) / (a.norm() * b.norm())).item(), (got - want).abs().max().item(), want.abs().max().item()
+
+
+def phase_two_ranks(device, card: str) -> dict:
+    """Two ranks on the one card (gloo), ViT-L bf16 at B=8: under
+    (data=1, model=2) a predict_step and a train_step, under (data=2,
+    model=1) a train_step, each held against the same step in one process
+    on the same weights and draws: ids equal (or, where the forward's bf16
+    sums over ranks round otherwise, ID_AGREEMENT_MIN of them with the
+    pred_masks within phase 5's limit), the prompt gradient within phase
+    6's limits, both ranks' gradients equal; 24 launches of #1, #2, #4 and
+    #5 (and their stage kernels) a train step on each rank, 24 of #1 and #2
+    a predict step; on rank 0 the kernels at the tensor-parallel widths
+    (``tp_kernel_check``). First, whether the forward is deterministic from
+    run to run (two predict_steps on the same batch): the CLI phase's bar."""
+    import torch.multiprocessing as mp
+
+    from beach_seg_tpu_torch.config import BeachSegConfig
+    from beach_seg_tpu_torch.models.seggpt import SegGPTConfig, build_model
+    from beach_seg_tpu_torch.train import PromptTuner
+    from beach_seg_tpu_torch.transforms import decode_by_palette
+
+    conf = BeachSegConfig(batch_size=B)
+    model = build_model(SegGPTConfig(), torch.bfloat16, device=device, seed=0)
+    tuner = PromptTuner(model, conf, device=device)
+    prompts, batches = main_path_inputs(conf, 4, 1)
+    ids = tuner.predict_step(*prompts, batches[0], out_size=conf.crop_size)
+    ids_again = tuner.predict_step(*prompts, batches[0], out_size=conf.crop_size)
+    pred, pal = tuner.predict_masks(*prompts, batches[0])
+    pred_again, _ = tuner.predict_masks(*prompts, batches[0])
+    deterministic = torch.equal(ids, ids_again) and torch.equal(pred, pred_again)
+    tprompts, tbatches = train_path_inputs(conf, 4, 1)
+    draws = tuner.step_draws(tbatches[0], 4, torch.Generator(device=device).manual_seed(7))
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, metrics = tuner.train_step(tuner.init_state(tprompts[0]), tprompts[1], tprompts[2], tbatches[0], draws=draws)
+        loss = metrics["loss"].item()
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t
+    mu = state.opt_state["mu"]
+    del model, tuner, state
+    torch.cuda.empty_cache()
+    log(f"two ranks: the one-process predict is deterministic from run to run: {deterministic}; "
+        f"one-process train_step {one_s:.4f} s warm, loss {loss}")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as tmp:
+        torch.save(to_cpu(draws), Path(tmp) / "draws.pt")
+        t = time.perf_counter()
+        mp.spawn(rank_main, args=(2, free_port(), tmp, str(Path(tmp) / "draws.pt")), nprocs=2, join=True)
+        spawn_s = time.perf_counter() - t
+        ranks = [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False) for r in range(2)]
+
+    train_want = {k: v for k, v in with_stages(STEP_WANT).items()}
+    pred_want = with_stages({"attn_qkv_rel": 24, "ln_mlp": 24})
+    res = {"deterministic": deterministic, "one_train_s": one_s, "spawn_s": spawn_s, "kernels": ranks[0]["kernels"]}
+    for shape in ((1, TP), (TP, 1)):
+        tag = f"data={shape[0]} model={shape[1]}"
+        r0, r1 = ranks[0][shape], ranks[1][shape]
+        for rank, r in enumerate((r0, r1)):
+            check(r["train_launches"] == train_want, f"{tag} rank {rank}: launches per train step {r['train_launches']}")
+        check(torch.equal(r0["mu"], r1["mu"]), f"{tag}: the ranks' prompt gradients differ")
+        gap, err, scale = grad_agreement(r0["mu"], mu.cpu())
+        log(f"two ranks {tag}: train_step {r0['train_s']:.4f} s warm (one process {one_s:.4f} s), loss {r0['loss']} "
+            f"(one process {loss}); prompt gradient vs one process: 1 - cosine {gap:.4e} (max {GRAD_1MCOS_MAX}), "
+            f"max_abs_err {err:.4e} (tol {GRAD_REL_TOL}·max|g| {GRAD_REL_TOL * scale:.4e}); launches per step "
+            f"{r0['train_launches']}; collectives {r0['train_collectives']} a step, replayed {r0['train_collective_ms']:.3f} ms "
+            f"(gloo through one card's host, not NCCL) ({card})")
+        check(scale > 0 and gap <= GRAD_1MCOS_MAX and err <= GRAD_REL_TOL * scale, f"{tag}: prompt gradient disagrees")
+        res[tag] = {k: v for k, v in r0.items() if k not in ("ids", "pred", "mu")}
+        res[tag].update(grad_1mcos=gap, grad_err=err)
+    r0 = ranks[0][(1, TP)]
+    for rank in (0, 1):
+        check(ranks[rank][(1, TP)]["predict_launches"] == pred_want,
+              f"model=2 rank {rank}: predict launches {ranks[rank][(1, TP)]['predict_launches']}")
+        check(torch.equal(ranks[rank][(1, TP)]["ids"], r0["ids"]), "model=2: the ranks' ids differ")
+    tp_ids = r0["ids"].to(device)
+    agree = (tp_ids == ids).float().mean().item()
+    err = (r0["pred"].to(device) - pred).abs().max().item()
+    scale = pred.abs().max().item()
+    h = pred.shape[1] // 2
+    dec_agree = (decode_by_palette(r0["pred"].to(device)[:, h:], pal) == decode_by_palette(pred[:, h:], pal)).float().mean().item()
+    log(f"two ranks data=1 model=2: predict_step {r0['predict_s']:.4f} s warm; ids equal to one process's on {agree:.6f} "
+        f"(decoded at the canvas {dec_agree:.6f}); pred_masks max_abs_err {err:.4e} (tol {PRED_REL_TOL}·max|plain| "
+        f"{PRED_REL_TOL * scale:.4e}); collectives {r0['predict_collectives']} a call, replayed "
+        f"{r0['predict_collective_ms']:.3f} ms ({card})")
+    check(agree == 1.0 or (agree >= ID_AGREEMENT_MIN and err <= PRED_REL_TOL * scale), f"model=2 ids agree on {agree}")
+    res["ids_agreement"], res["pred_err"] = agree, err
+    return res
+
+
+def cli_run(name: str, *args: str) -> tuple[str, float]:
+    """``python -m beach_seg_tpu_torch.cli.<name> args`` from the repository
+    root → (its standard output, seconds)."""
+    import os
+
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root))
+    t = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", f"beach_seg_tpu_torch.cli.{name}", *args], cwd=root, env=env,
+                         capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t
+    check(res.returncode == 0, f"cli.{name} exited {res.returncode}: {res.stderr[-3000:]}")
+    return res.stdout, seconds
+
+
+def phase_clis(root: Path, dates: list[str], deterministic: bool, card: str) -> dict:
+    """The CLIs at full width on phase 17's scene, ViT-L bf16 (seeded random
+    weights), crops of 112 at 448, batch 8: cli.train for 1 epoch, cli.predict
+    from its run dir on one date, then cli.compare of that GeoTIFF directory
+    against an in-process run_predict of the same export and date: a
+    pixel_agreement of 1.0 where the forward is deterministic from run to
+    run, else ID_AGREEMENT_MIN. Each command's seconds."""
+    from beach_seg_tpu_torch.config import PredictionConfig
+    from beach_seg_tpu_torch.infer import run_predict
+
+    common = ["checkpoint=random", "compute_dtype=bfloat16", f"batch_size={B}"]
+    out, train_s = cli_run("train", f"data={root / 'all' / 'scene'}", f"model_training_root={root / 'cli_train'}",
+                           "crop_size=112", "inpt_size=448", "epochs=1", "num_viz_images=0", *common)
+    run_dir = Path(out.strip().splitlines()[-1])
+    missing = [f for f in RUN_DIR_FILES if not (run_dir / f).is_file()]
+    check(not missing, f"cli.train's run dir lacks {missing}")
+    view = scene_view(root / "all" / "scene", root / "cli_pred" / "scene", dates[:2])
+    out, predict_s = cli_run("predict", f"data={view}", f"train_run_dir={run_dir}",
+                             f"model_training_root={root / 'cli_pred' / 'out'}", *common)
+    pred_dir = Path(out.strip().splitlines()[-1])
+    t = time.perf_counter()
+    ref_dir = run_predict(PredictionConfig(data=view, train_run_dir=run_dir, model_training_root=root / "cli_pred" / "ref",
+                                           checkpoint="random", batch_size=B, compute_dtype="bfloat16"))
+    inproc_s = time.perf_counter() - t
+    out, compare_s = cli_run("compare", str(pred_dir / "tif"), str(ref_dir / "tif"))
+    report = json.loads(out)
+    agree = report["pixel_agreement"]
+    want = 1.0 if deterministic else ID_AGREEMENT_MIN
+    log(f"CLIs: cli.train {train_s:.3f} s, cli.predict {predict_s:.3f} s (in process {inproc_s:.3f} s), cli.compare "
+        f"{compare_s:.3f} s; pixel_agreement {agree} (min {want}), overall_mean_iou {report['overall_mean_iou']} ({card})")
+    check(list(report["dates"]) == [dates[1]] and agree >= want, f"cli.compare: {report}")
+    return {"train_s": train_s, "predict_s": predict_s, "inproc_predict_s": inproc_s, "compare_s": compare_s,
+            "pixel_agreement": agree}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1823,12 +2161,21 @@ def main() -> int:
         log(f"scene engine phase: {time.perf_counter() - t:.3f} s")
         # the zero-shot and legacy scene engines end to end
         t = time.perf_counter()
-        oe = phase_other_engines(device, root / "all", dates, with_stages(large), card)
+        engine_dates = dates[: 1 + ENGINE_DATES]
+        scene_view(root / "all" / "scene", root / "other" / "scene", engine_dates)
+        oe = phase_other_engines(device, root / "other", engine_dates, with_stages(large), card)
         log(f"zero-shot and legacy engine phase: {time.perf_counter() - t:.3f} s")
         # the training runtime end to end, then predict from its EMA export
         t = time.perf_counter()
         trn = phase_training(device, root, dates, card)
         log(f"training runtime phase: {time.perf_counter() - t:.3f} s ({card})")
+        # two ranks on the card (tensor and data parallel), then the CLIs
+        t = time.perf_counter()
+        two = phase_two_ranks(device, card)
+        log(f"two-rank phase: {time.perf_counter() - t:.3f} s, the ranks' spawn {two['spawn_s']:.3f} s ({card})")
+        t = time.perf_counter()
+        clis = phase_clis(root, dates, two["deterministic"], card)
+        log(f"CLI phase: {time.perf_counter() - t:.3f} s ({card})")
 
     kernels = [
         {
@@ -1979,6 +2326,36 @@ def main() -> int:
             e["launches_run_training"] = trn["launches"][e["name"]]
             e["launches_run_training_per_epoch"] = trn["launches"][e["name"]] // TRAIN_EPOCHS
             e["launches_remat_train_step"] = trn["remat"]["launches_remat"][e["name"]]
+    # two ranks on the card: launches a train step (and predict call) on rank 0
+    # under each mesh, and the kernels at the widths of mesh_model=2
+    tk = two["kernels"]
+    tp_width = {
+        "attn_qkv_rel": ("attn", f"bf16 clamp, qkv ({B}, {GRID[0] * GRID[1]}, 3, {TP_C}), {TP_HEADS} heads"),
+        "ln_mlp": ("mlp", f"bf16, x ({B * GRID[0] * GRID[1]}, {C}), M={TP_MLP}"),
+        "attn_bwd": ("attn_bwd", f"bf16, q/k/v/g ({B * TP_HEADS}, {GRID[0] * GRID[1]}, {HD})"),
+        "ln_mlp_dx": ("mlp_dx", f"bf16, x ({B * GRID[0] * GRID[1]}, {C}), M={TP_MLP}"),
+    }
+    for e in kernels:
+        if e["name"] in tp_width and e["geometry"] == "vit_l" and e.get("dtype") != "fp32":
+            key, shape = tp_width[e["name"]]
+            e["launches_two_ranks_per_step"] = {tag: two[tag]["train_launches"][e["name"]]
+                                                for tag in ("data=1 model=2", "data=2 model=1")}
+            if e["name"] in ("attn_qkv_rel", "ln_mlp"):
+                e["launches_two_ranks_predict"] = two["data=1 model=2"]["predict_launches"][e["name"]]
+            e["tp_width"] = {"shape": shape, "max_abs_err": tk[f"{key}_err"], "ms": tk[f"{key}_ms"],
+                             "plain_ms": tk[f"{key}_plain_ms"], "bound_ms": tk[f"{key}_bound"][0],
+                             "bound_by": tk[f"{key}_bound"][1],
+                             "library_ms": tk.get(f"{key}_library_ms")}
+            if f"{key}_chain_ms" in tk:
+                e["tp_width"]["chain_ms"] = tk[f"{key}_chain_ms"]
+            if e["name"] == "attn_qkv_rel":
+                e["tp_width"]["max_abs_err_fp32_stable"] = tk["attn32_err"]
+            if e["name"] in ("ln_mlp", "ln_mlp_dx"):
+                stages = MLP_STAGES[:3] if e["name"] == "ln_mlp" else ("ln_rows",) + MLP_STAGES[3:]
+                e["tp_width"]["max_abs_err_by_stage"] = {st: tk["stages"][f"{st}_err"] for st in stages}
+                e["tp_width"]["stage_ms"] = {st: tk["stages"][f"{st}_ms"] for st in stages}
+            if e["name"] == "attn_bwd":
+                e["tp_width"]["max_abs_err_by_output"] = tk["attn_bwd_errs"]
     first["attn_packed"]["ms_hd16_bf16"] = ks["packed_ms_hd16"]
     first["attn_bwd"]["ms_hd16_bf16"] = ks["bwd_ms_hd16"]
     for name in ("attn_packed", "attn_bwd", "ln_mlp", "ln_mlp_dx"):
@@ -2000,6 +2377,11 @@ def main() -> int:
     log(f"run_training ViT-L bf16: {TRAIN_EPOCHS} epochs in {trn['train_s']:.3f} s, StepTimer steps/sec "
         f"{trn['steps_per_sec']}, peak memory of a train step {trn['remat']['peak_bytes']} bytes without remat and "
         f"{trn['remat']['peak_bytes_remat']} with, loggers {trn['logger']} ({card})")
+    log(f"two ranks ViT-L bf16 B={B}: train_step warm s data=1 model=2 {two['data=1 model=2']['train_s']:.4f}, "
+        f"data=2 model=1 {two['data=2 model=1']['train_s']:.4f}, one process {two['one_train_s']:.4f}; "
+        f"collectives replayed a step {two['data=1 model=2']['train_collective_ms']:.3f} / "
+        f"{two['data=2 model=1']['train_collective_ms']:.3f} ms (gloo); CLIs train {clis['train_s']:.3f} s, predict "
+        f"{clis['predict_s']:.3f} s, compare {clis['compare_s']:.3f} s, pixel_agreement {clis['pixel_agreement']} ({card})")
     log(f"total: {time.perf_counter() - t_start:.3f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

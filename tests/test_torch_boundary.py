@@ -56,6 +56,15 @@ TRAINING_MODULES = {
 }
 
 
+# the modules of the last slice: multi-GPU, the CLIs, the notebook helpers
+LAST_SLICE_MODULES = {
+    "beach_seg_tpu_torch.parallel", "beach_seg_tpu_torch.parallel.mesh", "beach_seg_tpu_torch.parallel.distributed",
+    "beach_seg_tpu_torch.ops.sharding", "beach_seg_tpu_torch.geo.notebook_utils", "beach_seg_tpu_torch.cli",
+    *(f"beach_seg_tpu_torch.cli.{name}" for name in
+      ("train", "predict", "predict_no_prompt", "legacy", "compare", "convert_checkpoint")),
+}
+
+
 def _run(code: str) -> subprocess.CompletedProcess:
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     return subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
@@ -65,8 +74,8 @@ def test_port_imports_with_jax_blocked():
     res = _run(_IMPORT_ALL)
     assert res.returncode == 0, res.stderr
     names = set(res.stdout.split())
-    assert len(names) >= 52  # every module of the package was imported
-    assert ENGINE_MODULES <= names and TRAINING_MODULES <= names
+    assert len(names) >= 64  # every module of the package was imported
+    assert ENGINE_MODULES <= names and TRAINING_MODULES <= names and LAST_SLICE_MODULES <= names
 
 
 def test_engine_imports_without_pyyaml():

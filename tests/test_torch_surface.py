@@ -16,13 +16,9 @@ JAX_PKG = ROOT / "beach_seg_tpu"
 
 # dotted paths under the package (a subpackage, a module, or module.name)
 ABSENT = {
-    "parallel": "device mesh and shardings: multi-GPU is ROADMAP.md §A 3",
-    "cli": "the command-line entry points are ROADMAP.md §A 4",
-    "geo.notebook_utils": "the notebooks' helpers are ROADMAP.md §A 2",
     "ops.pallas_attn": "TPU-only Pallas kernels: their CUDA counterparts are ops.cuda_attn, "
                        "the entry fused_attention is exported from ops",
     "ops.pallas_mlp": "TPU-only Pallas kernels: their CUDA counterparts are ops.cuda_mlp",
-    "ops.sharding": "the TPU mesh's sharding rules come with multi-GPU, ROADMAP.md §A 3",
     "utils.profiling.enable_compilation_cache": "no XLA compilation cache to point at: the port compiles no "
                                                 "programs at run time (its kernels are built once into _build/)",
 }
@@ -105,5 +101,9 @@ def test_the_top_level_exports_the_configs():
     assert port.CLASSES == ("nodata", "sand", "water", "veg")
     assert {"BeachSegConfig", "PredictionConfig", "PredConfig", "LegacyConfig"} <= set(dir(port))
     doc = port.__doc__
-    for dotted in ("parallel", "cli", "geo.notebook_utils"):
-        assert dotted in doc, f"the package docstring does not list the absence of {dotted}"
+    surface, absent = doc.split("Deliberately absent:")
+    for dotted in ("parallel", "cli", "geo.notebook_utils", "ops.sharding"):
+        assert f"beach_seg_tpu_torch.{dotted}" in surface, f"the package docstring does not list {dotted}"
+        assert dotted not in absent, f"the package docstring still lists {dotted} as absent"
+    for dotted in ABSENT:
+        assert dotted.split(".")[-1] in absent, f"the package docstring does not list the absence of {dotted}"

@@ -295,7 +295,7 @@ def test_run_training_needs_cuda_unless_asked_for_the_cpu(world, tmp_path, monke
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_training(BeachSegConfig(**dict(world["kw"], model_training_root=tmp_path / "none")))
     assert not (tmp_path / "none").exists()  # it raised before it wrote anything
-    with pytest.raises(NotImplementedError, match="§A item 9"):
+    with pytest.raises(ValueError, match="must cover the 1 ranks"):
         run_training(BeachSegConfig(**dict(world["kw"], model_training_root=tmp_path / "none", mesh_data=2)), device="cpu")
 
 

@@ -156,8 +156,8 @@ def test_run_zero_shot_needs_cuda_unless_asked_for_the_cpu(world, monkeypatch):
 
 
 @pytest.mark.parametrize("field, value, error, match", [
-    ("mesh_data", 2, NotImplementedError, "§A item 9"),
-    ("mesh_model", 2, NotImplementedError, "§A item 9"),
+    ("mesh_data", 2, ValueError, "must cover the 1 ranks"),
+    ("mesh_model", 2, ValueError, "does not divide the 1 ranks"),
     ("platform", "tpu", ValueError, "platform='tpu'"),
 ])
 def test_run_zero_shot_unported_fields_raise(world, field, value, error, match):
