@@ -147,7 +147,28 @@ Phases (any failure exits non-zero before the result lines):
      train for 1 epoch, predict from its run dir on one date, compare
      against an in-process run_predict (pixel_agreement 1.0 where the
      forward is deterministic from run to run), each command's seconds;
- 21. one JSON line of per-kernel numbers (one entry per kernel, geometry
+ 21. BASELINE.json config #5 (multi-class segmentation of 8-band SuperDove
+     imagery with the larger backbone): a 2048×1024 8-band uint16 scene (1
+     reference and 2 predict dates, two overlapping tiles each) written
+     with the port's geo writers; BeachSegConfig(backbone="huge") at its
+     default fp32 (ViT-H, seeded random weights): 3 train_steps at B=8, 32
+     launches each of #3 and #4 a step and nothing else, the prompt
+     gradient within phase 12's fp32 limits, #3's and #4's in-model ms a
+     call (CUDA events around the wrappers), the peak memory of a step
+     without and with remat; #3 at head_dim 80 in bf16 and fp32 at
+     run_predict's 8 batch rows and at the scene's odd tail, and the
+     C=1280 stages of #2 at 8·S rows, against their plain versions;
+     run_training on the scene (crops of 112 tiled to 448, batch 8, 2
+     epochs, every step logged: the JAX run dir's artifacts, finite
+     losses, the tuned pixels moved, 32 launches of #3 and #4 a train step
+     and of #3 an eval batch, nothing else); run_predict from the run's
+     EMA export on the 2 predict dates in fp32 vote, bf16 vote (32
+     launches of #3 and #2, and of each stage of #2, a batch) and bf16 vote
+     through the plain versions: GeoTIFFs of the scene's shape and CRS with
+     ids in 0..3, the bf16 ids ≥ ID_AGREEMENT_MIN equal to the plain run's;
+     stream_tiles_per_sec, the timings.json phase seconds, the phase's
+     seconds;
+ 22. one JSON line of per-kernel numbers (one entry per kernel, geometry
      and dtype), then the card's name and power limit, then
      {"ok": true, "device": {...}} as the last line.
 
@@ -1274,12 +1295,14 @@ def shoreline_row(x: np.ndarray, shift: float = 0.0) -> np.ndarray:
     return 0.55 * SCENE_H + 60 * np.sin(2 * np.pi * x / 700) + 25 * np.sin(2 * np.pi * x / 230 + 1) + shift
 
 
-def write_scene(root: Path, n_dates: int = SCENE_DATES, seed: int = 0) -> list[str]:
+def write_scene(root: Path, n_dates: int = SCENE_DATES, seed: int = 0, bands: int = 4) -> list[str]:
     """The reference's data layout under ``root``, written with the port's
     geo writers (Masks/Mask_<DATE>.shp, Masks/WaterMask_<DATE>.shp,
     SatelliteImagery/files/<DATE>_{a,b}.tif): water below a wavy shoreline
     across the full width, vegetation above a second wavy line, sand between;
-    each date shifts the shoreline a little. → the dates, reference first."""
+    each date shifts the shoreline a little. ``bands``: 4 (Dove) or 8
+    (SuperDove, the spectra of tests/synthetic_scene.build_scene_8band, which
+    the display path takes through broad_band). → the dates, reference first."""
     from beach_seg_tpu_torch.geo.affine import Affine
     from beach_seg_tpu_torch.geo.geometry import Polygon
     from beach_seg_tpu_torch.geo.shapefile import save_shapefile
@@ -1304,6 +1327,9 @@ def write_scene(root: Path, n_dates: int = SCENE_DATES, seed: int = 0) -> list[s
     cols = np.arange(SCENE_W)[None, :]
     rows = np.arange(SCENE_H)[:, None]
     half, lap = SCENE_W // 2, 64
+    # (water, sand, vegetation) levels of each band
+    spectra = {4: [(900, 2200, 1200), (1000, 2400, 1300), (1100, 2600, 1500), (400, 2800, 2300)],
+               8: [(400 + 60 * b, 2000 + 150 * b, 1000 + 90 * b) for b in range(8)]}[bands]
     # the native encoder releases the GIL: the tiles are written on a pool,
     # LZW (the writer's default) and deflate in turns
     with ThreadPoolExecutor(max_workers=8) as pool:
@@ -1312,13 +1338,13 @@ def write_scene(root: Path, n_dates: int = SCENE_DATES, seed: int = 0) -> list[s
             wet = rows >= shoreline_row(cols, shift=6 * i)
             green = rows < shoreline_row(cols) - 220 + 30 * np.cos(2 * np.pi * cols / 500)
             dry = ~wet & ~green
-            bands = np.empty((4, SCENE_H, SCENE_W), np.uint16)
-            for b, (wv, sv, vv) in enumerate([(900, 2200, 1200), (1000, 2400, 1300), (1100, 2600, 1500), (400, 2800, 2300)]):
+            img = np.empty((bands, SCENE_H, SCENE_W), np.uint16)
+            for b, (wv, sv, vv) in enumerate(spectra):
                 base = np.where(wet, wv, 0) + np.where(dry, sv, 0) + np.where(green, vv, 0)
-                bands[b] = np.clip(base + rng.integers(0, 120, (SCENE_H, SCENE_W)), 1, 65535)
+                img[b] = np.clip(base + rng.integers(0, 120, (SCENE_H, SCENE_W)), 1, 65535)
             for tag, c0, c1, compress in (("a", 0, half + lap, "lzw"), ("b", half - lap, SCENE_W, "deflate")):
                 t = Affine.from_origin(x0 + c0 * SCENE_PIX, y0, SCENE_PIX, SCENE_PIX)
-                writes.append(pool.submit(write, img_dir / f"{date}_{tag}.tif", bands[:, :, c0:c1], t, crs=SCENE_EPSG,
+                writes.append(pool.submit(write, img_dir / f"{date}_{tag}.tif", img[:, :, c0:c1], t, crs=SCENE_EPSG,
                                           nodata=0, compress=compress))
         for w in writes:
             w.result()
@@ -1326,8 +1352,9 @@ def write_scene(root: Path, n_dates: int = SCENE_DATES, seed: int = 0) -> list[s
 
 
 def scene_run(data: Path, out: Path, dtype: str, merge: str, overlap: int, expect: dict, crops_by_overlap: dict,
-              dates: list[str], plain: bool = False) -> dict:
-    """run_predict once on the card (``plain``: through the plain versions);
+              dates: list[str], plain: bool = False, train_run_dir: Path | None = None) -> dict:
+    """run_predict once on the card (``plain``: through the plain versions;
+    ``train_run_dir``: from that run's conf.yaml and EMA prompt export);
     its outputs checked for every predict date (a GeoTIFF of the scene's
     shape and CRS with ids in 0..3, the mask PNG, the overlay), timings.json's
     tile count, and the launch counters: ``expect`` (launches per batch) times
@@ -1337,7 +1364,8 @@ def scene_run(data: Path, out: Path, dtype: str, merge: str, overlap: int, expec
     from beach_seg_tpu_torch.infer import run_predict
 
     conf = PredictionConfig(data=data, model_training_root=out, checkpoint="random", batch_size=B,
-                            compute_dtype=dtype, merge=merge, overlap=overlap)
+                            compute_dtype=dtype, merge=merge, overlap=overlap, train_run_dir=train_run_dir,
+                            use_ema=train_run_dir is not None)
     crops = crops_by_overlap[overlap]
     n_batches = (len(dates) - 1) * math.ceil(len(crops) / B)
     reset_counts()
@@ -1567,13 +1595,15 @@ def count_calls(fn, log_to: list):
     return wrapped
 
 
-def remat_check(device, conf, card: str) -> dict:
-    """One ViT-L bf16 train_step with remat and one without (the same model,
-    ``encoder.remat`` switched), from the same fresh state and draws: the
-    prompt gradients (Adam's first moment after one step, 0.1·g) bit-equal
-    or within phase 6's limits, the launches (remat runs #1 and #2 a second
-    time in the backward), and the peak device memory of each, which remat
-    must lower."""
+def remat_check(device, conf, card: str, fwd: dict, bwd: dict,
+                grad_limits: tuple[float, float] = (GRAD_1MCOS_MAX, GRAD_REL_TOL)) -> dict:
+    """One train_step of ``conf``'s model with remat and one without (the same
+    model, ``encoder.remat`` switched), from the same fresh state and draws:
+    the prompt gradients (Adam's first moment after one step, 0.1·g)
+    bit-equal or within ``grad_limits``, the launches (``fwd``'s and
+    ``bwd``'s a step; remat runs the forward kernels ``fwd`` a second time in
+    the backward), and the peak device memory of each, which remat must
+    lower."""
     from beach_seg_tpu_torch.train import PromptTuner
     from beach_seg_tpu_torch.train.loop import model_for_config
 
@@ -1602,40 +1632,27 @@ def remat_check(device, conf, card: str) -> dict:
         f"({out[True]['peak'] / out[False]['peak']:.4f}); prompt gradient bit-equal {equal}, max_abs_err {err:.4e} "
         f"(max|g| {scale / 0.1:.4e}), 1 - cosine {1 - cos:.4e}; losses {out[False]['loss']} / {out[True]['loss']}; "
         f"launches without {out[False]['launches']}, with {out[True]['launches']} ({card})")
-    check(scale > 0 and (equal or (1 - cos <= GRAD_1MCOS_MAX and err <= GRAD_REL_TOL * scale)),
+    cos_max, rel_tol = grad_limits
+    check(scale > 0 and (equal or (1 - cos <= cos_max and err <= rel_tol * scale)),
           "the remat step's prompt gradient disagrees with the plain step's")
-    want_launches = with_stages({"attn_qkv_rel": 24, "ln_mlp": 24, "attn_bwd": 24, "ln_mlp_dx": 24})
-    remat_launches = with_stages({"attn_qkv_rel": 48, "ln_mlp": 48, "attn_bwd": 24, "ln_mlp_dx": 24})
+    want_launches = with_stages({**fwd, **bwd})
+    remat_launches = with_stages({**{k: 2 * v for k, v in fwd.items()}, **bwd})
     check(out[False]["launches"] == want_launches and out[True]["launches"] == remat_launches,
           f"remat launches {out[True]['launches']}, want {remat_launches}; without {out[False]['launches']}")
     check(out[True]["peak"] < out[False]["peak"], "remat did not lower the train step's peak memory")
-    model.encoder.remat = False
-    return {"peak_bytes": out[False]["peak"], "peak_bytes_remat": out[True]["peak"], "grad_bit_equal": equal,
-            "grad_err": err, "launches": out[False]["launches"], "launches_remat": out[True]["launches"]}
+    res = {"peak_bytes": out[False]["peak"], "peak_bytes_remat": out[True]["peak"], "grad_bit_equal": equal,
+           "grad_err": err, "launches": out[False]["launches"], "launches_remat": out[True]["launches"]}
+    del model, tuner, out, got, want
+    torch.cuda.empty_cache()
+    return res
 
 
-def phase_training(device, root: Path, dates: list[str], card: str) -> dict:
-    """train.loop.run_training end to end at full width on phase 17's scene
-    (ViT-L, random weights from the seed, bf16, crops of 112 tiled to 448,
-    batch 8, 2 epochs, the profiler on, every step logged): the JAX run
-    dir's artifacts, one metrics row a step with a finite train/loss, the
-    tuned pixels moved and the EMA nearer the initial pixels than they are,
-    the profiler's trace, 24 launches of #1, #2, #4 and #5 a train step and
-    of #1 and #2 an eval batch, nothing else; then a resume to 3 epochs
-    (starts at step 6, writes step_9 only), the remat step
-    (``remat_check``), and run_predict from the run's EMA export on one date
-    in bf16 vote mode."""
-    from beach_seg_tpu_torch.config import BeachSegConfig, PredictionConfig
-    from beach_seg_tpu_torch.geo.tiff import read
-    from beach_seg_tpu_torch.infer import run_predict
+def counted_training(conf) -> tuple[Path, dict, list, list, float]:
+    """run_training(conf) on the card with the launch counters' rise over each
+    train step and eval batch recorded → the run dir, the run's launches, the
+    rise of each step and of each eval batch, and the run's seconds."""
     from beach_seg_tpu_torch.train import PromptTuner, run_training
-    from beach_seg_tpu_torch.train.checkpoint import load_prompt_batch
-    from beach_seg_tpu_torch.train.loggers import MetricsLogger
-    from beach_seg_tpu_torch.utils.profiling import TRACE_NAME
 
-    conf = BeachSegConfig(data=root / "all" / "scene", model_training_root=root / "train_out", checkpoint="random",
-                          compute_dtype="bfloat16", crop_size=112, inpt_size=448, batch_size=B, epochs=TRAIN_EPOCHS,
-                          profile=True, log_every_n_steps=1, num_viz_images=2)
     steps, evals = [], []
     train_step, eval_step = PromptTuner.train_step, PromptTuner.eval_step
     PromptTuner.train_step, PromptTuner.eval_step = count_calls(train_step, steps), count_calls(eval_step, evals)
@@ -1643,31 +1660,79 @@ def phase_training(device, root: Path, dates: list[str], card: str) -> dict:
         reset_counts()
         t = time.perf_counter()
         run_dir = run_training(conf)
-        train_s = time.perf_counter() - t
-        launches = read_counts()
-        t = time.perf_counter()
-        resumed = run_training(dataclasses.replace(conf, epochs=RESUME_EPOCHS, resume_from=run_dir, profile=False,
-                                                   model_training_root=root / "resume_out"))
-        resume_s = time.perf_counter() - t
+        seconds = time.perf_counter() - t
     finally:
         PromptTuner.train_step, PromptTuner.eval_step = train_step, eval_step
-    per_epoch = math.ceil(len(load_prompt_batch(run_dir / "prompt_batch.npz")["image"]) / B)
-    log(f"training runtime: {TRAIN_EPOCHS} epochs of {per_epoch} steps in {train_s:.3f} s, the resume to "
-        f"{RESUME_EPOCHS} in {resume_s:.3f} s; launches per train step {steps}; per eval batch {evals} ({card})")
-    train_want = with_stages({"attn_qkv_rel": 24, "ln_mlp": 24, "attn_bwd": 24, "ln_mlp_dx": 24})
-    eval_want = with_stages({"attn_qkv_rel": 24, "ln_mlp": 24})
-    n_train = per_epoch * RESUME_EPOCHS  # both runs' steps: the resume continues at epoch TRAIN_EPOCHS
+    return run_dir, read_counts(), steps, evals, seconds
+
+
+def check_training_run(run_dir: Path, launches: dict, steps: list, evals: list, train_want: dict, eval_want: dict,
+                       epochs: int) -> dict:
+    """A run_training run of ``epochs`` from step 0: ``train_want`` launches a
+    train step and ``eval_want`` an eval batch, nothing else; the JAX run
+    dir's artifacts and a checkpoint an epoch; one metrics.csv row a step
+    with a finite train/loss; the tuned pixels moved and the EMA pixels
+    nearer the initial ones. → the steps an epoch, the losses, StepTimer's
+    rates and the mean pixel moves."""
+    from beach_seg_tpu_torch.train.checkpoint import load_prompt_batch
+
+    pre, tuned, ema = (load_prompt_batch(run_dir / f"prompt_batch{s}.npz")["image"] for s in ("", "_tuned", "_ema"))
+    per_epoch = math.ceil(len(pre) / B)
+    n_train = per_epoch * epochs
     check(len(steps) == n_train and len(evals) == n_train, f"{len(steps)} train steps, {len(evals)} eval batches, want {n_train}")
     check(all(st == train_want for st in steps), f"launches per train step {steps}, want {train_want}")
     check(all(ev == eval_want for ev in evals), f"launches per eval batch {evals}, want {eval_want}")
-    run_want = {k: per_epoch * TRAIN_EPOCHS * (train_want.get(k, 0) + eval_want.get(k, 0)) for k in counters()}
+    run_want = {k: n_train * (train_want.get(k, 0) + eval_want.get(k, 0)) for k in counters()}
     check(launches == run_want, f"run_training launches {launches}, want {run_want}")
-
     missing = [f for f in RUN_DIR_FILES if not (run_dir / f).is_file()]
     ckpts = sorted(p.name for p in (run_dir / "checkpoints").iterdir())
-    trace = run_dir / "profile" / TRACE_NAME
     check(not missing, f"run dir lacks {missing}")
-    check(ckpts == [f"step_{per_epoch * (e + 1)}" for e in range(TRAIN_EPOCHS)], f"checkpoints {ckpts}")
+    check(ckpts == [f"step_{per_epoch * (e + 1)}" for e in range(epochs)], f"checkpoints {ckpts}")
+    with open(run_dir / "metrics.csv") as f:
+        rows = list(csv.DictReader(f))
+    losses = [float(r["train/loss"]) for r in rows if r.get("train/loss")]
+    rates = [float(r["perf/steps_per_sec"]) for r in rows if r.get("perf/steps_per_sec")]
+    check(len(losses) == n_train and all(math.isfinite(x) for x in losses), f"train/loss rows {losses}")
+    d_tuned, d_ema = np.abs(tuned - pre).mean(), np.abs(ema - pre).mean()
+    check(np.isfinite(tuned).all() and np.isfinite(ema).all() and d_tuned > 0, "tuned pixels did not move or are not finite")
+    check(0 < d_ema < d_tuned and not np.array_equal(ema, tuned), f"EMA not between the initial and tuned pixels: {d_ema} vs {d_tuned}")
+    return {"per_epoch": per_epoch, "losses": losses, "rates": rates, "d_tuned": d_tuned, "d_ema": d_ema}
+
+
+def phase_training(device, root: Path, dates: list[str], card: str) -> dict:
+    """train.loop.run_training end to end at full width on phase 17's scene
+    (ViT-L, random weights from the seed, bf16, crops of 112 tiled to 448,
+    batch 8, 2 epochs, the profiler on, every step logged): the run's
+    launches and artifacts (``check_training_run``) and the profiler's
+    trace; then a resume to 3 epochs (starts at step 6, writes step_9 only,
+    the same launches a step), the remat step (``remat_check``), and
+    run_predict from the run's EMA export on one date in bf16 vote mode."""
+    from beach_seg_tpu_torch.config import BeachSegConfig, PredictionConfig
+    from beach_seg_tpu_torch.geo.tiff import read
+    from beach_seg_tpu_torch.infer import run_predict
+    from beach_seg_tpu_torch.train.loggers import MetricsLogger
+    from beach_seg_tpu_torch.utils.profiling import TRACE_NAME
+
+    conf = BeachSegConfig(data=root / "all" / "scene", model_training_root=root / "train_out", checkpoint="random",
+                          compute_dtype="bfloat16", crop_size=112, inpt_size=448, batch_size=B, epochs=TRAIN_EPOCHS,
+                          profile=True, log_every_n_steps=1, num_viz_images=2)
+    train_want = with_stages({"attn_qkv_rel": 24, "ln_mlp": 24, "attn_bwd": 24, "ln_mlp_dx": 24})
+    eval_want = with_stages({"attn_qkv_rel": 24, "ln_mlp": 24})
+    run_dir, launches, steps, evals, train_s = counted_training(conf)
+    resumed, _, resume_steps, resume_evals, resume_s = counted_training(dataclasses.replace(
+        conf, epochs=RESUME_EPOCHS, resume_from=run_dir, profile=False, model_training_root=root / "resume_out"))
+    run = check_training_run(run_dir, launches, steps, evals, train_want, eval_want, TRAIN_EPOCHS)
+    per_epoch = run["per_epoch"]
+    log(f"training runtime: {TRAIN_EPOCHS} epochs of {per_epoch} steps in {train_s:.3f} s, the resume to "
+        f"{RESUME_EPOCHS} in {resume_s:.3f} s; launches per train step {steps + resume_steps}; per eval batch "
+        f"{evals + resume_evals} ({card})")
+    n_resumed = per_epoch * (RESUME_EPOCHS - TRAIN_EPOCHS)
+    check(len(resume_steps) == n_resumed and len(resume_evals) == n_resumed,
+          f"the resume ran {len(resume_steps)} train steps and {len(resume_evals)} eval batches, want {n_resumed}")
+    check(all(st == train_want for st in resume_steps) and all(ev == eval_want for ev in resume_evals),
+          f"the resume's launches {resume_steps} {resume_evals}")
+
+    trace = run_dir / "profile" / TRACE_NAME
     check(trace.is_file() and trace.stat().st_size > 0, "no profiler trace")
     events = json.loads(trace.read_text()).get("traceEvents", [])
     kernel_events = sum(1 for ev in events if ev.get("cat") == "kernel")
@@ -1675,25 +1740,16 @@ def phase_training(device, root: Path, dates: list[str], card: str) -> dict:
     probe = MetricsLogger(root / "probe_logger")
     probe.close()
     check(logger_kind == probe.kind, f"the run wrote {logger_kind}, but MetricsLogger here is {probe.kind}")
-    with open(run_dir / "metrics.csv") as f:
-        rows = list(csv.DictReader(f))
-    losses = [float(r["train/loss"]) for r in rows if r.get("train/loss")]
-    rates = [float(r["perf/steps_per_sec"]) for r in rows if r.get("perf/steps_per_sec")]
-    check(len(losses) == per_epoch * TRAIN_EPOCHS and all(math.isfinite(x) for x in losses), f"train/loss rows {losses}")
-    pre, tuned, ema = (load_prompt_batch(run_dir / f"prompt_batch{s}.npz")["image"] for s in ("", "_tuned", "_ema"))
-    d_tuned, d_ema = np.abs(tuned - pre).mean(), np.abs(ema - pre).mean()
-    check(np.isfinite(tuned).all() and np.isfinite(ema).all() and d_tuned > 0, "tuned pixels did not move or are not finite")
-    check(0 < d_ema < d_tuned and not np.array_equal(ema, tuned), f"EMA not between the initial and tuned pixels: {d_ema} vs {d_tuned}")
     with open(resumed / "metrics.csv") as f:
         first_step = int(next(csv.DictReader(f))["step"])
     resumed_ckpts = sorted(p.name for p in (resumed / "checkpoints").iterdir())
     check(first_step == per_epoch * TRAIN_EPOCHS and resumed_ckpts == [f"step_{per_epoch * RESUME_EPOCHS}"],
           f"the resume started at step {first_step} and wrote {resumed_ckpts}")
-    log(f"training runtime: loggers {logger_kind}; StepTimer steps/sec {rates}; train/loss {losses}; mean |tuned - initial| "
-        f"{d_tuned:.4e}, |EMA - initial| {d_ema:.4e}; trace {trace.stat().st_size} bytes, {kernel_events} kernel events; "
-        f"resume from step {first_step} to {resumed_ckpts} ({card})")
+    log(f"training runtime: loggers {logger_kind}; StepTimer steps/sec {run['rates']}; train/loss {run['losses']}; "
+        f"mean |tuned - initial| {run['d_tuned']:.4e}, |EMA - initial| {run['d_ema']:.4e}; trace {trace.stat().st_size} "
+        f"bytes, {kernel_events} kernel events; resume from step {first_step} to {resumed_ckpts} ({card})")
 
-    remat = remat_check(device, conf, card)
+    remat = remat_check(device, conf, card, {"attn_qkv_rel": 24, "ln_mlp": 24}, {"attn_bwd": 24, "ln_mlp_dx": 24})
 
     scene_view(root / "all" / "scene", root / "train_pred" / "scene", dates[:2])
     pred_conf = PredictionConfig(data=root / "train_pred" / "scene", model_training_root=root / "train_pred" / "out",
@@ -1707,13 +1763,160 @@ def phase_training(device, root: Path, dates: list[str], card: str) -> dict:
     r = read(pred_dir / "tif" / f"{dates[1]}.tif")
     check(r.data.shape == (1, SCENE_H, SCENE_W) and r.crs == f"EPSG:{SCENE_EPSG}", f"EMA predict: {r.data.shape} {r.crs}")
     check(set(np.unique(r.data).tolist()) <= {0, 1, 2, 3}, f"EMA predict ids {np.unique(r.data)}")
-    pred_batches = math.ceil(len(pre) / B)
+    pred_batches = per_epoch  # the reference date's crops, in batches of B
     check(pred_launches == {k: eval_want.get(k, 0) * pred_batches for k in counters()}, f"EMA predict launches {pred_launches}")
     log(f"training runtime: run_predict from the EMA export, 1 date, {pred_batches} batches, {pred_s:.3f} s, "
         f"timings {(pred_dir / 'timings.json').read_text()} ({card})")
-    return {"launches": launches, "train_steps": steps, "eval_batches": evals, "train_s": train_s, "resume_s": resume_s,
-            "steps_per_sec": rates, "logger": logger_kind, "kernel_events": kernel_events, "remat": remat,
-            "predict_s": pred_s, "per_epoch": per_epoch}
+    return {"launches": launches, "train_steps": steps + resume_steps, "eval_batches": evals + resume_evals,
+            "train_s": train_s, "resume_s": resume_s, "steps_per_sec": run["rates"], "logger": logger_kind,
+            "kernel_events": kernel_events, "remat": remat, "predict_s": pred_s, "per_epoch": per_epoch}
+
+
+# phase 21: BASELINE.json config #5, multi-class segmentation of an 8-band
+# SuperDove scene with ViT-H at its default fp32: the scene's 1 reference and 2
+# predict dates (SCENE_W × SCENE_H, two overlapping tiles a date)
+SUPERDOVE_DATES = 2
+
+
+@contextlib.contextmanager
+def launch_events(names=("attn_packed", "attn_bwd")):
+    """The cuda_attn wrappers ``names`` with a CUDA event recorded before and
+    after each call (their launch counts carried through) → {name: [(start,
+    end), ...]}; ``event_ms`` reads the device time between them."""
+    from beach_seg_tpu_torch.ops import cuda_attn
+
+    saved = {n: getattr(cuda_attn, n) for n in names}
+    events = {n: [] for n in names}
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            events[name].append((start, end))
+            return out
+        call.launches = fn.launches  # the wrapper's body counts through its module's name
+        return call
+
+    for n, fn in saved.items():
+        setattr(cuda_attn, n, timed(n, fn))
+    try:
+        yield events
+    finally:
+        for n, fn in saved.items():
+            fn.launches = getattr(cuda_attn, n).launches
+            setattr(cuda_attn, n, fn)
+
+
+def event_ms(pairs: list) -> float:
+    """The median device ms of ``launch_events``' calls (after a sync)."""
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in pairs]))
+
+
+def vit_h_batch_check(device, rows: tuple[int, ...]) -> dict:
+    """#3 at ViT-H's widths (16 heads of 80) at ``rows`` batch rows, bf16 and
+    fp32, against its plain version with ``fwd_check``'s limits, and the
+    three stage kernels of #2 at C=1280, N = B·S with ``mlp_stage_check``'s.
+    → the largest errors, keyed "<kernel> <dtype> B=<rows>"."""
+    from beach_seg_tpu_torch.ops import cuda_attn
+    from beach_seg_tpu_torch.ops.attention import attention_packed_plain
+
+    s = GRID[0] * GRID[1]
+    errs = {}
+    for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        for b in rows:
+            key = f"attn_packed {name} B={b}"
+            args = (*packed_inputs(device, dtype, b * HEADS, HD_H, seed=20 + b), HD_H**-0.5, HEADS)
+            errs[key] = fwd_check(f"{key} (ViT-H)", cuda_attn.attn_packed, attention_packed_plain, args, (b, s, C_H))
+            del args
+    for stage, err in mlp_stage_check(device, B * s, C_H, MLP_H, seed=21, timed=False, forward_only=True).items():
+        errs[f"{stage.removesuffix('_err')} bf16 B={B}"] = err
+    torch.cuda.empty_cache()
+    return errs
+
+
+def phase_superdove(device, root: Path, card: str) -> dict:
+    """BASELINE.json config #5 end to end at full width: an 8-band uint16
+    scene (``write_scene(bands=8)``, 1 reference and SUPERDOVE_DATES predict
+    dates); BeachSegConfig(backbone="huge") at its default fp32 (ViT-H,
+    seeded random weights): 3 train_steps at B=8 (``phase_train_path``, 32
+    launches each of #3 and #4 a step and nothing else, the prompt gradient
+    within phase 12's fp32 limits), #3's and #4's in-model ms a call, the
+    peak memory without and with remat (``remat_check``); #3 at head_dim 80
+    at run_predict's batch rows and the scene's odd tail, and the C=1280 MLP
+    stages (``vit_h_batch_check``); run_training on the scene (crops of 112
+    tiled to 448, batch 8, 2 epochs, every step logged;
+    ``check_training_run``: 32 launches of #3 and #4 a train step and of #3
+    an eval batch); run_predict from the run's EMA export on the predict
+    dates in fp32 vote, bf16 vote (32 launches of #3 and #2 a batch) and
+    bf16 vote through the plain versions (``scene_run``: GeoTIFFs of the
+    scene's shape and CRS, ids in 0..3), the bf16 ids ≥ ID_AGREEMENT_MIN
+    equal to the plain run's."""
+    from beach_seg_tpu_torch.config import BeachSegConfig
+    from beach_seg_tpu_torch.data.dataset import create_scene
+    from beach_seg_tpu_torch.train.loop import model_for_config
+
+    t = time.perf_counter()
+    scene = root / "superdove" / "scene"
+    dates = write_scene(scene, n_dates=SUPERDOVE_DATES, bands=8)
+    crops = create_scene(BeachSegConfig(data=scene), train=True).crops
+    log(f"SuperDove: wrote {SCENE_W}x{SCENE_H} 8-band uint16 at {SCENE_PIX} m, {len(dates)} dates x 2 tiles, "
+        f"{len(crops)} crops of 112, in {time.perf_counter() - t:.3f} s")
+
+    conf = BeachSegConfig(batch_size=B, backbone="huge")
+    check(conf.compute_dtype == "float32", f"config #5's default compute dtype {conf.compute_dtype}")
+    fwd, bwd = {"attn_packed": 32}, {"attn_bwd": 32}
+    model, cfg = model_for_config(conf, device=device, seed=0)
+    check(cfg.head_dim == HD_H and cfg.hidden_size == C_H and cfg.num_hidden_layers == 32, f"ViT-H config {cfg}")
+    with launch_events() as events:
+        tr = phase_train_path(device, model, conf, dict(fwd, **bwd), grad_limits=(GRAD32_1MCOS_MAX, GRAD32_REL_TOL))
+    in_model = {"attn_packed_fp32": event_ms(events["attn_packed"]), "attn_bwd_fp32": event_ms(events["attn_bwd"])}
+    del model, events
+    torch.cuda.empty_cache()
+    remat = remat_check(device, conf, card, fwd, bwd, (GRAD32_1MCOS_MAX, GRAD32_REL_TOL))
+    log(f"SuperDove fp32 ViT-H train_step B={B}: seconds per step {tr['seconds']}, peak memory {tr['peak_bytes']} bytes "
+        f"over the 3 steps, {remat['peak_bytes']} without remat and {remat['peak_bytes_remat']} with (one step); "
+        f"in-model ms a call: attn_packed fp32 {in_model['attn_packed_fp32']:.4f}, attn_bwd fp32 "
+        f"{in_model['attn_bwd_fp32']:.4f}; prompt gradient 1 - cosine {1 - tr['grad_cos']:.4e} ({card})")
+
+    odd = len(crops) % B
+    batches = vit_h_batch_check(device, (B, odd) if odd else (B,))
+
+    train_conf = BeachSegConfig(data=scene, model_training_root=root / "superdove_train", checkpoint="random",
+                                backbone="huge", crop_size=112, inpt_size=448, batch_size=B, epochs=TRAIN_EPOCHS,
+                                log_every_n_steps=1, num_viz_images=2)
+    check(train_conf.compute_dtype == "float32", "config #5 trains in fp32")
+    run_dir, launches, steps, evals, run_s = counted_training(train_conf)
+    run = check_training_run(run_dir, launches, steps, evals, dict(fwd, **bwd), fwd, TRAIN_EPOCHS)
+    log(f"SuperDove run_training: {TRAIN_EPOCHS} epochs of {run['per_epoch']} steps in {run_s:.3f} s; StepTimer "
+        f"steps/sec {run['rates']}; train/loss {run['losses']}; mean |tuned - initial| {run['d_tuned']:.4e}, "
+        f"|EMA - initial| {run['d_ema']:.4e}; launches {launches} ({card})")
+
+    huge_bf16 = with_stages({"attn_packed": 32, "ln_mlp": 32})
+    out, by_overlap = root / "superdove_predict", {0: crops}
+    fp32 = scene_run(scene, out, "float32", "vote", 0, fwd, by_overlap, dates, train_run_dir=run_dir)
+    with launch_events(("attn_packed",)) as events:
+        bf16 = scene_run(scene, out, "bfloat16", "vote", 0, huge_bf16, by_overlap, dates, train_run_dir=run_dir)
+    in_model["attn_packed_bf16"] = event_ms(events["attn_packed"])
+    plain = scene_run(scene, out, "bfloat16", "vote", 0, {}, by_overlap, dates, plain=True, train_run_dir=run_dir)
+    agree = vote_agreement(bf16["ids"], plain["ids"], crops)
+    log(f"SuperDove run_predict: bf16 vote mosaics kernels vs plain: {agree:.6f} of voted pixels equal "
+        f"(min {ID_AGREEMENT_MIN}); in-model ms a call of attn_packed bf16 {in_model['attn_packed_bf16']:.4f}")
+    check(agree >= ID_AGREEMENT_MIN, f"SuperDove bf16 vote mosaics agree on {agree} of voted pixels")
+    runs = {"fp32_vote": fp32, "bf16_vote": bf16, "bf16_vote_plain": plain}
+    for name, r in runs.items():
+        log(f"SuperDove run_predict {name}: stream_tiles_per_sec {r['timings']['stream_tiles_per_sec']}, run "
+            f"{r['seconds']:.3f} s, timings {json.dumps(r['timings'])} ({card})")
+    log(f"SuperDove ViT-H (config #5): fp32 train_step seconds per step {tr['seconds']}, peak memory "
+        f"{remat['peak_bytes']} bytes without remat and {remat['peak_bytes_remat']} with; in-model ms a call {in_model}; "
+        f"run_training {TRAIN_EPOCHS} epochs in {run_s:.3f} s; run_predict "
+        + ", ".join(f"{k} {r['seconds']:.3f} s ({r['timings']['stream_tiles_per_sec']} tiles/s)" for k, r in runs.items())
+        + f"; bf16 ids {agree:.6f} equal to the plain run's ({card})")
+    return {"train": tr, "remat": remat, "in_model_ms": in_model, "batches": batches,
+            "run": run, "run_s": run_s, "run_launches": launches, "runs": runs, "agreement_bf16": agree,
+            "train_launches_per_step": steps[0], "eval_launches_per_batch": evals[0]}
 
 
 # phase 20: the CLIs at full width, and two ranks sharing the one card
@@ -2034,6 +2237,32 @@ def phase_clis(root: Path, dates: list[str], deterministic: bool, card: str) -> 
             "pixel_agreement": agree}
 
 
+def superdove_entries(kernels: list, sd: dict) -> None:
+    """Phase 21's numbers beside the ViT-H entries of the ``kernels`` line:
+    the launches of the fp32 train steps, of run_training and of a
+    run_predict batch, #3's and #4's in-model ms a call, the errors at the
+    engine's batch rows."""
+    runs = sd["runs"]
+    for e in kernels:
+        if e["geometry"] != "vit_h":
+            continue
+        if e["name"] == "attn_packed":
+            e["launches_superdove_train_steps"] = sd["train"]["launches"]["attn_packed"]
+            e["launches_superdove_run_training"] = sd["run_launches"]["attn_packed"]
+            e["launches_superdove_run_predict_per_batch"] = {
+                name: runs[name]["launches"]["attn_packed"] // runs[name]["batches"] for name in ("fp32_vote", "bf16_vote")}
+            e["in_model_ms"] = sd["in_model_ms"]["attn_packed_bf16"]
+            e["fp32_in_model_ms"] = sd["in_model_ms"]["attn_packed_fp32"]
+            e["max_abs_err_superdove_batches"] = {
+                k.split(" ", 1)[1]: v for k, v in sd["batches"].items() if k.startswith("attn_packed")}
+        elif e["name"] == "attn_bwd" and e.get("dtype") == "fp32":
+            e["launches_superdove_run_training"] = sd["run_launches"]["attn_bwd"]
+            e["in_model_ms"] = sd["in_model_ms"]["attn_bwd_fp32"]
+        elif e["name"] == "ln_mlp":
+            e["launches_superdove_run_predict_per_batch_bf16"] = runs["bf16_vote"]["launches"]["ln_mlp"] // runs["bf16_vote"]["batches"]
+            e["max_abs_err_superdove_stages"] = {k: v for k, v in sd["batches"].items() if not k.startswith("attn_packed")}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2176,6 +2405,11 @@ def main() -> int:
         t = time.perf_counter()
         clis = phase_clis(root, dates, two["deterministic"], card)
         log(f"CLI phase: {time.perf_counter() - t:.3f} s ({card})")
+        # BASELINE.json config #5: ViT-H fp32 on an 8-band SuperDove scene
+        t = time.perf_counter()
+        sd = phase_superdove(device, root, card)
+        sd["seconds"] = time.perf_counter() - t
+        log(f"SuperDove ViT-H phase: {sd['seconds']:.3f} s ({card})")
 
     kernels = [
         {
@@ -2276,7 +2510,7 @@ def main() -> int:
                 "library_ms": kl[f"{key}_library_ms_{dt}"], "shape": f"{dt}, {shape}",
                 **({"bound_route": FP32_ROUTE, "design": TF32X3} if dt == "fp32" else {}),
             })
-    for hd, launches in ((HD, tr32["launches"]["attn_bwd"]), (HD_H, ke[f"fused_attention fp32 head_dim {HD_H}"]["launches"]["attn_bwd"])):
+    for hd, launches in ((HD, tr32["launches"]["attn_bwd"]), (HD_H, sd["train"]["launches"]["attn_bwd"])):
         r = kl[f"bwd32_{hd}"]
         kernels.append({
             "name": "attn_bwd", "geometry": "vit_l" if hd == HD else "vit_h", "dtype": "fp32", "route": "cuda",
@@ -2356,6 +2590,7 @@ def main() -> int:
                 e["tp_width"]["stage_ms"] = {st: tk["stages"][f"{st}_ms"] for st in stages}
             if e["name"] == "attn_bwd":
                 e["tp_width"]["max_abs_err_by_output"] = tk["attn_bwd_errs"]
+    superdove_entries(kernels, sd)
     first["attn_packed"]["ms_hd16_bf16"] = ks["packed_ms_hd16"]
     first["attn_bwd"]["ms_hd16_bf16"] = ks["bwd_ms_hd16"]
     for name in ("attn_packed", "attn_bwd", "ln_mlp", "ln_mlp_dx"):

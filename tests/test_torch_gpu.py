@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain versions on the card, at one
 ViT-L layer's shapes, at ViT-H's widths (head_dim 80, C=1280) and at ragged
-small ones, tiny bf16 and fp32 models (head_dim 64, and C=1280 with 16 heads
+small ones, the packed attention at ViT-H's widths and the scene engines'
+batch rows, tiny bf16 and fp32 models (head_dim 64, and C=1280 with 16 heads
 of 80) through the kernels forward and backward, the library's attention
 entries, the shapes the kernels refuse, the scene engine (run_predict) and
 the training runtime (run_training) against their own runs through the
@@ -157,6 +158,22 @@ def test_attn_packed_kernel_matches_plain(cuda, dtype, d, hk, wk):
     assert cuda_attn.attn_packed.launches == before + 1
     want = attention_packed_plain(*args)
     assert got.dtype == dtype and got.shape == want.shape == (2, hk * wk, 3 * d)
+    _assert_attn_close(got, want)
+
+
+@pytest.mark.parametrize("rows", [8, 3])  # run_predict's batch; the odd tail of chip_smoke.py's scene (19 crops)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_attn_packed_at_vit_h_engine_rows(cuda, dtype, rows):
+    """The packed attention at ViT-H's widths (16 heads of 80 on the 56×28
+    grid) at the rows of a scene engine's batch, against its plain version
+    (``_assert_attn_close``)."""
+    args = (*_packed_inputs(cuda, dtype, rows * HEADS, *S_GRID, 80, seed=rows), 80**-0.5, HEADS)
+    before = cuda_attn.attn_packed.launches
+    got = cuda_attn.attn_packed(*args)
+    torch.cuda.synchronize()
+    assert cuda_attn.attn_packed.launches == before + 1
+    want = attention_packed_plain(*args)
+    assert got.dtype == dtype and got.shape == want.shape == (rows, S_GRID[0] * S_GRID[1], HEADS * 80)
     _assert_attn_close(got, want)
 
 

@@ -5,7 +5,9 @@ embed, against the same steps in one process and against the JAX package
 on an 8-device (data=4, model=2) mesh, on the same seeded inputs: a
 head_dim-8 model (4 heads, the packed attention, 2 heads a rank) and a
 head_dim-64 one (2 heads, the qkv-rel attention, 1 head a rank; also
-against JAX). Limits as
+against JAX) and a head_dim-80 one (ViT-H's head dim, which
+BASELINE.json config #5 shards under mesh_model > 1: 2 heads, the packed
+attention, 1 head a rank). Limits as
 tests/test_tp_equivalence.py holds the JAX package's own: predict ids
 equal, loss within 1e-5 relative, confusion matrices equal, pixels within
 rtol 1e-5, atol 1e-6 plus Adam's slope where |g| nears its eps
@@ -31,7 +33,7 @@ from tests.test_torch_parallel import B, CONF, H, P, assert_same_run, draws, jax
 from tests.torch_parallel_common import mesh_task, predict, spawn, train, tuner_on
 from tests.torch_train_common import GRAD_TOL, GRAD_TOL_DEFAULT, assert_grads_close
 
-GEOMS = ("hd8", "hd64")
+GEOMS = ("hd8", "hd64", "hd80")
 
 
 def predict_batch() -> dict:

@@ -83,17 +83,14 @@ class KeyChain:
         return sub
 
 
-@pytest.fixture(scope="module")
-def world(tmp_path_factory):
-    """The scene, the weight file, JAX's run and the port's run with JAX's
-    draws (and the port's prompt gradients, recorded per step)."""
-    root = tmp_path_factory.mktemp("train_loop")
-    scene = build_scene(root / "scene")
-    cfg = jtiny_config(**MODEL)
+def run_both(kw: dict, model: dict) -> dict:
+    """JAX's run_training on ``kw`` with the weight file ``kw["checkpoint"]``
+    (written here: JAX's init_random of ``tiny_config(**model)``, with its
+    topology), then the port's on the CPU with JAX's draws → both run dirs,
+    the port's prompt gradients (recorded per step) and the seconds of each."""
+    cfg = jtiny_config(**model)
     params = jax.tree.map(np.asarray, init_random(JSegGPT(cfg), cfg))
-    ckpt = root / "weights.npz"
-    jconvert.save_params(params, ckpt, cfg)
-    kw = dict(RUN, data=scene, model_training_root=root / "runs", checkpoint=str(ckpt))
+    jconvert.save_params(params, kw["checkpoint"], cfg)
     jconf = JConf(**kw)
     t = time.perf_counter()
     jax_dir = jrun_training(jconf)
@@ -121,8 +118,17 @@ def world(tmp_path_factory):
         t = time.perf_counter()
         port_dir = run_training(BeachSegConfig(**kw), device="cpu")
         port_s = time.perf_counter() - t
-    return {"root": root, "scene": scene, "kw": kw, "cfg": cfg, "jax": jax_dir, "port": port_dir, "grads": grads,
-            "seconds": (jax_s, port_s)}
+    return {"kw": kw, "cfg": cfg, "jax": jax_dir, "port": port_dir, "grads": grads, "seconds": (jax_s, port_s)}
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    """The scene, the weight file, JAX's run and the port's run with JAX's
+    draws (and the port's prompt gradients, recorded per step)."""
+    root = tmp_path_factory.mktemp("train_loop")
+    scene = build_scene(root / "scene")
+    kw = dict(RUN, data=scene, model_training_root=root / "runs", checkpoint=str(root / "weights.npz"))
+    return {"root": root, "scene": scene, **run_both(kw, MODEL)}
 
 
 def _csv(run_dir) -> list[dict]:
@@ -152,10 +158,11 @@ def test_conf_yaml_and_classes_match_jax(world):
     assert (world["port"] / "classes.txt").read_text() == (world["jax"] / "classes.txt").read_text()
 
 
-def test_metrics_csv_matches_jax(world):
+def assert_metrics_match_jax(run: dict) -> None:
     """The same rows and columns (but perf/), lr to LR_REL, the losses to
-    LOSS_REL, the F1 scores equal."""
-    want, got = _csv(world["jax"]), _csv(world["port"])
+    LOSS_REL, the F1 scores equal: 3 steps an epoch, 2 epochs, one val/loss
+    an epoch."""
+    want, got = _csv(run["jax"]), _csv(run["port"])
     assert [r["step"] for r in got] == [r["step"] for r in want]
     cols = [c for c in want[0] if not c.startswith("perf/")]
     assert [c for c in got[0] if not c.startswith("perf/")] == cols
@@ -173,7 +180,11 @@ def test_metrics_csv_matches_jax(world):
                 n_loss += 1
             else:
                 assert b == a, (w["step"], c, a, b)
-    assert n_loss == 6 + 2  # 3 steps an epoch, 2 epochs; one val/loss an epoch
+    assert n_loss == 6 + 2
+
+
+def test_metrics_csv_matches_jax(world):
+    assert_metrics_match_jax(world)
 
 
 def test_checkpoints_and_best_match_jax(world):
@@ -184,22 +195,26 @@ def test_checkpoints_and_best_match_jax(world):
     assert best(world["port"])["val/f1"] == pytest.approx(best(world["jax"])["val/f1"], abs=0)
 
 
-def test_tuned_state_matches_jax(world):
+def assert_tuned_state_matches_jax(run: dict, model: dict) -> None:
     """The final checkpoint of each run (JAX's through Orbax): moments within
     STATE_REL of their scale, tuned and EMA pixels within what Adam can make
     of that (assert_states_close); the exports equal the checkpoints."""
-    jconf = JConf(**world["kw"])
-    prompts = materialize_prompts(create_scene(BeachSegConfig(**world["kw"]), train=True), BeachSegConfig(**world["kw"]))
+    jconf = JConf(**run["kw"])
+    prompts = materialize_prompts(create_scene(BeachSegConfig(**run["kw"]), train=True), BeachSegConfig(**run["kw"]))
     jtuner = JTuner(model=None, conf=jconf, num_prompts=len(prompts["pixels"]), steps_per_epoch=3)
-    jstate = jckpt.restore_state(jckpt.latest_checkpoint(world["jax"]), jax.device_get(jtuner.init_state(jnp.asarray(prompts["pixels"]))))
-    tuner = PromptTuner(build_model(tiny_config(**MODEL), device="cpu"), BeachSegConfig(**world["kw"]), device="cpu",
+    jstate = jckpt.restore_state(jckpt.latest_checkpoint(run["jax"]), jax.device_get(jtuner.init_state(jnp.asarray(prompts["pixels"]))))
+    tuner = PromptTuner(build_model(tiny_config(**model), device="cpu"), BeachSegConfig(**run["kw"]), device="cpu",
                         steps_per_epoch=3)
-    state = pckpt.restore_state(pckpt.latest_checkpoint(world["port"]), tuner.init_state(prompts["pixels"]))
-    assert len(world["grads"]) == state.step == 6
-    lr = max(float(r["lr"]) for r in _csv(world["port"]) if r["lr"])
-    assert_states_close(jstate, state, STATE_REL, world["grads"], lr)
+    state = pckpt.restore_state(pckpt.latest_checkpoint(run["port"]), tuner.init_state(prompts["pixels"]))
+    assert len(run["grads"]) == state.step == 6
+    lr = max(float(r["lr"]) for r in _csv(run["port"]) if r["lr"])
+    assert_states_close(jstate, state, STATE_REL, run["grads"], lr)
     for name, pixels in (("prompt_batch_tuned.npz", state.prompt_pixels), ("prompt_batch_ema.npz", state.ema_pixels)):
-        np.testing.assert_array_equal(_npz(world["port"] / name)["image"], pixels.numpy())
+        np.testing.assert_array_equal(_npz(run["port"] / name)["image"], pixels.numpy())
+
+
+def test_tuned_state_matches_jax(world):
+    assert_tuned_state_matches_jax(world, MODEL)
 
 
 def test_port_run_dir_reads_in_jax(world):
