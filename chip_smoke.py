@@ -168,12 +168,32 @@ Phases (any failure exits non-zero before the result lines):
      ids in 0..3, the bf16 ids ≥ ID_AGREEMENT_MIN equal to the plain run's;
      stream_tiles_per_sec, the timings.json phase seconds, the phase's
      seconds;
- 22. one JSON line of per-kernel numbers (one entry per kernel, geometry
+ 22. golden parity at full width (scripts/golden_parity_torch.py and
+     scripts/golden_parity_tuned_torch.py on phase 17's scene cut to 1
+     reference and 2 predict dates): HF's own random ViT-L
+     (transformers' SegGptConfig(), BAAI/seggpt-vit-large's topology, the
+     decoder head scaled where the weights would paint one class) saved
+     once as a local HF directory and loaded by the port
+     (load_model_params; config_from_hf equal to SegGPTConfig()); an fp32
+     run_training of 1 epoch from it (24 launches of #1 and #4 a train
+     step, of #1 an eval batch); the reference's zero-shot and tuned
+     chains re-run over transformers' SegGptForImageSegmentation on the
+     card (fp32, eager, TF32 off); the port's run_zero_shot (crops of 336,
+     2 prompts, rank_compat) and run_predict from the run's tuned export in
+     fp32 (24 #1 a batch) and bf16 (24 #1 and #2, and #2's stages, a
+     batch): every fp32 run's worst per-class IoU against the oracle
+     >= 0.999 on every predict date, the bf16 runs' IoU printed, the
+     reference masks' class shares (no class over 95% of the valid
+     pixels, each labelled class on at least 1%), the port's model against
+     the oracle's on the tuned inputs (the largest output difference, which
+     bounds the decode margins the arithmetic can flip), no plain version called in the phase, and the seconds of
+     each part;
+ 23. one JSON line of per-kernel numbers (one entry per kernel, geometry
      and dtype), then the card's name and power limit, then
      {"ok": true, "device": {...}} as the last line.
 
 It exits non-zero without a CUDA device, and needs nothing but this
-repository, torch, numpy and the CUDA toolkit.
+repository, torch, numpy, transformers, safetensors and the CUDA toolkit.
 """
 
 from __future__ import annotations
@@ -1352,9 +1372,10 @@ def write_scene(root: Path, n_dates: int = SCENE_DATES, seed: int = 0, bands: in
 
 
 def scene_run(data: Path, out: Path, dtype: str, merge: str, overlap: int, expect: dict, crops_by_overlap: dict,
-              dates: list[str], plain: bool = False, train_run_dir: Path | None = None) -> dict:
+              dates: list[str], plain: bool = False, train_run_dir: Path | None = None, **fields) -> dict:
     """run_predict once on the card (``plain``: through the plain versions;
-    ``train_run_dir``: from that run's conf.yaml and EMA prompt export);
+    ``train_run_dir``: from that run's conf.yaml and EMA prompt export;
+    ``fields``: PredictionConfig fields over these);
     its outputs checked for every predict date (a GeoTIFF of the scene's
     shape and CRS with ids in 0..3, the mask PNG, the overlay), timings.json's
     tile count, and the launch counters: ``expect`` (launches per batch) times
@@ -1363,9 +1384,9 @@ def scene_run(data: Path, out: Path, dtype: str, merge: str, overlap: int, expec
     from beach_seg_tpu_torch.geo.tiff import read
     from beach_seg_tpu_torch.infer import run_predict
 
-    conf = PredictionConfig(data=data, model_training_root=out, checkpoint="random", batch_size=B,
-                            compute_dtype=dtype, merge=merge, overlap=overlap, train_run_dir=train_run_dir,
-                            use_ema=train_run_dir is not None)
+    conf = PredictionConfig(**{**dict(data=data, model_training_root=out, checkpoint="random", batch_size=B,
+                                      compute_dtype=dtype, merge=merge, overlap=overlap, train_run_dir=train_run_dir,
+                                      use_ema=train_run_dir is not None), **fields})
     crops = crops_by_overlap[overlap]
     n_batches = (len(dates) - 1) * math.ceil(len(crops) / B)
     reset_counts()
@@ -1449,9 +1470,9 @@ def meeting(crops: list) -> int:
 
 
 def engine_run(engine: str, data: Path, out: Path, dtype: str, expect: dict, crops: list, dates: list[str],
-               plain: bool = False) -> dict:
+               plain: bool = False, **fields) -> dict:
     """run_zero_shot or run_legacy once on the card (``plain``: through the
-    plain versions); its outputs checked for every predict date (zero-shot: a
+    plain versions; ``fields``: config fields over these); its outputs checked for every predict date (zero-shot: a
     GeoTIFF of the scene's shape and CRS with ids in 0..3 and the mask PNG;
     legacy: a 1-bit GeoTIFF per exported class), timings.json's tile count,
     and the launch counters: ``expect`` (launches per batch) times the
@@ -1460,7 +1481,7 @@ def engine_run(engine: str, data: Path, out: Path, dtype: str, expect: dict, cro
     from beach_seg_tpu_torch.geo.tiff import read
     from beach_seg_tpu_torch.infer import run_legacy, run_zero_shot
 
-    common = dict(data=data, model_training_root=out, checkpoint="random", batch_size=B, compute_dtype=dtype)
+    common = {**dict(data=data, model_training_root=out, checkpoint="random", batch_size=B, compute_dtype=dtype), **fields}
     tiles = meeting(crops) * (len(dates) - 1)
     n_batches = (len(dates) - 1) * math.ceil(meeting(crops) / B)
     reset_counts()
@@ -2263,11 +2284,199 @@ def superdove_entries(kernels: list, sd: dict) -> None:
             e["max_abs_err_superdove_stages"] = {k: v for k, v in sd["batches"].items() if not k.startswith("attn_packed")}
 
 
+# phase 22: golden parity at full width, the port's zero-shot and tuned-predict
+# engines against the reference's chains re-run over transformers' SegGpt on
+# the same local HF ViT-L directory: phase 17's scene cut to 1 reference and
+# GOLDEN_DATES predict dates
+GOLDEN_DATES = 2  # scripts/golden_parity_torch.PREDICT_DATES, the scripts' default scene
+PLAIN_VERSIONS = {"cuda_attn": ("attn_qkv_rel_plain", "attention_packed_plain", "attention_bwd_plain",
+                                "attention_fused_plain", "attention_qkv_plain"),
+                  "cuda_mlp": ("ln_mlp_plain", "ln_mlp_dx_plain", *(f"{st}_plain" for st in MLP_STAGES))}
+
+
+@contextlib.contextmanager
+def plain_watch():
+    """The plain versions the kernel wrappers would fall back to, each
+    wrapped to count its calls → {name: calls}."""
+    from beach_seg_tpu_torch.ops import cuda_attn, cuda_mlp
+
+    mods = {"cuda_attn": cuda_attn, "cuda_mlp": cuda_mlp}
+    calls = {name: 0 for names in PLAIN_VERSIONS.values() for name in names}
+    saved = {(m, n): getattr(mods[m], n) for m, names in PLAIN_VERSIONS.items() for n in names}
+
+    def counted(name, fn):
+        def call(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    for (m, n), fn in saved.items():
+        setattr(mods[m], n, counted(n, fn))
+    try:
+        yield calls
+    finally:
+        for (m, n), fn in saved.items():
+            setattr(mods[m], n, fn)
+
+
+def golden_scripts():
+    """scripts/golden_parity_torch.py and scripts/golden_parity_tuned_torch.py
+    as modules."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "scripts"))
+    import golden_parity_torch
+    import golden_parity_tuned_torch
+
+    return golden_parity_torch, golden_parity_tuned_torch
+
+
+def phase_golden_parity(device, root: Path, dates: list[str], card: str) -> dict:
+    """Golden parity at full width and depth on the card: HF's own random
+    ViT-L (``SegGptConfig()``, torch.manual_seed(0); the decoder head scaled
+    by the scripts' HEAD_SCALE where the weights' reference masks would
+    leave the gate blind) saved once with save_pretrained, the
+    port's ``load_model_params`` of that directory (``config_from_hf`` equal
+    to ``SegGPTConfig()``); ``run_training`` in fp32 from it (1 epoch: 24
+    launches of #1 and #4 a train step, of #1 an eval batch); the oracles
+    of the two scripts on the card (fp32, eager, TF32 off): the zero-shot
+    chain and the tuned chain on the run's prompt_batch_tuned.npz; then
+    the port's run_zero_shot (crops of 336, 2 prompts, rank_compat) and
+    run_predict from the run (tuned export, vote) in fp32 (24 #1 a batch)
+    and bf16 (24 #1 and #2, and #2's stages, a batch), each against the
+    fp32 oracle on every predict date: fp32 worst per-class IoU >=
+    IOU_MIN, bf16 reported. No plain version runs in the phase."""
+    from transformers.models.seggpt import SegGptConfig
+
+    from beach_seg_tpu_torch.data.dataset import create_scene
+    from beach_seg_tpu_torch.models.seggpt import SegGPTConfig
+    from beach_seg_tpu_torch.models.seggpt.convert import config_from_hf
+    from beach_seg_tpu_torch.models.seggpt.load import load_model_params
+    from beach_seg_tpu_torch.train.checkpoint import load_prompt_batch
+
+    gp, gpt = golden_scripts()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    gp.select_device("cuda")
+    versions = gp.versions()
+    log(f"golden parity: transformers {versions['transformers']} ({versions['processor']}), safetensors "
+        f"{versions['safetensors']}, allow_tf32 {versions['allow_tf32']} ({card})")
+    work = root / "golden"
+    scene = scene_view(root / "all" / "scene", work / "scene", dates[: 1 + GOLDEN_DATES])
+    ckpt = work / "hf_seggpt_vit_large"
+    zconf = gp.zero_shot_conf(scene, work / "zero_shot", str(ckpt), "float32", tiny=False)
+    tconf = dataclasses.replace(gpt.train_conf(scene, work / "train", str(ckpt), tiny=False), log_every_n_steps=1)
+    zscene = gp.zero_shot_scene(zconf)
+    classes = zconf.classes
+    seconds, launches = {}, {}
+    with plain_watch() as plain_calls:
+        t = time.perf_counter()
+        head_scale = gp.random_checkpoint(ckpt, False, gp.zero_shot_probe(zconf, device))
+        seconds["hf_build_probe_save"] = time.perf_counter() - t
+        size = sum(f.stat().st_size for f in ckpt.iterdir())
+        cfg = config_from_hf(SegGptConfig.from_pretrained(str(ckpt)))
+        check(cfg == SegGPTConfig(), f"config_from_hf of the HF directory {cfg} is not SegGPTConfig()")
+        t = time.perf_counter()
+        state = load_model_params(ckpt, cfg, device)
+        torch.cuda.synchronize()
+        seconds["port_load"] = time.perf_counter() - t
+        n_params = sum(v.numel() for v in state.values())
+        check(all(torch.isfinite(v).all() for v in state.values()), "the port's load of the HF directory is not finite")
+        del state
+        log(f"golden parity: HF ViT-L saved ({size} bytes, decoder head x{head_scale:g}) and loaded by the port "
+            f"({n_params} parameters) in {seconds['hf_build_probe_save']:.3f} / {seconds['port_load']:.3f} s")
+
+        run_dir, run_launches, steps, evals, seconds["run_training_fp32"] = counted_training(tconf)
+        check_training_run(run_dir, run_launches, steps, evals, {"attn_qkv_rel": 24, "attn_bwd": 24}, {"attn_qkv_rel": 24},
+                           gpt.EPOCHS)
+        launches["run_training_fp32"] = {"train_step": steps[0], "eval_batch": evals[0], "run": run_launches}
+
+        t = time.perf_counter()
+        tmodel = gp.load_oracle(ckpt, device)
+        zs_ref, zs_valid = gp.reference_zero_shot(tmodel, gp.hf_api()[2](), zconf, zscene, device)
+        torch.cuda.synchronize()
+        seconds["oracle_zero_shot"] = time.perf_counter() - t
+        t = time.perf_counter()
+        pb = load_prompt_batch(run_dir / "prompt_batch_tuned.npz")
+        tscene = create_scene(tconf, train=True)
+        mosaics, palette = gpt.predict_mosaics(scene, tscene), gpt.ref_build_palette(len(classes) - 1)
+        tuned_ref, tuned_valid, tuned_margins = gpt.reference_tuned_predict(
+            tmodel, tconf, tscene, mosaics, pb["image"], pb["mask"], palette, device)
+        seconds["oracle_tuned"] = time.perf_counter() - t
+        # the port's model against the oracle's on the tuned inputs: the
+        # largest output difference bounds the decode margins it can flip
+        t = time.perf_counter()
+        port = {"device": device, "port_checkpoint": str(ckpt), "config": cfg}
+        model_err = {dtype: gpt.port_model_error(tmodel, port, tconf, tscene, mosaics, pb, palette, dtype)
+                     for dtype in gp.DTYPES}
+        seconds["model_error"] = time.perf_counter() - t
+        del tmodel
+        torch.cuda.empty_cache()
+        shares = {"zero_shot": gp.class_shares(zs_ref, zs_valid, len(classes)),
+                  "tuned": gp.class_shares(tuned_ref, tuned_valid, len(classes))}
+
+        expect = {"float32": {"attn_qkv_rel": 24}, "bfloat16": with_stages({"attn_qkv_rel": 24, "ln_mlp": 24})}
+        rows, ties = {}, {}
+        for dtype in gp.DTYPES:
+            z = engine_run("zero_shot", scene, work / "zero_shot", dtype, expect[dtype], zscene.crops,
+                           dates[: 1 + GOLDEN_DATES], checkpoint=str(ckpt), rank_compat=True,
+                           n_prompts=zconf.n_prompts, zero_shot_crop_size=zconf.zero_shot_crop_size)
+            p = scene_run(scene, work / "predict", dtype, "vote", 0, expect[dtype], {0: tscene.crops},
+                          dates[: 1 + GOLDEN_DATES], train_run_dir=run_dir, checkpoint=str(ckpt), use_ema=False)
+            seconds[f"zero_shot_{dtype}"], seconds[f"run_predict_{dtype}"] = z["seconds"], p["seconds"]
+            launches[f"zero_shot_{dtype}"] = {k: v // z["batches"] for k, v in z["launches"].items() if v}
+            launches[f"run_predict_{dtype}"] = {k: v // p["batches"] for k, v in p["launches"].items() if v}
+            rows[f"zero_shot_{dtype}"] = gp.compare(zs_ref, {d: z["ids"][(d, "ids")] for d in zs_ref}, len(classes))
+            rows[f"tuned_{dtype}"] = gp.compare(tuned_ref, p["ids"], len(classes))
+            ties[dtype] = {**gpt.near_ties(tuned_ref, p["ids"], tuned_valid, tuned_margins,
+                                           2 * model_err[dtype]["max_abs_err"]), "model_error": model_err[dtype]}
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    worst = {name: gp.worst_iou(r) for name, r in rows.items()}
+    for name, r in rows.items():
+        for row in r:
+            log(f"golden parity {name} {row['date']}: pixel agreement {row['pixel_agreement']:.6f}, IoU "
+                + ", ".join(f"{c} {i:.6f}" for c, i in zip(classes, row["iou"])))
+    log(f"golden parity tuned chain, the pixels that differ from the oracle and their decode margins: {json.dumps(ties)}")
+    log(f"golden parity launches a train step / eval batch / engine batch: {json.dumps(launches)}")
+    log("golden parity: " + json.dumps({"seconds": seconds, "class_shares": shares, "worst_iou": worst,
+                                        "head_scale": head_scale, "plain_calls": sum(plain_calls.values())})
+        + f" ({card})")
+    check(not any(plain_calls.values()), f"plain versions ran in the golden-parity phase: {plain_calls}")
+    for chain, sh in shares.items():
+        check(gp.blind(sh) is None, f"{chain} reference masks leave the gate blind: {gp.blind(sh)}")
+    for name in ("zero_shot_float32", "tuned_float32"):
+        check(worst[name] >= gp.IOU_MIN, f"golden parity {name}: worst per-class IoU {worst[name]} < {gp.IOU_MIN}")
+    return {"seconds": seconds, "launches": launches, "rows": rows, "worst_iou": worst, "class_shares": shares,
+            "head_scale": head_scale, "versions": versions, "near_ties": ties}
+
+
+def golden_entries(kernels: list, gold: dict) -> None:
+    """Phase 22's launches beside the ViT-L entries of the ``kernels`` line:
+    a batch of each engine (fp32 and bf16) and an fp32 train step."""
+    la = gold["launches"]
+    for e in kernels:
+        if e["geometry"] != "vit_l" or e["name"] not in ("attn_qkv_rel", "ln_mlp", "attn_bwd"):
+            continue
+        dt = "float32" if e.get("dtype") == "fp32" else "bfloat16"
+        if e["name"] == "attn_bwd":
+            if dt == "float32":
+                e["launches_golden_parity_train_step"] = la["run_training_fp32"]["train_step"]["attn_bwd"]
+            continue
+        if e["name"] == "attn_qkv_rel" and dt == "float32":
+            e["launches_golden_parity_train_step"] = la["run_training_fp32"]["train_step"]["attn_qkv_rel"]
+        e["launches_golden_parity_per_batch"] = {run: la[f"{run}_{dt}"].get(e["name"], 0) for run in ("zero_shot", "run_predict")}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent))
+    # phase 22's oracle: transformers' SegGpt and its safetensors files; a host
+    # without them fails here, before the long phases
+    try:
+        import safetensors  # noqa: F401
+        from transformers.models.seggpt import SegGptForImageSegmentation  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: the golden-parity phase needs transformers and safetensors: {e}", file=sys.stderr)
+        return 2
     from beach_seg_tpu_torch.config import BeachSegConfig
     from beach_seg_tpu_torch.models.seggpt import SegGPTConfig, build_model
     from beach_seg_tpu_torch.ops import build
@@ -2410,6 +2619,11 @@ def main() -> int:
         sd = phase_superdove(device, root, card)
         sd["seconds"] = time.perf_counter() - t
         log(f"SuperDove ViT-H phase: {sd['seconds']:.3f} s ({card})")
+        # golden parity: the zero-shot and tuned chains against transformers' SegGpt
+        t = time.perf_counter()
+        gold = phase_golden_parity(device, root, dates, card)
+        gold["phase_s"] = time.perf_counter() - t
+        log(f"golden parity phase: {gold['phase_s']:.3f} s ({card})")
 
     kernels = [
         {
@@ -2591,6 +2805,7 @@ def main() -> int:
             if e["name"] == "attn_bwd":
                 e["tp_width"]["max_abs_err_by_output"] = tk["attn_bwd_errs"]
     superdove_entries(kernels, sd)
+    golden_entries(kernels, gold)
     first["attn_packed"]["ms_hd16_bf16"] = ks["packed_ms_hd16"]
     first["attn_bwd"]["ms_hd16_bf16"] = ks["bwd_ms_hd16"]
     for name in ("attn_packed", "attn_bwd", "ln_mlp", "ln_mlp_dx"):
@@ -2617,6 +2832,9 @@ def main() -> int:
         f"collectives replayed a step {two['data=1 model=2']['train_collective_ms']:.3f} / "
         f"{two['data=2 model=1']['train_collective_ms']:.3f} ms (gloo); CLIs train {clis['train_s']:.3f} s, predict "
         f"{clis['predict_s']:.3f} s, compare {clis['compare_s']:.3f} s, pixel_agreement {clis['pixel_agreement']} ({card})")
+    log(f"golden parity ViT-L (transformers {gold['versions']['transformers']}): worst per-class IoU {gold['worst_iou']}, "
+        f"class shares {gold['class_shares']}, seconds {gold['seconds']}, phase {gold['phase_s']:.3f} s ({card})")
+    log(f"golden parity launches: {json.dumps(gold['launches'])}")
     log(f"total: {time.perf_counter() - t_start:.3f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
