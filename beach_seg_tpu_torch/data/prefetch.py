@@ -22,9 +22,13 @@ from concurrent.futures import Future, ThreadPoolExecutor
 from pathlib import Path
 from typing import Any, Callable, Iterable, Iterator
 
+from beach_seg_tpu_torch.utils.profiling import span
+
 
 def prefetch_iterator(it: Iterable, depth: int = 2) -> Iterator:
-    """Background-thread prefetch of any iterator (exceptions re-raised)."""
+    """Background-thread prefetch of any iterator (exceptions re-raised).
+    The consumer's wait for each item (and for the end) is a
+    ``bst.data.wait`` span on the consumer's thread."""
     q: queue.Queue = queue.Queue(maxsize=depth)
     _END = object()
 
@@ -40,7 +44,8 @@ def prefetch_iterator(it: Iterable, depth: int = 2) -> Iterator:
     t = threading.Thread(target=worker, daemon=True)
     t.start()
     while True:
-        item = q.get()
+        with span("bst.data.wait"):
+            item = q.get()
         if item is _END:
             return
         if isinstance(item, tuple) and len(item) == 2 and item[0] == "__error__":

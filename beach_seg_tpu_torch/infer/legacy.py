@@ -56,6 +56,7 @@ from beach_seg_tpu_torch.parallel.distributed import process_index, shared_run_d
 from beach_seg_tpu_torch.parallel.mesh import make_mesh, shard_model
 from beach_seg_tpu_torch.utils.device import device_for_platform, resolve_device
 from beach_seg_tpu_torch.utils.logging import setup_logger
+from beach_seg_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -145,7 +146,7 @@ def run_legacy(conf: LegacyConfig, device=None) -> Path:
     model, _ = zero_shot_model(conf, dev)
     shard_model(model, mesh)
     pp_dev, pm_dev = upload(p_pixels, dev), upload(p_masks, dev)
-    timers = {"mosaic": 0.0, "dispatch": 0.0, "fetch": 0.0, "paste": 0.0}
+    timers = dict.fromkeys(("mosaic", "dispatch", "fetch", "paste"), 0.0)  # kept by the spans
     n_tiles = 0
 
     def drain(sealed) -> None:
@@ -153,23 +154,21 @@ def run_legacy(conf: LegacyConfig, device=None) -> Path:
         and write its per-class outputs; called after the next date's
         batches are queued."""
         date, merged_nodata, metas, host, event = sealed
-        t0 = time.perf_counter()
-        if event is not None:
-            event.synchronize()
-        preds = host.numpy()
-        timers["fetch"] += time.perf_counter() - t0
-        t0 = time.perf_counter()
-        output = np.zeros(scene.out_shape, np.uint8)
-        for (crop, cn), pred in zip(metas, preds):
-            pred = pred.copy()
-            pred[cn.astype(bool)] = 0
-            inner = pred[buffer_px:-buffer_px, buffer_px:-buffer_px]
-            xmin, ymin, xmax, ymax = crop
-            safe_assign_crop(
-                output, inner, ymin + buffer_px, ymax - buffer_px,
-                xmin + buffer_px, xmax - buffer_px, logic="ascending",
-            )
-        timers["paste"] += time.perf_counter() - t0
+        with span("bst.scene.fetch", into=timers):
+            if event is not None:
+                event.synchronize()
+            preds = host.numpy()
+        with span("bst.scene.paste", into=timers):
+            output = np.zeros(scene.out_shape, np.uint8)
+            for (crop, cn), pred in zip(metas, preds):
+                pred = pred.copy()
+                pred[cn.astype(bool)] = 0
+                inner = pred[buffer_px:-buffer_px, buffer_px:-buffer_px]
+                xmin, ymin, xmax, ymax = crop
+                safe_assign_crop(
+                    output, inner, ymin + buffer_px, ymax - buffer_px,
+                    xmin + buffer_px, xmax - buffer_px, logic="ascending",
+                )
         # per-class 1-bit GeoTIFF + shoreline shapefile (ref :199-222)
         for idx, cls in enumerate(conf.classes):
             name = CLASS_EXPORT_NAMES.get(cls)
@@ -187,39 +186,38 @@ def run_legacy(conf: LegacyConfig, device=None) -> Path:
         sealed_prev = None
         merger_it = iter(merger)
         while True:
-            t0 = time.perf_counter()
-            nxt = next(merger_it, None)
-            timers["mosaic"] += time.perf_counter() - t0
+            with span("bst.scene.mosaic", into=timers):
+                nxt = next(merger_it, None)
             if nxt is None:
                 break
             date, (merged_img, merged_nodata) = nxt
 
-            queries, metas = [], []
-            for crop in scene.crops:
-                ci, cn, _ = crop_tif(crop, merged_img, merged_nodata, None, conf.crop_size)
-                if np.all(cn):
+            with span("bst.scene.date"):
+                queries, metas = [], []
+                for crop in scene.crops:
+                    ci, cn, _ = crop_tif(crop, merged_img, merged_nodata, None, conf.crop_size)
+                    if np.all(cn):
+                        continue
+                    queries.append(preprocess_image_u8(ci, INPT))
+                    metas.append((crop, cn))
+                if not queries:
                     continue
-                queries.append(preprocess_image_u8(ci, INPT))
-                metas.append((crop, cn))
-            if not queries:
-                continue
-            b = max(1, conf.batch_size)
-            n_tiles += len(queries)
-            results = []
-            for start in range(0, len(queries), b):
-                chunk = queries[start : start + b]
-                batch_q = np.stack(chunk + [chunk[-1]] * (b - len(chunk)))  # one shape for every batch
-                t0 = time.perf_counter()
-                ids = data_sharded_call(
-                    lambda q: legacy_batch(model, q, pp_dev, pm_dev, conf.crop_size, num_classes),
-                    (upload(batch_q, dev),), (True,), mesh,
-                )
-                results.append(ids[: len(chunk)])
-                timers["dispatch"] += time.perf_counter() - t0
-            if not writer:
-                continue
-            dcat = torch.cat(results) if len(results) > 1 else results[0]
-            sealed = (date, merged_nodata, metas, *copy_to_host(dcat))
+                b = max(1, conf.batch_size)
+                n_tiles += len(queries)
+                results = []
+                for start in range(0, len(queries), b):
+                    chunk = queries[start : start + b]
+                    batch_q = np.stack(chunk + [chunk[-1]] * (b - len(chunk)))  # one shape for every batch
+                    with span("bst.scene.dispatch", into=timers):
+                        ids = data_sharded_call(
+                            lambda q: legacy_batch(model, q, pp_dev, pm_dev, conf.crop_size, num_classes),
+                            (upload(batch_q, dev),), (True,), mesh,
+                        )
+                        results.append(ids[: len(chunk)])
+                if not writer:
+                    continue
+                dcat = torch.cat(results) if len(results) > 1 else results[0]
+                sealed = (date, merged_nodata, metas, *copy_to_host(dcat))
             # this date's work is queued — now merge and write the previous date
             if sealed_prev is not None:
                 drain(sealed_prev)

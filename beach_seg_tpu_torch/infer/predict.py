@@ -52,6 +52,7 @@ from beach_seg_tpu_torch.train.prompt_tuner import PromptTuner
 from beach_seg_tpu_torch.utils.confix import merge_yaml_into
 from beach_seg_tpu_torch.utils.device import device_for_platform, resolve_device
 from beach_seg_tpu_torch.utils.logging import setup_logger
+from beach_seg_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -211,7 +212,7 @@ def run_predict(pred_conf: PredictionConfig, device=None) -> Path:
 
         t_setup = time.perf_counter()
         n_tiles = 0
-        t_dispatch = t_mosaic = 0.0
+        timers = dict.fromkeys(("mosaic", "dispatch", "fetch", "paste"), 0.0)
         pending: list[tuple[list, torch.Tensor, torch.cuda.Event | None]] = []  # per date
         date_batches: list = []
         date_results: list = []
@@ -226,46 +227,45 @@ def run_predict(pred_conf: PredictionConfig, device=None) -> Path:
             date_batches.clear()
             date_results.clear()
 
-        t_mark = time.perf_counter()
-        for date, (merged_img, merged_nodata) in merger:
-            t_mosaic += time.perf_counter() - t_mark
-            date_scene = dataclasses.replace(
-                train_scene, date_merged_imgs={date: (merged_img, merged_nodata)}, date_masks={}
-            )
-            dataset = BeachSegDataset(date_scene, conf, raw=True)
-            for batch in iterate_batches(dataset, conf.batch_size, workers=num_workers(conf)):
-                if not batch["valid"].any():
-                    continue
-                # upload only the raw uint8 crops and their indices
-                dev_batch = {k: upload(batch[k], dev) for k in ("image_u8", "crop_idx")}
-                t0 = time.perf_counter()
-                result = data_sharded_call(step, (dev_batch["image_u8"], dev_batch["crop_idx"]), (True, True), mesh)
-                t_dispatch += time.perf_counter() - t0
-                n_tiles += int(batch["valid"].sum())
-                if writer:
-                    date_batches.append(batch)
-                    date_results.append(result)
-            seal_date()
-            t_mark = time.perf_counter()
+        dates = iter(merger)
+        while True:
+            with span("bst.scene.mosaic", into=timers):
+                nxt = next(dates, None)
+            if nxt is None:
+                break
+            date, (merged_img, merged_nodata) = nxt
+            with span("bst.scene.date"):
+                date_scene = dataclasses.replace(
+                    train_scene, date_merged_imgs={date: (merged_img, merged_nodata)}, date_masks={}
+                )
+                dataset = BeachSegDataset(date_scene, conf, raw=True)
+                for batch in iterate_batches(dataset, conf.batch_size, workers=num_workers(conf)):
+                    if not batch["valid"].any():
+                        continue
+                    # upload only the raw uint8 crops and their indices
+                    dev_batch = {k: upload(batch[k], dev) for k in ("image_u8", "crop_idx")}
+                    with span("bst.scene.dispatch", into=timers):
+                        result = data_sharded_call(step, (dev_batch["image_u8"], dev_batch["crop_idx"]), (True, True), mesh)
+                    n_tiles += int(batch["valid"].sum())
+                    if writer:
+                        date_batches.append(batch)
+                        date_results.append(result)
+                seal_date()
         # drain: each date's copy was started when the date was sealed; only
         # the last date's compute tail is exposed here
-        t_fetch = t_paste = 0.0
         for batches, host, event in pending:
-            t0 = time.perf_counter()
-            if event is not None:
-                event.synchronize()
-            res = host.numpy()
-            t_fetch += time.perf_counter() - t0
-            t0 = time.perf_counter()
-            ofs = 0
-            for b in batches:
-                n = len(b["valid"])
-                paste(b, res[ofs : ofs + n])
-                ofs += n
-            t_paste += time.perf_counter() - t0
+            with span("bst.scene.fetch", into=timers):
+                if event is not None:
+                    event.synchronize()
+                res = host.numpy()
+            with span("bst.scene.paste", into=timers):
+                ofs = 0
+                for b in batches:
+                    n = len(b["valid"])
+                    paste(b, res[ofs : ofs + n])
+                    ofs += n
         t_stream = time.perf_counter()
 
-    timers = {"mosaic": t_mosaic, "dispatch": t_dispatch, "fetch": t_fetch, "paste": t_paste}
     if writer:
         write_timings(predict_dir, t_setup - t_start, t_stream - t_setup, timers, n_tiles)
     return predict_dir

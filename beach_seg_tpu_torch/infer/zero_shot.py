@@ -54,6 +54,7 @@ from beach_seg_tpu_torch.parallel.distributed import process_index, shared_run_d
 from beach_seg_tpu_torch.parallel.mesh import make_mesh, shard_model
 from beach_seg_tpu_torch.utils.device import device_for_platform, resolve_device
 from beach_seg_tpu_torch.utils.logging import setup_logger
+from beach_seg_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -188,39 +189,36 @@ def run_zero_shot(conf: PredConfig, device=None) -> Path:
     pm = upload(np.stack(prompt_masks_rgb), dev)
     q_batch = max(1, conf.batch_size)
     best = best_crop_idxes[: conf.n_prompts]
-    # phase timers (same schema as infer/predict.py timings.json)
-    timers = {"mosaic": 0.0, "dispatch": 0.0, "fetch": 0.0, "paste": 0.0}
+    # phase timers (same schema as infer/predict.py timings.json), kept by the spans
+    timers = dict.fromkeys(("mosaic", "dispatch", "fetch", "paste"), 0.0)
     n_tiles = 0
 
     def drain(sealed) -> None:
         """Wait for a sealed date's ids and paste/export its outputs; called
         after the next date's batches are queued."""
         date, merged_img, merged_nodata, done, host, event = sealed
-        with VoteAccumulator(
-            scene.out_shape, predict_dir, scene.out_transform, scene.crs,
-            conf.classes, export_lines=True,
-        ) as acc:
-            t0 = time.perf_counter()
+        with span("bst.scene.fetch", into=timers):
             if event is not None:
                 event.synchronize()
             preds = host.numpy().astype(np.int32)
-            timers["fetch"] += time.perf_counter() - t0
-            t0 = time.perf_counter()
+        # the accumulator writes the date's outputs as it closes: part of the paste
+        with span("bst.scene.paste", into=timers), VoteAccumulator(
+            scene.out_shape, predict_dir, scene.out_transform, scene.crs,
+            conf.classes, export_lines=True,
+        ) as acc:
             for crop_idx, pred in zip(done, preds):
                 _, crop_nodata, _ = crop_tif(crops[crop_idx], merged_img, merged_nodata, None, crop_size)
                 pred = pred.copy()
                 pred[crop_nodata.astype(bool)] = 0  # ref :303
                 acc.update_ids(date, crops[crop_idx], pred, date_img=merged_img, date_nodata=merged_nodata)
-        timers["paste"] += time.perf_counter() - t0
 
     with torch.inference_mode():
         t_setup = time.perf_counter()
         sealed_prev = None
         merger_it = iter(merger)
         while True:
-            t0 = time.perf_counter()
-            nxt = next(merger_it, None)
-            timers["mosaic"] += time.perf_counter() - t0
+            with span("bst.scene.mosaic", into=timers):
+                nxt = next(merger_it, None)
             if nxt is None:
                 break
             date, (merged_img, merged_nodata) = nxt
@@ -235,7 +233,6 @@ def run_zero_shot(conf: PredConfig, device=None) -> Path:
                 nonlocal n_tiles
                 if not pending:
                     return
-                t0 = time.perf_counter()
                 n = len(pending)
                 n_tiles += n
                 queries = np.stack([p[1] for p in pending])
@@ -251,25 +248,26 @@ def run_zero_shot(conf: PredConfig, device=None) -> Path:
                 results.append(ids[:n])
                 done.extend(p[0] for p in pending)
                 pending.clear()
-                timers["dispatch"] += time.perf_counter() - t0
 
-            for crop_idx, crop in enumerate(crops):
-                crop_img, crop_nodata, _ = crop_tif(crop, merged_img, merged_nodata, None, crop_size)
-                if np.all(crop_nodata):
-                    continue
-                if crop_idx in best:
-                    crop_idxes = best.tolist()
-                else:
-                    crop_idxes = [crop_idx] + best[: conf.n_prompts - 1].tolist()
-                pending.append((crop_idx, preprocess_image_u8(crop_img, INPT), np.asarray(crop_idxes, np.int64)))
-                if len(pending) == q_batch:
+            with span("bst.scene.date"):
+                for crop_idx, crop in enumerate(crops):
+                    crop_img, crop_nodata, _ = crop_tif(crop, merged_img, merged_nodata, None, crop_size)
+                    if np.all(crop_nodata):
+                        continue
+                    if crop_idx in best:
+                        crop_idxes = best.tolist()
+                    else:
+                        crop_idxes = [crop_idx] + best[: conf.n_prompts - 1].tolist()
+                    pending.append((crop_idx, preprocess_image_u8(crop_img, INPT), np.asarray(crop_idxes, np.int64)))
+                    if len(pending) == q_batch:
+                        with span("bst.scene.dispatch", into=timers):
+                            dispatch()
+                with span("bst.scene.dispatch", into=timers):
                     dispatch()
-            dispatch()
-
-            sealed = None
-            if results and writer:
-                dcat = torch.cat(results) if len(results) > 1 else results[0]
-                sealed = (date, merged_img, merged_nodata, done, *copy_to_host(dcat))
+                sealed = None
+                if results and writer:
+                    dcat = torch.cat(results) if len(results) > 1 else results[0]
+                    sealed = (date, merged_img, merged_nodata, done, *copy_to_host(dcat))
             # this date's work is queued — now paste the previous date
             if sealed_prev is not None:
                 drain(sealed_prev)

@@ -51,6 +51,7 @@ from beach_seg_tpu_torch.ops.sharding import (
     reduce_from_model,
 )
 from beach_seg_tpu_torch.utils.device import resolve_device
+from beach_seg_tpu_torch.utils.profiling import host_sync, span
 
 
 def _param(*shape: int) -> nn.Parameter:
@@ -300,16 +301,18 @@ class Block(nn.Module):
         on the attention output, with ``streams`` the stream count the batch
         still carries (2 up to and including ``merge_index``)."""
         rate = self.drop_path_rate
-        attn_out = self.attention(self.layernorm_before(x))
-        if feature_ensemble:
-            attn_out = ensemble_mean(attn_out, ensemble_cond, ensemble_groups, streams)
-        x = x + drop_path(attn_out, rate, drop_masks[0])
-        if self.compute_dtype == torch.bfloat16:
-            ln = self.layernorm_after
-            mlp_out = self.mlp(x, ln_params=(ln.scale, ln.bias))
-        else:
-            mlp_out = self.mlp(self.layernorm_after(x))
-        return x + drop_path(mlp_out, rate, drop_masks[1])
+        with span("bst.seggpt.attn"):
+            attn_out = self.attention(self.layernorm_before(x))
+            if feature_ensemble:
+                attn_out = ensemble_mean(attn_out, ensemble_cond, ensemble_groups, streams)
+            x = x + drop_path(attn_out, rate, drop_masks[0])
+        with span("bst.seggpt.mlp"):
+            if self.compute_dtype == torch.bfloat16:
+                ln = self.layernorm_after
+                mlp_out = self.mlp(x, ln_params=(ln.scale, ln.bias))
+            else:
+                mlp_out = self.mlp(self.layernorm_after(x))
+            return x + drop_path(mlp_out, rate, drop_masks[1])
 
 
 class Encoder(nn.Module):
@@ -391,7 +394,9 @@ def default_bool_masked_pos(config: SegGPTConfig, batch: int, device=None) -> to
     """Mask the bottom (query) half of the canvas (HF :926-934)."""
     n = config.num_patches
     m = torch.cat([torch.zeros(n // 2, dtype=torch.bool), torch.ones(n - n // 2, dtype=torch.bool)])
-    return m.to(device)[None, :].expand(batch, n)
+    with host_sync(device):
+        m = m.to(device)
+    return m[None, :].expand(batch, n)
 
 
 def seggpt_loss(
@@ -458,30 +463,35 @@ class SegGPT(nn.Module):
         layer (:func:`ensemble_mean`): the batch holds ``ensemble_groups``
         ensembles, rows group-major."""
         cfg, dt = self.config, self.compute_dtype
-        pixel_canvas = torch.cat([prompt_pixel_values, pixel_values], dim=1)
-        mask_canvas = torch.cat([prompt_masks, labels if labels is not None else prompt_masks], dim=1)
-        if bool_masked_pos is None:
-            bool_masked_pos = default_bool_masked_pos(cfg, pixel_canvas.shape[0], pixel_canvas.device)
-        if deterministic:
-            drop_masks = None
-        elif drop_masks is None and cfg.drop_path_rate > 0.0:
-            raise ValueError("drop-path (deterministic=False) needs drop_masks")
-        x = self.embeddings(pixel_canvas.to(dt), mask_canvas.to(dt), bool_masked_pos, embedding_type)
-        feats = torch.cat(self.encoder(x, drop_masks, feature_ensemble, ensemble_groups), dim=-1)
-        if decode_query_only:
-            # decode the query patch rows plus a one-row halo for the 3×3
-            # conv, then drop the halo: equal to the bottom half of a full
-            # decode; the prompt half is zeros
-            half = feats.shape[1] // 2
-            p = cfg.patch_size
-            out = self.decoder(feats[:, half - 1 :].contiguous()).float()  # contiguous: one GEMM, not a batched one
-            top = out.new_zeros((out.shape[0], half * p, out.shape[2], 3))
-            pred_masks = torch.cat([top, out[:, p:]], dim=1)
-        else:
-            pred_masks = self.decoder(feats).float()
-        loss = None
-        if labels is not None:
-            loss = seggpt_loss(cfg, prompt_masks, pred_masks, labels, bool_masked_pos, mesh=self.mesh)
+        with span("bst.seggpt"):
+            with span("bst.seggpt.embed"):
+                pixel_canvas = torch.cat([prompt_pixel_values, pixel_values], dim=1)
+                mask_canvas = torch.cat([prompt_masks, labels if labels is not None else prompt_masks], dim=1)
+                if bool_masked_pos is None:
+                    bool_masked_pos = default_bool_masked_pos(cfg, pixel_canvas.shape[0], pixel_canvas.device)
+                if deterministic:
+                    drop_masks = None
+                elif drop_masks is None and cfg.drop_path_rate > 0.0:
+                    raise ValueError("drop-path (deterministic=False) needs drop_masks")
+                x = self.embeddings(pixel_canvas.to(dt), mask_canvas.to(dt), bool_masked_pos, embedding_type)
+            feats = self.encoder(x, drop_masks, feature_ensemble, ensemble_groups)
+            with span("bst.seggpt.decoder"):
+                feats = torch.cat(feats, dim=-1)
+                if decode_query_only:
+                    # decode the query patch rows plus a one-row halo for the 3×3
+                    # conv, then drop the halo: equal to the bottom half of a full
+                    # decode; the prompt half is zeros
+                    half = feats.shape[1] // 2
+                    p = cfg.patch_size
+                    out = self.decoder(feats[:, half - 1 :].contiguous()).float()  # contiguous: one GEMM, not a batched one
+                    top = out.new_zeros((out.shape[0], half * p, out.shape[2], 3))
+                    pred_masks = torch.cat([top, out[:, p:]], dim=1)
+                else:
+                    pred_masks = self.decoder(feats).float()
+            loss = None
+            if labels is not None:
+                with span("bst.seggpt.loss"):
+                    loss = seggpt_loss(cfg, prompt_masks, pred_masks, labels, bool_masked_pos, mesh=self.mesh)
         return {"pred_masks": pred_masks, "loss": loss}
 
     def sample_drop_masks(self, generator: torch.Generator, batch: int) -> list:

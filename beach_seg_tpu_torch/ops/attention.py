@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from beach_seg_tpu_torch.ops.resize import resize_1d
+from beach_seg_tpu_torch.utils.profiling import host_sync
 
 
 def get_rel_pos(q_size: int, k_size: int, rel_pos: torch.Tensor) -> torch.Tensor:
@@ -46,7 +47,10 @@ def get_rel_pos(q_size: int, k_size: int, rel_pos: torch.Tensor) -> torch.Tensor
     q_coords = torch.arange(q_size, dtype=torch.float32)[:, None] * max(k_size / q_size, 1.0)
     k_coords = torch.arange(k_size, dtype=torch.float32)[None, :] * max(q_size / k_size, 1.0)
     rel = (q_coords - k_coords) + (k_size - 1) * max(q_size / k_size, 1.0)
-    return rel_pos[rel.to(torch.int64).to(rel_pos.device)]
+    idx = rel.to(torch.int64)
+    with host_sync(rel_pos.device):
+        idx = idx.to(rel_pos.device)
+    return rel_pos[idx]
 
 
 def rel_pos_terms(

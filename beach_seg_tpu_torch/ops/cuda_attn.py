@@ -57,6 +57,7 @@ from beach_seg_tpu_torch.ops.attention import (
     unpack_rel_slots,
 )
 from beach_seg_tpu_torch.utils.env import env_flag
+from beach_seg_tpu_torch.utils.profiling import spanned
 
 SOFTMAX_MODES = ("stable", "clamp", "fast")
 
@@ -158,6 +159,7 @@ def attn_qkv_rel_plain(
     return out.to(dt).transpose(1, 2).reshape(b, s, c)
 
 
+@spanned("bst.kernel.attn_qkv_rel")
 def attn_qkv_rel(
     qkv4: torch.Tensor,
     qkv_bias: torch.Tensor,
@@ -233,6 +235,7 @@ def _merge_qkv_grads(dq, dk, dv, b: int, num_heads: int, dt: torch.dtype) -> tor
     )
 
 
+@spanned("bst.kernel.attn_packed")
 def attn_packed(q, k, v, rel_h, rel_w, scale: float, num_heads: int) -> torch.Tensor:
     """Same contract as ``ops.attention.attention_packed_plain``: q/k/v
     (B·H, S, D), rel_h (B·H, S, Hk), rel_w (B·H, S, Wk) → (B, S, H·D). CUDA
@@ -279,6 +282,7 @@ def attn_packed(q, k, v, rel_h, rel_w, scale: float, num_heads: int) -> torch.Te
 attn_packed.launches = 0
 
 
+@spanned("bst.kernel.attn_bwd")
 def attn_bwd(q, k, v, rel_h, rel_w, g, scale: float) -> tuple[torch.Tensor, ...]:
     """Same contract as ``ops.attention.attention_bwd_plain``. CUDA tensors
     launch the kernel (all six inputs bf16, or all fp32; head_dim 8, 16, 64
@@ -329,6 +333,7 @@ def attn_bwd(q, k, v, rel_h, rel_w, g, scale: float) -> tuple[torch.Tensor, ...]
 attn_bwd.launches = 0
 
 
+@spanned("bst.kernel.attn_fused")
 def attn_fused(q, k, v, rel_h, rel_w, scale: float) -> torch.Tensor:
     """Same contract as ``ops.attention.attention_fused_plain``: q/k/v
     (B·H, S, D), rel_h (B·H, S, Hk), rel_w (B·H, S, Wk) → (B·H, S, D). CUDA
@@ -368,6 +373,7 @@ def attn_fused(q, k, v, rel_h, rel_w, scale: float) -> torch.Tensor:
 attn_fused.launches = 0
 
 
+@spanned("bst.kernel.attn_qkv")
 def attn_qkv(qkv, rel_h64, rel_w64, scale: float, hk: int, wk: int, num_heads: int) -> torch.Tensor:
     """Same contract as ``ops.attention.attention_qkv_plain``: qkv (B, S, 3C),
     rel_h64 / rel_w64 (B, S, nH·64) → (B, S, C). CUDA tensors launch the

@@ -32,6 +32,7 @@ import ctypes
 import torch
 
 from beach_seg_tpu_torch.ops import build
+from beach_seg_tpu_torch.utils.profiling import spanned
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -330,6 +331,7 @@ def _narrow(lib, entry, x, ln_scale, ln_bias, w1, b1, w2, last, eps, approx):
     return out
 
 
+@spanned("bst.kernel.ln_mlp")
 def ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float, approx: bool) -> torch.Tensor:
     """LN → Lin1 → GELU → Lin2 on (..., C) input; returns the MLP output (no
     residual). CUDA tensors launch the kernels (bf16 x and weights, fp32 LN
@@ -353,6 +355,7 @@ def ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float, approx: bool) -> to
 ln_mlp.launches = 0
 
 
+@spanned("bst.kernel.ln_mlp_dx")
 def ln_mlp_dx(x, ln_scale, ln_bias, w1, b1, w2, g, eps: float, approx: bool) -> torch.Tensor:
     """Same contract as :func:`ln_mlp_dx_plain`. CUDA tensors launch the
     kernels (the forward's dtypes and widths, g like x): four stage kernels,

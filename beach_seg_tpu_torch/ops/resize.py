@@ -22,6 +22,8 @@ import functools
 import numpy as np
 import torch
 
+from beach_seg_tpu_torch.utils.profiling import tensor_from_host
+
 
 def _cubic(x: np.ndarray, a: float) -> np.ndarray:
     ax = np.abs(x)
@@ -149,7 +151,7 @@ def _nearest_matrix(
 
 
 def _matrix(in_size: int, out_size: int, method: str, device: torch.device, **kw) -> torch.Tensor:
-    return torch.tensor(resize_matrix(in_size, out_size, method, **kw), device=device)
+    return tensor_from_host(resize_matrix(in_size, out_size, method, **kw), device=device)
 
 
 def nearest_indices(in_size: int, out_size: int, method: str = "nearest_pil") -> np.ndarray:

@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from beach_seg_tpu_torch.utils.profiling import host_sync
+
 
 def confusion_update(pred: torch.Tensor, target: torch.Tensor, num_classes: int, ignore_index: int | None = 0) -> torch.Tensor:
     """(…) int preds/targets → (C, C) int32 confusion matrix [target, pred]."""
@@ -15,8 +17,10 @@ def confusion_update(pred: torch.Tensor, target: torch.Tensor, num_classes: int,
     t = target.reshape(-1).to(torch.int64)
     idx = t * num_classes + p
     if ignore_index is not None:
-        idx = idx[t != ignore_index]
-    counts = torch.bincount(idx, minlength=num_classes * num_classes)
+        with host_sync(idx.device):  # a boolean index waits for its count
+            idx = idx[t != ignore_index]
+    with host_sync(idx.device):  # bincount waits for the ids' range
+        counts = torch.bincount(idx, minlength=num_classes * num_classes)
     return counts.to(torch.int32).reshape(num_classes, num_classes)
 
 

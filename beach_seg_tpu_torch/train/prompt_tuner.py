@@ -54,6 +54,7 @@ from beach_seg_tpu_torch.transforms import (
     train_augment,
 )
 from beach_seg_tpu_torch.utils.device import resolve_device
+from beach_seg_tpu_torch.utils.profiling import host_sync, span, spanned, tensor_from_host
 
 
 def _smooth_l1(diff: torch.Tensor, beta: float) -> torch.Tensor:
@@ -115,8 +116,8 @@ def dice_bce_loss(pred_masks, palette_norm, labels, yesdata, num_classes: int, s
     if sample_weight is not None:
         keep = keep * sample_weight.float()[:, None, None, None]
     eps = 1e-6
-    lo = torch.tensor(eps, device=probs.device)
-    hi = torch.tensor(1 - eps, device=probs.device)
+    lo = tensor_from_host(eps, device=probs.device)
+    hi = tensor_from_host(1 - eps, device=probs.device)
     probs_c = torch.minimum(torch.maximum(probs, lo), hi)  # jnp.clip
     bce = -(onehot * torch.log(probs_c) + (1 - onehot) * torch.log(1 - probs_c))
     bce = data_sum((bce * keep).sum(), mesh) / (data_sum(keep.sum(), mesh) * num_classes).clamp(min=1.0)
@@ -134,7 +135,9 @@ def check_finite(step: int, **tensors: torch.Tensor) -> None:
     first of ``tensors`` that holds a NaN or an infinity (the counterpart of
     JAX's ``jax_debug_nans``; each check waits for the device)."""
     for name, t in tensors.items():
-        if not bool(torch.isfinite(t).all()):
+        with host_sync(t.device):
+            finite = bool(torch.isfinite(t).all())
+        if not finite:
             raise FloatingPointError(f"debug_nans: train step {step}: {name} is not finite")
 
 
@@ -193,7 +196,7 @@ class AdamW:
         mu = (1 - b1) * g + b1 * state["mu"]
         nu = (1 - b2) * (g * g) + b2 * state["nu"]
         count = state["count"] + 1
-        f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=g.device)  # noqa: E731
+        f32 = lambda x: tensor_from_host(x, dtype=torch.float32, device=g.device)  # noqa: E731
         mu_hat = mu / f32(1 - _pow_f32(b1, count))
         nu_hat = nu / f32(1 - _pow_f32(b2, count))
         u = mu_hat / (torch.sqrt(nu_hat) + self.eps) + self.weight_decay * params
@@ -248,7 +251,8 @@ class PromptTuner:
         return len(self.conf.classes)
 
     def _tensor(self, x) -> torch.Tensor:
-        return torch.as_tensor(x, device=self.device)
+        with host_sync(self.device, x):
+            return torch.as_tensor(x, device=self.device)
 
     def _global_rows(self, b: int) -> tuple[int, int]:
         """(global batch, first row of this rank's) for a local batch of ``b``."""
@@ -326,27 +330,30 @@ class PromptTuner:
         axis ``draws`` are this rank's rows and the gradient is this rank's
         share of the global one."""
         conf, model = self.conf, self.model
-        image = self._tensor(batch["image"]).float()
-        b = image.shape[0]
-        valid = self._tensor(batch["valid"]) if "valid" in batch else None
-        palette = draws["palette"]
-        palette_norm = normalize_palette(palette)
-        q_img, q_mask, _ = train_augment(image, self._tensor(batch["mask"]), self._tensor(batch["nodata"]), self.aug, draws=draws["aug_q"])
-        if valid is not None:
-            # padded rows → all nodata (class 0): out of the loss and the confusion update
-            q_mask = torch.where(valid[:, None, None], q_mask, torch.zeros_like(q_mask))
-        labels_color = normalize_imagenet(apply_palette(palette, q_mask))
-        idx = draws["prompt_idx"].to(torch.int64)
-        p_mask = self._tensor(prompt_masks).index_select(0, idx)
-        p_nod = self._tensor(prompt_nodata).index_select(0, idx)
+        # the query's tensors do not require grad, so enable_grad builds no graph for them
         with torch.enable_grad():
-            leaf = prompt_pixels.detach().requires_grad_(True)
-            p_img = leaf.index_select(0, idx)
-            if conf.prompt_dropout > 0.0:
-                # legacy trainer's prompt dropout (ref src/old/train.py:141-143)
-                p_img = torch.where(draws["prompt_drop"][:, None, None, None], torch.zeros_like(p_img), p_img)
-            p_img_aug, p_mask_aug, _ = train_augment(p_img, p_mask, p_nod, self.aug, draws=draws["aug_p"])
-            p_color = normalize_imagenet(apply_palette(palette, p_mask_aug))
+            with span("bst.train.augment"):
+                image = self._tensor(batch["image"]).float()
+                b = image.shape[0]
+                valid = self._tensor(batch["valid"]) if "valid" in batch else None
+                palette = draws["palette"]
+                palette_norm = normalize_palette(palette)
+                q_img, q_mask, _ = train_augment(image, self._tensor(batch["mask"]), self._tensor(batch["nodata"]), self.aug,
+                                                 draws=draws["aug_q"])
+                if valid is not None:
+                    # padded rows → all nodata (class 0): out of the loss and the confusion update
+                    q_mask = torch.where(valid[:, None, None], q_mask, torch.zeros_like(q_mask))
+                labels_color = normalize_imagenet(apply_palette(palette, q_mask))
+                idx = draws["prompt_idx"].to(torch.int64)
+                p_mask = self._tensor(prompt_masks).index_select(0, idx)
+                p_nod = self._tensor(prompt_nodata).index_select(0, idx)
+                leaf = prompt_pixels.detach().requires_grad_(True)
+                p_img = leaf.index_select(0, idx)
+                if conf.prompt_dropout > 0.0:
+                    # legacy trainer's prompt dropout (ref src/old/train.py:141-143)
+                    p_img = torch.where(draws["prompt_drop"][:, None, None, None], torch.zeros_like(p_img), p_img)
+                p_img_aug, p_mask_aug, _ = train_augment(p_img, p_mask, p_nod, self.aug, draws=draws["aug_p"])
+                p_color = normalize_imagenet(apply_palette(palette, p_mask_aug))
             out = model(
                 pixel_values=q_img, prompt_pixel_values=p_img_aug, prompt_masks=p_color, labels=labels_color,
                 embedding_type="instance", deterministic=False, decode_query_only=True,
@@ -368,9 +375,11 @@ class PromptTuner:
                                                    sample_weight=valid, mesh=self.mesh)
             else:
                 loss = prompt_tune_loss(pred_masks, labels_color, q_mask != 0, conf.loss_beta, mesh=self.mesh)
-            (grads,) = torch.autograd.grad(loss, leaf)
+            with span("bst.train.backward"):
+                (grads,) = torch.autograd.grad(loss, leaf)
         return loss.detach(), grads, pred_masks.detach(), q_mask, palette_norm
 
+    @spanned("bst.train_step")
     def train_step(self, state: PromptState, prompt_masks, prompt_nodata, batch, generator=None, draws=None):
         """One prompt-tuning step (ref src/model.py:233-269) → (new state,
         {"loss", "confusion"}). ``state`` is updated in place and returned.
@@ -380,29 +389,33 @@ class PromptTuner:
         With ``conf.debug_nans`` the loss, the prompt gradient and the updated
         pixels must be finite, else ``FloatingPointError`` (the state is left
         as it was); without it nothing is checked and nothing synchronizes."""
-        draws = self.step_draws(batch, state.prompt_pixels.shape[0], generator, draws)
-        draws = self.local_draws(draws, batch["mask"].shape[0])
+        with span("bst.train.draws"):
+            draws = self.step_draws(batch, state.prompt_pixels.shape[0], generator, draws)
+            draws = self.local_draws(draws, batch["mask"].shape[0])
         loss, grads, pred_masks, q_mask, palette_norm = self.loss_and_grad(
             state.prompt_pixels, prompt_masks, prompt_nodata, batch, draws
         )
         with torch.no_grad():
-            grads = all_reduce_data(grads, self.mesh)
-            pixels = state.prompt_pixels
-            updates, opt_state = self.optimizer.update(grads, state.opt_state, pixels)
-            pixels = pixels + updates
-            if self.conf.debug_nans:
-                check_finite(state.step, loss=loss, prompt_gradient=grads, prompt_pixels=pixels)
-            state.opt_state, state.prompt_pixels = opt_state, pixels
-            state.ema_pixels = self.conf.ema_alpha * state.ema_pixels + (1.0 - self.conf.ema_alpha) * state.prompt_pixels
-            state.step += 1
-            h = pred_masks.shape[1] // 2
-            pred_ids = decode_by_palette(pred_masks[:, h:], palette_norm)
-            cm = all_reduce_data(confusion_update(pred_ids, q_mask, self.num_classes), self.mesh)
+            with span("bst.train.optimizer"):
+                grads = all_reduce_data(grads, self.mesh)
+                pixels = state.prompt_pixels
+                updates, opt_state = self.optimizer.update(grads, state.opt_state, pixels)
+                pixels = pixels + updates
+                if self.conf.debug_nans:
+                    check_finite(state.step, loss=loss, prompt_gradient=grads, prompt_pixels=pixels)
+                state.opt_state, state.prompt_pixels = opt_state, pixels
+                state.ema_pixels = self.conf.ema_alpha * state.ema_pixels + (1.0 - self.conf.ema_alpha) * state.prompt_pixels
+                state.step += 1
+            with span("bst.train.confusion"):
+                h = pred_masks.shape[1] // 2
+                pred_ids = decode_by_palette(pred_masks[:, h:], palette_norm)
+                cm = all_reduce_data(confusion_update(pred_ids, q_mask, self.num_classes), self.mesh)
         return state, {"loss": loss, "confusion": cm}
 
     # ----------------------------------------------------------------- eval
 
     @torch.inference_mode()
+    @spanned("bst.eval_step")
     def eval_step(self, prompt_pixels, prompt_masks, prompt_nodata, batch, palette=None, generator=None):
         """Validation (ref src/model.py:271-308): eval augmentation, prompt =
         the sample's own crop, a random palette (``palette`` (B, N, 3) uint8,
@@ -465,19 +478,20 @@ class PromptTuner:
         fp32, normalized palette (B, N, 3)). Prompt = the tile's own crop
         index; ``palette`` (B, N, 3) uint8, else the Painter palette."""
         conf = self.conf
-        q_img = self._query_pixels(batch)
-        b = q_img.shape[0]
-        if palette is None:
-            palette = self._tensor(build_palette(self.num_classes - 1))[None].expand(b, self.num_classes, 3)
-        palette = self._tensor(palette)
-        palette_norm = normalize_palette(palette)
+        with span("bst.predict.inputs"):
+            q_img = self._query_pixels(batch)
+            b = q_img.shape[0]
+            if palette is None:
+                palette = self._tensor(build_palette(self.num_classes - 1))[None].expand(b, self.num_classes, 3)
+            palette = self._tensor(palette)
+            palette_norm = normalize_palette(palette)
 
-        idx = self._tensor(batch["crop_idx"]).to(torch.int64)
-        p_img = self._tensor(prompt_pixels).index_select(0, idx)
-        p_mask = self._tensor(prompt_masks).index_select(0, idx)
-        p_nod = self._tensor(prompt_nodata).index_select(0, idx)
-        p_img_aug, p_mask_aug, _ = eval_augment(p_img, p_mask, p_nod, conf.inpt_size)
-        p_color = normalize_imagenet(apply_palette(palette, p_mask_aug))
+            idx = self._tensor(batch["crop_idx"]).to(torch.int64)
+            p_img = self._tensor(prompt_pixels).index_select(0, idx)
+            p_mask = self._tensor(prompt_masks).index_select(0, idx)
+            p_nod = self._tensor(prompt_nodata).index_select(0, idx)
+            p_img_aug, p_mask_aug, _ = eval_augment(p_img, p_mask, p_nod, conf.inpt_size)
+            p_color = normalize_imagenet(apply_palette(palette, p_mask_aug))
 
         out = self.model(
             pixel_values=q_img,
@@ -489,6 +503,7 @@ class PromptTuner:
         return out["pred_masks"], palette_norm
 
     @torch.inference_mode()
+    @spanned("bst.predict_step")
     def predict_step(self, prompt_pixels, prompt_masks, prompt_nodata, batch, out_size: int | None = None,
                      painter_palette: bool = True, generator: torch.Generator | None = None,
                      palette=None) -> torch.Tensor:
@@ -506,14 +521,16 @@ class PromptTuner:
             palette = random_palette(generator, self.num_classes, b)
         pred_masks, palette_norm = self.predict_masks(prompt_pixels, prompt_masks, prompt_nodata, batch,
                                                       palette=None if painter_palette else palette)
-        h = pred_masks.shape[1] // 2
-        ids = decode_by_palette(pred_masks[:, h:], palette_norm)
-        if out_size is not None and out_size != ids.shape[1]:
-            sel = self._tensor(nearest_indices(ids.shape[1], out_size, "nearest_cv2"))
-            ids = ids.index_select(1, sel).index_select(2, sel)
-        return ids.to(torch.uint8) if out_size is not None else ids
+        with span("bst.predict.decode"):
+            h = pred_masks.shape[1] // 2
+            ids = decode_by_palette(pred_masks[:, h:], palette_norm)
+            if out_size is not None and out_size != ids.shape[1]:
+                sel = self._tensor(nearest_indices(ids.shape[1], out_size, "nearest_cv2"))
+                ids = ids.index_select(1, sel).index_select(2, sel)
+            return ids.to(torch.uint8) if out_size is not None else ids
 
     @torch.inference_mode()
+    @spanned("bst.predict_step_probs")
     def predict_step_probs(self, prompt_pixels, prompt_masks, prompt_nodata, batch, out_size: int | None = None,
                            feather=None) -> torch.Tensor:
         """Like :meth:`predict_step` but soft class probabilities (B, S, S, C)
@@ -522,12 +539,13 @@ class PromptTuner:
         matrices as two fp32 products, clipped at 0; ``feather`` (out, out, 1)
         is multiplied on the device."""
         pred_masks, palette_norm = self.predict_masks(prompt_pixels, prompt_masks, prompt_nodata, batch)
-        probs = soft_class_probs(pred_masks, palette_norm)
-        if out_size is not None and out_size != probs.shape[1]:
-            m = torch.tensor(resize_matrix(probs.shape[1], out_size, "bicubic_cv2"), device=self.device)
-            probs = torch.einsum("oh,bhwc->bowc", m, probs)
-            probs = torch.einsum("pw,bhwc->bhpc", m, probs)
-            probs = torch.clamp(probs, min=0)
-        if feather is not None:
-            probs = probs * self._tensor(feather).float()[None]
-        return probs
+        with span("bst.predict.decode"):
+            probs = soft_class_probs(pred_masks, palette_norm)
+            if out_size is not None and out_size != probs.shape[1]:
+                m = tensor_from_host(resize_matrix(probs.shape[1], out_size, "bicubic_cv2"), device=self.device)
+                probs = torch.einsum("oh,bhwc->bowc", m, probs)
+                probs = torch.einsum("pw,bhwc->bhpc", m, probs)
+                probs = torch.clamp(probs, min=0)
+            if feather is not None:
+                probs = probs * self._tensor(feather).float()[None]
+            return probs

@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from beach_seg_tpu_torch.transforms.palette import IMAGENET_MEAN, IMAGENET_STD
+from beach_seg_tpu_torch.utils.profiling import tensor_from_host
 
 
 @dataclass(frozen=True)
@@ -86,14 +87,14 @@ class AugmentParams:
 
 def normalize_imagenet(x: torch.Tensor, mean=IMAGENET_MEAN, std=IMAGENET_STD) -> torch.Tensor:
     """(…, H, W, 3) in [0,1] → normalized, arithmetic in ``x.dtype``."""
-    mean = torch.tensor(mean, dtype=x.dtype, device=x.device)
-    std = torch.tensor(std, dtype=x.dtype, device=x.device)
+    mean = tensor_from_host(mean, dtype=x.dtype, device=x.device)
+    std = tensor_from_host(std, dtype=x.dtype, device=x.device)
     return (x - mean) / std
 
 
 def denormalize_imagenet(x: torch.Tensor, mean=IMAGENET_MEAN, std=IMAGENET_STD) -> torch.Tensor:
     """Inverse of :func:`normalize_imagenet`, arithmetic in ``x.dtype``."""
-    return x * torch.tensor(std, dtype=x.dtype, device=x.device) + torch.tensor(mean, dtype=x.dtype, device=x.device)
+    return x * tensor_from_host(std, dtype=x.dtype, device=x.device) + tensor_from_host(mean, dtype=x.dtype, device=x.device)
 
 
 def center_crop(x: torch.Tensor, size: int, spatial_axes: tuple[int, int] = (-3, -2)) -> torch.Tensor:
@@ -119,8 +120,8 @@ def _per_sample(t: torch.Tensor, ndim: int) -> torch.Tensor:
 
 def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     """``jnp.clip``: min/max, so the gradient at an exact bound is 0.5."""
-    lo_t = torch.tensor(lo, dtype=x.dtype, device=x.device)
-    hi_t = torch.tensor(hi, dtype=x.dtype, device=x.device)
+    lo_t = tensor_from_host(lo, dtype=x.dtype, device=x.device)
+    hi_t = tensor_from_host(hi, dtype=x.dtype, device=x.device)
     return torch.minimum(torch.maximum(x, lo_t), hi_t)
 
 
@@ -130,7 +131,7 @@ def _rgb_to_hsv(rgb: torch.Tensor) -> torch.Tensor:
     minc = rgb.amin(-1)
     v = maxc
     delta = maxc - minc
-    tiny = torch.tensor(1e-12, dtype=rgb.dtype, device=rgb.device)
+    tiny = tensor_from_host(1e-12, dtype=rgb.dtype, device=rgb.device)
     zero = torch.zeros((), dtype=rgb.dtype, device=rgb.device)
     s = torch.where(maxc > 0, delta / torch.maximum(maxc, tiny), zero)
     safe_delta = torch.maximum(delta, tiny)
@@ -161,7 +162,7 @@ def _hsv_to_rgb(hsv: torch.Tensor) -> torch.Tensor:
 
 
 def _gray(img: torch.Tensor) -> torch.Tensor:
-    w = torch.tensor([0.299, 0.587, 0.114], dtype=img.dtype, device=img.device)
+    w = tensor_from_host([0.299, 0.587, 0.114], dtype=img.dtype, device=img.device)
     return (img * w).sum(-1, keepdim=True)
 
 
@@ -190,7 +191,7 @@ def random_sharpness(img: torch.Tensor, factor: torch.Tensor, apply: torch.Tenso
     ([[1,1,1],[1,5,1],[1,1,1]]/13, 1-px border unblended); ``factor`` (B,),
     ``apply`` (B,) bool (kornia K.RandomSharpness)."""
     b, h, w, c = img.shape
-    kernel = torch.tensor([[1, 1, 1], [1, 5, 1], [1, 1, 1]], dtype=img.dtype, device=img.device) / 13.0
+    kernel = tensor_from_host([[1, 1, 1], [1, 5, 1], [1, 1, 1]], dtype=img.dtype, device=img.device) / 13.0
     x = img.permute(0, 3, 1, 2).reshape(b * c, 1, h, w)
     smooth = F.conv2d(x, kernel[None, None], padding=1).reshape(b, c, h, w).permute(0, 2, 3, 1)
     smooth = _clip(smooth, 0.0, 1.0)

@@ -12,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from beach_seg_tpu_torch.utils.profiling import tensor_from_host
+
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
@@ -57,8 +59,8 @@ def apply_palette(palette: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 def normalize_palette(palette: torch.Tensor, mean=IMAGENET_MEAN, std=IMAGENET_STD) -> torch.Tensor:
     """Palette colors through the image normalization: ([0,1] - mean)/std."""
     p = palette.float() / 255.0
-    mean = torch.tensor(mean, dtype=torch.float32, device=p.device)
-    std = torch.tensor(std, dtype=torch.float32, device=p.device)
+    mean = tensor_from_host(mean, dtype=torch.float32, device=p.device)
+    std = tensor_from_host(std, dtype=torch.float32, device=p.device)
     return (p - mean) / std
 
 
