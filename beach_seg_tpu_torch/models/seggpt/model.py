@@ -50,8 +50,8 @@ from beach_seg_tpu_torch.ops.sharding import (
     model_axis_size,
     reduce_from_model,
 )
-from beach_seg_tpu_torch.utils.device import resolve_device
-from beach_seg_tpu_torch.utils.profiling import host_sync, span
+from beach_seg_tpu_torch.utils.device import device_constant, resolve_device
+from beach_seg_tpu_torch.utils.profiling import span
 
 
 def _param(*shape: int) -> nn.Parameter:
@@ -390,13 +390,17 @@ class Decoder(nn.Module):
         return h @ self.head_kernel.to(dt) + self.head_bias.to(dt)
 
 
+def _query_half_mask(n: int) -> np.ndarray:
+    """(n,) bool: the last ``n - n // 2`` patches, the query half, are masked."""
+    return np.arange(n) >= n // 2
+
+
 def default_bool_masked_pos(config: SegGPTConfig, batch: int, device=None) -> torch.Tensor:
-    """Mask the bottom (query) half of the canvas (HF :926-934)."""
+    """Mask the bottom (query) half of the canvas (HF :926-934): a
+    (batch, n) view of one (n,) mask copied to ``device`` once per n and
+    device (:func:`device_constant`: read-only, no autograd history)."""
     n = config.num_patches
-    m = torch.cat([torch.zeros(n // 2, dtype=torch.bool), torch.ones(n - n // 2, dtype=torch.bool)])
-    with host_sync(device):
-        m = m.to(device)
-    return m[None, :].expand(batch, n)
+    return device_constant(_query_half_mask, n, device=device)[None, :].expand(batch, n)
 
 
 def seggpt_loss(

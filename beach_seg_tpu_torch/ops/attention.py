@@ -27,30 +27,37 @@ those entries take.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from beach_seg_tpu_torch.ops.resize import resize_1d
-from beach_seg_tpu_torch.utils.profiling import host_sync
+from beach_seg_tpu_torch.utils.device import device_constant
+
+
+def _rel_pos_index(q_size: int, k_size: int) -> np.ndarray:
+    """(q_size, k_size) int64 table rows of :func:`get_rel_pos`: scaled
+    relative coordinates in fp32, truncated to int, as the JAX package
+    computes them."""
+    q_coords = torch.arange(q_size, dtype=torch.float32)[:, None] * max(k_size / q_size, 1.0)
+    k_coords = torch.arange(k_size, dtype=torch.float32)[None, :] * max(q_size / k_size, 1.0)
+    rel = (q_coords - k_coords) + (k_size - 1) * max(q_size / k_size, 1.0)
+    return rel.to(torch.int64).numpy()
 
 
 def get_rel_pos(q_size: int, k_size: int, rel_pos: torch.Tensor) -> torch.Tensor:
     """(L, head_dim) table → (q_size, k_size, head_dim) lookup.
 
     Matches HF modeling_seggpt.py:237-267: linear-interpolate the table to
-    2*max(q,k)-1 entries, then index by scaled relative coordinates (fp32
-    coordinates truncated to int, as the JAX package computes them).
+    2*max(q,k)-1 entries, then index by scaled relative coordinates
+    (:func:`_rel_pos_index`). The index is copied to the table's device once
+    per sizes and device (:func:`device_constant`: read-only, no autograd
+    history); the gather runs there.
     """
     max_rel_dist = 2 * max(q_size, k_size) - 1
     if rel_pos.shape[0] != max_rel_dist:
         rel_pos = resize_1d(rel_pos, max_rel_dist, "linear_torch")
-    q_coords = torch.arange(q_size, dtype=torch.float32)[:, None] * max(k_size / q_size, 1.0)
-    k_coords = torch.arange(k_size, dtype=torch.float32)[None, :] * max(q_size / k_size, 1.0)
-    rel = (q_coords - k_coords) + (k_size - 1) * max(q_size / k_size, 1.0)
-    idx = rel.to(torch.int64)
-    with host_sync(rel_pos.device):
-        idx = idx.to(rel_pos.device)
-    return rel_pos[idx]
+    return rel_pos[device_constant(_rel_pos_index, q_size, k_size, device=rel_pos.device)]
 
 
 def rel_pos_terms(

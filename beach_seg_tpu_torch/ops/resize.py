@@ -22,7 +22,7 @@ import functools
 import numpy as np
 import torch
 
-from beach_seg_tpu_torch.utils.profiling import tensor_from_host
+from beach_seg_tpu_torch.utils.device import device_constant
 
 
 def _cubic(x: np.ndarray, a: float) -> np.ndarray:
@@ -150,8 +150,18 @@ def _nearest_matrix(
     return mat
 
 
-def _matrix(in_size: int, out_size: int, method: str, device: torch.device, **kw) -> torch.Tensor:
-    return tensor_from_host(resize_matrix(in_size, out_size, method, **kw), device=device)
+def _matrix(
+    in_size: int,
+    out_size: int,
+    method: str,
+    device: torch.device,
+    antialias: bool | None = None,
+    align_corners: bool = False,
+) -> torch.Tensor:
+    """:func:`resize_matrix` on ``device``, copied there once per sizes,
+    method, options and device (:func:`device_constant`): read-only, no
+    autograd history."""
+    return device_constant(resize_matrix, in_size, out_size, method, antialias, align_corners, device=device)
 
 
 def nearest_indices(in_size: int, out_size: int, method: str = "nearest_pil") -> np.ndarray:

@@ -6,7 +6,8 @@ of 80) through the kernels forward and backward, the library's attention
 entries, the shapes the kernels refuse, the scene engine (run_predict) and
 the training runtime (run_training) against their own runs through the
 plain versions, the grouped feature
-ensemble at an odd batch, and the device votes against the CPU's.
+ensemble at an odd batch, the device votes against the CPU's, and a warm
+forward that never waits on the card.
 Marked ``gpu``: they skip where no CUDA device is present (run them on the
 card with ``python -m pytest --noconftest -m gpu tests/test_torch_gpu.py``)."""
 
@@ -621,6 +622,34 @@ def test_fp32_train_step_on_card(cuda, hidden, fwd):
     assert np.isfinite(metrics["loss"].item())
     assert torch.isfinite(state.prompt_pixels).all()
     assert getattr(cuda_attn, fwd).launches > a0 and cuda_attn.attn_bwd.launches > b0
+
+
+@pytest.mark.parametrize("hidden,dtype,fwd", [(128, torch.bfloat16, "attn_qkv_rel"), (160, torch.float32, "attn_packed")],
+                         ids=["hd64_bf16", "hd80_fp32"])
+def test_warm_forward_never_waits_on_the_card(cuda, hidden, dtype, fwd):
+    """A 2-layer SegGPT through #1 (head_dim 64, C=128, bf16) and through #3
+    (head_dim 80, fp32) on a grid whose abs-pos table is resized: once one
+    forward has put its shape constants on the card (the rel-pos indices, the
+    resize matrices, the masked-position mask), a second forward runs under
+    sync-debug mode ``"error"`` without a single operation that waits on the
+    card."""
+    cfg = tiny_config(hidden_size=hidden, num_attention_heads=2, num_hidden_layers=2, merge_index=0,
+                      intermediate_hidden_state_indices=(1,))
+    model = build_model(cfg, dtype, device=cuda, seed=1)
+    rng = np.random.default_rng(0)
+    h, w = cfg.image_size[0] // 2, cfg.image_size[1]
+    inputs = [torch.from_numpy(rng.standard_normal((2, h, w, 3)).astype(np.float32)).to(cuda) for _ in range(3)]
+    with torch.inference_mode():
+        model(*inputs, decode_query_only=True)
+        torch.cuda.synchronize()
+        a0 = getattr(cuda_attn, fwd).launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = model(*inputs, decode_query_only=True)["pred_masks"]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert getattr(cuda_attn, fwd).launches - a0 == cfg.num_hidden_layers
+    assert torch.isfinite(out).all()
 
 
 _STAGE_PLAINS = ("ln_rows_plain", "lin1_gelu_plain", "lin2_plain", "dual_dh_plain", "dln_plain", "ln_vjp_plain",

@@ -1,7 +1,9 @@
 """The port's ops (beach_seg_tpu_torch.ops) against the JAX package's on the
 same seeded inputs: resize matrices bit for bit, the device resizes, the
 attention oracle, and the plain versions of the two CUDA kernels against the
-Pallas kernels (interpret mode on the CPU)."""
+Pallas kernels (interpret mode on the CPU). Also the shape constants kept on
+their device (``utils.device.device_constant``): the resize matrices, the
+rel-pos index and the masked-position mask, copied once and never written."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -13,7 +15,11 @@ from beach_seg_tpu.ops import pallas_attn, pallas_mlp
 from beach_seg_tpu.ops import resize as jresize
 from beach_seg_tpu_torch.ops import attention as tattn
 from beach_seg_tpu_torch.ops import cuda_attn, cuda_mlp
+from beach_seg_tpu_torch.config import BeachSegConfig
+from beach_seg_tpu_torch.models.seggpt import SegGPTConfig, default_bool_masked_pos, tiny_config
+from beach_seg_tpu_torch.models.seggpt import model as model_module
 from beach_seg_tpu_torch.ops import resize as tresize
+from beach_seg_tpu_torch.utils import device as udevice
 
 BF16_EPS = 2.0**-8  # bf16 relative rounding step (8 significand bits)
 
@@ -22,12 +28,38 @@ METHODS = sorted(jresize._KERNELS) + ["nearest_pil", "nearest_torch", "nearest_f
 SIZES = [(112, 448), (448, 112), (14, 56), (14, 28), (55, 111), (4, 8), (448, 48), (37, 23)]
 
 
+@pytest.fixture
+def uploads(monkeypatch):
+    """An empty constant cache for the test, and the list of host data that
+    ``device_constant`` copies to a device."""
+    monkeypatch.setattr(udevice, "_CONSTANTS", {})
+    seen = []
+    real = udevice.tensor_from_host
+
+    def counted(data, dtype=None, device=None):
+        seen.append(data)
+        return real(data, dtype=dtype, device=device)
+
+    monkeypatch.setattr(udevice, "tensor_from_host", counted)
+    return seen
+
+
+def _assert_device_matrix(n_in, n_out, method, **kw):
+    """``_matrix`` equals the host matrix built fresh, and a second call (the
+    device spelled another way) returns the same tensor."""
+    got = tresize._matrix(n_in, n_out, method, torch.device("cpu"), **kw)
+    assert got.dtype == torch.float32 and not got.requires_grad
+    np.testing.assert_array_equal(got.numpy(), tresize.resize_matrix(n_in, n_out, method, **kw))
+    assert tresize._matrix(n_in, n_out, method, "cpu", **kw) is got
+
+
 @pytest.mark.parametrize("method", METHODS)
-def test_resize_matrix_bit_equal(method):
+def test_resize_matrix_bit_equal(method, uploads):
     for n_in, n_out in SIZES:
         np.testing.assert_array_equal(
             tresize.resize_matrix(n_in, n_out, method), jresize.resize_matrix(n_in, n_out, method)
         )
+        _assert_device_matrix(n_in, n_out, method)
     if not method.startswith("nearest"):
         for kw in (dict(antialias=True), dict(antialias=False), dict(align_corners=True)):
             np.testing.assert_array_equal(
@@ -36,6 +68,10 @@ def test_resize_matrix_bit_equal(method):
             np.testing.assert_array_equal(
                 tresize.resize_matrix(448, 112, method, **kw), jresize.resize_matrix(448, 112, method, **kw)
             )
+            _assert_device_matrix(112, 448, method, **kw)
+            _assert_device_matrix(448, 112, method, **kw)
+    # one copy per sizes and options, none on the second call
+    assert len(uploads) == len(udevice._CONSTANTS) == len(SIZES) + (0 if method.startswith("nearest") else 6)
 
 
 @pytest.mark.parametrize("hw_in,hw_out", [((112, 112), (448, 448)), ((448, 448), (112, 112))])
@@ -69,11 +105,79 @@ def test_resize_2d_and_1d_match_jax():
 
 
 @pytest.mark.parametrize("q_size,k_size,table_len", [(8, 8, 15), (4, 4, 7), (8, 8, 9), (6, 3, 11)])
-def test_get_rel_pos_matches_jax(q_size, k_size, table_len):
+def test_get_rel_pos_matches_jax(q_size, k_size, table_len, uploads):
+    """Twice, equal both times; the index (and the table's resize matrix,
+    where the table is resized) is copied to the device on the first call
+    only."""
     table = np.random.default_rng(2).standard_normal((table_len, 16)).astype(np.float32)
     want = np.asarray(jattn.get_rel_pos(q_size, k_size, jnp.asarray(table)))
     got = tattn.get_rel_pos(q_size, k_size, torch.from_numpy(table)).numpy()
     np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
+    first = len(uploads)
+    assert first == (1 if table_len == 2 * max(q_size, k_size) - 1 else 2)
+    again = tattn.get_rel_pos(q_size, k_size, torch.from_numpy(table)).numpy()
+    np.testing.assert_array_equal(again, got)
+    assert len(uploads) == first
+    idx = udevice._CONSTANTS[(tattn._rel_pos_index, (q_size, k_size), torch.device("cpu"))]
+    assert idx.dtype == torch.int64 and not idx.requires_grad
+
+
+@pytest.mark.parametrize("config", [tiny_config(), SegGPTConfig(), SegGPTConfig(image_size=(448, 224))],
+                         ids=["tiny", "vit_l", "vit_l_224"])
+def test_default_bool_masked_pos_cached_equals_fresh(config, uploads):
+    """The cached mask equals the one built fresh (the query half masked),
+    whatever the batch and however the device is spelled; one copy in all."""
+    n = config.num_patches
+    fresh = torch.cat([torch.zeros(n // 2, dtype=torch.bool), torch.ones(n - n // 2, dtype=torch.bool)])
+    for batch, device in ((2, None), (3, "cpu"), (1, torch.device("cpu"))):
+        got = default_bool_masked_pos(config, batch, device)
+        assert got.shape == (batch, n) and got.dtype == torch.bool
+        assert torch.equal(got, fresh[None, :].expand(batch, n))
+    assert len(uploads) == 1
+
+
+def test_indexed_device_names_one_card(monkeypatch):
+    """``cuda`` and ``cuda:<current>`` key one cache entry; each card its own."""
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 1)
+    assert udevice.indexed_device("cuda") == udevice.indexed_device("cuda:1") == torch.device("cuda", 1)
+    assert udevice.indexed_device("cuda:0") != udevice.indexed_device("cuda")
+    assert udevice.indexed_device(None) == udevice.indexed_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_debug_backbone_step_leaves_cached_constants_unchanged(dtype, uploads):
+    """A debug-backbone forward and backward (labels, a gradient to the prompt
+    pixels) on a grid whose abs-pos table is resized: the first step fills
+    the cache with the rel-pos indices, the resize matrices and the mask; a
+    second step copies nothing more and leaves every cached tensor as it
+    was, bit for bit, with no in-place write and no autograd history."""
+    from beach_seg_tpu_torch.train.loop import model_for_config
+
+    model, cfg = model_for_config(BeachSegConfig(debug=True, inpt_size=64, compute_dtype=dtype), device="cpu")
+    rng = np.random.default_rng(0)
+    h, w = cfg.image_size[0] // 2, cfg.image_size[1]
+    x, px, pm, lab = (torch.from_numpy(rng.standard_normal((2, h, w, 3)).astype(np.float32)) for _ in range(4))
+
+    def step():
+        leaf = px.clone().requires_grad_(True)
+        out = model(x, leaf, pm, labels=lab, decode_query_only=True)
+        (grad,) = torch.autograd.grad(out["loss"], leaf)
+        assert torch.isfinite(grad).all()
+
+    step()
+    cached = dict(udevice._CONSTANTS)
+    assert {fn for fn, _, _ in cached} == {tattn._rel_pos_index, tresize.resize_matrix, model_module._query_half_mask}
+    before = {k: (t.clone(), t._version) for k, t in cached.items()}
+    n_uploads = len(uploads)
+    with torch.inference_mode():
+        model(x, px, pm, decode_query_only=True)
+    step()
+    assert len(uploads) == n_uploads and udevice._CONSTANTS.keys() == cached.keys()
+    for k, t in cached.items():
+        assert udevice._CONSTANTS[k] is t, k
+        want, version = before[k]
+        assert t._version == version and not t.requires_grad and not t.is_inference(), k
+        assert torch.equal(t.view(torch.uint8), want.view(torch.uint8)), k
 
 
 @pytest.fixture(scope="module")
