@@ -3,7 +3,7 @@
 ``save_params`` file → module state) and ``random_state`` (seeded random
 weights); both names are exported."""
 
-from beach_seg_tpu_torch.models.seggpt.config import SegGPTConfig, huge_config, tiny_config
+from beach_seg_tpu_torch.models.seggpt.config import SegGPTConfig, huge_config, painter_config, tiny_config
 from beach_seg_tpu_torch.models.seggpt.convert import (
     config_from_hf,
     convert_torch_state_dict,
@@ -34,6 +34,7 @@ __all__ = [
     "load_model_params",
     "load_npz",
     "load_params",
+    "painter_config",
     "random_state",
     "save_params",
     "seggpt_loss",

@@ -2,7 +2,12 @@
 ``beach_seg_tpu/models/seggpt/config.py``).
 
 Mirrors the hyperparameters of ``BAAI/seggpt-vit-large`` (HF
-``transformers/models/seggpt/configuration_seggpt.py:93-140``).
+``transformers/models/seggpt/configuration_seggpt.py:93-140``). Three
+fields the JAX package lacks describe Painter (:func:`painter_config`), the
+in-context painter SegGPT was built on: ``window_size`` (0: every block
+attends over the whole grid, SegGPT's topology), ``global_attn_indexes``
+(the blocks that still do when windows are on) and ``type_tokens``
+(SegGPT's semantic/instance tokens, which Painter's embedding lacks).
 """
 
 from __future__ import annotations
@@ -30,12 +35,22 @@ class SegGPTConfig:
     intermediate_hidden_state_indices: tuple[int, ...] = (5, 11, 17, 23)
     beta: float = 0.01
     initializer_range: float = 0.02
+    window_size: int = 0  # > 0: blocks outside global_attn_indexes attend within window_size² windows
+    global_attn_indexes: tuple[int, ...] = ()
+    type_tokens: bool = True
 
     def __post_init__(self):
         if self.mlp_dim == 0:
             object.__setattr__(self, "mlp_dim", 4 * self.hidden_size)
         if self.merge_index > min(self.intermediate_hidden_state_indices):
             raise ValueError("merge_index must precede the first intermediate index")
+        # a topology read from JSON carries lists
+        object.__setattr__(self, "global_attn_indexes", tuple(self.global_attn_indexes))
+        if self.window_size < 0:
+            raise ValueError(f"window_size must be 0 (all global) or positive, got {self.window_size}")
+        bad = [i for i in self.global_attn_indexes if not 0 <= i < self.num_hidden_layers]
+        if bad:
+            raise ValueError(f"global_attn_indexes {bad} outside the {self.num_hidden_layers} blocks")
 
     @property
     def grid_size(self) -> tuple[int, int]:
@@ -49,6 +64,10 @@ class SegGPTConfig:
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_attention_heads
+
+    def block_window(self, i: int) -> int:
+        """Block ``i``'s window side, 0 when it attends over the whole grid."""
+        return 0 if i in self.global_attn_indexes else self.window_size
 
 
 def tiny_config(**overrides) -> SegGPTConfig:
@@ -77,5 +96,16 @@ def huge_config(**overrides) -> SegGPTConfig:
         num_attention_heads=16,
         intermediate_hidden_state_indices=(7, 15, 23, 31),
     )
+    base.update(overrides)
+    return SegGPTConfig(**base)
+
+
+def painter_config(**overrides) -> SegGPTConfig:
+    """Painter ViT-L (arXiv:2212.02499; ``models_painter.py``'s
+    ``painter_vit_large_patch16_input896x448_win_dec64_8glb_sl1``): SegGPT's
+    ViT-L widths, canvas, merge, intermediates and decoder, every third
+    block global and the other 16 in 14×14 windows, no type tokens
+    (BeachSegConfig.backbone="painter")."""
+    base = dict(window_size=14, global_attn_indexes=(2, 5, 8, 11, 14, 17, 20, 23), type_tokens=False)
     base.update(overrides)
     return SegGPTConfig(**base)

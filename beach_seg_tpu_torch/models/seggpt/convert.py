@@ -26,6 +26,9 @@ from beach_seg_tpu_torch.models.seggpt.config import SegGPTConfig
 from beach_seg_tpu_torch.utils.device import resolve_device
 
 _CONFIG_KEY = "__config_json__"
+# SegGPTConfig's fields that the JAX package's config lacks
+PORT_ONLY = ("window_size", "global_attn_indexes", "type_tokens")
+_DEFAULTS = {f.name: f.default for f in dataclasses.fields(SegGPTConfig)}
 
 
 def _qkv3(a: np.ndarray) -> np.ndarray:
@@ -185,9 +188,20 @@ def save_params(params: Mapping[str, Any], path: Path | str, config: SegGPTConfi
 
     walk(params, "")
     if config is not None:
-        flat[_CONFIG_KEY] = np.frombuffer(json.dumps(dataclasses.asdict(config)).encode(), dtype=np.uint8)
+        flat[_CONFIG_KEY] = np.frombuffer(json.dumps(_stored_topology(config)).encode(), dtype=np.uint8)
     Path(path).parent.mkdir(parents=True, exist_ok=True)
     np.savez_compressed(path, **flat)
+
+
+def _stored_topology(config: SegGPTConfig) -> dict:
+    """The config's fields, less the port-only Painter fields (``PORT_ONLY``)
+    at their defaults: a SegGPT topology stays readable by the JAX package,
+    whose config has no such fields."""
+    raw = dataclasses.asdict(config)
+    for name in PORT_ONLY:
+        if raw[name] == _DEFAULTS[name]:
+            del raw[name]
+    return raw
 
 
 def load_config(path: Path | str) -> SegGPTConfig | None:

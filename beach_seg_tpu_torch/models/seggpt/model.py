@@ -27,6 +27,12 @@ Input convention (HF semantics, axes transposed to NHWC):
   prompt_masks        (B, H, W, 3)  colorized prompt mask
   labels              (B, H, W, 3)  colorized target (training only)
 The model stacks prompt‖query along height into a (B, 2H, W, 3) canvas.
+
+With ``config.window_size`` > 0 the model is Painter (``painter_config``,
+ViTDet's block): a block outside ``global_attn_indexes`` pads the grid with
+zeros to a multiple of the window, attends within each window through the
+same kernels, with rel-pos tables of the window's size, and crops the pad
+(:func:`window_partition`, :func:`window_unpartition`).
 """
 
 from __future__ import annotations
@@ -86,14 +92,18 @@ class PatchEmbed(nn.Module):
 class Embeddings(nn.Module):
     """Patch embed + mask-token substitution + interpolated abs-pos +
     segment/type tokens; concatenates the pixel and mask streams on batch
-    in the order [input, prompt] (HF modeling_seggpt.py:125-207)."""
+    in the order [input, prompt] (HF modeling_seggpt.py:125-207). Without
+    ``config.type_tokens`` (Painter) no type token is held or added, and
+    ``embedding_type`` is not read."""
 
     def __init__(self, config: SegGPTConfig, dtype: torch.dtype):
         super().__init__()
         self.config, self.compute_dtype = config, dtype
         hs = config.hidden_size
-        for name in ("mask_token", "segment_token_input", "segment_token_prompt",
-                     "type_token_semantic", "type_token_instance"):
+        tokens = ("mask_token", "segment_token_input", "segment_token_prompt")
+        if config.type_tokens:
+            tokens += ("type_token_semantic", "type_token_instance")
+        for name in tokens:
             setattr(self, name, _param(1, 1, 1, hs))
         n_pos = (config.pretrain_image_size // config.patch_size) ** 2 + 1
         self.position_embeddings = _param(1, n_pos, hs)
@@ -120,14 +130,19 @@ class Embeddings(nn.Module):
             grid = pos.reshape(1, gh, gw, hs)
         grid = grid.to(dt)
 
-        type_token = self.type_token_semantic if embedding_type == "semantic" else self.type_token_instance
-        input_embeddings = input_embeddings + self.segment_token_input.to(dt) + grid + type_token.to(dt)
-        prompt_embeddings = prompt_embeddings + self.segment_token_prompt.to(dt) + grid + type_token.to(dt)
+        input_embeddings = input_embeddings + self.segment_token_input.to(dt) + grid
+        prompt_embeddings = prompt_embeddings + self.segment_token_prompt.to(dt) + grid
+        if cfg.type_tokens:
+            type_token = self.type_token_semantic if embedding_type == "semantic" else self.type_token_instance
+            input_embeddings = input_embeddings + type_token.to(dt)
+            prompt_embeddings = prompt_embeddings + type_token.to(dt)
         return torch.cat([input_embeddings, prompt_embeddings], dim=0)
 
 
 class Attention(nn.Module):
-    """Global MHA with decomposed relative position bias (HF :210-349).
+    """MHA with decomposed relative position bias (HF :210-349) over the
+    grid of its input: the whole canvas, or one window a row. ``grid``
+    sizes the rel-pos tables (the config's grid when None).
 
     Under tensor parallelism (``parallel.mesh.shard_model``) the module holds
     whole heads of qkv and the matching rows of proj: it runs its local
@@ -135,11 +150,11 @@ class Attention(nn.Module):
 
     mesh = None
 
-    def __init__(self, config: SegGPTConfig, dtype: torch.dtype):
+    def __init__(self, config: SegGPTConfig, dtype: torch.dtype, grid: tuple[int, int] | None = None):
         super().__init__()
         self.config, self.compute_dtype = config, dtype
         c, hd = config.hidden_size, config.head_dim
-        gh, gw = config.grid_size
+        gh, gw = grid or config.grid_size
         self.qkv_kernel = _param(c, 3, c)
         self.qkv_bias = _param(3, c) if config.qkv_bias else None
         if config.use_relative_position_embeddings:
@@ -281,16 +296,44 @@ def ensemble_mean(attn_out: torch.Tensor, ensemble_cond: int, ensemble_groups: i
     return torch.cat([attn_out[:, :half], qp.reshape(query.shape).to(attn_out.dtype)], dim=1)
 
 
+def window_partition(x: torch.Tensor, window: int) -> tuple[torch.Tensor, tuple[int, int]]:
+    """(B, H, W, C) → (B·nW, window, window, C) windows, row-major over the
+    grid padded with zeros at the bottom and right to a multiple of
+    ``window``, and the padded (Hp, Wp) (ViTDet's ``window_partition``).
+    The pads are Python ints, so no value is read from the card."""
+    b, h, w, c = x.shape
+    ph, pw = -h % window, -w % window
+    if ph or pw:
+        x = F.pad(x, (0, 0, 0, pw, 0, ph))
+    hp, wp = h + ph, w + pw
+    x = x.reshape(b, hp // window, window, wp // window, window, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(-1, window, window, c), (hp, wp)
+
+
+def window_unpartition(x: torch.Tensor, window: int, padded: tuple[int, int], hw: tuple[int, int]) -> torch.Tensor:
+    """The inverse of :func:`window_partition`: (B·nW, window, window, C)
+    → (B, H, W, C), the pad cropped."""
+    hp, wp = padded
+    nh, nw = hp // window, wp // window
+    b = x.shape[0] // (nh * nw)
+    x = x.reshape(b, nh, nw, window, window, -1).permute(0, 1, 3, 2, 4, 5).reshape(b, hp, wp, -1)
+    return x[:, : hw[0], : hw[1]]
+
+
 class Block(nn.Module):
     """Pre-LN transformer block with the optional feature ensemble (HF
-    SegGptLayer, modeling_seggpt.py:403-447)."""
+    SegGptLayer, modeling_seggpt.py:403-447). With ``window`` > 0 the
+    attention runs within window² windows of the LayerNormed grid (ViTDet's
+    block, Painter's), the padded tokens zeros before qkv, so keys that
+    carry only the qkv bias."""
 
-    def __init__(self, config: SegGPTConfig, dtype: torch.dtype, drop_path_rate: float = 0.0):
+    def __init__(self, config: SegGPTConfig, dtype: torch.dtype, drop_path_rate: float = 0.0, window: int = 0):
         super().__init__()
         self.compute_dtype = dtype
         self.drop_path_rate = drop_path_rate
+        self.window = window
         self.layernorm_before = LayerNorm(config.hidden_size, config.layer_norm_eps)
-        self.attention = Attention(config, dtype)
+        self.attention = Attention(config, dtype, (window, window) if window else None)
         self.layernorm_after = LayerNorm(config.hidden_size, config.layer_norm_eps)
         self.mlp = Mlp(config, dtype)
 
@@ -302,7 +345,16 @@ class Block(nn.Module):
         still carries (2 up to and including ``merge_index``)."""
         rate = self.drop_path_rate
         with span("bst.seggpt.attn"):
-            attn_out = self.attention(self.layernorm_before(x))
+            attn_out = self.layernorm_before(x)
+            if self.window:
+                with span("bst.seggpt.window"):
+                    attn_out, padded = window_partition(attn_out, self.window)
+                with span("bst.seggpt.attn_win"):
+                    attn_out = self.attention(attn_out)
+                with span("bst.seggpt.window"):
+                    attn_out = window_unpartition(attn_out, self.window, padded, x.shape[1:3])
+            else:
+                attn_out = self.attention(attn_out)
             if feature_ensemble:
                 attn_out = ensemble_mean(attn_out, ensemble_cond, ensemble_groups, streams)
             x = x + drop_path(attn_out, rate, drop_masks[0])
@@ -324,7 +376,7 @@ class Encoder(nn.Module):
         self.config, self.remat = config, remat
         self.layernorm = LayerNorm(config.hidden_size, config.layer_norm_eps)
         for i, rate in enumerate(drop_path_rates(config)):
-            self.add_module(f"layers_{i}", Block(config, dtype, rate))
+            self.add_module(f"layers_{i}", Block(config, dtype, rate, config.block_window(i)))
 
     def forward(self, x: torch.Tensor, drop_masks: list | None = None, feature_ensemble: bool = False,
                 ensemble_groups: int = 1) -> list[torch.Tensor]:

@@ -11,7 +11,9 @@ range while a profiler collects on the calling thread, else nothing at all
 (one flag check). The names are fixed strings under ``bst.``, one per layer
 boundary: ``bst.predict_step`` / ``bst.train_step`` / ``bst.eval_step`` and
 their phases (``bst.predict.*``, ``bst.train.*``), the model
-(``bst.seggpt`` and ``bst.seggpt.{embed,attn,mlp,decoder,loss}``), each
+(``bst.seggpt`` and ``bst.seggpt.{embed,attn,mlp,decoder,loss}``; inside a
+windowed block's ``attn``, ``bst.seggpt.window`` around the window layout
+and its inverse and ``bst.seggpt.attn_win`` around the attention), each
 hand-written kernel's launch wrapper (``bst.kernel.<wrapper>``), the data
 feed's wait (``bst.data.wait``), the scene engines' phases and dates
 (``bst.scene.*``), and ``bst.sync`` around each copy between the host and

@@ -188,8 +188,21 @@ Phases (any failure exits non-zero before the result lines):
      the oracle's on the tuned inputs (the largest output difference, which
      bounds the decode margins the arithmetic can flip), no plain version called in the phase, and the seconds of
      each part;
- 23. one JSON line of per-kernel numbers (one entry per kernel, geometry
-     and dtype), then the card's name and power limit, then
+ 23. Painter ViT-L's windowed blocks: #1 (bf16, clamp) and #4 (bf16) on
+     64 and 128 rows of 14×14 windows (PAINTER_ROWS: B·8 windows after the
+     stream merge, 2·B·8 before it), 16 heads of 64, rel tables of 27 rows,
+     each against its plain version with phases 3–4's limits, then timed
+     beside its plain version and its bound;
+ 24. Painter ViT-L (BeachSegConfig(backbone="painter"), bf16, seeded random
+     weights) through predict_step (3 calls) and train_step (3 steps) as
+     phases 5–6 run ViT-L: 24 launches of #1 and #2 (and #2's stages) a
+     call and of #1, #2, #4 and #5 a step, pred_masks and the prompt
+     gradient against the plain versions with phases 5–6's limits; then
+     one call and one step with each #1 and #4 launch counted by shape: 8 on
+     the 56×28 grid and 16 on windows (2 on 128 rows, 14 on 64);
+ 25. one JSON line of per-kernel numbers (one entry per kernel, geometry
+     and dtype; Painter's windows under geometry "painter_window", one entry
+     per row count), then the card's name and power limit, then
      {"ok": true, "device": {...}} as the last line.
 
 It exits non-zero without a CUDA device, and needs nothing but this
@@ -236,6 +249,11 @@ GRID = (56, 28)  # ViT-L and ViT-H canvas 896×448 at 16-pixel patches
 # a grid whose 64-key tiles cross rel_h slot chunks (16 rows of 27 keys) and
 # whose last tile is ragged (999 = 15·64 + 39); ViT's 16·28 keys are 7 tiles
 GRID_CROSS = (37, 27)
+# Painter ViT-L's windowed blocks (painter_config): windows of 14×14 tokens,
+# 8 a tile (the 56×28 grid in 4×2), so #1 and #4 run on B·8 rows of windows
+# after the stream merge and on 2·B·8 before it (blocks 0 and 1)
+PAINTER_WIN = (14, 14)
+PAINTER_ROWS = (B * 8, 2 * B * 8)
 C, HEADS, MLP = 1024, 16, 4096
 HD = C // HEADS
 C_H, MLP_H = 1280, 5120  # ViT-H (huge_config): 16 heads of 80
@@ -387,8 +405,8 @@ def bound(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def attn_bound(b: int, itemsize: int, peak: float, heads: int = HEADS) -> tuple[float, str]:
-    gh, gw = GRID
+def attn_bound(b: int, itemsize: int, peak: float, heads: int = HEADS, grid=GRID) -> tuple[float, str]:
+    gh, gw = grid
     s = gh * gw
     c = heads * HD
     flops = 4 * b * heads * s * s * HD + 2 * b * heads * s * (gh + gw) * HD  # QKᵀ, PV, rel terms
@@ -1082,6 +1100,120 @@ def phase_chunk_crossing(device) -> dict:
     del inputs
     torch.cuda.empty_cache()
     return res
+
+
+def phase_painter_windows(device) -> dict:
+    """#1 (bf16, clamp: the model's mode) and #4 (bf16) at Painter ViT-L's
+    windowed blocks: PAINTER_ROWS rows of 14×14 windows, 16 heads of 64,
+    rel tables of 27 rows, each against its plain version with phases 3–4's
+    limits, then timed beside the plain version and its bound."""
+    from beach_seg_tpu_torch.ops import cuda_attn
+    from beach_seg_tpu_torch.ops.attention import attention_bwd_plain
+
+    gh, gw = PAINTER_WIN
+    s = gh * gw
+    res = {}
+    for rows in PAINTER_ROWS:
+        where = f"{rows} windows of {gh}x{gw}"
+        args = (*attn_inputs(torch.bfloat16, device, b=rows, seed=16, grid=PAINTER_WIN), HD**-0.5, gw, HEADS, "clamp")
+        res[f"attn_err_{rows}"] = fwd_check(f"attn_qkv_rel bf16 clamp {where}", cuda_attn.attn_qkv_rel,
+                                            cuda_attn.attn_qkv_rel_plain, args, (rows, s, C))
+        res[f"attn_ms_{rows}"] = time_ms(lambda: cuda_attn.attn_qkv_rel(*args), iters=20, warmup=2)
+        res[f"attn_plain_ms_{rows}"] = time_ms(lambda: cuda_attn.attn_qkv_rel_plain(*args), iters=3)
+        res[f"attn_bound_{rows}"] = attn_bound(rows, 2, PEAK_BF16, grid=PAINTER_WIN)
+        bh = rows * HEADS
+        bwd = (*attn_bwd_inputs(device, bh, seed=17, grid=PAINTER_WIN), HD**-0.5)
+        got = cuda_attn.attn_bwd(*bwd)
+        torch.cuda.synchronize()
+        res[f"bwd_errs_{rows}"] = bwd_out_check(f"attn_bwd bf16 {where}", got, attention_bwd_plain(*bwd), False)
+        del got
+        res[f"bwd_ms_{rows}"] = time_ms(lambda: cuda_attn.attn_bwd(*bwd), iters=10, warmup=2)
+        res[f"bwd_plain_ms_{rows}"] = time_ms(lambda: attention_bwd_plain(*bwd), iters=2)
+        res[f"bwd_bound_{rows}"] = attn_bwd_bound(bh, s, gh, gw)
+        log(f"times (ms, {where}): attn kernel {res[f'attn_ms_{rows}']:.4f} plain {res[f'attn_plain_ms_{rows}']:.4f} "
+            f"bound {res[f'attn_bound_{rows}'][0]:.4f} ({res[f'attn_bound_{rows}'][1]}); attn_bwd kernel "
+            f"{res[f'bwd_ms_{rows}']:.4f} plain {res[f'bwd_plain_ms_{rows}']:.4f} "
+            f"bound {res[f'bwd_bound_{rows}'][0]:.4f} ({res[f'bwd_bound_{rows}'][1]})")
+        del args, bwd
+        torch.cuda.empty_cache()
+    return res
+
+
+@contextlib.contextmanager
+def launch_shapes():
+    """Count each launch of #1 and #4 by (kernel, rows, tokens) while open:
+    #1's qkv is (rows, S, 3, C), #4's q (rows·heads, S, hd). The wrappers
+    count their launches on the module's name, so the stand-ins carry the
+    count while open and hand it back on exit."""
+    from collections import Counter
+
+    from beach_seg_tpu_torch.ops import cuda_attn
+
+    seen = Counter()
+    saved = {name: getattr(cuda_attn, name) for name in ("attn_qkv_rel", "attn_bwd")}
+
+    def tally(name):
+        def call(x, *args):
+            seen[(name, x.shape[0], x.shape[1])] += 1
+            return saved[name](x, *args)
+        call.launches = saved[name].launches
+        return call
+
+    for name in saved:
+        setattr(cuda_attn, name, tally(name))
+    try:
+        yield seen
+    finally:
+        for name, fn in saved.items():
+            fn.launches = getattr(cuda_attn, name).launches
+            setattr(cuda_attn, name, fn)
+
+
+def phase_painter_path(device) -> dict:
+    """Painter ViT-L (BeachSegConfig(backbone="painter"), bf16, seeded random
+    weights) through predict_step and train_step as phases 5–6 run ViT-L:
+    24 launches of #1 and #2 a call and of #1, #2, #4 and #5 a step, the
+    counts zeroed just before each path; pred_masks and the prompt gradient
+    against the plain versions with phases 5–6's limits. Then one more call
+    and step with each launch of #1 and #4 counted by shape: 8 on the whole
+    56×28 grid and 16 on 14×14 windows (2 launches on 2·B·8 windows before
+    the stream merge, 14 on B·8 after it)."""
+    from beach_seg_tpu_torch.config import BeachSegConfig
+    from beach_seg_tpu_torch.train import PromptTuner
+    from beach_seg_tpu_torch.train.loop import model_for_config
+
+    conf = BeachSegConfig(batch_size=B, backbone="painter", compute_dtype="bfloat16")
+    model, cfg = model_for_config(conf, device=device, seed=0)
+    check(cfg.window_size == PAINTER_WIN[0] and tuple(cfg.global_attn_indexes) == tuple(range(2, 24, 3))
+          and cfg.num_hidden_layers == 24 and cfg.hidden_size == C and cfg.head_dim == HD, f"Painter config {cfg}")
+    fwd = {"attn_qkv_rel": 24, "ln_mlp": 24}
+    m = phase_main_path(device, model, conf, with_stages(fwd))
+    tr = phase_train_path(device, model, conf, with_stages(dict(fwd, attn_bwd=24, ln_mlp_dx=24)))
+
+    s, sw = GRID[0] * GRID[1], PAINTER_WIN[0] * PAINTER_WIN[1]
+    # (rows, tokens) of #1's launches a call: global block 2 before the merge,
+    # 7 global after it; windowed blocks 0 and 1 before it, 14 after it
+    shapes = {(2 * B, s): 1, (B, s): 7, (PAINTER_ROWS[1], sw): 2, (PAINTER_ROWS[0], sw): 14}
+    want_pred = {("attn_qkv_rel", r, n): k for (r, n), k in shapes.items()}
+    want_train = {**want_pred, **{("attn_bwd", r * HEADS, n): k for (r, n), k in shapes.items()}}
+    tuner = PromptTuner(model, conf, device=device)
+    prompts, batches = main_path_inputs(conf, 4, 1)
+    with launch_shapes() as seen:
+        tuner.predict_step(*prompts, batches[0], out_size=conf.crop_size)
+        torch.cuda.synchronize()
+    pred_shapes = dict(seen)
+    prompts, batches = train_path_inputs(conf, 4, 1)
+    state = tuner.init_state(prompts[0])
+    with launch_shapes() as seen:
+        tuner.train_step(state, prompts[1], prompts[2], batches[0], generator=torch.Generator(device=device).manual_seed(0))
+        torch.cuda.synchronize()
+    train_shapes = dict(seen)
+    log(f"Painter launches by (kernel, rows, tokens): predict call {pred_shapes}; train step {train_shapes}")
+    check(pred_shapes == want_pred, f"Painter predict launches by shape {pred_shapes}, want {want_pred}")
+    check(train_shapes == want_train, f"Painter train launches by shape {train_shapes}, want {want_train}")
+    del model, tuner, state
+    torch.cuda.empty_cache()
+    return {"predict": m, "train": tr, "predict_shapes": pred_shapes, "train_shapes": train_shapes}
 
 
 def phase_debug_backbone(device, dtype) -> dict:
@@ -2625,6 +2757,13 @@ def main() -> int:
         gold["phase_s"] = time.perf_counter() - t
         log(f"golden parity phase: {gold['phase_s']:.3f} s ({card})")
 
+    t = time.perf_counter()
+    kp = phase_painter_windows(device)
+    log(f"Painter window kernel phase: {time.perf_counter() - t:.3f} s")
+    t = time.perf_counter()
+    pt = phase_painter_path(device)
+    log(f"Painter predict and train path phase: {time.perf_counter() - t:.3f} s")
+
     kernels = [
         {
             "name": "attn_qkv_rel", "geometry": "vit_l", "route": "cuda",
@@ -2804,6 +2943,29 @@ def main() -> int:
                 e["tp_width"]["stage_ms"] = {st: tk["stages"][f"{st}_ms"] for st in stages}
             if e["name"] == "attn_bwd":
                 e["tp_width"]["max_abs_err_by_output"] = tk["attn_bwd_errs"]
+    # Painter's windowed blocks: #1 and #4 at each row count of windows, with
+    # its launches of that shape a predict call (#1) or a train step (#4)
+    win = f"{PAINTER_WIN[0]}x{PAINTER_WIN[1]}"
+    sw = PAINTER_WIN[0] * PAINTER_WIN[1]
+    for rows in PAINTER_ROWS:
+        bh = rows * HEADS
+        for name, key, src, tpu, launches, shape in (
+            ("attn_qkv_rel", "attn", "attn_qkv_rel.cu", "pallas_attn.py:389", pt["predict_shapes"][("attn_qkv_rel", rows, sw)],
+             f"bf16 clamp, qkv ({rows}, {sw}, 3, {C}), {HEADS} heads, grid {win}"),
+            ("attn_bwd", "bwd", "attn_bwd.cu", "pallas_attn.py:722", pt["train_shapes"][("attn_bwd", bh, sw)],
+             f"bf16, q/k/v/g ({bh}, {sw}, {HD}), rel ({PAINTER_WIN[0]}, {PAINTER_WIN[1]})"),
+        ):
+            err = kp[f"{key}_err_{rows}"] if key == "attn" else max(kp[f"bwd_errs_{rows}"].values())
+            kernels.append({
+                "name": name, "geometry": "painter_window", "route": "cuda",
+                "source": f"beach_seg_tpu_torch/ops/csrc/{src}", "replaces": f"beach_seg_tpu/ops/{tpu}",
+                ("launches_per_call" if key == "attn" else "launches_per_train_step"): launches,
+                "max_abs_err": err, "ms": kp[f"{key}_ms_{rows}"], "plain_ms": kp[f"{key}_plain_ms_{rows}"],
+                "bound_ms": kp[f"{key}_bound_{rows}"][0], "bound_by": kp[f"{key}_bound_{rows}"][1], "shape": shape,
+                **({"max_abs_err_by_output": kp[f"bwd_errs_{rows}"]} if key == "bwd" else {}),
+            })
+    for name in ("attn_qkv_rel", "ln_mlp", "attn_bwd", "ln_mlp_dx"):
+        first[name]["launches_painter"] = {path: pt[path]["launches"][name] for path in ("predict", "train")}
     superdove_entries(kernels, sd)
     golden_entries(kernels, gold)
     first["attn_packed"]["ms_hd16_bf16"] = ks["packed_ms_hd16"]
@@ -2835,6 +2997,9 @@ def main() -> int:
     log(f"golden parity ViT-L (transformers {gold['versions']['transformers']}): worst per-class IoU {gold['worst_iou']}, "
         f"class shares {gold['class_shares']}, seconds {gold['seconds']}, phase {gold['phase_s']:.3f} s ({card})")
     log(f"golden parity launches: {json.dumps(gold['launches'])}")
+    log(f"Painter ViT-L bf16: predict_step seconds per call {pt['predict']['seconds']}; train_step seconds per step "
+        f"{pt['train']['seconds']}, peak memory {pt['train']['peak_bytes']} bytes, prompt gradient cosine kernels vs plain "
+        f"{pt['train']['grad_cos']:.6f}")
     log(f"total: {time.perf_counter() - t_start:.3f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

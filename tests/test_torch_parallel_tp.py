@@ -7,7 +7,10 @@ head_dim-8 model (4 heads, the packed attention, 2 heads a rank) and a
 head_dim-64 one (2 heads, the qkv-rel attention, 1 head a rank; also
 against JAX) and a head_dim-80 one (ViT-H's head dim, which
 BASELINE.json config #5 shards under mesh_model > 1: 2 heads, the packed
-attention, 1 head a rank). Limits as
+attention, 1 head a rank) and a tiny Painter (the head_dim-64 widths, blocks
+0 and 2 in 4×4 windows of the 8×4 grid, block 1 global, no type tokens; the
+head_dim-64 model's weights cut to Painter's tables, since the JAX package
+has no Painter). Limits as
 tests/test_tp_equivalence.py holds the JAX package's own: predict ids
 equal, loss within 1e-5 relative, confusion matrices equal, pixels within
 rtol 1e-5, atol 1e-6 plus Adam's slope where |g| nears its eps
@@ -28,12 +31,30 @@ from beach_seg_tpu.parallel.mesh import make_mesh as jmake_mesh
 from beach_seg_tpu.parallel.mesh import param_sharding as jparam_sharding
 from beach_seg_tpu.parallel.mesh import replicated as jreplicated
 from beach_seg_tpu.train.prompt_tuner import PromptTuner as JTuner
+from beach_seg_tpu_torch.models.seggpt import tiny_config
 from beach_seg_tpu_torch.parallel.mesh import tp_shard
 from tests.test_torch_parallel import B, CONF, H, P, assert_same_run, draws, jax_train, problem
 from tests.torch_parallel_common import mesh_task, predict, spawn, train, tuner_on
 from tests.torch_train_common import GRAD_TOL, GRAD_TOL_DEFAULT, assert_grads_close
 
-GEOMS = ("hd8", "hd64", "hd80")
+GEOMS = ("hd8", "hd64", "hd80", "painter")
+
+
+def painter_problem() -> dict:
+    """``problem("hd64")`` as a tiny Painter: its flax-initialized weights
+    without the type tokens, each windowed block's 7-row rel-pos tables the
+    central rows (offsets −3…3) of its global ones."""
+    pb = problem("hd64")
+    over = dict(pb["over"], window_size=4, global_attn_indexes=(1,), type_tokens=False)
+    cfg = tiny_config(**over)
+    state = {k: v for k, v in pb["state"].items() if "type_token" not in k}
+    for i in range(cfg.num_hidden_layers):
+        win = cfg.block_window(i)
+        for axis in ("h", "w") if win else ():
+            table = state[f"encoder.layers_{i}.attention.rel_pos_{axis}"]
+            mid = table.shape[0] // 2
+            state[f"encoder.layers_{i}.attention.rel_pos_{axis}"] = table[mid - win + 1: mid + win].copy()
+    return dict(pb, over=over, params=None, state=state)
 
 
 def predict_batch() -> dict:
@@ -44,7 +65,7 @@ def predict_batch() -> dict:
 
 @pytest.fixture(scope="module")
 def world():
-    pbs = {g: problem(g) for g in GEOMS}
+    pbs = {g: painter_problem() if g == "painter" else problem(g) for g in GEOMS}
     cases = {}
     for g, pb in pbs.items():
         base = {"mesh": (1, 2), "over": pb["over"], "state": pb["state"], "conf": CONF, "prompts": pb["prompts"]}

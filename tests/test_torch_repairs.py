@@ -22,6 +22,7 @@ from beach_seg_tpu_torch.models.seggpt import build_model, from_jax_params, tiny
 from beach_seg_tpu_torch.ops import cuda_attn
 from beach_seg_tpu_torch.ops.attention import attention_bwd_plain, attention_fused_plain, attention_packed_plain
 from beach_seg_tpu_torch.train.loop import model_for_config
+from tests.torch_train_common import as_jax_fields
 
 
 @pytest.mark.parametrize("backbone", ["base", "large", ""])
@@ -29,7 +30,7 @@ def test_unknown_backbone_builds_vit_l(backbone):
     """Any backbone but "huge" is ViT-L in both packages, field by field."""
     _, want = jloop.model_for_config(JConf(backbone=backbone))
     model, got = model_for_config(BeachSegConfig(backbone=backbone), device="meta")
-    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert as_jax_fields(got) == dataclasses.asdict(want)
     assert (got.hidden_size, got.num_hidden_layers, got.head_dim) == (1024, 24, 64)
     assert model.config == got
 

@@ -176,6 +176,24 @@ def test_train_ranges_nest(setup):
     assert "bst.seggpt.loss" in children(rs, model, "bst.seggpt.")
 
 
+def test_painter_window_ranges_nest():
+    """A Painter forward (head_dim 64; blocks 0 and 2 in 3×3 windows that pad
+    the 8×4 grid, block 1 global): a windowed block's ``bst.seggpt.attn``
+    holds the layout, the windowed attention with #1's wrapper inside it,
+    and the layout back; a global block's holds #1's wrapper alone."""
+    cfg = tiny_config(hidden_size=128, num_attention_heads=2, num_hidden_layers=3, merge_index=0,
+                      intermediate_hidden_state_indices=(2,), window_size=3, global_attn_indexes=(1,),
+                      type_tokens=False)
+    model = build_model(cfg, device="cpu", seed=3)
+    x = [torch.zeros((1, cfg.image_size[1], cfg.image_size[1], 3)) for _ in range(3)]
+    _, rs = traced(lambda: model(*x))
+    attn = [r for r in rs if r[0] == "bst.seggpt.attn"]
+    windowed = ["bst.seggpt.window", "bst.seggpt.attn_win", "bst.kernel.attn_qkv_rel", "bst.seggpt.window"]
+    assert [children(rs, r, "bst.") for r in attn] == [windowed, ["bst.kernel.attn_qkv_rel"], windowed]
+    for r in (r for r in rs if r[0] == "bst.seggpt.attn_win"):
+        assert children(rs, r, "bst.") == ["bst.kernel.attn_qkv_rel"]
+
+
 @pytest.mark.parametrize("entry", ["predict_step", "predict_step_probs", "train_step"])
 def test_outputs_equal_with_and_without_profiler(setup, entry):
     def run():

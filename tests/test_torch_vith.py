@@ -26,6 +26,7 @@ from beach_seg_tpu_torch.models.seggpt import build_model, from_jax_params, tiny
 from beach_seg_tpu_torch.ops import attention as tattn
 from beach_seg_tpu_torch.ops import cuda_attn
 from beach_seg_tpu_torch.train.loop import model_for_config
+from tests.torch_train_common import as_jax_fields
 
 BF16_EPS = 2.0**-8
 # head_dim 80 as ViT-H has it, at a tiny width and depth
@@ -187,7 +188,7 @@ def test_model_for_config_matches_jax(kw, device):
     weights), in the compute dtype the config names."""
     _, want = jloop.model_for_config(JConf(**kw))
     model, got = model_for_config(BeachSegConfig(**kw), device=device)
-    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert as_jax_fields(got) == dataclasses.asdict(want)
     assert model.config == got
     assert model.compute_dtype == (torch.bfloat16 if kw.get("compute_dtype") == "bfloat16" else torch.float32)
     assert next(model.parameters()).device.type == device
@@ -200,5 +201,5 @@ def test_model_for_config_rejects_unknown_backbone():
     package's model_for_config does (beach_seg_tpu/train/loop.py:74-75)."""
     _, want = jloop.model_for_config(JConf(backbone="giant"))
     _, got = model_for_config(BeachSegConfig(backbone="giant"), device="meta")
-    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert as_jax_fields(got) == dataclasses.asdict(want)
     assert got.hidden_size == 1024 and got.num_hidden_layers == 24

@@ -30,6 +30,7 @@ from beach_seg_tpu_torch.infer import run_zero_shot
 from beach_seg_tpu_torch.infer import zero_shot as pzero_shot
 from beach_seg_tpu_torch.models.seggpt import from_jax_params
 from tests.synthetic_scene import OTHER_DATES, build_scene
+from tests.torch_train_common import as_jax_fields
 
 HEAD_SCALE = 3000.0
 MODES = {"ranked": False, "compat": True}
@@ -134,12 +135,12 @@ def test_zero_shot_model_reads_the_stored_topology(world, tmp_path):
     params, cfg = _weights(tmp_path / "w.npz")
     conf = PredConfig(debug=False, checkpoint=str(tmp_path / "w.npz"))
     model, got = pzero_shot.zero_shot_model(conf, "cpu")
-    assert dataclasses.asdict(got) == dataclasses.asdict(cfg)
+    assert as_jax_fields(got) == dataclasses.asdict(cfg)
     want = from_jax_params(params, "cpu")
     assert all(torch.equal(v, want[k]) for k, v in model.state_dict().items()) and sorted(want) == sorted(model.state_dict())
     for debug in (True, False):
         want_cfg = jzero_shot.zero_shot_model(JPredConf(debug=debug, checkpoint="random"))[1]
-        assert dataclasses.asdict(pzero_shot.zero_shot_config(PredConfig(debug=debug, checkpoint="random"))) == \
+        assert as_jax_fields(pzero_shot.zero_shot_config(PredConfig(debug=debug, checkpoint="random"))) == \
             dataclasses.asdict(want_cfg)
     bf16 = pzero_shot.zero_shot_model(dataclasses.replace(conf, compute_dtype="bfloat16"), "cpu")[0]
     assert bf16.compute_dtype == torch.bfloat16

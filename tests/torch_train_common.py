@@ -3,6 +3,8 @@ a tiny SegGPT (3 layers) with flax-initialized weights in both packages, seeded
 prompts and batches with exact 0.0/1.0 pixels, and the palette and prompt
 indices the JAX train step draws from its key, handed to the port."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +20,19 @@ from beach_seg_tpu.transforms.palette import random_palette as jrandom_palette
 from beach_seg_tpu_torch.config import BeachSegConfig
 from beach_seg_tpu_torch.models.seggpt import build_model, from_jax_params, tiny_config
 from beach_seg_tpu_torch.train import PromptTuner
+
+def as_jax_fields(cfg) -> dict:
+    """A port SegGPTConfig as the JAX package's fields: the port-only
+    Painter fields (``convert.PORT_ONLY``) are checked to be at their
+    defaults, SegGPT's topology, and left out."""
+    from beach_seg_tpu_torch.models.seggpt.config import SegGPTConfig
+    from beach_seg_tpu_torch.models.seggpt.convert import PORT_ONLY
+
+    raw = dataclasses.asdict(cfg)
+    for name in PORT_ONLY:
+        assert raw.pop(name) == SegGPTConfig.__dataclass_fields__[name].default, name
+    return raw
+
 
 # head_dim 8, 64 (ViT-L's) and 80 (ViT-H's)
 GEOMETRIES = {"hd8": {}, "hd64": dict(hidden_size=128, num_attention_heads=2), "hd80": dict(hidden_size=160, num_attention_heads=2)}
