@@ -28,6 +28,10 @@
 //                    64), Rw (Gw, 64, 64), and the softmax a template mode:
 //                    stable as above, or clamp / fast with no row max,
 //                    p = exp(min(s, 80)) | exp(s) and a row sum + 1e-30.
+//                    No source launches these QKV_REL instances now:
+//                    attn_qkv_rel.cu's bf16 entry runs attn_ws.cuh's warp-
+//                    specialized kernel (it gives the times), which keeps
+//                    their rounding points, slot layout and device helpers.
 //
 // What bounds it: at S=1568 the two S×S×D products per head are ~5e8 FLOP
 // against ~1 MB of q, k, v, rel terms and output, so it is compute-bound on

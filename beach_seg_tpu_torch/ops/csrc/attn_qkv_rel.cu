@@ -19,16 +19,24 @@
 // compute-bound on the tensor cores (fp32 too). Both kernels are flash-style: one block
 // per (q tile, head, batch) streams 64-key tiles of K and V with an online
 // softmax, so scores never reach device memory.
-//   bf16: the wgmma design of attn_flash.cuh (namespace wgf, its QKV_REL
-//   instances, one per softmax mode): two warpgroups of 64 query rows share
-//   a 2-stage cp.async ring of K, V and key-to-slot (E) tiles. Its prologue
-//   adds bq to the q tile in place, forms the rel terms from it with
-//   mma.sync over gathered rows (the rows that read one table row) straight
-//   into the slot rows, then rounds q·scale; each K/V stage takes bk and bv
-//   in place after it lands. The rel terms then enter the score product as
-//   more wgmma k steps (slot rows · E over the slot chunks a key tile
+//   bf16: attn_ws.cuh (one instance per softmax mode): a pre-pass
+//   (fill_slots_rel) writes each query row's slot rows (rel_h ‖ rel_w, formed
+//   from the biased, unscaled q) and k + bk, v + bv into scratch; then a TMA
+//   producer thread fills a 5-stage ring of 64-key K, V and key-to-slot (E)
+//   tiles, and two consumer warpgroups of 64 query rows issue in turns, with
+//   Q and the slot rows in registers. The rel terms enter the score product
+//   as more wgmma k steps (slot rows · E over the slot chunks a key tile
 //   touches): no per-score lookup or division. The JAX kernel feeds its rel
-//   terms through the same 0/1 expansion (`eh`/`ew`).
+//   terms through the same 0/1 expansion (`eh`/`ew`). The exponentials of
+//   one key tile run beside the PV of the one before. It replaced
+//   attn_flash.cuh's synchronous wgmma loop (its QKV_REL instances, which
+//   ran each key tile in order: products, wait, exponentials, PV, wait).
+//   Times (CUDA events, H100 80GB HBM3 at 700 W, clamp; ms a launch, the
+//   new body against the old): ViT-L B = 8 0.453 against 0.681 (the two
+//   pre-passes 0.076 of it), B = 32 1.667 against 2.553, 8 heads (a rank of
+//   the two-rank split) 0.246 against 0.376; Painter's 14×14 windows
+//   (S = 196) at 64 rows 0.214 against 0.221, at 128 rows 0.400 against
+//   0.424.
 //   fp32: 4 warps × 16 query rows (64 rows, two
 //   blocks per SM) and both products in split TF32 (tf32x3.cuh: three
 //   mma.sync m16n8k8 .tf32 per product, fp32-accurate to a few ulps, the
@@ -49,6 +57,7 @@
 #include <string.h>
 
 #include "attn_flash.cuh"
+#include "attn_ws.cuh"
 #include "tf32x3.cuh"
 
 typedef __nv_bfloat16 bf16;
@@ -346,22 +355,19 @@ int launch(void (*kernel)(const T*, const T*, const T*, const T*, T*, int, int, 
 
 // qkv (B, S, 3, C) with C = H·64, bias (3, C), rh (gh, 64, 64), rw (gw, 64,
 // 64), S = gh·gw with gh, gw <= 64 → out (B, S, C); all bf16; softmax 0
-// stable, 1 clamp, 2 fast; e: flash::slots_bytes(S, gh, gw) of scratch
+// stable, 1 clamp, 2 fast; scratch: e, flash::slots_bytes(S, gh, gw);
+// slots, (B·H, S, KX) bf16; kv, (2, B·H, S, 64) bf16
 extern "C" int attn_qkv_rel_bf16(const void* qkv, const void* bias, const void* rh, const void* rw, void* e,
-                                 void* out, int B, int S, int C, int H, int gh, int gw, float scale,
+                                 void* slots, void* kv, void* out, int B, int S, int C, int H, int gh, int gw, float scale,
                                  int softmax, void* stream) {
   if (C != H * HD || !flash::shape_ok(B * H, S, H, gh, gw)) return (int)cudaErrorInvalidValue;
-  const bf16* q = (const bf16*)qkv;
   switch (softmax) {
     case flash::STABLE:
-      return flash::launch_wg<HD, true, true, true, true, flash::STABLE>(q, q + C, q + 2 * C, rh, rw, e, out, B * H, S,
-                                                                       H, gh, gw, 3 * C, 0, scale, stream, bias);
+      return flash::ws::launch<flash::STABLE>(qkv, bias, rh, rw, e, slots, kv, out, B, S, H, gh, gw, scale, stream);
     case flash::CLAMP:
-      return flash::launch_wg<HD, true, true, true, true, flash::CLAMP>(q, q + C, q + 2 * C, rh, rw, e, out, B * H, S,
-                                                                      H, gh, gw, 3 * C, 0, scale, stream, bias);
+      return flash::ws::launch<flash::CLAMP>(qkv, bias, rh, rw, e, slots, kv, out, B, S, H, gh, gw, scale, stream);
     case flash::FAST:
-      return flash::launch_wg<HD, true, true, true, true, flash::FAST>(q, q + C, q + 2 * C, rh, rw, e, out, B * H, S,
-                                                                     H, gh, gw, 3 * C, 0, scale, stream, bias);
+      return flash::ws::launch<flash::FAST>(qkv, bias, rh, rw, e, slots, kv, out, B, S, H, gh, gw, scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

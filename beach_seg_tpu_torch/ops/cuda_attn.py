@@ -26,7 +26,9 @@ Five CUDA kernels, each with a plain PyTorch version:
   version ``ops.attention.attention_qkv_plain``.
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain version
-only for CPU tensors; ``<wrapper>.launches`` counts kernel launches.
+only for CPU tensors; ``<wrapper>.launches`` counts kernel launches, and
+``attn_qkv_rel.launches_by_design`` #1's launches by body
+(:data:`QKV_REL_DESIGN`).
 :func:`qkv_rel_attention` (head_dim 64) and :func:`packed_attention` (other
 head dims) are the differentiable entries the model calls: a forward kernel,
 and in backward the port of ``_qkv_rel_bwd`` (``pallas_attn.py:625-673``)
@@ -64,6 +66,7 @@ SOFTMAX_MODES = ("stable", "clamp", "fast")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _PROTO = [_P] * 6 + [_I] * 6 + [ctypes.c_float, _I, _P]
+_PROTO_BF16 = [_P] * 8 + [_I] * 6 + [ctypes.c_float, _I, _P]  # + ws's slot rows and biased k, v
 _ENTRY = {torch.bfloat16: "attn_qkv_rel_bf16", torch.float32: "attn_qkv_rel_f32"}
 _BWD_ENTRY = {torch.bfloat16: "attn_bwd_bf16", torch.float32: "attn_bwd_f32"}
 _BWD_PROTO = [_P] * 14 + [_I, _I, _I, _I, _I, ctypes.c_float, _P]
@@ -95,6 +98,13 @@ def resolve_softmax(dtype: torch.dtype) -> str:
     return "clamp" if dtype == torch.bfloat16 else "stable"
 
 
+# #1's body in each dtype, by the names ``attn_qkv_rel.launches_by_design``
+# counts: ws, attn_ws.cuh's warp-specialized bf16 body (TMA producer, two
+# consumer warpgroups in turns, the exponentials of one key tile beside the
+# products of the next); f32, the split-TF32 instance
+QKV_REL_DESIGN = {torch.bfloat16: "ws", torch.float32: "f32"}
+
+
 def pad_head_dim(x: torch.Tensor, d: int) -> torch.Tensor:
     """x (..., D) zero-padded to (..., d), contiguous."""
     return F.pad(x, (0, d - x.shape[-1])).contiguous()
@@ -114,6 +124,13 @@ def _slots_scratch(s: int, hk: int, wk: int, device, rows: int = 0) -> tuple[tor
     kx = -(-hk // 16) * 16 + -(-wk // 16) * 16
     e = torch.empty((-(-s // 64) * 64, kx), dtype=torch.bfloat16, device=device)
     return (e, torch.empty((rows, kx), dtype=torch.bfloat16, device=device)) if rows else (e,)
+
+
+def _ws_scratch(b: int, h: int, s: int, hk: int, wk: int, device) -> tuple[torch.Tensor, ...]:
+    """#1 bf16's scratch (``csrc/attn_ws.cuh``): E, the slot rows of every
+    query row (B·H·S, KX) and the biased k and v (2, B·H, S, 64)."""
+    return (*_slots_scratch(s, hk, wk, device, rows=b * h * s),
+            torch.empty((2, b * h, s, 64), dtype=torch.bfloat16, device=device))
 
 
 def attn_qkv_rel_plain(
@@ -193,9 +210,9 @@ def attn_qkv_rel(
             raise ValueError(f"{name}: want {shape} {dt} on {qkv4.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in (qkv4, qkv_bias, rh_tab, rw_tab)):
         raise ValueError("attn_qkv_rel kernel needs contiguous, 16-byte aligned inputs")
-    lib = build.load("attn_qkv_rel", {fn: _PROTO for fn in _ENTRY.values()})
+    lib = build.load("attn_qkv_rel", {_ENTRY[torch.bfloat16]: _PROTO_BF16, _ENTRY[torch.float32]: _PROTO})
     out = torch.empty((b, s, c), dtype=dt, device=qkv4.device)
-    scratch = _slots_scratch(s, gh, gw, qkv4.device) if dt == torch.bfloat16 else ()
+    scratch = _ws_scratch(b, num_heads, s, gh, gw, qkv4.device) if dt == torch.bfloat16 else ()
     err = getattr(lib, _ENTRY[dt])(
         qkv4.data_ptr(), qkv_bias.data_ptr(), rh_tab.data_ptr(), rw_tab.data_ptr(), *_ptrs(scratch, 1), out.data_ptr(),
         b, s, c, num_heads, gh, gw, float(scale), SOFTMAX_MODES.index(softmax),
@@ -203,10 +220,13 @@ def attn_qkv_rel(
     )
     build.check(err, "attn_qkv_rel launch")
     attn_qkv_rel.launches += 1
+    _LAUNCHES_BY_DESIGN[QKV_REL_DESIGN[dt]] += 1
     return out
 
 
 attn_qkv_rel.launches = 0
+# by body; one dict, so that it counts on while a stand-in holds the module's name
+_LAUNCHES_BY_DESIGN = attn_qkv_rel.launches_by_design = dict.fromkeys(QKV_REL_DESIGN.values(), 0)
 
 
 def _check_grid(name: str, tpu: str, d: int, head_dims, s: int, hk: int, wk: int, shape) -> None:

@@ -12,8 +12,8 @@ Phases (any failure exits non-zero before the result lines):
      card, then CUDA-event times of the kernel, the plain version and, for
      attention, scaled_dot_product_attention with the materialized bias (a
      yardstick the port never calls); the qkv-rel attention in bf16 in all
-     three softmax modes (stable, clamp: the default, timed; fast) and in
-     fp32 (the instance phase 12 runs); the LN→MLP is held to a largest
+     three softmax modes (stable, clamp: the default, timed; fast; its ws
+     body, attn_ws.cuh) and in fp32 (the instance phase 12 runs); the LN→MLP is held to a largest
      error and an error norm (MLP_BF16_REL_TOL, MLP_NORM_TOL) and timed
      beside the bf16 chain of PyTorch calls (F.layer_norm → addmm → GELU →
      addmm, chain_ms, a yardstick the port never calls);
@@ -25,7 +25,8 @@ Phases (any failure exits non-zero before the result lines):
      bf16) through PromptTuner.predict_step on 3 batches of 8 uint8 112×112
      crops; ids checked for shape, dtype and range; the launch counters must
      rise by 24 attention and 24 MLP launches per call (and 24 of each of
-     the MLP's stage kernels ln_rows, lin1_gelu, lin2) and the backward
+     the MLP's stage kernels ln_rows, lin1_gelu, lin2), all 24 attention
+     launches in #1's ws body, and the backward
      kernels stay idle; pred_masks of one batch held against the same
      forward through the plain versions on the card;
   6. the train path: the same model through PromptTuner.train_step, 3 steps
@@ -199,7 +200,8 @@ Phases (any failure exits non-zero before the result lines):
      call and of #1, #2, #4 and #5 a step, pred_masks and the prompt
      gradient against the plain versions with phases 5–6's limits; then
      one call and one step with each #1 and #4 launch counted by shape: 8 on
-     the 56×28 grid and 16 on windows (2 on 128 rows, 14 on 64);
+     the 56×28 grid and 16 on windows (2 on 128 rows, 14 on 64), and all 24
+     of #1's launches a call in its ws body;
  25. one JSON line of per-kernel numbers (one entry per kernel, geometry
      and dtype; Painter's windows under geometry "painter_window", one entry
      per row count), then the card's name and power limit, then
@@ -237,8 +239,11 @@ FP32_ROUTE = "tensor cores, split TF32: 3 x FLOPs at 495 TF/s"
 TF32X3 = "mma.sync m16n8k8 tf32x3"  # the design of the fp32 #1, #3, #4, #6 and #7 instances
 # the design of the bf16 #3, #4, #6 and #7 instances (wgmma.cuh)
 WGMMA = "wgmma m64nNk16, one warpgroup a block, cp.async ring, rel terms as k steps against the 0/1 slot matrix"
-# #1 bf16: attn_flash.cuh's wgmma kernel, its qkv-rel instances
-WGMMA_QKV_REL = WGMMA + "; qkv bias added in place, rel terms formed by mma.sync over gathered rows into the slot rows"
+# #1 bf16: attn_ws.cuh's warp-specialized kernel (cuda_attn.QKV_REL_DESIGN's "ws")
+WS_QKV_REL = ("warp-specialized: a pre-pass (fill_slots_rel) writes each query row's slot rows and k + bk, v + bv; "
+              "one producer thread issues TMA into a 5-stage ring of 64-key K, V and E tiles; two consumer "
+              "warpgroups of 64 rows take turns issuing, Q and the slot rows as register operands, rel terms as "
+              "wgmma k steps against E; S(j) is issued beside PV(j-1), and tile j's exponentials run while PV(j-1) does")
 SOFTMAX_MODES = ("stable", "clamp", "fast")
 HBM = 3.35e12  # bytes/s
 B = 8  # tiles per batch (the predict step's batch)
@@ -689,7 +694,7 @@ def phase_kernels(device) -> dict:
     res.update(mlp_check("mlp", cuda_mlp.ln_mlp, cuda_mlp.ln_mlp_plain, (*head, b2, 1e-6, True), MLP_BF16_REL_TOL, ""))
     res["mlp_bound"] = mlp_bound(n)
     log(
-        f"times (ms, B={B}): attn kernel {res['attn_ms']:.4f} plain {res['attn_plain_ms']:.4f} "
+        f"times (ms, B={B}): attn kernel (ws) {res['attn_ms']:.4f} plain {res['attn_plain_ms']:.4f} "
         f"sdpa {res['attn_library_ms']:.4f} bound {res['attn_bound'][0]:.4f} ({res['attn_bound'][1]}); "
         f"attn fp32 {res['attn32_ms']:.4f} plain {res['attn32_plain_ms']:.4f} sdpa {res['attn32_library_ms']:.4f} "
         f"bound {res['attn32_bound'][0]:.4f}; mlp kernel {res['mlp_ms']:.4f} plain {res['mlp_plain_ms']:.4f} bound {res['mlp_bound'][0]:.4f} ({res['mlp_bound'][1]}) chain {res['mlp_chain_ms']:.4f}"
@@ -1130,7 +1135,7 @@ def phase_painter_windows(device) -> dict:
         res[f"bwd_ms_{rows}"] = time_ms(lambda: cuda_attn.attn_bwd(*bwd), iters=10, warmup=2)
         res[f"bwd_plain_ms_{rows}"] = time_ms(lambda: attention_bwd_plain(*bwd), iters=2)
         res[f"bwd_bound_{rows}"] = attn_bwd_bound(bh, s, gh, gw)
-        log(f"times (ms, {where}): attn kernel {res[f'attn_ms_{rows}']:.4f} plain {res[f'attn_plain_ms_{rows}']:.4f} "
+        log(f"times (ms, {where}): attn kernel (ws) {res[f'attn_ms_{rows}']:.4f} plain {res[f'attn_plain_ms_{rows}']:.4f} "
             f"bound {res[f'attn_bound_{rows}'][0]:.4f} ({res[f'attn_bound_{rows}'][1]}); attn_bwd kernel "
             f"{res[f'bwd_ms_{rows}']:.4f} plain {res[f'bwd_plain_ms_{rows}']:.4f} "
             f"bound {res[f'bwd_bound_{rows}'][0]:.4f} ({res[f'bwd_bound_{rows}'][1]})")
@@ -1187,7 +1192,7 @@ def phase_painter_path(device) -> dict:
     check(cfg.window_size == PAINTER_WIN[0] and tuple(cfg.global_attn_indexes) == tuple(range(2, 24, 3))
           and cfg.num_hidden_layers == 24 and cfg.hidden_size == C and cfg.head_dim == HD, f"Painter config {cfg}")
     fwd = {"attn_qkv_rel": 24, "ln_mlp": 24}
-    m = phase_main_path(device, model, conf, with_stages(fwd))
+    m = phase_main_path(device, model, conf, with_stages(fwd), designs={"ws": 24})
     tr = phase_train_path(device, model, conf, with_stages(dict(fwd, attn_bwd=24, ln_mlp_dx=24)))
 
     s, sw = GRID[0] * GRID[1], PAINTER_WIN[0] * PAINTER_WIN[1]
@@ -1282,11 +1287,12 @@ def main_path_inputs(conf, n_prompts: int, n_batches: int, seed: int = 0):
     return prompts, batches
 
 
-def phase_main_path(device, model, conf, expect: dict, n_batches: int = 3) -> dict:
+def phase_main_path(device, model, conf, expect: dict, n_batches: int = 3, designs: dict | None = None) -> dict:
     """PromptTuner.predict_step on ``n_batches`` batches of B crops; each
     call must launch the kernels ``expect`` names that many times and the
-    others not at all; one batch's pred_masks held against the plain
-    versions."""
+    others not at all, and #1 its bodies as ``designs`` says (when given);
+    one batch's pred_masks held against the plain versions."""
+    from beach_seg_tpu_torch.ops import cuda_attn
     from beach_seg_tpu_torch.train import PromptTuner
     from beach_seg_tpu_torch.transforms import decode_by_palette
 
@@ -1296,21 +1302,24 @@ def phase_main_path(device, model, conf, expect: dict, n_batches: int = 3) -> di
     want_calls = {name: expect.get(name, 0) for name in counters()}
 
     reset_counts()
-    seconds, per_call = [], []
+    seconds, per_call, per_design = [], [], []
+    by_design = cuda_attn.attn_qkv_rel.launches_by_design
     for batch in batches:
-        before = read_counts()
+        before, d0 = read_counts(), dict(by_design)
         t = time.perf_counter()
         ids = tuner.predict_step(*prompts, batch, out_size=conf.crop_size)
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t)
         now = read_counts()
         per_call.append({k: now[k] - before[k] for k in now})
+        per_design.append({k: by_design[k] - d0[k] for k in by_design if by_design[k] != d0[k]})
         check(tuple(ids.shape) == (B, conf.crop_size, conf.crop_size), f"ids shape {tuple(ids.shape)}")
         check(ids.dtype == torch.uint8 and ids.device.type == "cuda", f"ids {ids.dtype} on {ids.device}")
         check(int(ids.max()) < len(conf.classes), f"id {int(ids.max())} out of range")
     launches = read_counts()
-    log(f"main path: predict_step seconds per call {seconds}; launches per call {per_call}")
+    log(f"main path: predict_step seconds per call {seconds}; launches per call {per_call}; #1 by design {per_design}")
     check(all(pc == want_calls for pc in per_call), f"launches per call {per_call}, want {want_calls}")
+    check(designs is None or all(pd == designs for pd in per_design), f"#1 by design {per_design}, want {designs}")
 
     pred, pal = tuner.predict_masks(*prompts, batches[0])
     with plain_kernels():
@@ -1340,7 +1349,8 @@ def phase_main_path(device, model, conf, expect: dict, n_batches: int = 3) -> di
     check(err <= PRED_REL_TOL * scale, f"pred_masks disagree: {err} > {PRED_REL_TOL * scale}")
     check(agree >= ID_AGREEMENT_MIN, f"id agreement {agree}")
     check(worst <= reach, f"an id differs {worst} from a decision boundary, beyond the error's reach {reach}")
-    return {"launches": launches, "seconds": seconds, "pred_err": err, "id_agreement": agree}
+    return {"launches": launches, "seconds": seconds, "pred_err": err, "id_agreement": agree,
+            "launches_by_design": per_design[-1]}
 
 
 def train_path_inputs(conf, n_prompts: int, n_steps: int, seed: int = 1):
@@ -2655,7 +2665,7 @@ def main() -> int:
     conf = BeachSegConfig(batch_size=B)
     model = build_model(SegGPTConfig(), torch.bfloat16, device=device, seed=0)
     log(f"main path: ViT-L {model.config.num_hidden_layers} layers bf16 built in {time.perf_counter() - t:.3f} s")
-    m = phase_main_path(device, model, conf, with_stages(large))
+    m = phase_main_path(device, model, conf, with_stages(large), designs={"ws": 24})
     log(f"main path phase: {time.perf_counter() - t:.3f} s")
     t = time.perf_counter()
     tr = phase_train_path(device, model, conf, with_stages(dict(large, **{k: 24 for k in backward})))
@@ -2696,7 +2706,7 @@ def main() -> int:
     model, cfg32 = model_for_config(conf32, device=device, seed=0)
     check(cfg32.head_dim == HD and cfg32.num_hidden_layers == 24, f"fp32 ViT-L config {cfg32}")
     log(f"fp32 predict path: ViT-L from the default BeachSegConfig, built in {time.perf_counter() - t:.3f} s")
-    m32 = phase_main_path(device, model, conf32, {"attn_qkv_rel": 24}, n_batches=2)
+    m32 = phase_main_path(device, model, conf32, {"attn_qkv_rel": 24}, n_batches=2, designs={"f32": 24})
     log(f"fp32 predict path phase: {time.perf_counter() - t:.3f} s")
     t = time.perf_counter()
     tr32 = phase_train_path(device, model, conf32, {"attn_qkv_rel": 24, "attn_bwd": 24}, n_steps=2,
@@ -2773,7 +2783,8 @@ def main() -> int:
             "max_abs_err": k["attn_err_clamp"], "max_abs_diff": k["attn_err_clamp"],
             "max_abs_err_by_softmax": {mode: k[f"attn_err_{mode}"] for mode in SOFTMAX_MODES},
             f"max_abs_err_grid_{GRID_CROSS[0]}x{GRID_CROSS[1]}": {mode: kc[f"qkv_rel_bf16_{mode}"] for mode in SOFTMAX_MODES},
-            "max_abs_err_fp32_stable": k["attn32_err"], "design": WGMMA_QKV_REL,
+            "max_abs_err_fp32_stable": k["attn32_err"], "design": WS_QKV_REL, "design_name": "ws",
+            "launches_by_design": m["launches_by_design"],
             "launches_fp32_predict": m32["launches"]["attn_qkv_rel"], "launches_fp32_train": tr32["launches"]["attn_qkv_rel"],
             "ms": k["attn_ms"], "plain_ms": k["attn_plain_ms"],
             "bound_ms": k["attn_bound"][0], "bound_by": k["attn_bound"][1],
@@ -2962,7 +2973,8 @@ def main() -> int:
                 ("launches_per_call" if key == "attn" else "launches_per_train_step"): launches,
                 "max_abs_err": err, "ms": kp[f"{key}_ms_{rows}"], "plain_ms": kp[f"{key}_plain_ms_{rows}"],
                 "bound_ms": kp[f"{key}_bound_{rows}"][0], "bound_by": kp[f"{key}_bound_{rows}"][1], "shape": shape,
-                **({"max_abs_err_by_output": kp[f"bwd_errs_{rows}"]} if key == "bwd" else {}),
+                **({"max_abs_err_by_output": kp[f"bwd_errs_{rows}"]} if key == "bwd" else
+                   {"design_name": "ws", "launches_by_design": pt["predict"]["launches_by_design"]}),
             })
     for name in ("attn_qkv_rel", "ln_mlp", "attn_bwd", "ln_mlp_dx"):
         first[name]["launches_painter"] = {path: pt[path]["launches"][name] for path in ("predict", "train")}

@@ -7,7 +7,7 @@ steps (ViT-L and ViT-H bf16 predict_step and train_step, the default fp32
 ViT-L config's, and the fp32 ViT-H predict_step) by the host clock around
 synchronized calls, with each train step's peak device memory.
 
-    python3 scripts/ab_torch_trees.py OLD_ROOT NEW_ROOT
+    python3 scripts/ab_torch_trees.py [--attn-only] OLD_ROOT NEW_ROOT
 
 runs OLD, NEW, NEW, OLD, each in its own process (its own build of its
 kernels, from that tree's sources), and prints one JSON line per run, then
@@ -17,7 +17,10 @@ entries (``ops.cuda_attn`` wrappers, ``train.loop.model_for_config``,
 
     python3 scripts/ab_torch_trees.py --one ROOT
 
-measures one tree in this process. Exits non-zero without a CUDA device.
+measures one tree in this process. ``--attn-only`` measures #1 bf16 (clamp)
+alone: at B = 8 and 32 on the ViT-L grid, at 8 heads (a rank of the
+two-rank split) and on 64 and 128 rows of Painter's 14×14 windows. Exits
+non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ import time
 from pathlib import Path
 
 
-def measure(root: Path) -> dict:
+def measure(root: Path, attn_only: bool = False) -> dict:
     sys.path.insert(0, str(root))
     import torch
 
@@ -49,6 +52,15 @@ def measure(root: Path) -> dict:
     res["attn_qkv_rel_bf16_ms"] = cs.time_ms(
         lambda: cuda_attn.attn_qkv_rel(qkv4, bias, rh_tab, rw_tab, cs.HD**-0.5, gw, cs.HEADS, "clamp"), iters=20, warmup=2)
     del qkv4, bias, rh_tab, rw_tab
+    if attn_only:
+        for key, b, heads, grid in (("b32", 32, cs.HEADS, cs.GRID), ("h8", cs.B, 8, cs.GRID),
+                                    ("win64", 64, cs.HEADS, (14, 14)), ("win128", 128, cs.HEADS, (14, 14))):
+            args = (*cs.attn_inputs(torch.bfloat16, dev, b=b, grid=grid, c=heads * cs.HD), cs.HD**-0.5, grid[1], heads,
+                    "clamp")
+            res[f"attn_qkv_rel_bf16_{key}_ms"] = cs.time_ms(lambda: cuda_attn.attn_qkv_rel(*args), iters=20, warmup=2)
+            del args
+            torch.cuda.empty_cache()
+        return res
     for hd in (cs.HD, cs.HD_H):
         args = (*cs.attn_bwd_inputs(dev, bh, hd=hd), hd**-0.5)
         res[f"attn_bwd_bf16_hd{hd}_ms"] = cs.time_ms(lambda: cuda_attn.attn_bwd(*args), iters=10, warmup=2)
@@ -110,20 +122,22 @@ def measure(root: Path) -> dict:
 
 
 def main() -> int:
-    if sys.argv[1:2] == ["--one"]:
+    argv = [a for a in sys.argv[1:] if a != "--attn-only"]
+    flags = ["--attn-only"] if len(argv) < len(sys.argv) - 1 else []
+    if argv[:1] == ["--one"]:
         import torch
 
         if not torch.cuda.is_available():
             print("ab_torch_trees: no CUDA device", file=sys.stderr)
             return 2
-        print(json.dumps(measure(Path(sys.argv[2]).resolve())), flush=True)
+        print(json.dumps(measure(Path(argv[1]).resolve(), attn_only=bool(flags))), flush=True)
         return 0
-    if len(sys.argv) != 3:
+    if len(argv) != 2:
         print(__doc__, file=sys.stderr)
         return 2
-    old, new = (Path(p).resolve() for p in sys.argv[1:])
+    old, new = (Path(p).resolve() for p in argv)
     for root in (old, new, new, old):
-        res = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--one", str(root)], cwd=root,
+        res = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--one", str(root), *flags], cwd=root,
                              capture_output=True, text=True)
         if res.returncode:
             print(res.stdout[-4000:], res.stderr[-8000:], file=sys.stderr)

@@ -5,13 +5,15 @@ main path's shapes (B=8 tiles). bf16: the LN→MLP (#2, ln_mlp.cu) and its dx
 with gemm_sm90.cuh's ring cut to one stage, without its producer warpgroup
 (the consumers' first thread loads), without the epilogue's GELU or gelu',
 without dual_dh's second product (g·W2ᵀ) or without the epilogue's stores;
-the bf16 flash forward (attn_flash.cuh) as the ViT-L qkv-rel attention (#1,
-clamp), the ViT-H packed attention (#3, head_dim 80) and the ViT-L
-qkv-layout attention (#6), and the bf16 attention backward (#4) at head dims
-80 and 64, each without its rel terms (the slot chunks on the tensor cores),
-without its ring's prefetch (every step waits for its next stage's loads),
-and the forward without PV (#1 also without its rel-term prologue or its k/v
-bias passes), the backward without drh/drw or without its k-major kernel.
+the bf16 flash forward (attn_flash.cuh) as the ViT-H packed attention (#3,
+head_dim 80) and the ViT-L qkv-layout attention (#6), and the bf16
+attention backward (#4) at head dims 80 and 64, each without its rel terms
+(the slot chunks on the tensor cores), without its ring's prefetch (every
+step waits for its next stage's loads), and the forward without PV, the
+backward without drh/drw or without its k-major kernel; the ViT-L qkv-rel
+attention (#1, clamp: attn_ws.cuh's warp-specialized kernel) without its
+rel terms, its warpgroups' turns, its exponentials or PV, with a 2-stage
+ring, and its pre-passes alone.
 fp32: the qkv-rel attention and the attention backward (split-TF32
 products, ``csrc/tf32x3.cuh``) with one part removed or cheapened (one TF32
 product instead of three, no split, the hardware exp, ...) or with the split
@@ -31,8 +33,8 @@ device.
 ``check`` instead holds faulty builds against their plain versions by
 chip_smoke.py's limits, which each must fail: the bf16 flash forward (#3,
 #6, #7: no rel terms, a crossing slot chunk dropped, a key tile dropped, no
-tail mask; #1: no rel terms, a crossing slot chunk dropped, no tail mask, no
-v bias) by the forward attention limits, and the LN→MLP (the last 64-channel
+tail mask; #1's ws body: no rel terms, a crossing slot chunk dropped, no
+tail mask, no v bias) by the forward attention limits, and the LN→MLP (the last 64-channel
 K tile of W1 or 128-unit hidden tile of W2 dropped) and its dx (gelu' or the
 LN VJP's xhat term left out) by the MLP limits, at ViT-L and ViT-H shapes
 and a ragged N.
@@ -120,11 +122,21 @@ FLASH = {
                      "    if (kt + NS - 1 < nk) load_stage(kt + NS - 1);\n    cp_async_commit();\n    cp_async_wait<0>();\n")],
     "no_pv": [("attn_flash.cuh", "    for (int ks = 0; ks < 4; ++ks) mma_rs<HD>(o, pa[ks], mndesc(sb + TB + ks * 16 * 32, 64), 1);\n", "")],
 }
-V_BIAS = ("attn_flash.cuh", "  add_bias<HD>(stage + Cfg<HD>::TB, bk + C, tid);\n", "")
-ATTN = {  # attn_qkv_rel.cu, bf16: attn_flash.cuh's qkv-rel instances
-    **FLASH,
-    "no_rel_prologue": [("attn_flash.cuh", "    rel_prologue(sQ0, gbase + (sR0 - base), rbytes, rh, rw, q0, S, hk, wk, hkp, tid);\n", "")],
-    "no_bias_passes": [("attn_flash.cuh", "  add_bias<HD>(stage, bk, tid);\n", ""), V_BIAS],
+# #1 bf16 (attn_qkv_rel.cu: attn_ws.cuh's warp-specialized kernel): without
+# its rel terms, without the two warpgroups' turns, without the
+# exponentials, without PV, with the ring cut to 2 stages, and its two
+# pre-pass launches alone
+WS = "attn_ws.cuh"
+WS_PV = "    for (int ks = 0; ks < 4; ++ks) mma_rs<HD>(o, pa[ks], mndesc(sb + TB + ks * 16 * 32, 64), 1);\n"
+WS_BIAS = "        const uint4 bb = __ldg(reinterpret_cast<const uint4*>(bias + w * C + h * HD + c8));\n"
+ATTN = {
+    "no_rel_terms": [(WS, "      if (touched(c, nx, hkp, c_lo, c_hi)) mma_rs_k", "      if (false) mma_rs_k")],
+    "no_turns": [(WS, "  const bool turns = nwg == NWG;", "  const bool turns = false;")],
+    "no_exp": [(WS, "      s[i] = __expf(SOFTMAX == STABLE ? x - m[(i >> 1) & 1] : SOFTMAX == CLAMP ? fminf(x, 80.0f) : x);",
+                "      s[i] = x;")],
+    "no_pv": [(WS, WS_PV, "")],
+    "ring_2": [(WS, "constexpr int NS = 5;", "constexpr int NS = 2;")],
+    "pre_passes_only": [(WS, "  kernel<<<grid, NTB, bytes, st>>>(", "  if (S < 0) kernel<<<grid, NTB, bytes, st>>>(")],
 }
 # faults of the bf16 flash forward, for the `check` mode: each must fail
 # chip_smoke's forward limits, or the limits see too little
@@ -137,8 +149,12 @@ FLASH_FAULTS = {
 }
 # and of #1 bf16 (a dropped k bias is not among them: it adds q·bk to every
 # score of a row, which the softmax cancels up to rounding)
-QKV_REL_FAULTS = {name: FLASH_FAULTS[name] for name in ("no_rel_terms", "drop_crossing_chunk", "no_tail_mask")}
-QKV_REL_FAULTS["no_v_bias"] = [V_BIAS]
+QKV_REL_FAULTS = {
+    "no_rel_terms": ATTN["no_rel_terms"],
+    "drop_crossing_chunk": [(WS, "c_hi = (min(k0 + 63, S - 1) / wk) / 16;", "c_hi = c_lo;")],
+    "no_tail_mask": [(WS, "        if (key >= S) x = -INFINITY;\n", "")],
+    "no_v_bias": [(WS, WS_BIAS, WS_BIAS.replace("const uint4 bb = ", "const uint4 bb = w == 2 ? make_uint4(0u, 0u, 0u, 0u) : "))],
+}
 BWD = {  # attn_bwd.cu, bf16 instance
     "no_rel_terms": [
         ("      if (touched(c, nx, hkp, c_lo, c_hi)) mma_ss<64>(s, kdesc(sR + c * BT * 32), kdesc(sb + 2 * TB + c * BT * 32), 1);\n", ""),
@@ -358,9 +374,9 @@ def main() -> int:
             drh, drw, stats = torch.empty_like(hrh), torch.empty_like(hrw), torch.empty((3, bh, s), device=dev)
             qkv, bias, rh, rw = chip_smoke.attn_inputs(torch.bfloat16, dev)
             out = torch.empty((b, s, c), dtype=torch.bfloat16, device=dev)
-            e, slots = cuda_attn._slots_scratch(s, gh, gw, dev, rows=bh * s)
-            calls["attn"] = ("attn_qkv_rel_bf16", cuda_attn._PROTO, (qkv, bias, rh, rw, e, out, b, s, c, chip_smoke.HEADS,
-                                                                      gh, gw, chip_smoke.HD**-0.5, 1), 20)
+            e, slots, kv = cuda_attn._ws_scratch(b, chip_smoke.HEADS, s, gh, gw, dev)
+            calls["attn"] = ("attn_qkv_rel_bf16", cuda_attn._PROTO_BF16, (qkv, bias, rh, rw, e, slots, kv, out, b, s, c,
+                                                                          chip_smoke.HEADS, gh, gw, chip_smoke.HD**-0.5, 1), 20)
             calls["packed"] = ("attn_packed_bf16", cuda_attn._PACKED_PROTO, (hq, hk_, hv, hrh, hrw, e, hout, bh, s, hd,
                                                                              chip_smoke.HEADS, gh, gw, hd**-0.5), 20)
             calls["bwd"] = ("attn_bwd_bf16", cuda_attn._BWD_PROTO,

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain versions on the card, at one
-ViT-L layer's shapes, at ViT-H's widths (head_dim 80, C=1280) and at ragged
+ViT-L layer's shapes (#1 bf16 at every shape its paths run, and the body
+its entry takes), at ViT-H's widths (head_dim 80, C=1280) and at ragged
 small ones, the packed attention at ViT-H's widths and the scene engines'
 batch rows, tiny bf16 and fp32 models (head_dim 64, and C=1280 with 16 heads
 of 80) through the kernels forward and backward, the library's attention
@@ -99,6 +100,61 @@ def test_attn_kernel_matches_plain(cuda, dtype, softmax, grid):
     want = cuda_attn.attn_qkv_rel_plain(*args)
     assert got.dtype == dtype and got.shape == want.shape == (batch, grid[0] * grid[1], heads * (C // HEADS))
     _assert_attn_close(got, want)
+
+
+# #1 bf16 at the shapes its paths run: the ViT-L grid at B = 1, 8 and 32 (a
+# layer, the predict batch, the large predict batch), the crossing grid, 8
+# heads (a rank of the two-rank model split), Painter's 14×14 windows at 64
+# and 128 rows, and ragged small grids (a tile of 15 or 28 keys, a 64-wide
+# row)
+_WS_CASES = [(1, HEADS, S_GRID), (8, HEADS, S_GRID), (32, HEADS, S_GRID), (2, 3, CROSS_GRID), (8, 8, S_GRID),
+             (64, HEADS, (14, 14)), (128, HEADS, (14, 14)), (2, 3, (3, 5)), (2, 3, (7, 4)), (2, 3, (9, 64))]
+
+
+@pytest.mark.parametrize("softmax", ["stable", "clamp", "fast"])
+@pytest.mark.parametrize("batch,heads,grid", _WS_CASES, ids=lambda x: str(x))
+def test_attn_qkv_rel_ws_matches_plain(cuda, batch, heads, grid, softmax):
+    """#1 bf16 (attn_ws.cuh's body) against the plain version at every shape
+    of ``_WS_CASES`` in every softmax mode (``_assert_attn_close``)."""
+    qkv, bias, rh, rw = _attn_inputs(torch.bfloat16, cuda, batch=batch, grid=grid, heads=heads)
+    args = (qkv, bias, rh, rw, 0.125, grid[1], heads, softmax)
+    got = cuda_attn.attn_qkv_rel(*args)
+    torch.cuda.synchronize()
+    want = cuda_attn.attn_qkv_rel_plain(*args)
+    assert got.shape == want.shape == (batch, grid[0] * grid[1], heads * (C // HEADS))
+    _assert_attn_close(got, want)
+
+
+def test_attn_qkv_rel_takes_its_body_by_dtype(cuda):
+    """The entry's launches by body: ws at every shape of ``_WS_CASES`` in
+    bf16, and fp32's one instance."""
+    for batch, heads, grid in _WS_CASES:
+        args = (*_attn_inputs(torch.bfloat16, cuda, batch=batch, grid=grid, heads=heads), 0.125, grid[1], heads)
+        before = dict(cuda_attn.attn_qkv_rel.launches_by_design)
+        cuda_attn.attn_qkv_rel(*args)
+        after = cuda_attn.attn_qkv_rel.launches_by_design
+        assert {k: after[k] - before[k] for k in after} == {"ws": 1, "f32": 0}, (batch, heads, grid)
+    args = (*_attn_inputs(torch.float32, cuda, batch=1, grid=S_GRID), 0.125, S_GRID[1], HEADS)
+    before = dict(cuda_attn.attn_qkv_rel.launches_by_design)
+    cuda_attn.attn_qkv_rel(*args)
+    after = cuda_attn.attn_qkv_rel.launches_by_design
+    assert {k: after[k] - before[k] for k in after} == {"ws": 0, "f32": 1}
+
+
+def test_ws_body_never_waits_on_the_card(cuda):
+    """#1's ws body (three launches, its scratch from the caching allocator)
+    under sync-debug mode ``"error"`` once its library is loaded."""
+    args = (*_attn_inputs(torch.bfloat16, cuda, batch=2, grid=S_GRID), 0.125, S_GRID[1], HEADS)
+    cuda_attn.attn_qkv_rel(*args)
+    torch.cuda.synchronize()
+    before = cuda_attn.attn_qkv_rel.launches_by_design["ws"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = cuda_attn.attn_qkv_rel(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert cuda_attn.attn_qkv_rel.launches_by_design["ws"] == before + 1
+    assert torch.isfinite(out).all()
 
 
 @pytest.mark.parametrize("c", [64, 256, C])  # the debug backbone's narrow width, the smallest stage-kernel width, ViT-L's
