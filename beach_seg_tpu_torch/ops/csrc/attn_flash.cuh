@@ -1,7 +1,6 @@
 // Flash-style attention with decomposed rel-pos terms, for Hopper (sm_90a):
-// the device code of four kernels that differ in where they read and
-// write, in one rounding point, and in whether the qkv bias and the rel
-// terms are formed in the kernel.
+// the device code of three kernels that differ in where they read and
+// write and in one rounding point.
 //
 // Per (batch, head) bh = b·H + h, with q, k, v (S, D), rel_h (S, Hk),
 // rel_w (S, Wk), S = Hk·Wk, all in the compute type T (bf16 or fp32):
@@ -21,17 +20,8 @@
 //   attn_packed.cu   IN false, OUT true,  PRESCALE  (TPU `_kernel_packed`)
 //   attn_qkv.cu      IN true,  OUT true,  PRESCALE  (TPU `_kernel_qkv`)
 //   attn_fused.cu    IN false, OUT false, !PRESCALE (TPU `_kernel`)
-//   attn_qkv_rel.cu  bf16 only: IN true, OUT true, PRESCALE and QKV_REL
-//                    (TPU `_kernel_qkv_rel`): q, k, v + the qkv bias
-//                    (rounded to bf16), the rel terms formed in the kernel
-//                    from the unscaled biased q and the tables Rh (Gh, 64,
-//                    64), Rw (Gw, 64, 64), and the softmax a template mode:
-//                    stable as above, or clamp / fast with no row max,
-//                    p = exp(min(s, 80)) | exp(s) and a row sum + 1e-30.
-//                    No source launches these QKV_REL instances now:
-//                    attn_qkv_rel.cu's bf16 entry runs attn_ws.cuh's warp-
-//                    specialized kernel (it gives the times), which keeps
-//                    their rounding points, slot layout and device helpers.
+// attn_qkv_rel.cu (#1) takes the softmax modes, quad_max, quad_sum, MAXG and
+// shape_ok from here too; its bf16 body is attn_ws.cuh.
 //
 // What bounds it: at S=1568 the two S×S×D products per head are ~5e8 FLOP
 // against ~1 MB of q, k, v, rel terms and output, so it is compute-bound on
@@ -49,11 +39,6 @@
 //   K, V and E tiles arrive through a 2-stage cp.async ring (two blocks, four
 //   warpgroups an SM at ViT shapes), one barrier a step. #7's scale on
 //   the fp32 scores needs the rel terms in an accumulator of their own.
-//   QKV_REL adds a prologue (q + bq in place, then the slot rows formed from
-//   it by mma.sync over gathered rows, then q·scale) and the k and v biases
-//   on each K/V stage after it lands: each thread adds them to the chunks
-//   it copied itself, while the tensor cores run the step before's PV, so
-//   the step's one barrier covers them.
 //   fp32 (namespace tc32): 4 warps × 16 query rows (two blocks an SM), both
 //   products in split TF32 on the tensor cores (tf32x3.cuh: three mma.sync
 //   m16n8k8 .tf32 a product, fp32 to a few ulps), the design of #1's fp32
@@ -63,8 +48,7 @@
 //   double-buffered K/V ring, the q tile's rel rows staged once slot-major
 //   (Hk + Wk rows) and added per score, the exact expf. Bound: 3·FLOPs at
 //   the 495 TF/s TF32 rate.
-// Head dims 16, 64 and 80 are template instances (the wrappers pad 8 to 16);
-// QKV_REL takes 64 only (the JAX model's precondition).
+// Head dims 16, 64 and 80 are template instances (the wrappers pad 8 to 16).
 
 #pragma once
 
@@ -72,7 +56,6 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
-#include <string.h>
 
 #include "tf32x3.cuh"
 #include "wgmma.cuh"
@@ -84,7 +67,8 @@ typedef __nv_bfloat16 bf16;
 constexpr int BK = 64;        // keys per step
 constexpr int MAXG = 64;      // largest Hk and Wk, and the rel slot width of the merged layout
 
-// the qkv-rel attention's softmax modes (cuda_attn.SOFTMAX_MODES order)
+// the qkv-rel attention's softmax modes (cuda_attn.SOFTMAX_MODES order): #1's
+// bf16 body (attn_ws.cuh) and its fp32 instance (attn_qkv_rel.cu)
 enum Softmax { STABLE = 0, CLAMP = 1, FAST = 2 };
 
 __device__ __forceinline__ float quad_max(float v) {
@@ -133,7 +117,6 @@ using namespace wg;
 constexpr int NWG = 2;          // warpgroups a block, 64 query rows each
 constexpr int BQ = 64 * NWG;    // query rows per block
 constexpr int NTB = NT * NWG;   // threads per block
-constexpr int NW = NTB / 32;    // warps per block
 constexpr int NS = 2;           // ring stages (two blocks an SM at ViT shapes)
 
 template <int HD>
@@ -143,23 +126,6 @@ struct Cfg {
   // shared bytes: alignment slack, each warpgroup's Q tile and slot rows, NS stages of K, V, E
   static size_t smem(int kx) { return 1024 + NWG * (TB + (size_t)64 * kx * 2) + (size_t)NS * (2 * TB + 64 * kx * 2); }
 };
-
-__device__ __forceinline__ uint32_t add2(uint32_t a, uint32_t b) {  // bf16x2 a + b, rounded
-  __nv_bfloat162 x, y;
-  memcpy(&x, &a, 4);
-  memcpy(&y, &b, 4);
-  x = __hadd2(x, y);
-  memcpy(&a, &x, 4);
-  return a;
-}
-
-// The 16-byte chunk c of a 64-row panel tile, in shared-memory order (its
-// byte offset is 16·c; chunk_off's inverse): row r, columns 8·ch..8·ch + 7.
-__device__ __forceinline__ void chunk_at(int c, int& r, int& ch) {
-  const int w = c % 128;  // 128 chunks a panel
-  r = w / 2;
-  ch = 2 * (c / 128) + ((w & 1) ^ ((r >> 2) & 1));
-}
 
 // rows [r0, r0 + 64) of a bf16 matrix (row stride ld, `cols` columns, a
 // multiple of 16) into a 64-row panel tile by cp.async, as load_tile, with
@@ -177,138 +143,14 @@ __device__ __forceinline__ void load_tile64(uint32_t tile, const bf16* src, size
   }
 }
 
-// a bias row added, rounded to bf16, to this thread's chunks of a 64-row
-// panel tile of HD columns (generic address p) loaded by load_tile64; once
-// the thread's own copies are complete (cp_async_wait) it needs no barrier
-template <int HD>
-__device__ __forceinline__ void add_bias(unsigned char* p, const bf16* bias, int tid) {
-  for (int c = tid; c < 8 * HD; c += NTB) {
-    int r, ch;
-    chunk_at(c, r, ch);
-    const uint4 bb = __ldg(reinterpret_cast<const uint4*>(bias + 8 * ch));
-    uint4* x = reinterpret_cast<uint4*>(p + 16 * c);
-    const uint4 xv = *x;
-    *x = make_uint4(add2(xv.x, bb.x), add2(xv.y, bb.y), add2(xv.z, bb.z), add2(xv.w, bb.w));
-  }
-}
-// k + bk and v + bv on a landed K/V stage (bk: the head's k bias; bv = bk
-// + C), this thread's chunks; rows past S become the bias (their p is 0)
-template <int HD>
-__device__ __forceinline__ void add_bias_kv(unsigned char* stage, const bf16* bk, int C, int tid) {
-  add_bias<HD>(stage, bk, tid);
-  add_bias<HD>(stage + Cfg<HD>::TB, bk + C, tid);
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-// d += a · b, mma.sync m16n8k16, bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-      "{%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The qkv-rel attention's rel terms (head dim 64): from the block's biased,
-// unscaled q tiles at sQ0 and the tables Rh (Gh, 64, 64), Rw (Gw, 64, 64),
-// rel_h[r, j] = Σ_c q[r,c]·Rh[y(r), j, c] into slot j and rel_w[r, j] =
-// Σ_c q[r,c]·Rw[x(r), j, c] into slot hkp + j of the slot rows at gR
-// (generic address; rbytes a warpgroup's), fp32 sums rounded to bf16. The
-// block's rows that read one table row (one y: a run of consecutive rows;
-// one x: rows wk apart) are gathered 16 at a time into an mma.sync A
-// operand through ldmatrix's row addresses (a missing row repeats the
-// first; its sums are not kept); the items are dealt to the warps in turn.
-// A warp takes its items in 32-slot units (4 slot tiles of 8), and loads a
-// unit's table words while it forms the unit before, so it waits for one
-// global latency at its start, not one per unit, in few enough registers
-// to keep two blocks an SM.
-__device__ __forceinline__ void rel_prologue(uint32_t sQ0, unsigned char* gR, uint32_t rbytes, const bf16* rh_tab,
-                                             const bf16* rw_tab, int q0, int S, int hk, int wk, int hkp, int tid) {
-  constexpr int HD = 64, TB = Cfg<HD>::TB;
-  const int warp = tid / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
-  const int nrows = min(BQ, S - q0);
-  struct Unit {
-    const bf16* table;  // the table row (64 slots of HD)
-    int n0, nslots, col0, start, stride, count;
-  };
-  // a unit's B words: bw[u] for slot tile n0 / 8 + u, two a k step (zero past nslots)
-  auto load = [&](const Unit& un, uint32_t (&bw)[4][8]) {
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const bf16* tb = un.table + (un.n0 + 8 * u + g) * HD + 2 * t;
-#pragma unroll
-      for (int w = 0; w < 8; ++w)
-        bw[u][w] = un.n0 + 8 * u < un.nslots ? __ldg(reinterpret_cast<const unsigned int*>(tb + 8 * w)) : 0u;
-    }
-  };
-  auto form = [&](const Unit& un, const uint32_t (&bw)[4][8]) {
-    const int row = un.start + (lane % 16 < un.count ? lane % 16 : 0) * un.stride;
-    uint32_t a[4][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) ldsm_x4(a[kk], sQ0 + (row / 64) * TB + chunk_off(row % 64, 2 * kk + lane / 16, 64));
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      if (un.n0 + 8 * u >= un.nslots) break;
-      float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) mma16816(acc, a[kk], bw[u][2 * kk], bw[u][2 * kk + 1]);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int ri = g + (e / 2) * 8, j = un.n0 + 8 * u + 2 * t + (e % 2);
-        if (ri < un.count && j < un.nslots) {
-          const int r = un.start + ri * un.stride, col = un.col0 + j;
-          *reinterpret_cast<bf16*>(gR + (r / 64) * rbytes + chunk_off(r % 64, col / 8, 64) + 2 * (col % 8)) =
-              __float2bfloat16_rn(acc[e]);
-        }
-      }
-    }
-  };
-  int item = 0;
-  bool pending = false;
-  Unit cur;
-  uint32_t bcur[4][8];
-  auto run = [&](const bf16* table, int nslots, int col0, int start, int stride, int count) {
-    if (item++ % NW != warp) return;
-    for (int n0 = 0; n0 < nslots; n0 += 32) {
-      const Unit un{table, n0, nslots, col0, start, stride, count};
-      uint32_t bnext[4][8];
-      load(un, bnext);
-      if (pending) form(cur, bcur);
-      cur = un;
-      pending = true;
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int w = 0; w < 8; ++w) bcur[u][w] = bnext[u][w];
-    }
-  };
-  const int y_first = q0 / wk, y_last = (q0 + nrows - 1) / wk;
-  for (int y = y_first; y <= y_last; ++y) {
-    const int lo = max(y * wk - q0, 0), hi = min((y + 1) * wk - q0, nrows);
-    for (int r = lo; r < hi; r += 16) run(rh_tab + (size_t)y * MAXG * HD, hk, 0, r, 1, min(16, hi - r));
-  }
-  for (int x = 0; x < wk; ++x) {
-    const int first = ((x - q0) % wk + wk) % wk;
-    for (int r = first; r < nrows; r += 16 * wk)
-      run(rw_tab + (size_t)x * MAXG * HD, wk, hkp, r, wk, min(16, (nrows - r + wk - 1) / wk));
-  }
-  if (pending) form(cur, bcur);
-}
-
-// rh, rw: the rel terms (precomputed), or with QKV_REL the tables Rh, Rw;
-// bias: the (3, C) qkv bias (QKV_REL only). At most 128 registers a
-// thread, so two blocks fit an SM (their shared memory does at the ViT grid)
-template <int HD, bool IN_MERGED, bool OUT_MERGED, bool PRESCALE, bool QKV_REL = false, int SOFTMAX = STABLE>
+// rh, rw: the rel terms. At most 128 registers a thread, so two blocks fit
+// an SM (their shared memory does at the ViT grid)
+template <int HD, bool IN_MERGED, bool OUT_MERGED, bool PRESCALE>
 __global__ void __launch_bounds__(NTB, 2) attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                                    const bf16* __restrict__ v, const bf16* __restrict__ rh,
                                                    const bf16* __restrict__ rw, const bf16* __restrict__ e,
-                                                   const bf16* __restrict__ bias, bf16* __restrict__ out, int S,
-                                                   int H, int hk, int wk, int ld_in, int rld, int kx, float scale) {
-  static_assert(!QKV_REL || (HD == 64 && IN_MERGED && OUT_MERGED && PRESCALE), "the qkv-rel layout");
-  static_assert(QKV_REL || SOFTMAX == STABLE, "precomputed rel terms take the stable softmax");
+                                                   bf16* __restrict__ out, int S, int H, int hk, int wk, int ld_in,
+                                                   int rld, int kx, float scale) {
   constexpr int NP = Cfg<HD>::NP, TB = Cfg<HD>::TB;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw), base = (raw + 1023u) & ~1023u;
@@ -324,7 +166,6 @@ __global__ void __launch_bounds__(NTB, 2) attn_kernel(const bf16* __restrict__ q
   const Rows<IN_MERGED> rows(bh, b, h, S, HD, hk, wk, ld_in, rld);
   const bf16 *qp = q + rows.qkv, *kp = k + rows.qkv, *vp = v + rows.qkv;
   const int nk = (S + 63) / 64;
-  const int C = H * HD;  // the qkv bias' row length (QKV_REL)
 
   // K, V and E tiles of key tile kt into its ring stage
   auto load_stage = [&](int kt) {
@@ -339,38 +180,22 @@ __global__ void __launch_bounds__(NTB, 2) attn_kernel(const bf16* __restrict__ q
     if (st < nk) load_stage(st);
     cp_async_commit();
   }
-  if (QKV_REL) {
-    // zeros in the slot rows' padding (E's zero columns meet it, and 0·NaN is not 0)
-    for (int i = tid; i < NWG * 64 * kx / 8; i += NTB)
-      *reinterpret_cast<uint4*>(gbase + (sR0 - base) + 16 * i) = make_uint4(0u, 0u, 0u, 0u);
-  } else {
-    // the q tile's slot rows (rel_h ‖ rel_w, zero-padded; zero past S), once
-    const bf16 zero = __float2bfloat16_rn(0.0f);
-    const int nch = kx / 8;
-    for (int i = tid; i < BQ * nch; i += NTB) {
-      const int r = i / nch, ch = i - r * nch, row = q0 + r, c0 = 8 * ch;
-      const bool in_h = c0 < hkp;
-      const bf16* src = in_h ? rh + rows.rh + (size_t)row * rows.ldh : rw + rows.rw + (size_t)row * rows.ldw;
-      const int n = in_h ? hk : wk, j0 = in_h ? c0 : c0 - hkp;
-      __align__(16) bf16 vals[8];
+  // the q tile's slot rows (rel_h ‖ rel_w, zero-padded; zero past S), once
+  const bf16 zero = __float2bfloat16_rn(0.0f);
+  const int nch = kx / 8;
+  for (int i = tid; i < BQ * nch; i += NTB) {
+    const int r = i / nch, ch = i - r * nch, row = q0 + r, c0 = 8 * ch;
+    const bool in_h = c0 < hkp;
+    const bf16* src = in_h ? rh + rows.rh + (size_t)row * rows.ldh : rw + rows.rw + (size_t)row * rows.ldw;
+    const int n = in_h ? hk : wk, j0 = in_h ? c0 : c0 - hkp;
+    __align__(16) bf16 vals[8];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) vals[j] = row < S && j0 + j < n ? src[j0 + j] : zero;
-      *reinterpret_cast<uint4*>(gbase + (sR0 - base) + (r / 64) * rbytes + chunk_off(r % 64, ch, 64)) =
-          *reinterpret_cast<const uint4*>(vals);
-    }
+    for (int j = 0; j < 8; ++j) vals[j] = row < S && j0 + j < n ? src[j0 + j] : zero;
+    *reinterpret_cast<uint4*>(gbase + (sR0 - base) + (r / 64) * rbytes + chunk_off(r % 64, ch, 64)) =
+        *reinterpret_cast<const uint4*>(vals);
   }
   cp_async_wait<NS - 2>();  // the Q tiles (and key tile 0)
-  if constexpr (QKV_REL) {
-#pragma unroll
-    for (int w = 0; w < NWG; ++w) add_bias<HD>(gbase + w * TB, bias + h * HD, tid);  // q + bq
-    if (nk > 0) add_bias_kv<HD>(gbase + (ring - base), bias + C + h * HD, C, tid);
-  }
   __syncthreads();
-  if (QKV_REL) {
-    // the rel terms, from the biased q before the scale
-    rel_prologue(sQ0, gbase + (sR0 - base), rbytes, rh, rw, q0, S, hk, wk, hkp, tid);
-    __syncthreads();
-  }
   if (PRESCALE) {
     // q·scale in bf16 (the scale rounded to bf16 first), in place
     const float scale_t = __bfloat162float(__float2bfloat16_rn(scale));
@@ -393,7 +218,7 @@ __global__ void __launch_bounds__(NTB, 2) attn_kernel(const bf16* __restrict__ q
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * 64;
     const uint32_t sb = ring + (kt % NS) * stage_bytes;
-    cp_async_wait<NS - 2>();  // key tile kt has landed (QKV_REL: with its biases)
+    cp_async_wait<NS - 2>();  // key tile kt has landed
     fence_async_smem();
     __syncthreads();          // for every thread's copies; every warp is done with the stage refilled next
     if (kt + NS - 1 < nk) load_stage(kt + NS - 1);
@@ -425,7 +250,7 @@ __global__ void __launch_bounds__(NTB, 2) attn_kernel(const bf16* __restrict__ q
     fence_regs(s);
     if (!PRESCALE) fence_regs(sr);
 
-    // (scale,) mask keys past S, row max (stable)
+    // (scale,) mask keys past S, row max
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -438,32 +263,27 @@ __global__ void __launch_bounds__(NTB, 2) attn_kernel(const bf16* __restrict__ q
         mx[c >> 1] = fmaxf(mx[c >> 1], x);
       }
     }
-    float alpha[2] = {1.0f, 1.0f};
-    if (SOFTMAX == STABLE) {
+    float alpha[2];
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const float mnew = fmaxf(m[i], quad_max(mx[i]));
-        alpha[i] = __expf(m[i] - mnew);  // 0 on the first step (m = -inf)
-        m[i] = mnew;
-      }
+    for (int i = 0; i < 2; ++i) {
+      const float mnew = fmaxf(m[i], quad_max(mx[i]));
+      alpha[i] = __expf(m[i] - mnew);  // 0 on the first step (m = -inf)
+      m[i] = mnew;
     }
-    // p = exp(s - max) | exp(min(s, 80)) | exp(s) with the hardware exp2
-    // (__expf, relative error ~1e-5 at |x| ≤ 80; p is rounded to bf16)
+    // p = exp(s - max) with the hardware exp2 (__expf, relative error ~1e-5
+    // at |x| ≤ 80; p is rounded to bf16)
     float ls[2] = {0.0f, 0.0f};
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
-      const float x = s[i];
-      s[i] = __expf(SOFTMAX == STABLE ? x - m[(i >> 1) & 1] : SOFTMAX == CLAMP ? fminf(x, 80.0f) : x);
+      s[i] = __expf(s[i] - m[(i >> 1) & 1]);
       ls[(i >> 1) & 1] += s[i];
     }
     uint32_t pa[4][4];
     to_a(pa, s);
 #pragma unroll
     for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + ls[i];
-    if (SOFTMAX == STABLE) {
 #pragma unroll
-      for (int i = 0; i < HD / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
-    }
+    for (int i = 0; i < HD / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
 
     // O += P·V, V the MN-major B operand, 4 k steps of 16 keys
     fence_regs(o);
@@ -471,14 +291,6 @@ __global__ void __launch_bounds__(NTB, 2) attn_kernel(const bf16* __restrict__ q
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks) mma_rs<HD>(o, pa[ks], mndesc(sb + TB + ks * 16 * 32, 64), 1);
     commit();
-    if constexpr (QKV_REL) {
-      // the next stage's biases, as it lands, while the tensor cores run PV
-      static_assert(NS == 2, "the next stage is the one loaded last");
-      if (kt + 1 < nk) {
-        cp_async_wait<0>();
-        add_bias_kv<HD>(gbase + (ring - base) + ((kt + 1) % NS) * stage_bytes, bias + C + h * HD, C, tid);
-      }
-    }
     wait<0>();
     fence_regs(o);
   }
@@ -486,7 +298,7 @@ __global__ void __launch_bounds__(NTB, 2) attn_kernel(const bf16* __restrict__ q
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = q0 + 64 * wgi + warp * 16 + g + 8 * i;
-    const float lt = quad_sum(l[i]) + (SOFTMAX == STABLE ? 0.0f : 1e-30f);
+    const float lt = quad_sum(l[i]);
     if (row < S) {
       bf16* dst = out + out_at<OUT_MERGED>(bh, b, h, S, H, HD, row) + 2 * t;
 #pragma unroll
@@ -729,25 +541,23 @@ inline size_t slots_bytes(int S, int hk, int wk) {
 }
 
 // the bf16 (wgmma) instance of one layout at head dim D: fills the E
-// scratch (slots_bytes), then runs the kernel (QKV_REL: rh, rw are the
-// tables and bias the (3, C) qkv bias)
-template <int HD, bool IN_MERGED, bool OUT_MERGED, bool PRESCALE, bool QKV_REL = false, int SOFTMAX = STABLE>
+// scratch (slots_bytes), then runs the kernel
+template <int HD, bool IN_MERGED, bool OUT_MERGED, bool PRESCALE>
 int launch_wg(const void* q, const void* k, const void* v, const void* rh, const void* rw, void* e, void* out,
-              int BH, int S, int H, int hk, int wk, int ld_in, int rld, float scale, void* stream,
-              const void* bias = nullptr) {
+              int BH, int S, int H, int hk, int wk, int ld_in, int rld, float scale, void* stream) {
   const int hkp = wg::round16(hk), kx = hkp + wg::round16(wk), s_pad = (S + 63) / 64 * 64;
   cudaStream_t st = (cudaStream_t)stream;
   wg::fill_slots<<<(s_pad * kx / 8 + 255) / 256, 256, 0, st>>>((bf16*)e, S, s_pad, wk, hkp, kx);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  auto kernel = wgf::attn_kernel<HD, IN_MERGED, OUT_MERGED, PRESCALE, QKV_REL, SOFTMAX>;
+  auto kernel = wgf::attn_kernel<HD, IN_MERGED, OUT_MERGED, PRESCALE>;
   const size_t smem = wgf::Cfg<HD>::smem(kx);
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((S + wgf::BQ - 1) / wgf::BQ, BH);
   kernel<<<grid, wgf::NTB, smem, st>>>((const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)rh,
-                                     (const bf16*)rw, (const bf16*)e, (const bf16*)bias, (bf16*)out, S, H, hk, wk,
-                                     ld_in, rld, kx, scale);
+                                     (const bf16*)rw, (const bf16*)e, (bf16*)out, S, H, hk, wk, ld_in, rld, kx,
+                                     scale);
   return (int)cudaGetLastError();
 }
 

@@ -28,9 +28,9 @@
 //   as more wgmma k steps (slot rows · E over the slot chunks a key tile
 //   touches): no per-score lookup or division. The JAX kernel feeds its rel
 //   terms through the same 0/1 expansion (`eh`/`ew`). The exponentials of
-//   one key tile run beside the PV of the one before. It replaced
-//   attn_flash.cuh's synchronous wgmma loop (its QKV_REL instances, which
-//   ran each key tile in order: products, wait, exponentials, PV, wait).
+//   one key tile run beside the PV of the one before. It replaced a
+//   synchronous wgmma loop (attn_flash.cuh's kernel in a qkv-rel instance,
+//   which ran each key tile in order: products, wait, exponentials, PV, wait).
 //   Times (CUDA events, H100 80GB HBM3 at 700 W, clamp; ms a launch, the
 //   new body against the old): ViT-L B = 8 0.453 against 0.681 (the two
 //   pre-passes 0.076 of it), B = 32 1.667 against 2.553, 8 heads (a rank of

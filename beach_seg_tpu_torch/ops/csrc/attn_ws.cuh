@@ -1,12 +1,13 @@
 // The bf16 qkv-rel attention (#1, attn_qkv_rel.cu) warp-specialized for
 // Hopper (sm_90a): the body that attn_qkv_rel_bf16 launches at every shape.
-// It computes wgf's QKV_REL function
-// (attn_flash.cuh) at the same rounding points: q, k, v + the qkv bias
-// rounded to bf16, the rel terms formed from the biased unscaled q and
-// rounded, round(q·scale), fp32 scores, p rounded to bf16 before PV, the
-// division after PV; the softmax a template mode (stable, clamp, fast).
+// It computes attn_qkv_rel.cu's function at the TPU kernel's rounding
+// points: q, k, v + the qkv bias rounded to bf16, the rel terms formed from
+// the biased unscaled q and rounded, round(q·scale), fp32 scores, p rounded
+// to bf16 before PV, the division after PV; the softmax a template mode
+// (stable, clamp, fast).
 //
-// Why: wgf, the body it replaced, ran each key tile in strict order (S = QKᵀ
+// Why: the body it replaced (wgf, attn_flash.cuh's wgmma kernel in a
+// qkv-rel instance) ran each key tile in strict order (S = QKᵀ
 // + rel k steps, wait, exponentials, PV, wait), every thread copying and
 // adding the k/v biases and one block-wide barrier a tile; at ViT-L (B = 8)
 // it took 0.68 ms against a 0.084 ms operations bound.
@@ -70,12 +71,12 @@ using g90::bar_wait;
 using g90::tma_load;
 
 constexpr int HD = 64;
-constexpr int NWG = wgf::NWG;     // consumer warpgroups, 64 query rows each
-constexpr int BQ = wgf::BQ;       // query rows per block
+constexpr int NWG = 2;            // consumer warpgroups, 64 query rows each
+constexpr int BQ = 64 * NWG;      // query rows per block
 constexpr int NTB = NT * (NWG + 1);
 constexpr int NS = 5;             // ring stages, as many as fit at KX = 128; a constant, so a stage's
                                   // index and parity take no division
-constexpr int TB = wgf::Cfg<HD>::TB;  // a 64-row tile of 64 columns: q, k, v
+constexpr int TB = 64 * HD * 2;   // bytes of a 64-row tile of 64 columns: q, k, v
 constexpr int PANEL = 64 * 32;        // a 16-column panel of a 64-row tile
 constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
 // the register count every thread must launch with so that the consumers'
@@ -86,6 +87,27 @@ constexpr int BAR_TURN = 1, BAR_WG = 3;  // named barriers (0 is __syncthreads):
 // shared bytes: alignment slack, the Q tiles and slot rows, NS stages of K,
 // V and E (214,016 at KX = 128, of the 232,448 a block may have)
 inline size_t smem(int kx) { return 1024 + NWG * ((size_t)TB + 128 * kx) + (size_t)NS * (2 * TB + 128 * kx); }
+
+__device__ __forceinline__ uint32_t add2(uint32_t a, uint32_t b) {  // bf16x2 a + b, rounded
+  __nv_bfloat162 x, y;
+  memcpy(&x, &a, 4);
+  memcpy(&y, &b, 4);
+  x = __hadd2(x, y);
+  memcpy(&a, &x, 4);
+  return a;
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+// d += a · b, mma.sync m16n8k16, bf16 in, fp32 accumulate
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
+      "{%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
 __device__ __forceinline__ void named_sync(int id) { asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory"); }
 __device__ __forceinline__ void wg_sync(int id) { asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory"); }
@@ -117,12 +139,12 @@ __device__ __forceinline__ void mma_rs_k(float (&d)[32], const uint32_t (&a)[4],
 //   to bf16, fp32 sums (mma.sync m16n8k16) rounded to bf16. A grid row's
 //   block takes its Wk consecutive rows against Rh[y], a grid column's its
 //   Gh rows (Wk apart) against Rw[x]: each table row is read once a head.
-//   Formed inside the attention by wgf::rel_prologue, a 128-row block reads
-//   every Rw row for the few rows of each column it holds, and with one
-//   block an SM that stood before every key loop (18.7 of a block's 49 µs
-//   at ViT-L, B = 8);
+//   Formed inside the attention (as wgf's prologue did), a 128-row block
+//   reads every Rw row for the few rows of each column it holds, and with
+//   one block an SM that stood before every key loop (18.7 of a block's 49
+//   µs at ViT-L, B = 8);
 // - a grid row's block also writes its rows' k + bk and v + bv, rounded to
-//   bf16 (wgf's rounding point), into kv (2, B·H, S, 64): the attention then
+//   bf16 (the TPU kernel's rounding point), into kv (2, B·H, S, 64): the attention then
 //   uses K and V as loaded, where a pass over each landed stage in shared
 //   memory competed with the products for its bandwidth (0.095 of 0.51 ms).
 constexpr int SLD = HD + 8;  // row stride (bf16) of the q and table rows: conflict-free fragment loads
@@ -148,7 +170,7 @@ __global__ void __launch_bounds__(NT) fill_slots_rel(const bf16* __restrict__ qk
         if (w > 0 && !is_h) break;
         const uint4 x = __ldg(reinterpret_cast<const uint4*>(row + w * C));
         const uint4 bb = __ldg(reinterpret_cast<const uint4*>(bias + w * C + h * HD + c8));
-        const uint4 y = make_uint4(wgf::add2(x.x, bb.x), wgf::add2(x.y, bb.y), wgf::add2(x.z, bb.z), wgf::add2(x.w, bb.w));
+        const uint4 y = make_uint4(add2(x.x, bb.x), add2(x.y, bb.y), add2(x.z, bb.z), add2(x.w, bb.w));
         if (w == 0)
           qv = y;
         else
@@ -165,15 +187,15 @@ __global__ void __launch_bounds__(NT) fill_slots_rel(const bf16* __restrict__ qk
   uint32_t a[HD / 16][4];
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk)
-    wgf::ldsm_x4(a[kk], smem_u32(sq + (16 * warp + lane % 16) * SLD + 16 * kk + 8 * (lane / 16)));
+    ldsm_x4(a[kk], smem_u32(sq + (16 * warp + lane % 16) * SLD + 16 * kk + 8 * (lane / 16)));
   for (int n0 = 0; n0 < ncols; n0 += 8) {
     float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
     if (n0 < nslots) {  // slot rows past nslots are zero
       const bf16* tb = st + (n0 + g) * SLD + 2 * t;
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk)
-        wgf::mma16816(acc, a[kk], *reinterpret_cast<const uint32_t*>(tb + 16 * kk),
-                      *reinterpret_cast<const uint32_t*>(tb + 16 * kk + 8));
+        mma16816(acc, a[kk], *reinterpret_cast<const uint32_t*>(tb + 16 * kk),
+                 *reinterpret_cast<const uint32_t*>(tb + 16 * kk + 8));
     }
     // acc[e]: row 16·warp + g + 8 (e / 2), slot n0 + 2t + e % 2
 #pragma unroll
@@ -256,10 +278,10 @@ __global__ void __launch_bounds__(NTB, 1) attn_kernel(const __grid_constant__ CU
     unsigned char* q = gbase + cw * TB;
     for (int c = wtid; c < 8 * HD; c += NT) {
       int r, ch;
-      wgf::chunk_at(c, r, ch);
+      chunk_at(c, r, ch);
       const uint4 bb = __ldg(reinterpret_cast<const uint4*>(bias + h * HD + 8 * ch));
       uint4 x = *reinterpret_cast<const uint4*>(q + 16 * c);
-      x = make_uint4(wgf::add2(x.x, bb.x), wgf::add2(x.y, bb.y), wgf::add2(x.z, bb.z), wgf::add2(x.w, bb.w));
+      x = make_uint4(add2(x.x, bb.x), add2(x.y, bb.y), add2(x.z, bb.z), add2(x.w, bb.w));
       __align__(16) bf16 vals[8];
       *reinterpret_cast<uint4*>(vals) = x;
 #pragma unroll
@@ -274,10 +296,10 @@ __global__ void __launch_bounds__(NTB, 1) attn_kernel(const __grid_constant__ CU
   const int rA = warp * 16 + g;  // this thread's rows: rA, rA + 8
   uint32_t qa[HD / 16][4], ra[8][4];
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) wgf::ldsm_x4(qa[kk], sQ + chunk_off(warp * 16 + lane % 16, 2 * kk + lane / 16, 64));
+  for (int kk = 0; kk < HD / 16; ++kk) ldsm_x4(qa[kk], sQ + chunk_off(warp * 16 + lane % 16, 2 * kk + lane / 16, 64));
 #pragma unroll
   for (int c = 0; c < 8; ++c)
-    if (c < nx) wgf::ldsm_x4(ra[c], sR + chunk_off(warp * 16 + lane % 16, 2 * c + lane / 16, 64));
+    if (c < nx) ldsm_x4(ra[c], sR + chunk_off(warp * 16 + lane % 16, 2 * c + lane / 16, 64));
 
   const bool turns = nwg == NWG;
   auto turn_wait = [&] {
@@ -344,7 +366,7 @@ __global__ void __launch_bounds__(NTB, 1) attn_kernel(const __grid_constant__ CU
         m[i] = mnew;
       }
     }
-    // p = exp(s - max) | exp(min(s, 80)) | exp(s) with the hardware exp2, as wgf
+    // p = exp(s - max) | exp(min(s, 80)) | exp(s) with the hardware exp2
     float ls[2] = {0.0f, 0.0f};
 #pragma unroll
     for (int i = 0; i < 32; ++i) {

@@ -43,6 +43,13 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ uint32_t chunk_off(int r, int ch, int rows) {
   return (uint32_t)((ch >> 1) * rows * 32 + r * 32 + (((ch & 1) ^ ((r >> 2) & 1)) << 4));
 }
+// The 16-byte chunk c of a 64-row panel tile, in shared-memory order (its
+// byte offset is 16·c; chunk_off's inverse): row r, columns 8·ch..8·ch + 7.
+__device__ __forceinline__ void chunk_at(int c, int& r, int& ch) {
+  const int w = c % 128;  // 128 chunks a panel
+  r = w / 2;
+  ch = 2 * (c / 128) + ((w & 1) ^ ((r >> 2) & 1));
+}
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
   // invalid rows are zero-filled (src-size 0)

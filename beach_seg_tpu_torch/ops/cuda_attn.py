@@ -26,9 +26,7 @@ Five CUDA kernels, each with a plain PyTorch version:
   version ``ops.attention.attention_qkv_plain``.
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain version
-only for CPU tensors; ``<wrapper>.launches`` counts kernel launches, and
-``attn_qkv_rel.launches_by_design`` #1's launches by body
-(:data:`QKV_REL_DESIGN`).
+only for CPU tensors; ``<wrapper>.launches`` counts kernel launches.
 :func:`qkv_rel_attention` (head_dim 64) and :func:`packed_attention` (other
 head dims) are the differentiable entries the model calls: a forward kernel,
 and in backward the port of ``_qkv_rel_bwd`` (``pallas_attn.py:625-673``)
@@ -98,16 +96,34 @@ def resolve_softmax(dtype: torch.dtype) -> str:
     return "clamp" if dtype == torch.bfloat16 else "stable"
 
 
-# #1's body in each dtype, by the names ``attn_qkv_rel.launches_by_design``
-# counts: ws, attn_ws.cuh's warp-specialized bf16 body (TMA producer, two
-# consumer warpgroups in turns, the exponentials of one key tile beside the
-# products of the next); f32, the split-TF32 instance
-QKV_REL_DESIGN = {torch.bfloat16: "ws", torch.float32: "f32"}
-
-
 def pad_head_dim(x: torch.Tensor, d: int) -> torch.Tensor:
     """x (..., D) zero-padded to (..., d), contiguous."""
     return F.pad(x, (0, d - x.shape[-1])).contiguous()
+
+
+def _check_operands(name: str, ref: torch.Tensor, operands, cast=()) -> None:
+    """Raise the ``name`` kernel's ``TypeError`` unless ``ref`` is bf16 or
+    fp32, and its ``ValueError`` unless each (operand, tensor, shape) of
+    ``operands`` is on ``ref``'s device in ``ref``'s dtype with that shape,
+    contiguous and 16-byte aligned; those of ``cast`` need only the device
+    and the shape (the wrapper casts them to the dtype and copies them
+    contiguous)."""
+    dt = ref.dtype
+    if dt not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name} kernel takes bf16 or fp32, got {dt}")
+    for op, t, shape in operands:
+        if t.device != ref.device or t.dtype != dt or tuple(t.shape) != tuple(shape):
+            raise ValueError(
+                f"{name} kernel takes its operands all bf16 or all fp32; {op}: want {tuple(shape)} {dt} on "
+                f"{ref.device}, got {tuple(t.shape)} {t.dtype} on {t.device}"
+            )
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} kernel needs contiguous, 16-byte aligned inputs ({op})")
+    for op, t, shape in cast:
+        if t.device != ref.device or tuple(t.shape) != tuple(shape):
+            raise ValueError(
+                f"{name} kernel: {op}: want {tuple(shape)} on {ref.device}, got {tuple(t.shape)} on {t.device}"
+            )
 
 
 def _ptrs(scratch: tuple[torch.Tensor, ...], n: int) -> list:
@@ -201,15 +217,10 @@ def attn_qkv_rel(
     dt = qkv4.dtype
     hd = c // num_heads
     gh = s // gw
-    if dt not in _ENTRY:
-        raise TypeError(f"attn_qkv_rel kernel takes bf16 or fp32, got {dt}")
     if three != 3 or hd != 64 or hd * num_heads != c or gh * gw != s or gh > 64 or gw > 64:
         raise ValueError(f"attn_qkv_rel kernel needs head_dim 64 and a ≤64×64 grid: {tuple(qkv4.shape)}, {num_heads=}, {gw=}")
-    for name, t, shape in (("qkv_bias", qkv_bias, (3, c)), ("rh_tab", rh_tab, (gh, 64, hd)), ("rw_tab", rw_tab, (gw, 64, hd))):
-        if t.device != qkv4.device or t.dtype != dt or tuple(t.shape) != shape:
-            raise ValueError(f"{name}: want {shape} {dt} on {qkv4.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
-    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in (qkv4, qkv_bias, rh_tab, rw_tab)):
-        raise ValueError("attn_qkv_rel kernel needs contiguous, 16-byte aligned inputs")
+    _check_operands("attn_qkv_rel", qkv4, [("qkv4", qkv4, qkv4.shape), ("qkv_bias", qkv_bias, (3, c)),
+                                           ("rh_tab", rh_tab, (gh, 64, hd)), ("rw_tab", rw_tab, (gw, 64, hd))])
     lib = build.load("attn_qkv_rel", {_ENTRY[torch.bfloat16]: _PROTO_BF16, _ENTRY[torch.float32]: _PROTO})
     out = torch.empty((b, s, c), dtype=dt, device=qkv4.device)
     scratch = _ws_scratch(b, num_heads, s, gh, gw, qkv4.device) if dt == torch.bfloat16 else ()
@@ -220,13 +231,10 @@ def attn_qkv_rel(
     )
     build.check(err, "attn_qkv_rel launch")
     attn_qkv_rel.launches += 1
-    _LAUNCHES_BY_DESIGN[QKV_REL_DESIGN[dt]] += 1
     return out
 
 
 attn_qkv_rel.launches = 0
-# by body; one dict, so that it counts on while a stand-in holds the module's name
-_LAUNCHES_BY_DESIGN = attn_qkv_rel.launches_by_design = dict.fromkeys(QKV_REL_DESIGN.values(), 0)
 
 
 def _check_grid(name: str, tpu: str, d: int, head_dims, s: int, hk: int, wk: int, shape) -> None:
@@ -276,17 +284,9 @@ def attn_packed(q, k, v, rel_h, rel_w, scale: float, num_heads: int) -> torch.Te
         return out.reshape(bh // num_heads, s, num_heads, dp)[..., :d].reshape(bh // num_heads, s, num_heads * d)
     if bh % num_heads:
         raise ValueError(f"attn_packed: B·H = {bh} is not a multiple of {num_heads=}")
-    if dt not in _PACKED_ENTRY:
-        raise TypeError(f"attn_packed kernel takes bf16 or fp32, got {dt}")
-    for name, t in (("k", k), ("v", v)):
-        if t.device != q.device or t.dtype != dt or t.shape != q.shape:
-            raise ValueError(f"{name}: want {tuple(q.shape)} {dt} on {q.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
-    for name, t, shape in (("rel_h", rel_h, (bh, s, hk)), ("rel_w", rel_w, (bh, s, wk))):
-        if t.device != q.device or tuple(t.shape) != shape:
-            raise ValueError(f"{name}: want {shape} on {q.device}, got {tuple(t.shape)} on {t.device}")
+    _check_operands("attn_packed", q, [("q", q, (bh, s, d)), ("k", k, (bh, s, d)), ("v", v, (bh, s, d))],
+                    cast=[("rel_h", rel_h, (bh, s, hk)), ("rel_w", rel_w, (bh, s, wk))])
     rel_h, rel_w = rel_h.to(dt).contiguous(), rel_w.to(dt).contiguous()
-    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in (q, k, v)):
-        raise ValueError("attn_packed kernel needs contiguous, 16-byte aligned q, k, v")
     lib = build.load("attn_packed", {fn: _PACKED_PROTO for fn in _PACKED_ENTRY.values()})
     out = torch.empty((bh // num_heads, s, num_heads * d), dtype=dt, device=q.device)
     scratch = _slots_scratch(s, hk, wk, q.device) if dt == torch.bfloat16 else ()
@@ -320,19 +320,8 @@ def attn_bwd(q, k, v, rel_h, rel_w, g, scale: float) -> tuple[torch.Tensor, ...]
         dq, dk, dv, drh, drw = attn_bwd(*(pad_head_dim(t, dp) for t in (q, k, v)), rel_h, rel_w, pad_head_dim(g, dp), scale)
         return dq[..., :d].contiguous(), dk[..., :d].contiguous(), dv[..., :d].contiguous(), drh, drw
     dt = q.dtype
-    if dt not in _BWD_ENTRY:
-        raise TypeError(f"attn_bwd kernel takes bf16 or fp32, got {dt}")
-    for name, t, shape in (
-        ("q", q, (bh, s, d)), ("k", k, (bh, s, d)), ("v", v, (bh, s, d)), ("g", g, (bh, s, d)),
-        ("rel_h", rel_h, (bh, s, hk)), ("rel_w", rel_w, (bh, s, wk)),
-    ):
-        if t.device != q.device or t.dtype != dt or tuple(t.shape) != shape:
-            raise ValueError(
-                f"attn_bwd kernel takes six bf16 or six fp32 inputs; {name}: want {shape} {dt} on {q.device}, "
-                f"got {tuple(t.shape)} {t.dtype} on {t.device}"
-            )
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"attn_bwd kernel needs contiguous, 16-byte aligned inputs ({name})")
+    _check_operands("attn_bwd", q, [("q", q, (bh, s, d)), ("k", k, (bh, s, d)), ("v", v, (bh, s, d)),
+                                    ("g", g, (bh, s, d)), ("rel_h", rel_h, (bh, s, hk)), ("rel_w", rel_w, (bh, s, wk))])
     lib = build.load("attn_bwd", {fn: _BWD_PROTO for fn in _BWD_ENTRY.values()})
     dq = torch.empty_like(q)
     dk = torch.empty((bh, s, d), dtype=torch.float32, device=q.device)
@@ -371,13 +360,8 @@ def attn_fused(q, k, v, rel_h, rel_w, scale: float) -> torch.Tensor:
     if d in _PADDED_HEAD_DIM:
         out = attn_fused(*(pad_head_dim(t, _PADDED_HEAD_DIM[d]) for t in (q, k, v)), rel_h, rel_w, scale)
         return out[..., :d].contiguous()
-    if dt not in _FUSED_ENTRY:
-        raise TypeError(f"attn_fused kernel takes bf16 or fp32, got {dt}")
-    for name, t, shape in (("k", k, (bh, s, d)), ("v", v, (bh, s, d)), ("rel_h", rel_h, (bh, s, hk)), ("rel_w", rel_w, (bh, s, wk))):
-        if t.device != q.device or t.dtype != dt or tuple(t.shape) != shape:
-            raise ValueError(f"{name}: want {shape} {dt} on {q.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
-    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in (q, k, v, rel_h, rel_w)):
-        raise ValueError("attn_fused kernel needs contiguous, 16-byte aligned inputs")
+    _check_operands("attn_fused", q, [("q", q, (bh, s, d)), ("k", k, (bh, s, d)), ("v", v, (bh, s, d)),
+                                      ("rel_h", rel_h, (bh, s, hk)), ("rel_w", rel_w, (bh, s, wk))])
     lib = build.load("attn_fused", {fn: _FUSED_PROTO for fn in _FUSED_ENTRY.values()})
     out = torch.empty_like(q)
     scratch = _slots_scratch(s, hk, wk, q.device) if dt == torch.bfloat16 else ()
@@ -410,14 +394,9 @@ def attn_qkv(qkv, rel_h64, rel_w64, scale: float, hk: int, wk: int, num_heads: i
     if c3 != 3 * c or c % num_heads:
         raise ValueError(f"attn_qkv: qkv {tuple(qkv.shape)} is not (B, S, 3·{num_heads}·head_dim)")
     _check_grid("attn_qkv", "_kernel_qkv", c // num_heads, (64,), s, hk, wk, qkv.shape)
-    if dt not in _QKV_ENTRY:
-        raise TypeError(f"attn_qkv kernel takes bf16 or fp32, got {dt}")
-    for name, t in (("rel_h64", rel_h64), ("rel_w64", rel_w64)):
-        if t.device != qkv.device or tuple(t.shape) != (b, s, num_heads * 64):
-            raise ValueError(f"{name}: want {(b, s, num_heads * 64)} on {qkv.device}, got {tuple(t.shape)} on {t.device}")
+    _check_operands("attn_qkv", qkv, [("qkv", qkv, (b, s, c3))],
+                    cast=[("rel_h64", rel_h64, (b, s, num_heads * 64)), ("rel_w64", rel_w64, (b, s, num_heads * 64))])
     rel_h64, rel_w64 = rel_h64.to(dt).contiguous(), rel_w64.to(dt).contiguous()
-    if not (qkv.is_contiguous() and qkv.data_ptr() % 16 == 0):
-        raise ValueError("attn_qkv kernel needs a contiguous, 16-byte aligned qkv")
     lib = build.load("attn_qkv", {fn: _QKV_PROTO for fn in _QKV_ENTRY.values()})
     out = torch.empty((b, s, c), dtype=dt, device=qkv.device)
     scratch = _slots_scratch(s, hk, wk, qkv.device) if dt == torch.bfloat16 else ()

@@ -239,7 +239,7 @@ FP32_ROUTE = "tensor cores, split TF32: 3 x FLOPs at 495 TF/s"
 TF32X3 = "mma.sync m16n8k8 tf32x3"  # the design of the fp32 #1, #3, #4, #6 and #7 instances
 # the design of the bf16 #3, #4, #6 and #7 instances (wgmma.cuh)
 WGMMA = "wgmma m64nNk16, one warpgroup a block, cp.async ring, rel terms as k steps against the 0/1 slot matrix"
-# #1 bf16: attn_ws.cuh's warp-specialized kernel (cuda_attn.QKV_REL_DESIGN's "ws")
+# #1 bf16: attn_ws.cuh's warp-specialized kernel
 WS_QKV_REL = ("warp-specialized: a pre-pass (fill_slots_rel) writes each query row's slot rows and k + bk, v + bv; "
               "one producer thread issues TMA into a 5-stage ring of 64-key K, V and E tiles; two consumer "
               "warpgroups of 64 rows take turns issuing, Q and the slot rows as register operands, rel terms as "
@@ -1192,7 +1192,7 @@ def phase_painter_path(device) -> dict:
     check(cfg.window_size == PAINTER_WIN[0] and tuple(cfg.global_attn_indexes) == tuple(range(2, 24, 3))
           and cfg.num_hidden_layers == 24 and cfg.hidden_size == C and cfg.head_dim == HD, f"Painter config {cfg}")
     fwd = {"attn_qkv_rel": 24, "ln_mlp": 24}
-    m = phase_main_path(device, model, conf, with_stages(fwd), designs={"ws": 24})
+    m = phase_main_path(device, model, conf, with_stages(fwd))
     tr = phase_train_path(device, model, conf, with_stages(dict(fwd, attn_bwd=24, ln_mlp_dx=24)))
 
     s, sw = GRID[0] * GRID[1], PAINTER_WIN[0] * PAINTER_WIN[1]
@@ -1287,12 +1287,11 @@ def main_path_inputs(conf, n_prompts: int, n_batches: int, seed: int = 0):
     return prompts, batches
 
 
-def phase_main_path(device, model, conf, expect: dict, n_batches: int = 3, designs: dict | None = None) -> dict:
+def phase_main_path(device, model, conf, expect: dict, n_batches: int = 3) -> dict:
     """PromptTuner.predict_step on ``n_batches`` batches of B crops; each
     call must launch the kernels ``expect`` names that many times and the
-    others not at all, and #1 its bodies as ``designs`` says (when given);
-    one batch's pred_masks held against the plain versions."""
-    from beach_seg_tpu_torch.ops import cuda_attn
+    others not at all; one batch's pred_masks held against the plain
+    versions."""
     from beach_seg_tpu_torch.train import PromptTuner
     from beach_seg_tpu_torch.transforms import decode_by_palette
 
@@ -1302,24 +1301,21 @@ def phase_main_path(device, model, conf, expect: dict, n_batches: int = 3, desig
     want_calls = {name: expect.get(name, 0) for name in counters()}
 
     reset_counts()
-    seconds, per_call, per_design = [], [], []
-    by_design = cuda_attn.attn_qkv_rel.launches_by_design
+    seconds, per_call = [], []
     for batch in batches:
-        before, d0 = read_counts(), dict(by_design)
+        before = read_counts()
         t = time.perf_counter()
         ids = tuner.predict_step(*prompts, batch, out_size=conf.crop_size)
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t)
         now = read_counts()
         per_call.append({k: now[k] - before[k] for k in now})
-        per_design.append({k: by_design[k] - d0[k] for k in by_design if by_design[k] != d0[k]})
         check(tuple(ids.shape) == (B, conf.crop_size, conf.crop_size), f"ids shape {tuple(ids.shape)}")
         check(ids.dtype == torch.uint8 and ids.device.type == "cuda", f"ids {ids.dtype} on {ids.device}")
         check(int(ids.max()) < len(conf.classes), f"id {int(ids.max())} out of range")
     launches = read_counts()
-    log(f"main path: predict_step seconds per call {seconds}; launches per call {per_call}; #1 by design {per_design}")
+    log(f"main path: predict_step seconds per call {seconds}; launches per call {per_call}")
     check(all(pc == want_calls for pc in per_call), f"launches per call {per_call}, want {want_calls}")
-    check(designs is None or all(pd == designs for pd in per_design), f"#1 by design {per_design}, want {designs}")
 
     pred, pal = tuner.predict_masks(*prompts, batches[0])
     with plain_kernels():
@@ -1349,8 +1345,7 @@ def phase_main_path(device, model, conf, expect: dict, n_batches: int = 3, desig
     check(err <= PRED_REL_TOL * scale, f"pred_masks disagree: {err} > {PRED_REL_TOL * scale}")
     check(agree >= ID_AGREEMENT_MIN, f"id agreement {agree}")
     check(worst <= reach, f"an id differs {worst} from a decision boundary, beyond the error's reach {reach}")
-    return {"launches": launches, "seconds": seconds, "pred_err": err, "id_agreement": agree,
-            "launches_by_design": per_design[-1]}
+    return {"launches": launches, "seconds": seconds, "pred_err": err, "id_agreement": agree}
 
 
 def train_path_inputs(conf, n_prompts: int, n_steps: int, seed: int = 1):
@@ -2665,7 +2660,7 @@ def main() -> int:
     conf = BeachSegConfig(batch_size=B)
     model = build_model(SegGPTConfig(), torch.bfloat16, device=device, seed=0)
     log(f"main path: ViT-L {model.config.num_hidden_layers} layers bf16 built in {time.perf_counter() - t:.3f} s")
-    m = phase_main_path(device, model, conf, with_stages(large), designs={"ws": 24})
+    m = phase_main_path(device, model, conf, with_stages(large))
     log(f"main path phase: {time.perf_counter() - t:.3f} s")
     t = time.perf_counter()
     tr = phase_train_path(device, model, conf, with_stages(dict(large, **{k: 24 for k in backward})))
@@ -2706,7 +2701,7 @@ def main() -> int:
     model, cfg32 = model_for_config(conf32, device=device, seed=0)
     check(cfg32.head_dim == HD and cfg32.num_hidden_layers == 24, f"fp32 ViT-L config {cfg32}")
     log(f"fp32 predict path: ViT-L from the default BeachSegConfig, built in {time.perf_counter() - t:.3f} s")
-    m32 = phase_main_path(device, model, conf32, {"attn_qkv_rel": 24}, n_batches=2, designs={"f32": 24})
+    m32 = phase_main_path(device, model, conf32, {"attn_qkv_rel": 24}, n_batches=2)
     log(f"fp32 predict path phase: {time.perf_counter() - t:.3f} s")
     t = time.perf_counter()
     tr32 = phase_train_path(device, model, conf32, {"attn_qkv_rel": 24, "attn_bwd": 24}, n_steps=2,
@@ -2784,7 +2779,6 @@ def main() -> int:
             "max_abs_err_by_softmax": {mode: k[f"attn_err_{mode}"] for mode in SOFTMAX_MODES},
             f"max_abs_err_grid_{GRID_CROSS[0]}x{GRID_CROSS[1]}": {mode: kc[f"qkv_rel_bf16_{mode}"] for mode in SOFTMAX_MODES},
             "max_abs_err_fp32_stable": k["attn32_err"], "design": WS_QKV_REL, "design_name": "ws",
-            "launches_by_design": m["launches_by_design"],
             "launches_fp32_predict": m32["launches"]["attn_qkv_rel"], "launches_fp32_train": tr32["launches"]["attn_qkv_rel"],
             "ms": k["attn_ms"], "plain_ms": k["attn_plain_ms"],
             "bound_ms": k["attn_bound"][0], "bound_by": k["attn_bound"][1],
@@ -2974,7 +2968,7 @@ def main() -> int:
                 "max_abs_err": err, "ms": kp[f"{key}_ms_{rows}"], "plain_ms": kp[f"{key}_plain_ms_{rows}"],
                 "bound_ms": kp[f"{key}_bound_{rows}"][0], "bound_by": kp[f"{key}_bound_{rows}"][1], "shape": shape,
                 **({"max_abs_err_by_output": kp[f"bwd_errs_{rows}"]} if key == "bwd" else
-                   {"design_name": "ws", "launches_by_design": pt["predict"]["launches_by_design"]}),
+                   {"design_name": "ws"}),
             })
     for name in ("attn_qkv_rel", "ln_mlp", "attn_bwd", "ln_mlp_dx"):
         first[name]["launches_painter"] = {path: pt[path]["launches"][name] for path in ("predict", "train")}

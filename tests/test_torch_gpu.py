@@ -126,19 +126,16 @@ def test_attn_qkv_rel_ws_matches_plain(cuda, batch, heads, grid, softmax):
 
 
 def test_attn_qkv_rel_takes_its_body_by_dtype(cuda):
-    """The entry's launches by body: ws at every shape of ``_WS_CASES`` in
-    bf16, and fp32's one instance."""
-    for batch, heads, grid in _WS_CASES:
-        args = (*_attn_inputs(torch.bfloat16, cuda, batch=batch, grid=grid, heads=heads), 0.125, grid[1], heads)
-        before = dict(cuda_attn.attn_qkv_rel.launches_by_design)
-        cuda_attn.attn_qkv_rel(*args)
-        after = cuda_attn.attn_qkv_rel.launches_by_design
-        assert {k: after[k] - before[k] for k in after} == {"ws": 1, "f32": 0}, (batch, heads, grid)
-    args = (*_attn_inputs(torch.float32, cuda, batch=1, grid=S_GRID), 0.125, S_GRID[1], HEADS)
-    before = dict(cuda_attn.attn_qkv_rel.launches_by_design)
-    cuda_attn.attn_qkv_rel(*args)
-    after = cuda_attn.attn_qkv_rel.launches_by_design
-    assert {k: after[k] - before[k] for k in after} == {"ws": 0, "f32": 1}
+    """The entry launches its kernel once a call in each dtype: bf16 (ws) at
+    every shape of ``_WS_CASES``, fp32 at the ViT-L grid."""
+    cases = [(torch.bfloat16, *case) for case in _WS_CASES] + [(torch.float32, 1, HEADS, S_GRID)]
+    for dtype, batch, heads, grid in cases:
+        args = (*_attn_inputs(dtype, cuda, batch=batch, grid=grid, heads=heads), 0.125, grid[1], heads)
+        before = cuda_attn.attn_qkv_rel.launches
+        out = cuda_attn.attn_qkv_rel(*args)
+        assert cuda_attn.attn_qkv_rel.launches == before + 1, (dtype, batch, heads, grid)
+        assert out.dtype == dtype
+    torch.cuda.synchronize()
 
 
 def test_ws_body_never_waits_on_the_card(cuda):
@@ -147,13 +144,13 @@ def test_ws_body_never_waits_on_the_card(cuda):
     args = (*_attn_inputs(torch.bfloat16, cuda, batch=2, grid=S_GRID), 0.125, S_GRID[1], HEADS)
     cuda_attn.attn_qkv_rel(*args)
     torch.cuda.synchronize()
-    before = cuda_attn.attn_qkv_rel.launches_by_design["ws"]
+    before = cuda_attn.attn_qkv_rel.launches
     torch.cuda.set_sync_debug_mode("error")
     try:
         out = cuda_attn.attn_qkv_rel(*args)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert cuda_attn.attn_qkv_rel.launches_by_design["ws"] == before + 1
+    assert cuda_attn.attn_qkv_rel.launches == before + 1
     assert torch.isfinite(out).all()
 
 

@@ -312,3 +312,62 @@ def test_ln_mlp_plain_matches_jax(mlp_inputs, approx, dtype):
     assert got.dtype == tdt and tuple(got.shape) == x.shape
     err = np.abs(got.float().numpy() - want).max()
     assert err < (1e-5 if dtype == "float32" else 2 * BF16_EPS * np.abs(want).max())
+
+
+# each attention wrapper's operands as it hands them to
+# cuda_attn._check_operands: those held to the first one's dtype,
+# contiguity and 16-byte alignment, then those it casts itself
+_OPERANDS = {
+    "attn_qkv_rel": (("qkv4", "qkv_bias", "rh_tab", "rw_tab"), ()),
+    "attn_packed": (("q", "k", "v"), ("rel_h", "rel_w")),
+    "attn_bwd": (("q", "k", "v", "g", "rel_h", "rel_w"), ()),
+    "attn_fused": (("q", "k", "v", "rel_h", "rel_w"), ()),
+    "attn_qkv": (("qkv",), ("rel_h64", "rel_w64")),
+}
+_KINDS = ("accepted", "shape", "dtype", "strided", "offset", "ref_dtype", "cast_dtype", "cast_shape")
+
+
+@pytest.mark.parametrize("name,kind", [
+    (name, kind) for name, (strict, cast) in _OPERANDS.items() for kind in _KINDS
+    if (kind != "dtype" or len(strict) > 1) and (not kind.startswith("cast") or cast)
+])
+def test_attention_operand_check(name, kind):
+    """The wrappers' one operand check, on CPU tensors (the wrappers reach
+    it only for CUDA ones): a wrong shape, a dtype other than the
+    reference's where the wrapper requires it, a non-contiguous view, a view
+    2 bytes past a 16-byte boundary and a reference in fp16 each raise with
+    the wrapper's name; an operand the wrapper casts may have another dtype
+    but not another shape."""
+    strict, cast = _OPERANDS[name]
+    shape = (4, 8)
+    t = {op: torch.zeros(shape, dtype=torch.bfloat16) for op in strict + cast}
+    last = strict[-1]
+    if kind == "shape":
+        t[last] = torch.zeros((4, 9), dtype=torch.bfloat16)
+    elif kind == "dtype":
+        t[last] = t[last].float()
+    elif kind == "strided":
+        t[last] = torch.zeros(shape[::-1], dtype=torch.bfloat16).T
+    elif kind == "offset":
+        t[last] = torch.zeros(33, dtype=torch.bfloat16)[1:].view(shape)
+        assert t[last].is_contiguous() and t[last].data_ptr() % 16 == 2
+    elif kind == "ref_dtype":
+        t[strict[0]] = t[strict[0]].half()
+    elif kind == "cast_dtype":
+        t[cast[0]] = t[cast[0]].float()
+    elif kind == "cast_shape":
+        last = cast[-1]
+        t[last] = torch.zeros((4, 9), dtype=torch.bfloat16)
+
+    def check():
+        cuda_attn._check_operands(name, t[strict[0]], [(op, t[op], shape) for op in strict],
+                                  cast=[(op, t[op], shape) for op in cast])
+
+    if kind in ("accepted", "cast_dtype"):
+        check()
+    elif kind == "ref_dtype":
+        with pytest.raises(TypeError, match=rf"^{name} kernel takes bf16 or fp32"):
+            check()
+    else:
+        with pytest.raises(ValueError, match=rf"^{name} kernel\b.*\b{last}\b"):
+            check()

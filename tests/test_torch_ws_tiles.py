@@ -202,4 +202,3 @@ def test_ws_scratch_covers_the_tensor_maps(grid, heads):
     assert tuple(kv.shape) == (2, b * heads, s, 64)  # kdims: (64, S, 2·B·H)
     nk = -(-s // BN)
     assert all(BN * i + BN <= e.shape[0] for i in range(nk))
-    assert set(cuda_attn.attn_qkv_rel.launches_by_design) == set(cuda_attn.QKV_REL_DESIGN.values()) == {"ws", "f32"}
