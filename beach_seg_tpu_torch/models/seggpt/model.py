@@ -7,12 +7,15 @@ and parameter names equal to the flax tree's paths joined by dots (see
 ``convert.from_jax_params``). Parameters stay fp32; every module casts them
 to the compute dtype at use, as the flax modules do.
 
-On the card the two hot ops run hand-written CUDA kernels, forward and
+On the card the hot ops run hand-written CUDA kernels, forward and
 backward: the qkv-rel attention (``ops.cuda_attn.qkv_rel_attention``)
 whenever head_dim is 64 and the grid fits 64×64, the packed attention over
 head-split q, k, v (``ops.cuda_attn.packed_attention``, the port of the TPU
 package's ``_kernel_packed`` path) for other head dims, and the fused LN→MLP
-(``ops.cuda_mlp.fused_ln_mlp``) under bf16. The packed kernel takes head
+(``ops.cuda_mlp.fused_ln_mlp``) under bf16, and under fp32 every linear
+product of the encoder, the patch embed and the decoder embed
+(``ops.cuda_gemm.linear``: split TF32 on the tensor cores, with the frozen
+weights' TF32 parts made once). The packed kernel takes head
 dims 64 and 80 (ViT-H); others (``tiny_config``'s 8) run on CPU tensors
 through the plain versions and raise in ``attn_packed`` on CUDA.
 
@@ -46,7 +49,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from beach_seg_tpu_torch.models.seggpt.config import SegGPTConfig
-from beach_seg_tpu_torch.ops import cuda_attn, cuda_mlp
+from beach_seg_tpu_torch.ops import cuda_attn, cuda_gemm, cuda_mlp
 from beach_seg_tpu_torch.ops.attention import attention_reference, rel_pos_terms, rel_tables_padded
 from beach_seg_tpu_torch.ops.resize import resize_2d
 from beach_seg_tpu_torch.ops.sharding import (
@@ -86,7 +89,7 @@ class PatchEmbed(nn.Module):
         gh, gw = h // p, w // p
         # (B, gh, p, gw, p, C) → (B, gh, gw, p, p, C) → (B, gh, gw, p*p*C)
         patches = x.reshape(b, gh, p, gw, p, c).permute(0, 1, 3, 2, 4, 5).reshape(b, gh, gw, p * p * c)
-        return patches.to(dt) @ self.kernel.to(dt) + self.bias.to(dt)
+        return cuda_gemm.linear(patches.to(dt), self.kernel.to(dt), self.bias.to(dt))
 
 
 class Embeddings(nn.Module):
@@ -177,9 +180,10 @@ class Attention(nn.Module):
         nh = cl // hd
 
         x = copy_to_model(x, self.mesh)
-        qkv4 = (x.reshape(b, s, c).to(dt) @ self.qkv_kernel.reshape(c, 3 * cl).to(dt)).reshape(b, s, 3, cl)
-        if self.qkv_bias is not None and not use_qkv_rel_kernel:
-            qkv4 = qkv4 + self.qkv_bias.to(dt)  # the kernel adds the bias itself
+        # the qkv-rel kernel adds the bias itself
+        qkv_bias = self.qkv_bias.reshape(3 * cl).to(dt) if self.qkv_bias is not None and not use_qkv_rel_kernel else None
+        qkv4 = cuda_gemm.linear(x.reshape(b, s, c).to(dt), self.qkv_kernel.reshape(c, 3 * cl).to(dt), qkv_bias)
+        qkv4 = qkv4.reshape(b, s, 3, cl)
         rel_params = (self.rel_pos_h.to(dt), self.rel_pos_w.to(dt)) if rel else None
 
         if use_qkv_rel_kernel:
@@ -198,7 +202,7 @@ class Attention(nn.Module):
             else:
                 out = attention_reference(q, k, v, None, None, hd**-0.5)
                 out = out.reshape(b, nh, gh, gw, hd).permute(0, 2, 3, 1, 4).reshape(b, gh, gw, cl)
-        return reduce_from_model(out @ self.proj_kernel.to(dt), self.mesh) + self.proj_bias.to(dt)
+        return reduce_from_model(cuda_gemm.linear(out, self.proj_kernel.to(dt)), self.mesh) + self.proj_bias.to(dt)
 
 
 class Mlp(nn.Module):
@@ -232,8 +236,8 @@ class Mlp(nn.Module):
                 dt == torch.bfloat16,
             )
             return reduce_from_model(out, self.mesh)
-        h = _gelu(x @ k1 + b1, dt)
-        return reduce_from_model(h @ k2, self.mesh) + b2
+        h = _gelu(cuda_gemm.linear(x, k1, b1), dt)
+        return reduce_from_model(cuda_gemm.linear(h, k2), self.mesh) + b2
 
 
 class LayerNorm(nn.Module):
@@ -432,7 +436,8 @@ class Decoder(nn.Module):
         cfg, dt = self.config, self.compute_dtype
         p, dh = cfg.patch_size, cfg.decoder_hidden_size
         b, gh, gw, _ = feats.shape
-        h = gather_from_model(copy_to_model(feats, self.mesh) @ self.embed_kernel.to(dt) + self.embed_bias.to(dt), self.mesh)
+        h = cuda_gemm.linear(copy_to_model(feats, self.mesh), self.embed_kernel.to(dt), self.embed_bias.to(dt))
+        h = gather_from_model(h, self.mesh)
         # pixel shuffle: (B, gh, gw, p, p, dh) → (B, gh·p, gw·p, dh)
         h = h.reshape(b, gh, gw, p, p, dh).permute(0, 1, 3, 2, 4, 5).reshape(b, gh * p, gw * p, dh)
         # 3×3 "SAME" conv, NHWC/HWIO in the JAX layout → NCHW/OIHW for F.conv2d

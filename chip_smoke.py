@@ -5,7 +5,7 @@ NVIDIA Hopper card.
 
 Phases (any failure exits non-zero before the result lines):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. build the seven CUDA sources of ops/csrc with nvcc, in parallel; print
+  2. build the eight CUDA sources of ops/csrc with nvcc, in parallel; print
      the build time and ptxas' register / shared-memory / spill lines;
   3. at ViT-L shapes for a batch of 8 tiles (S=1568, C=1024, 16 heads,
      M=4096): each forward kernel against its plain PyTorch version on the
@@ -63,12 +63,21 @@ Phases (any failure exits non-zero before the result lines):
      fused_attention_qkv (rel terms from rel_pos_terms_split) forward and
      backward at B=8 in bf16 and fp32, each call launching its forward
      kernel once and the attention backward once, output and gradients held
-     against the plain versions;
+     against the plain versions; then the fp32 linear products' kernel
+     (linear_f32, split TF32, csrc/gemm_f32x3.cu) at each ViT-H and ViT-L
+     product's shape (LINEAR_SHAPES: qkv at B and 2·B tiles, proj, lin1,
+     lin2, the patch and decoder embeds), forward and input gradient,
+     against an fp64 product and cuBLAS's fp32 one (LINEAR_REL_TOL,
+     LINEAR_LIB_RATIO), one launch a call and the weight's parts made once
+     an orientation, then timed beside the plain version, cuBLAS's product
+     (library_ms) and the bound; the shapes and dtypes it refuses;
  12. the default BeachSegConfig (fp32 ViT-L, model_for_config): 2
      predict_step calls (24 qkv-rel attention launches each; the second is
      the warm time) and 2 train_steps (24 qkv-rel and 24 fp32
-     attention-backward launches each, the MLP plain torch), the prompt
-     gradient held against the plain versions with fp32 limits;
+     attention-backward launches each, the MLP plain torch), each linear
+     product through linear_f32 (99 launches a call, 197 a step, no weight
+     parts made after the first), the prompt gradient held against the plain
+     versions with fp32 limits;
  13. the small head dims: the packed (#3) and fused (#7) attention and the
      attention backward (#4) at head_dim 16 (the debug backbone's) and 8
      (tiny_config's, zero-padded to 16 by the wrappers), bf16 and fp32, at
@@ -86,8 +95,9 @@ Phases (any failure exits non-zero before the result lines):
      against the plain versions with phases 5–6's limits (fp32: phase 12's);
  16. the full-size fp32 ViT-H (BeachSegConfig(backbone="huge"), its default
      compute dtype): 2 predict_step calls (the second is the warm time), 32
-     packed-attention launches each (#3 on its split-TF32 body), pred_masks
-     held against the plain versions with phase 5's limits;
+     packed-attention launches each (#3 on its split-TF32 body) and 131 of
+     linear_f32, pred_masks held against the plain versions with phase 5's
+     limits;
  17. the tuned-predict scene engine (infer.predict.run_predict) end to end
      at full width: a 2048×1024-pixel, 4-band uint16 scene at 3 m (a wavy
      shoreline across the full width; one reference date and 8 predict
@@ -1030,6 +1040,112 @@ def phase_entries(device) -> dict:
     return res
 
 
+# the fp32 linear products (ops/cuda_gemm.py, csrc/gemm_f32x3.cu) at the
+# model's shapes, (rows, K, N): B tiles of S tokens after the stream merge and
+# 2·B before it (qkv_2b), the patch embed (16·16·3 pixels a patch), and the
+# decoder embed on the query half and its halo row (decode_query_only: 29 of
+# the 56 grid rows) from the 4 collected layers; a bias where the module adds
+# it to the product (qkv on the packed path, lin1, the two embeds)
+LINEAR_SHAPES = {
+    geom: {
+        "qkv": (B * GRID[0] * GRID[1], c, 3 * c), "qkv_2b": (2 * B * GRID[0] * GRID[1], c, 3 * c),
+        "proj": (B * GRID[0] * GRID[1], c, c), "lin1": (B * GRID[0] * GRID[1], c, m),
+        "lin2": (B * GRID[0] * GRID[1], m, c), "patch": (B * GRID[0] * GRID[1], 16 * 16 * 3, c),
+        "embed": (B * (GRID[0] // 2 + 1) * GRID[1], 4 * c, 16 * 16 * 64),
+    }
+    for geom, c, m in (("vit_h", C_H, MLP_H), ("vit_l", C, MLP))
+}
+LINEAR_BIAS = ("qkv", "qkv_2b", "lin1", "patch", "embed")
+# the kernel's largest error over max|fp64 product|, forward and input
+# gradient: split TF32 leaves ~2^-21 a product and a stage's 12 truncations
+# in the tensor cores, fp32 sums on the FP32 units; read on an H100 at these
+# shapes 3.3e-7 to 1.2e-6, where cuBLAS's fp32 SGEMM read 1.0e-6 to 5.8e-6.
+# One TF32 product alone (a product with its small parts left out) is ~2^-11.
+LINEAR_REL_TOL = 4e-6
+# and no more than twice cuBLAS fp32's error on the same operands
+LINEAR_LIB_RATIO = 2.0
+LINEAR_DESIGN = ("warp-specialized: one producer thread issues TMA (128-byte swizzle) into a 4-stage ring of a "
+                 "128 x 32 fp32 activation tile and the weight's two 128 x 32 TF32 parts; two consumer warpgroups "
+                 "of 64 rows split their A fragments in registers and issue m64n128k8 tf32 wgmma (A from "
+                 "registers), small terms first, each stage's 12 products in their own accumulator added to an "
+                 "fp32 sum; the weights' parts made once and kept")
+
+
+def linear_products(cfg, train: bool) -> int:
+    """linear_f32 launches of an fp32 predict call (``train`` False) or train
+    step: the patch embed of both canvases, four products a block, the
+    decoder embed; the prompt gradient adds the input gradient of each but
+    the mask canvas's patch embed."""
+    fwd = 2 + 4 * cfg.num_hidden_layers + 1
+    return fwd + (fwd - 1 if train else 0)
+
+
+def phase_linear_f32(device) -> dict:
+    """Each product of LINEAR_SHAPES, forward (x·W + b) and input gradient
+    (dy·Wᵀ), through the kernel against an fp64 product and cuBLAS's fp32
+    one (TF32 off): within LINEAR_REL_TOL of max|fp64| and LINEAR_LIB_RATIO
+    of cuBLAS's error; one launch a call, the weight's parts made on its
+    first use in each orientation and kept; then timed beside the plain
+    version (x @ W + b), cuBLAS's product alone (library_ms) and the bound
+    (FLOPs at 165 TF/s); the wrapper raises on what it does not take."""
+    from beach_seg_tpu_torch.ops import cuda_gemm
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "the fp32 yardstick needs TF32 off")
+    res = {}
+    for geom, shapes in LINEAR_SHAPES.items():
+        for name, (m, k, n) in shapes.items():
+            g = torch.Generator(device="cpu").manual_seed(m + k + n)
+            x = torch.randn((m, k), generator=g).to(device)
+            w = (torch.randn((k, n), generator=g) / k**0.5).to(device)
+            b = (0.1 * torch.randn(n, generator=g)).to(device) if name in LINEAR_BIAS else None
+            dy = torch.randn((m, n), generator=g).to(device)
+            l0, c0 = cuda_gemm.linear_f32.launches, cuda_gemm.linear_f32.cache_builds
+            y = cuda_gemm.linear_f32(x, w, b)
+            dx = cuda_gemm.linear_f32(dy, w, transposed=True)
+            cuda_gemm.linear_f32(x, w, b)
+            torch.cuda.synchronize()
+            check((cuda_gemm.linear_f32.launches - l0, cuda_gemm.linear_f32.cache_builds - c0) == (3, 2),
+                  f"linear_f32 {geom} {name}: launches, parts made "
+                  f"{cuda_gemm.linear_f32.launches - l0}, {cuda_gemm.linear_f32.cache_builds - c0}, want 3, 2")
+            r = {"shape": (m, k, n)}
+            for tag, got, want64, lib in (
+                ("", y, x.double() @ w.double() + (0 if b is None else b.double()), x @ w + (0 if b is None else b)),
+                ("_dx", dx, dy.double() @ w.double().t(), dy @ w.t()),
+            ):
+                scale = want64.abs().max().item()
+                err = (got.double() - want64).abs().max().item() / scale
+                lib_err = (lib.double() - want64).abs().max().item() / scale
+                r[f"err{tag}"], r[f"library_err{tag}"] = err, lib_err
+                check(err <= LINEAR_REL_TOL and err <= LINEAR_LIB_RATIO * lib_err,
+                      f"linear_f32 {geom} {name}{tag}: error {err:.3e} of max|fp64| (cuBLAS fp32 {lib_err:.3e})")
+                del want64, lib
+            r["ms"] = time_ms(lambda: cuda_gemm.linear_f32(x, w, b), 10)
+            r["ms_dx"] = time_ms(lambda: cuda_gemm.linear_f32(dy, w, transposed=True), 10)
+            r["plain_ms"] = time_ms(lambda: cuda_gemm.linear_f32_plain(x, w, b), 10)
+            r["library_ms"] = time_ms(lambda: torch.matmul(x, w), 10)
+            r["library_ms_dx"] = time_ms(lambda: torch.matmul(dy, w.t()), 10)
+            r["bound"] = bound(2 * m * k * n, 4 * (m * k + k * n + m * n + n), PEAK_FP32_TC)
+            log(f"linear_f32 {geom} {name} (M, K, N) = {(m, k, n)}: err {r['err']:.3e} (cuBLAS fp32 "
+                f"{r['library_err']:.3e}), dx err {r['err_dx']:.3e} ({r['library_err_dx']:.3e}); ms {r['ms']:.4f}, "
+                f"dx {r['ms_dx']:.4f}, plain {r['plain_ms']:.4f}, cuBLAS {r['library_ms']:.4f} / dx "
+                f"{r['library_ms_dx']:.4f}, bound {r['bound'][0]:.4f} ({r['bound'][1]}); "
+                f"{2 * m * k * n / r['ms'] / 1e9:.1f} TF/s")
+            res[(geom, name)] = r
+            del x, w, b, dy, y, dx
+            torch.cuda.empty_cache()
+    x = torch.zeros((4, 64), device=device)
+    for args, what in (((x, torch.zeros((64, 3), device=device)), "N = 3"),
+                       ((x.bfloat16(), torch.zeros((64, 128), device=device, dtype=torch.bfloat16)), "bf16"),
+                       ((x, torch.zeros((64, 128), device=device, requires_grad=True)), "a weight that requires grad"),
+                       ((x[:, 1:61], torch.zeros((60, 128), device=device)), "a strided x")):
+        try:
+            cuda_gemm.linear_f32(*args)
+        except (TypeError, ValueError):
+            continue
+        check(False, f"linear_f32 took {what}")
+    return res
+
+
 def phase_small_head_dims(device) -> dict:
     """#3, #7 and #4 at head dims 16 and 8 (zero-padded to 16 by the
     wrappers), bf16 and fp32, at B=8 tiles of the debug backbone's 4 heads
@@ -1250,9 +1366,10 @@ def plain_kernels():
     """Route the model through the plain versions on the card, forward and
     backward, for the reference runs only (the library itself never does
     this)."""
-    from beach_seg_tpu_torch.ops import attention, cuda_attn, cuda_mlp
+    from beach_seg_tpu_torch.ops import attention, cuda_attn, cuda_gemm, cuda_mlp
 
-    names = ((cuda_attn, "attn_qkv_rel", cuda_attn.attn_qkv_rel_plain), (cuda_attn, "attn_bwd", attention.attention_bwd_plain),
+    names = ((cuda_gemm, "linear_f32", cuda_gemm.linear_f32_plain),
+             (cuda_attn, "attn_qkv_rel", cuda_attn.attn_qkv_rel_plain), (cuda_attn, "attn_bwd", attention.attention_bwd_plain),
              (cuda_mlp, "ln_mlp", cuda_mlp.ln_mlp_plain), (cuda_mlp, "ln_mlp_dx", cuda_mlp.ln_mlp_dx_plain),
              (cuda_attn, "attn_packed", attention.attention_packed_plain),
              (cuda_attn, "attn_fused", attention.attention_fused_plain),
@@ -1287,11 +1404,13 @@ def main_path_inputs(conf, n_prompts: int, n_batches: int, seed: int = 0):
     return prompts, batches
 
 
-def phase_main_path(device, model, conf, expect: dict, n_batches: int = 3) -> dict:
+def phase_main_path(device, model, conf, expect: dict, n_batches: int = 3, linear: int | None = None) -> dict:
     """PromptTuner.predict_step on ``n_batches`` batches of B crops; each
     call must launch the kernels ``expect`` names that many times and the
-    others not at all; one batch's pred_masks held against the plain
-    versions."""
+    others not at all (and, given ``linear``, the fp32 linear products'
+    kernel that many times, making no weight parts after the first call);
+    one batch's pred_masks held against the plain versions."""
+    from beach_seg_tpu_torch.ops import cuda_gemm
     from beach_seg_tpu_torch.train import PromptTuner
     from beach_seg_tpu_torch.transforms import decode_by_palette
 
@@ -1301,21 +1420,27 @@ def phase_main_path(device, model, conf, expect: dict, n_batches: int = 3) -> di
     want_calls = {name: expect.get(name, 0) for name in counters()}
 
     reset_counts()
-    seconds, per_call = [], []
+    seconds, per_call, lin = [], [], []
     for batch in batches:
         before = read_counts()
+        l0 = (cuda_gemm.linear_f32.launches, cuda_gemm.linear_f32.cache_builds)
         t = time.perf_counter()
         ids = tuner.predict_step(*prompts, batch, out_size=conf.crop_size)
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t)
         now = read_counts()
         per_call.append({k: now[k] - before[k] for k in now})
+        lin.append((cuda_gemm.linear_f32.launches - l0[0], cuda_gemm.linear_f32.cache_builds - l0[1]))
         check(tuple(ids.shape) == (B, conf.crop_size, conf.crop_size), f"ids shape {tuple(ids.shape)}")
         check(ids.dtype == torch.uint8 and ids.device.type == "cuda", f"ids {ids.dtype} on {ids.device}")
         check(int(ids.max()) < len(conf.classes), f"id {int(ids.max())} out of range")
     launches = read_counts()
-    log(f"main path: predict_step seconds per call {seconds}; launches per call {per_call}")
+    log(f"main path: predict_step seconds per call {seconds}; launches per call {per_call}; "
+        f"linear_f32 launches and weight parts made per call {lin}")
     check(all(pc == want_calls for pc in per_call), f"launches per call {per_call}, want {want_calls}")
+    if linear is not None:
+        check(all(n == linear for n, _ in lin) and all(c == 0 for _, c in lin[1:]),
+              f"linear_f32 launches and parts made per call {lin}, want {linear} and none after the first")
 
     pred, pal = tuner.predict_masks(*prompts, batches[0])
     with plain_kernels():
@@ -1345,7 +1470,7 @@ def phase_main_path(device, model, conf, expect: dict, n_batches: int = 3) -> di
     check(err <= PRED_REL_TOL * scale, f"pred_masks disagree: {err} > {PRED_REL_TOL * scale}")
     check(agree >= ID_AGREEMENT_MIN, f"id agreement {agree}")
     check(worst <= reach, f"an id differs {worst} from a decision boundary, beyond the error's reach {reach}")
-    return {"launches": launches, "seconds": seconds, "pred_err": err, "id_agreement": agree}
+    return {"launches": launches, "seconds": seconds, "pred_err": err, "id_agreement": agree, "linear": lin}
 
 
 def train_path_inputs(conf, n_prompts: int, n_steps: int, seed: int = 1):
@@ -1374,12 +1499,15 @@ def train_path_inputs(conf, n_prompts: int, n_steps: int, seed: int = 1):
 
 
 def phase_train_path(device, model, conf, expect: dict, n_steps: int = 3,
-                     grad_limits: tuple[float, float] = (GRAD_1MCOS_MAX, GRAD_REL_TOL)) -> dict:
+                     grad_limits: tuple[float, float] = (GRAD_1MCOS_MAX, GRAD_REL_TOL), linear: int | None = None) -> dict:
     """PromptTuner.train_step at full width (the predict phase's model, now
     with gradients through it), each step launching the kernels ``expect``
-    names that many times and the others not at all; then one step's prompt
-    gradient through the kernels and through the plain versions on the same
-    draws, within ``grad_limits`` (1 − cosine, max error / max|plain|)."""
+    names that many times and the others not at all (and, given ``linear``,
+    the fp32 linear products' kernel that many times, making no weight parts
+    after the first step); then one step's prompt gradient through the
+    kernels and through the plain versions on the same draws, within
+    ``grad_limits`` (1 − cosine, max error / max|plain|)."""
+    from beach_seg_tpu_torch.ops import cuda_gemm
     from beach_seg_tpu_torch.train import PromptTuner
 
     want_steps = {name: expect.get(name, 0) for name in counters()}
@@ -1390,9 +1518,10 @@ def phase_train_path(device, model, conf, expect: dict, n_steps: int = 3,
     gen = torch.Generator(device=device).manual_seed(0)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    seconds, losses, per_step = [], [], []
+    seconds, losses, per_step, lin = [], [], [], []
     for batch in batches:
         before = read_counts()
+        l0 = (cuda_gemm.linear_f32.launches, cuda_gemm.linear_f32.cache_builds)
         t = time.perf_counter()
         state, metrics = tuner.train_step(state, prompts[1], prompts[2], batch, generator=gen)
         loss = metrics["loss"].item()  # syncs
@@ -1401,13 +1530,17 @@ def phase_train_path(device, model, conf, expect: dict, n_steps: int = 3,
         losses.append(loss)
         now = read_counts()
         per_step.append({k: now[k] - before[k] for k in now})
+        lin.append((cuda_gemm.linear_f32.launches - l0[0], cuda_gemm.linear_f32.cache_builds - l0[1]))
         check(math.isfinite(loss), f"train loss {loss}")
         check(int(metrics["confusion"].sum()) > 0, "empty confusion matrix")
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
     log(f"train path: train_step seconds per step {seconds}; losses {losses}; launches per step {per_step}; "
-        f"peak memory {peak / 2**30:.3f} GiB")
+        f"linear_f32 launches and weight parts made per step {lin}; peak memory {peak / 2**30:.3f} GiB")
     check(all(ps == want_steps for ps in per_step), f"launches per step {per_step}, want {want_steps}")
+    if linear is not None:
+        check(all(n == linear for n, _ in lin) and all(c == 0 for _, c in lin[1:]),
+              f"linear_f32 launches and parts made per step {lin}, want {linear} and none after the first")
     moved = (state.prompt_pixels - start).abs().max().item()
     check(moved > 0, "prompt pixels did not move")
     check(bool(torch.isfinite(state.prompt_pixels).all() and torch.isfinite(state.ema_pixels).all()), "state not finite")
@@ -1430,7 +1563,8 @@ def phase_train_path(device, model, conf, expect: dict, n_steps: int = 3,
     check(scale > 0, "plain prompt gradient is zero")
     check(1 - cos <= cos_max, f"prompt gradient direction disagrees: cosine {cos}")
     check(err <= rel_tol * scale, f"prompt gradient disagrees: {err} > {rel_tol * scale}")
-    return {"launches": launches, "seconds": seconds, "losses": losses, "peak_bytes": peak, "grad_cos": cos, "grad_err": err}
+    return {"launches": launches, "seconds": seconds, "losses": losses, "peak_bytes": peak, "grad_cos": cos, "grad_err": err,
+            "linear": lin}
 
 
 # the scene engines' synthetic scene: a 6 km stretch of coast at 3 m pixels,
@@ -2428,16 +2562,17 @@ def superdove_entries(kernels: list, sd: dict) -> None:
 GOLDEN_DATES = 2  # scripts/golden_parity_torch.PREDICT_DATES, the scripts' default scene
 PLAIN_VERSIONS = {"cuda_attn": ("attn_qkv_rel_plain", "attention_packed_plain", "attention_bwd_plain",
                                 "attention_fused_plain", "attention_qkv_plain"),
-                  "cuda_mlp": ("ln_mlp_plain", "ln_mlp_dx_plain", *(f"{st}_plain" for st in MLP_STAGES))}
+                  "cuda_mlp": ("ln_mlp_plain", "ln_mlp_dx_plain", *(f"{st}_plain" for st in MLP_STAGES)),
+                  "cuda_gemm": ("linear_f32_plain",)}
 
 
 @contextlib.contextmanager
 def plain_watch():
     """The plain versions the kernel wrappers would fall back to, each
     wrapped to count its calls → {name: calls}."""
-    from beach_seg_tpu_torch.ops import cuda_attn, cuda_mlp
+    from beach_seg_tpu_torch.ops import cuda_attn, cuda_gemm, cuda_mlp
 
-    mods = {"cuda_attn": cuda_attn, "cuda_mlp": cuda_mlp}
+    mods = {"cuda_attn": cuda_attn, "cuda_mlp": cuda_mlp, "cuda_gemm": cuda_gemm}
     calls = {name: 0 for names in PLAIN_VERSIONS.values() for name in names}
     saved = {(m, n): getattr(mods[m], n) for m, names in PLAIN_VERSIONS.items() for n in names}
 
@@ -2652,6 +2787,9 @@ def main() -> int:
     t = time.perf_counter()
     ke = phase_entries(device)
     log(f"entry path phase: {time.perf_counter() - t:.3f} s")
+    t = time.perf_counter()
+    kg = phase_linear_f32(device)
+    log(f"fp32 linear products phase: {time.perf_counter() - t:.3f} s")
 
     large = {"attn_qkv_rel": 24, "ln_mlp": 24}
     huge = {"attn_packed": 32, "ln_mlp": 32}
@@ -2694,18 +2832,18 @@ def main() -> int:
         dbg[name] = phase_debug_backbone(device, dtype)
         log(f"debug backbone {name} phase: {time.perf_counter() - t:.3f} s")
 
-    # the default BeachSegConfig: fp32 ViT-L (the MLP stays plain torch under fp32)
+    # the default BeachSegConfig: fp32 ViT-L (its linear products, the MLP's included, through linear_f32)
     t = time.perf_counter()
     conf32 = BeachSegConfig(batch_size=B)
     check(conf32.compute_dtype == "float32" and conf32.backbone == "large", f"default config {conf32}")
     model, cfg32 = model_for_config(conf32, device=device, seed=0)
     check(cfg32.head_dim == HD and cfg32.num_hidden_layers == 24, f"fp32 ViT-L config {cfg32}")
     log(f"fp32 predict path: ViT-L from the default BeachSegConfig, built in {time.perf_counter() - t:.3f} s")
-    m32 = phase_main_path(device, model, conf32, {"attn_qkv_rel": 24}, n_batches=2)
+    m32 = phase_main_path(device, model, conf32, {"attn_qkv_rel": 24}, n_batches=2, linear=linear_products(cfg32, False))
     log(f"fp32 predict path phase: {time.perf_counter() - t:.3f} s")
     t = time.perf_counter()
     tr32 = phase_train_path(device, model, conf32, {"attn_qkv_rel": 24, "attn_bwd": 24}, n_steps=2,
-                            grad_limits=(GRAD32_1MCOS_MAX, GRAD32_REL_TOL))
+                            grad_limits=(GRAD32_1MCOS_MAX, GRAD32_REL_TOL), linear=linear_products(cfg32, True))
     log(f"fp32 train path phase: {time.perf_counter() - t:.3f} s")
     del model
     torch.cuda.empty_cache()
@@ -2717,7 +2855,7 @@ def main() -> int:
     model, cfg_h32 = model_for_config(conf_h32, device=device, seed=0)
     check(cfg_h32.head_dim == HD_H and cfg_h32.num_hidden_layers == 32, f"fp32 ViT-H config {cfg_h32}")
     log(f"fp32 ViT-H predict path: {cfg_h32.num_hidden_layers} layers, built in {time.perf_counter() - t:.3f} s")
-    mh32 = phase_main_path(device, model, conf_h32, {"attn_packed": 32}, n_batches=2)
+    mh32 = phase_main_path(device, model, conf_h32, {"attn_packed": 32}, n_batches=2, linear=linear_products(cfg_h32, False))
     log(f"fp32 ViT-H predict path phase: {time.perf_counter() - t:.3f} s")
     del model
     torch.cuda.empty_cache()
@@ -2972,6 +3110,20 @@ def main() -> int:
             })
     for name in ("attn_qkv_rel", "ln_mlp", "attn_bwd", "ln_mlp_dx"):
         first[name]["launches_painter"] = {path: pt[path]["launches"][name] for path in ("predict", "train")}
+    for (geom, name), r in kg.items():
+        m, k, n = r["shape"]
+        kernels.append({
+            "name": "linear_f32", "geometry": geom, "product": name, "dtype": "fp32", "route": "cuda",
+            "source": "beach_seg_tpu_torch/ops/csrc/gemm_f32x3.cu", "replaces": "none (XLA's fp32 dot)",
+            "max_rel_err": r["err"], "max_rel_err_dx": r["err_dx"],
+            "library_rel_err": r["library_err"], "library_rel_err_dx": r["library_err_dx"],
+            "ms": r["ms"], "ms_dx": r["ms_dx"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound"][0], "bound_by": r["bound"][1], "bound_route": FP32_ROUTE,
+            "library_ms": r["library_ms"], "library_ms_dx": r["library_ms_dx"], "design": LINEAR_DESIGN,
+            "shape": f"fp32, x ({m}, {k}) · W ({k}, {n})" + (" + b" if name in LINEAR_BIAS else ""),
+            **({"launches_fp32_predict": (m32 if geom == "vit_l" else mh32)["linear"][-1][0]} if name == "qkv" else {}),
+            **({"launches_fp32_train": tr32["linear"][-1][0]} if (geom, name) == ("vit_l", "qkv") else {}),
+        })
     superdove_entries(kernels, sd)
     golden_entries(kernels, gold)
     first["attn_packed"]["ms_hd16_bf16"] = ks["packed_ms_hd16"]

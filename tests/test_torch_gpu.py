@@ -7,8 +7,11 @@ of 80) through the kernels forward and backward, the library's attention
 entries, the shapes the kernels refuse, the scene engine (run_predict) and
 the training runtime (run_training) against their own runs through the
 plain versions, the grouped feature
-ensemble at an odd batch, the device votes against the CPU's, and a warm
-forward that never waits on the card.
+ensemble at an odd batch, the device votes against the CPU's, a warm
+forward that never waits on the card, and the fp32 linear products'
+split-TF32 kernel (linear_f32) and its input gradient against an fp64
+product at ViT-H's and ViT-L's shapes, with its launches and weight parts
+a step.
 Marked ``gpu``: they skip where no CUDA device is present (run them on the
 card with ``python -m pytest --noconftest -m gpu tests/test_torch_gpu.py``)."""
 
@@ -20,7 +23,7 @@ import torch
 
 from beach_seg_tpu_torch.config import BeachSegConfig
 from beach_seg_tpu_torch.models.seggpt import build_model, tiny_config
-from beach_seg_tpu_torch.ops import cuda_attn, cuda_mlp
+from beach_seg_tpu_torch.ops import cuda_attn, cuda_gemm, cuda_mlp
 from beach_seg_tpu_torch.ops.attention import (
     attention_bwd_plain,
     attention_fused_plain,
@@ -707,6 +710,95 @@ def test_warm_forward_never_waits_on_the_card(cuda, hidden, dtype, fwd, painter)
             torch.cuda.set_sync_debug_mode("default")
     assert getattr(cuda_attn, fwd).launches - a0 == cfg.num_hidden_layers
     assert torch.isfinite(out).all()
+
+
+# (M, K, N) of ViT-H's and ViT-L's fp32 products: B = 8 tiles of 1568 tokens
+# (12544 rows), 2·B before the stream merge (25088), ragged rows (4999, 1001),
+# the decoder embed's 6496 rows (the query half and its halo row); N 1280,
+# 3840, 5120 and 16384, K 1280 and 5120 (and ViT-L's 1024 and 4096)
+_LINEAR_CASES = [(12544, 1280, 3840), (25088, 1280, 1280), (12544, 1280, 5120), (12544, 5120, 1280),
+                 (4999, 1280, 16384), (6496, 5120, 16384), (25088, 1024, 4096), (1001, 4096, 1024)]
+
+
+@pytest.mark.parametrize("m,k,n", _LINEAR_CASES, ids=lambda v: str(v))
+def test_linear_f32_and_its_backward_match_fp64(cuda, m, k, n):
+    """The fp32 linear products' kernel through the autograd Function the
+    model calls, x·W + b and the input gradient dy·Wᵀ, one launch each,
+    against an fp64 product: within 4e-6 of the output's scale, and no more
+    than twice cuBLAS fp32's error (TF32 off) on the same operands."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    g = torch.Generator(device="cpu").manual_seed(m + k + n)
+    x = torch.randn((m, k), generator=g).to(cuda).requires_grad_(True)
+    w = (torch.randn((k, n), generator=g) / k**0.5).to(cuda)
+    b = (0.1 * torch.randn(n, generator=g)).to(cuda)
+    dy = torch.randn((m, n), generator=g).to(cuda)
+    l0 = cuda_gemm.linear_f32.launches
+    y = cuda_gemm.linear(x, w, b)
+    (dx,) = torch.autograd.grad(y, x, dy)
+    torch.cuda.synchronize()
+    assert cuda_gemm.linear_f32.launches - l0 == 2
+    x = x.detach()
+    for got, want, lib in ((y, x.double() @ w.double() + b.double(), x @ w + b),
+                           (dx, dy.double() @ w.double().t(), dy @ w.t())):
+        scale = want.abs().max().item()
+        err = (got.double() - want).abs().max().item() / scale
+        lib_err = (lib.double() - want).abs().max().item() / scale
+        assert err <= 4e-6 and err <= 2 * lib_err, (err, lib_err)
+
+
+@pytest.mark.parametrize("hidden", [128, 160], ids=["hd64", "hd80"])
+def test_fp32_linear_products_launch_once_each_and_never_wait(cuda, hidden):
+    """A 2-layer fp32 model's forward and prompt gradient on the card: one
+    linear_f32 launch a qualifying product (the patch embed of both
+    canvases, four a block, the decoder embed; the input gradient of each
+    but the mask canvas's patch embed), every weight's parts made in the
+    first step (both orientations) and none in the second, which runs under
+    sync-debug mode ``"error"`` without an operation that waits on the card."""
+    cfg = tiny_config(hidden_size=hidden, num_attention_heads=2, num_hidden_layers=2, merge_index=0,
+                      intermediate_hidden_state_indices=(1,), initializer_range=0.2)
+    model = build_model(cfg, torch.float32, device=cuda, seed=1)
+    rng = np.random.default_rng(0)
+    h, w = cfg.image_size[0] // 2, cfg.image_size[1]
+    x, px, pm, lab = (torch.from_numpy(rng.standard_normal((2, h, w, 3)).astype(np.float32)).to(cuda) for _ in range(4))
+    fwd = 2 + 4 * cfg.num_hidden_layers + 1
+
+    def step():
+        leaf = px.clone().requires_grad_(True)
+        out = model(x, leaf, pm, labels=lab, decode_query_only=True)
+        return torch.autograd.grad(out["loss"], leaf)[0]
+
+    for first in (True, False):
+        l0, c0 = cuda_gemm.linear_f32.launches, cuda_gemm.linear_f32.cache_builds
+        if first:
+            step()
+        else:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                grad = step()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        assert cuda_gemm.linear_f32.launches - l0 == 2 * fwd - 1
+        assert cuda_gemm.linear_f32.cache_builds - c0 == (2 * (fwd - 1) if first else 0)
+    assert torch.isfinite(grad).all() and grad.abs().max() > 0
+
+
+def test_linear_f32_raises_on_what_it_does_not_take(cuda):
+    """The wrapper refuses bf16, N not a multiple of 4, a weight that
+    requires grad (it forms no weight gradient) and a strided input; the
+    model's ``linear`` sends the first two to ``x @ W`` instead."""
+    x = torch.randn((4, 64), device=cuda)
+    w = torch.randn((64, 128), device=cuda)
+    with pytest.raises(TypeError):
+        cuda_gemm.linear_f32(x.bfloat16(), w.bfloat16())
+    for args in ((x, torch.randn((64, 3), device=cuda)), (x, w.clone().requires_grad_(True)),
+                 (x[:, 1:61], torch.randn((60, 128), device=cuda))):
+        with pytest.raises(ValueError):
+            cuda_gemm.linear_f32(*args)
+    l0 = cuda_gemm.linear_f32.launches
+    for a, b in ((x.bfloat16(), w.bfloat16()), (x, torch.randn((64, 3), device=cuda))):
+        assert torch.equal(cuda_gemm.linear(a, b), a @ b)
+    assert cuda_gemm.linear_f32.launches == l0
 
 
 _STAGE_PLAINS = ("ln_rows_plain", "lin1_gelu_plain", "lin2_plain", "dual_dh_plain", "dln_plain", "ln_vjp_plain",
