@@ -134,7 +134,8 @@ class BeachSegConfig:
     epochs_compat: bool = False
     # backbone preset: "large" = ViT-L (BAAI/seggpt-vit-large topology);
     # "huge" = ViT-H-class scale-up for 8-band SuperDove work
-    # (BASELINE.json config #5).
+    # (BASELINE.json config #5); "painter" = Painter ViT-L; "eva02" =
+    # EVA-02-L/14's block at patch 14 (port-only, models/seggpt/config.py).
     backbone: str = "large"
 
 

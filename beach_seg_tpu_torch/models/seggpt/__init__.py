@@ -3,7 +3,7 @@
 ``save_params`` file → module state) and ``random_state`` (seeded random
 weights); both names are exported."""
 
-from beach_seg_tpu_torch.models.seggpt.config import SegGPTConfig, huge_config, painter_config, tiny_config
+from beach_seg_tpu_torch.models.seggpt.config import SegGPTConfig, eva02_config, huge_config, painter_config, tiny_config
 from beach_seg_tpu_torch.models.seggpt.convert import (
     config_from_hf,
     convert_torch_state_dict,
@@ -28,6 +28,7 @@ __all__ = [
     "config_from_hf",
     "convert_torch_state_dict",
     "default_bool_masked_pos",
+    "eva02_config",
     "from_jax_params",
     "huge_config",
     "init_random",

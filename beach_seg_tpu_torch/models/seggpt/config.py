@@ -8,6 +8,14 @@ in-context painter SegGPT was built on: ``window_size`` (0: every block
 attends over the whole grid, SegGPT's topology), ``global_attn_indexes``
 (the blocks that still do when windows are on) and ``type_tokens``
 (SegGPT's semantic/instance tokens, which Painter's embedding lacks).
+One more, ``block``, picks what a block computes: "vit" (the plain ViT
+block: rel-pos bias, a full qkv bias, LN → Lin → GELU → Lin) or "eva02"
+(EVA-02's block, :func:`eva02_config`: 2D rotary positions on q and k in
+place of the rel-pos bias, at t = index · the pretrain grid's side / the
+grid's width on both axes, EVA-02's ``pt_hw_seq_len`` over
+``ft_seq_len``; a qkv bias on q and v only; a LayerNorm over C before the
+attention's out projection; the MLP silu(x·W1 + b1) ⊙ (x·W2 + b2), a
+LayerNorm over the hidden width, then ·W3 + b3).
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ class SegGPTConfig:
     window_size: int = 0  # > 0: blocks outside global_attn_indexes attend within window_size² windows
     global_attn_indexes: tuple[int, ...] = ()
     type_tokens: bool = True
+    block: str = "vit"  # "vit" | "eva02"
 
     def __post_init__(self):
         if self.mlp_dim == 0:
@@ -51,6 +60,12 @@ class SegGPTConfig:
         bad = [i for i in self.global_attn_indexes if not 0 <= i < self.num_hidden_layers]
         if bad:
             raise ValueError(f"global_attn_indexes {bad} outside the {self.num_hidden_layers} blocks")
+        if self.block not in ("vit", "eva02"):
+            raise ValueError(f"block must be 'vit' or 'eva02', got {self.block!r}")
+        if self.block == "eva02" and (self.use_relative_position_embeddings or self.window_size
+                                      or not self.qkv_bias or self.head_dim % 4):
+            raise ValueError("the eva02 block's RoPE takes the place of the rel-pos bias over a global grid, "
+                             "with its q/v bias and head_dim % 4 == 0")
 
     @property
     def grid_size(self) -> tuple[int, int]:
@@ -107,5 +122,23 @@ def painter_config(**overrides) -> SegGPTConfig:
     block global and the other 16 in 14×14 windows, no type tokens
     (BeachSegConfig.backbone="painter")."""
     base = dict(window_size=14, global_attn_indexes=(2, 5, 8, 11, 14, 17, 20, 23), type_tokens=False)
+    base.update(overrides)
+    return SegGPTConfig(**base)
+
+
+def eva02_config(**overrides) -> SegGPTConfig:
+    """EVA-02-L/14's block (arXiv:2303.11331; the widths of EVA-02-CLIP-L-14's
+    vision tower, arXiv:2303.15389) in SegGPT's painter topology
+    (BeachSegConfig.backbone="eva02"): 24 layers of C 1024, 16 heads of 64,
+    a SwiGLU MLP of int(1024 · 2.6667) = 2730 with sub-LN, 2D RoPE in place
+    of the rel-pos bias, q/v-only bias; patch 14 on the 896×448 canvas (a
+    64×32 grid), SegGPT's embedding from a 16×16 pretrain grid, merge,
+    intermediates and decoder; every block global."""
+    base = dict(
+        patch_size=14,
+        mlp_dim=2730,
+        use_relative_position_embeddings=False,
+        block="eva02",
+    )
     base.update(overrides)
     return SegGPTConfig(**base)

@@ -27,7 +27,7 @@ from beach_seg_tpu_torch.utils.device import resolve_device
 
 _CONFIG_KEY = "__config_json__"
 # SegGPTConfig's fields that the JAX package's config lacks
-PORT_ONLY = ("window_size", "global_attn_indexes", "type_tokens")
+PORT_ONLY = ("window_size", "global_attn_indexes", "type_tokens", "block")
 _DEFAULTS = {f.name: f.default for f in dataclasses.fields(SegGPTConfig)}
 
 
@@ -194,9 +194,9 @@ def save_params(params: Mapping[str, Any], path: Path | str, config: SegGPTConfi
 
 
 def _stored_topology(config: SegGPTConfig) -> dict:
-    """The config's fields, less the port-only Painter fields (``PORT_ONLY``)
-    at their defaults: a SegGPT topology stays readable by the JAX package,
-    whose config has no such fields."""
+    """The config's fields, less the port-only Painter fields and ``block``
+    (``PORT_ONLY``) at their defaults: a SegGPT topology stays readable by the
+    JAX package, whose config has no such fields."""
     raw = dataclasses.asdict(config)
     for name in PORT_ONLY:
         if raw[name] == _DEFAULTS[name]:

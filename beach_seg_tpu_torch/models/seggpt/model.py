@@ -36,6 +36,13 @@ ViTDet's block): a block outside ``global_attn_indexes`` pads the grid with
 zeros to a multiple of the window, attends within each window through the
 same kernels, with rel-pos tables of the window's size, and crops the pad
 (:func:`window_partition`, :func:`window_unpartition`).
+With ``config.block`` "eva02" the block is EVA-02's (``eva02_config``): q and k
+rotate by the 2D RoPE (``ops.attention.rope_rotate``, the cos/sin tables a
+device constant) in place of the rel-pos bias, the qkv bias covers q and v
+only (``qv_bias``), a LayerNorm over C (``inner_layernorm``) precedes the
+out projection, and the MLP is SwiGLU with a LayerNorm over its hidden
+width (``ffn_layernorm``). Under bf16 at head_dim 64 the attention is
+``ops.cuda_attn.rope_attention`` and the MLP ``ops.cuda_mlp.fused_swiglu_mlp``.
 """
 
 from __future__ import annotations
@@ -50,7 +57,13 @@ from torch.utils.checkpoint import checkpoint
 
 from beach_seg_tpu_torch.models.seggpt.config import SegGPTConfig
 from beach_seg_tpu_torch.ops import cuda_attn, cuda_gemm, cuda_mlp
-from beach_seg_tpu_torch.ops.attention import attention_reference, rel_pos_terms, rel_tables_padded
+from beach_seg_tpu_torch.ops.attention import (
+    attention_reference,
+    rel_pos_terms,
+    rel_tables_padded,
+    rope_rotate,
+    rope_tables,
+)
 from beach_seg_tpu_torch.ops.resize import resize_2d
 from beach_seg_tpu_torch.ops.sharding import (
     copy_to_model,
@@ -142,6 +155,11 @@ class Embeddings(nn.Module):
         return torch.cat([input_embeddings, prompt_embeddings], dim=0)
 
 
+def qkv_bias_of(qv_bias: torch.Tensor) -> torch.Tensor:
+    """EVA-02's (3C) qkv bias from its (2, C) q and v biases: none on k."""
+    return torch.stack([qv_bias[0], torch.zeros_like(qv_bias[0]), qv_bias[1]]).reshape(-1)
+
+
 class Attention(nn.Module):
     """MHA with decomposed relative position bias (HF :210-349) over the
     grid of its input: the whole canvas, or one window a row. ``grid``
@@ -158,16 +176,24 @@ class Attention(nn.Module):
         self.config, self.compute_dtype = config, dtype
         c, hd = config.hidden_size, config.head_dim
         gh, gw = grid or config.grid_size
+        eva = config.block == "eva02"
         self.qkv_kernel = _param(c, 3, c)
-        self.qkv_bias = _param(3, c) if config.qkv_bias else None
+        if eva:
+            self.qv_bias = _param(2, c)  # EVA-02's bias: on q and v, none on k
+        else:
+            self.qkv_bias = _param(3, c) if config.qkv_bias else None
         if config.use_relative_position_embeddings:
             self.rel_pos_h = _param(2 * gh - 1, hd)
             self.rel_pos_w = _param(2 * gw - 1, hd)
         self.proj_kernel = _param(c, c)
         self.proj_bias = _param(c)
+        if eva:
+            self.inner_layernorm = LayerNorm(c, config.layer_norm_eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cfg, dt = self.config, self.compute_dtype
+        if cfg.block == "eva02":
+            return self._rope_forward(x)
         b, gh, gw, c = x.shape
         hd = cfg.head_dim
         s = gh * gw
@@ -188,7 +214,9 @@ class Attention(nn.Module):
 
         if use_qkv_rel_kernel:
             bias = self.qkv_bias.to(dt) if self.qkv_bias is not None else torch.zeros((3, cl), dtype=dt, device=x.device)
-            rh_tab, rw_tab = rel_tables_padded(*rel_params, (gh, gw), (gh, gw))
+            # a table resized to the grid comes back fp32: the kernel takes the
+            # dtype, as the TPU kernel casts inside itself
+            rh_tab, rw_tab = (t.to(dt) for t in rel_tables_padded(*rel_params, (gh, gw), (gh, gw)))
             out = cuda_attn.qkv_rel_attention(qkv4, bias, rh_tab, rw_tab, hd**-0.5, gw, nh).reshape(b, gh, gw, cl)
         else:
             # (B, S, 3, nH, hd) → (3, B·nH, S, hd)
@@ -204,10 +232,44 @@ class Attention(nn.Module):
                 out = out.reshape(b, nh, gh, gw, hd).permute(0, 2, 3, 1, 4).reshape(b, gh, gw, cl)
         return reduce_from_model(cuda_gemm.linear(out, self.proj_kernel.to(dt)), self.mesh) + self.proj_bias.to(dt)
 
+    def _rope_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """EVA-02's attention: q + bq, k and v + bv from one product, q and k
+        rotated by the 2D RoPE, softmax(q·kᵀ·hd^−0.5)·v, the inner LN over C,
+        then the out projection."""
+        cfg, dt = self.config, self.compute_dtype
+        b, gh, gw, c = x.shape
+        hd, nh, s = cfg.head_dim, cfg.num_attention_heads, gh * gw
+        if model_axis_size(self.mesh) != 1:
+            raise RuntimeError("tensor parallelism of the EVA-02 block is not supported")
+        step = (cfg.pretrain_image_size // cfg.patch_size) / gw  # EVA-02's pt_hw_seq_len / ft_seq_len
+        tables = device_constant(rope_tables, (gh, gw), step, hd, device=x.device)
+        kernel = dt == torch.bfloat16 and hd == 64
+        qv = self.qv_bias.to(dt)
+        full = None if kernel else qkv_bias_of(qv)
+        qkv4 = cuda_gemm.linear(x.reshape(b, s, c).to(dt), self.qkv_kernel.reshape(c, 3 * c).to(dt), full)
+        scale = hd**-0.5
+        if kernel:
+            out = cuda_attn.rope_attention(qkv4.reshape(b, s, 3, c), qv, tables, scale, gw, nh).reshape(b, gh, gw, c)
+        else:
+            qkv = qkv4.reshape(b, s, 3, nh, hd).permute(2, 0, 3, 1, 4).reshape(3, b * nh, s, hd)
+            q, k, v = rope_rotate(qkv[0], tables), rope_rotate(qkv[1], tables), qkv[2].contiguous()
+            if hd in cuda_attn.HEAD_DIMS and gh <= 64 and gw <= 64:
+                # the flash forward and backward with zero rel terms
+                zh, zw = (torch.zeros((b * nh, s, n), dtype=dt, device=x.device) for n in (gh, gw))
+                out = cuda_attn.fused_attention(q, k, v, zh, zw, scale, gh, gw)
+            else:
+                out = attention_reference(q, k, v, None, None, scale)
+            out = out.reshape(b, nh, gh, gw, hd).permute(0, 2, 3, 1, 4).reshape(b, gh, gw, c)
+        with span("bst.seggpt.sub_ln"):
+            out = self.inner_layernorm(out)
+        return cuda_gemm.linear(out, self.proj_kernel.to(dt)) + self.proj_bias.to(dt)
+
 
 class Mlp(nn.Module):
     """Lin1 → GELU → Lin2; under tensor parallelism a column block of lin1
-    and the rows of lin2 (Megatron's split), the ranks' outputs summed."""
+    and the rows of lin2 (Megatron's split), the ranks' outputs summed.
+    With ``config.block`` "eva02": silu(x·W1 + b1) ⊙ (x·W2 + b2), a
+    LayerNorm over the hidden width, then ·W3 + b3; one rank only."""
 
     mesh = None
 
@@ -215,13 +277,28 @@ class Mlp(nn.Module):
         super().__init__()
         self.config, self.compute_dtype = config, dtype
         c, m = config.hidden_size, config.mlp_dim
+        if config.block == "eva02":
+            self.w1_kernel, self.w1_bias = _param(c, m), _param(m)
+            self.w2_kernel, self.w2_bias = _param(c, m), _param(m)
+            self.ffn_layernorm = LayerNorm(m, config.layer_norm_eps)
+            self.w3_kernel, self.w3_bias = _param(m, c), _param(c)
+            return
         self.lin1_kernel = _param(c, m)
         self.lin1_bias = _param(m)
         self.lin2_kernel = _param(m, c)
         self.lin2_bias = _param(c)
 
+    @property
+    def fuses_ln(self) -> bool:
+        """Whether the bf16 path takes the LayerNorm before it (``ln_params``):
+        the GELU MLP's kernels, and the SwiGLU MLP's at the widths they take."""
+        cfg = self.config
+        return cfg.block == "vit" or cuda_mlp.swiglu_takes(cfg.hidden_size, cfg.mlp_dim)
+
     def forward(self, x: torch.Tensor, ln_params=None) -> torch.Tensor:
         dt = self.compute_dtype
+        if self.config.block == "eva02":
+            return self._swiglu(x, ln_params)
         k1, b1 = self.lin1_kernel.to(dt), self.lin1_bias.to(dt)
         k2, b2 = self.lin2_kernel.to(dt), self.lin2_bias.to(dt)
         mp = model_axis_size(self.mesh)
@@ -238,6 +315,24 @@ class Mlp(nn.Module):
             return reduce_from_model(out, self.mesh)
         h = _gelu(cuda_gemm.linear(x, k1, b1), dt)
         return reduce_from_model(cuda_gemm.linear(h, k2), self.mesh) + b2
+
+    def _swiglu(self, x: torch.Tensor, ln_params) -> torch.Tensor:
+        cfg, dt = self.config, self.compute_dtype
+        if model_axis_size(self.mesh) != 1:
+            raise RuntimeError("tensor parallelism of the EVA-02 block is not supported")
+        if ln_params is not None:
+            # LN(C) → W1 ‖ W2 with silu·mul → LN(H) → W3 in one chain of
+            # kernels, on the fp32 parameters: the wrapper rounds and pads
+            # them once per weight
+            ffn = self.ffn_layernorm
+            return cuda_mlp.fused_swiglu_mlp(x, *ln_params, self.w1_kernel, self.w1_bias, self.w2_kernel, self.w2_bias,
+                                             ffn.scale, ffn.bias, self.w3_kernel, self.w3_bias, cfg.layer_norm_eps)
+        k1, b1 = self.w1_kernel.to(dt), self.w1_bias.to(dt)
+        k2, b2 = self.w2_kernel.to(dt), self.w2_bias.to(dt)
+        h = (F.silu(cuda_gemm.linear(x, k1, b1).float()) * cuda_gemm.linear(x, k2, b2).float()).to(dt)
+        with span("bst.seggpt.sub_ln"):
+            h = self.ffn_layernorm(h)
+        return cuda_gemm.linear(h, self.w3_kernel.to(dt)) + self.w3_bias.to(dt)
 
 
 class LayerNorm(nn.Module):
@@ -363,7 +458,7 @@ class Block(nn.Module):
                 attn_out = ensemble_mean(attn_out, ensemble_cond, ensemble_groups, streams)
             x = x + drop_path(attn_out, rate, drop_masks[0])
         with span("bst.seggpt.mlp"):
-            if self.compute_dtype == torch.bfloat16:
+            if self.compute_dtype == torch.bfloat16 and self.mlp.fuses_ln:
                 ln = self.layernorm_after
                 mlp_out = self.mlp(x, ln_params=(ln.scale, ln.bias))
             else:

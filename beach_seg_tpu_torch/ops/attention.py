@@ -23,6 +23,10 @@ of the library's other two attention kernels, ``_kernel`` (``:53``, behind
 and ``ops.cuda_attn.attn_qkv``. ``rel_pos_terms_heads``,
 ``rel_pos_terms_split`` and ``pack_rel_terms`` produce the rel-term layouts
 those entries take.
+
+``rope_tables`` and ``rope_rotate`` are EVA-02's 2D rotary positions
+(``VisionRotaryEmbeddingFast``), which take the rel-pos bias's place in the
+``rope`` block: no JAX counterpart.
 """
 
 from __future__ import annotations
@@ -305,3 +309,28 @@ def attention_bwd_plain(
     ds4 = ds.reshape(bh, s, hk, wk)
     return dq, dk, dv, ds4.sum(-1).to(rel_h.dtype), ds4.sum(-2).to(rel_w.dtype)
 
+
+
+def rope_tables(grid: tuple[int, int], step: float, head_dim: int) -> np.ndarray:
+    """EVA-02's 2D RoPE angles as (2, S, head_dim / 2) float32 cos and sin,
+    one column a pair of head dims: pair j < head_dim / 4 (dims 2j, 2j+1)
+    turns by the token's row position, the rest by its column position, at
+    t·10000^(−2i / (head_dim / 2)) for the axis's pair i, t = index · step."""
+    gh, gw = grid
+    n = head_dim // 4
+    freqs = 10000.0 ** (-2.0 * np.arange(n) / (head_dim // 2))
+    ty = np.repeat(np.arange(gh) * step, gw)[:, None] * freqs
+    tx = np.tile(np.arange(gw) * step, gh)[:, None] * freqs
+    angle = np.concatenate([ty, tx], axis=1)
+    return np.stack([np.cos(angle), np.sin(angle)]).astype(np.float32)
+
+
+def rope_rotate(x: torch.Tensor, tables: torch.Tensor, sign: float = 1.0) -> torch.Tensor:
+    """x (..., S, head_dim) rotated pair by pair, (a, b) at dims (2j, 2j+1) →
+    (a·cos − b·sin, b·cos + a·sin) (EVA's ``rotate_half`` over interleaved
+    pairs), in fp32 and rounded to x's dtype; ``sign`` −1 turns back (the
+    transpose, for a gradient)."""
+    cos, sin = tables[0], sign * tables[1]
+    xf = x.float().unflatten(-1, (-1, 2))
+    a, b = xf[..., 0], xf[..., 1]
+    return torch.stack((a * cos - b * sin, b * cos + a * sin), dim=-1).flatten(-2).to(x.dtype)

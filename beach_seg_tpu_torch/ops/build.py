@@ -24,7 +24,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 # every source in csrc/, one shared library each
-KERNELS = ("attn_qkv_rel", "ln_mlp", "attn_bwd", "ln_mlp_dx", "attn_packed", "attn_fused", "attn_qkv", "gemm_f32x3")
+KERNELS = ("attn_qkv_rel", "ln_mlp", "attn_bwd", "ln_mlp_dx", "attn_packed", "attn_fused", "attn_qkv", "gemm_f32x3",
+           "attn_qkv_rope", "swiglu_mlp")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",

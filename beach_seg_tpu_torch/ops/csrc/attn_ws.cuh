@@ -1,5 +1,7 @@
 // The bf16 qkv-rel attention (#1, attn_qkv_rel.cu) warp-specialized for
-// Hopper (sm_90a): the body that attn_qkv_rel_bf16 launches at every shape.
+// Hopper (sm_90a): the body that attn_qkv_rel_bf16 launches at every shape,
+// and, as attn_kernel<SOFTMAX, false> without rel terms, EVA-02's RoPE
+// attention (attn_qkv_rope.cu).
 // It computes attn_qkv_rel.cu's function at the TPU kernel's rounding
 // points: q, k, v + the qkv bias rounded to bf16, the rel terms formed from
 // the biased unscaled q and rounded, round(q·scale), fp32 scores, p rounded
@@ -210,8 +212,13 @@ __global__ void __launch_bounds__(NT) fill_slots_rel(const bf16* __restrict__ qk
 
 // mq: the (B, S, 3C) qkv tensor, dims (3C, S, B); mkv: kv, dims (64, S,
 // 2·B·H); mslots: the slot rows, dims (KX, S, B·H); me: E (S_pad, KX);
-// boxes of 16 columns × 64 rows, each one panel in TMA's 32-byte swizzle
-template <int SOFTMAX>
+// boxes of 16 columns × 64 rows, each one panel in TMA's 32-byte swizzle.
+// REL false (EVA-02's RoPE instance, attn_qkv_rope.cu): no rel terms
+// (kx = 0, mq, mslots, me and bias unread); mkv holds q, k, v already
+// biased, rotated and rounded, dims (64, S, 3·B·H), so Q is loaded from its
+// first B·H planes and only scaled in place, and the key loop issues Q·Kᵀ
+// alone.
+template <int SOFTMAX, bool REL = true>
 __global__ void __launch_bounds__(NTB, 1) attn_kernel(const __grid_constant__ CUtensorMap mq,
                                                    const __grid_constant__ CUtensorMap mkv,
                                                    const __grid_constant__ CUtensorMap mslots,
@@ -246,19 +253,25 @@ __global__ void __launch_bounds__(NTB, 1) attn_kernel(const __grid_constant__ CU
       const uint32_t qb = smem_u32(&qfull);
       bar_expect_tx(qb, NWG * (TB + rbytes));
       for (int w = 0; w < NWG; ++w) {
-        for (int p = 0; p < HD / 16; ++p) tma_load3(sQ0 + w * TB + p * PANEL, &mq, h * HD + 16 * p, q0 + 64 * w, b, qb);
-        for (int p = 0; p < kx / 16; ++p) tma_load3(sR0 + w * rbytes + p * PANEL, &mslots, 16 * p, q0 + 64 * w, bh, qb);
+        if constexpr (REL) {
+          for (int p = 0; p < HD / 16; ++p) tma_load3(sQ0 + w * TB + p * PANEL, &mq, h * HD + 16 * p, q0 + 64 * w, b, qb);
+          for (int p = 0; p < kx / 16; ++p) tma_load3(sR0 + w * rbytes + p * PANEL, &mslots, 16 * p, q0 + 64 * w, bh, qb);
+        } else {
+          for (int p = 0; p < HD / 16; ++p) tma_load3(sQ0 + w * TB + p * PANEL, &mkv, 16 * p, q0 + 64 * w, bh, qb);
+        }
       }
+      const int kplane = REL ? bh : gridDim.y + bh;  // K's plane of mkv; V's is gridDim.y further
       for (int i = 0; i < nk; ++i) {
         const int s = i % NS;
         bar_wait(smem_u32(&empty[s]), ((i / NS) & 1) ^ 1);
         const uint32_t fb = smem_u32(&full[s]), sb = ring + s * stage_bytes;
         bar_expect_tx(fb, stage_bytes);
         for (int p = 0; p < HD / 16; ++p) {
-          tma_load3(sb + p * PANEL, &mkv, 16 * p, 64 * i, bh, fb);
-          tma_load3(sb + TB + p * PANEL, &mkv, 16 * p, 64 * i, gridDim.y + bh, fb);
+          tma_load3(sb + p * PANEL, &mkv, 16 * p, 64 * i, kplane, fb);
+          tma_load3(sb + TB + p * PANEL, &mkv, 16 * p, 64 * i, gridDim.y + kplane, fb);
         }
-        for (int p = 0; p < kx / 16; ++p) tma_load(sb + 2 * TB + p * PANEL, &me, 16 * p, 64 * i, fb);
+        if constexpr (REL)
+          for (int p = 0; p < kx / 16; ++p) tma_load(sb + 2 * TB + p * PANEL, &me, 16 * p, 64 * i, fb);
       }
     }
     return;
@@ -270,8 +283,9 @@ __global__ void __launch_bounds__(NTB, 1) attn_kernel(const __grid_constant__ CU
   const uint32_t sQ = sQ0 + cw * TB, sR = sR0 + cw * rbytes;
   const int hkp = round16(hk), nx = kx / 16;
 
-  // this warpgroup's q tile + bq, then ·scale, each rounded to bf16 (the
-  // scale rounded first), in place
+  // this warpgroup's q tile + bq (the pre-pass added it in the RoPE
+  // instance), then ·scale, each rounded to bf16 (the scale rounded first),
+  // in place
   bar_wait(smem_u32(&qfull), 0);
   {
     const float scale_t = __bfloat162float(__float2bfloat16_rn(scale));
@@ -279,9 +293,11 @@ __global__ void __launch_bounds__(NTB, 1) attn_kernel(const __grid_constant__ CU
     for (int c = wtid; c < 8 * HD; c += NT) {
       int r, ch;
       chunk_at(c, r, ch);
-      const uint4 bb = __ldg(reinterpret_cast<const uint4*>(bias + h * HD + 8 * ch));
       uint4 x = *reinterpret_cast<const uint4*>(q + 16 * c);
-      x = make_uint4(add2(x.x, bb.x), add2(x.y, bb.y), add2(x.z, bb.z), add2(x.w, bb.w));
+      if constexpr (REL) {
+        const uint4 bb = __ldg(reinterpret_cast<const uint4*>(bias + h * HD + 8 * ch));
+        x = make_uint4(add2(x.x, bb.x), add2(x.y, bb.y), add2(x.z, bb.z), add2(x.w, bb.w));
+      }
       __align__(16) bf16 vals[8];
       *reinterpret_cast<uint4*>(vals) = x;
 #pragma unroll
@@ -297,9 +313,11 @@ __global__ void __launch_bounds__(NTB, 1) attn_kernel(const __grid_constant__ CU
   uint32_t qa[HD / 16][4], ra[8][4];
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) ldsm_x4(qa[kk], sQ + chunk_off(warp * 16 + lane % 16, 2 * kk + lane / 16, 64));
+  if constexpr (REL) {
 #pragma unroll
-  for (int c = 0; c < 8; ++c)
-    if (c < nx) ldsm_x4(ra[c], sR + chunk_off(warp * 16 + lane % 16, 2 * c + lane / 16, 64));
+    for (int c = 0; c < 8; ++c)
+      if (c < nx) ldsm_x4(ra[c], sR + chunk_off(warp * 16 + lane % 16, 2 * c + lane / 16, 64));
+  }
 
   const bool turns = nwg == NWG;
   auto turn_wait = [&] {
@@ -326,12 +344,18 @@ __global__ void __launch_bounds__(NTB, 1) attn_kernel(const __grid_constant__ CU
   // key tile j touches), into s
   auto issue_s = [&](int j) {
     const uint32_t sb = ring + (j % NS) * stage_bytes;
-    const int k0 = 64 * j, c_lo = (k0 / wk) / 16, c_hi = (min(k0 + 63, S - 1) / wk) / 16;
+    int c_lo = 0, c_hi = 0;
+    if constexpr (REL) {
+      const int k0 = 64 * j;
+      c_lo = (k0 / wk) / 16, c_hi = (min(k0 + 63, S - 1) / wk) / 16;
+    }
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) mma_rs_k(s, qa[kk], kdesc(sb + kk * PANEL), kk > 0);
+    if constexpr (REL) {
 #pragma unroll
-    for (int c = 0; c < 8; ++c)
-      if (touched(c, nx, hkp, c_lo, c_hi)) mma_rs_k(s, ra[c], kdesc(sb + 2 * TB + c * PANEL), 1);
+      for (int c = 0; c < 8; ++c)
+        if (touched(c, nx, hkp, c_lo, c_hi)) mma_rs_k(s, ra[c], kdesc(sb + 2 * TB + c * PANEL), 1);
+    }
     commit();
   };
   // O += P(j)·V(j), V the MN-major B operand, 4 k steps of 16 keys

@@ -3,7 +3,7 @@
 the model calls, and of the library's ``fused_attention`` and
 ``fused_attention_qkv``, with their custom VJPs).
 
-Five CUDA kernels, each with a plain PyTorch version:
+Six CUDA kernels, each with a plain PyTorch version:
 
 - :func:`attn_qkv_rel` (``csrc/attn_qkv_rel.cu``) replaces the TPU forward
   kernel ``_kernel_qkv_rel`` (``beach_seg_tpu/ops/pallas_attn.py:389``).
@@ -24,6 +24,11 @@ Five CUDA kernels, each with a plain PyTorch version:
   (``pallas_attn.py:224``): q, k, v read in place from the (B, S, 3C) qkv
   tensor, the rel terms in per-head 64-slot layout, merged output; plain
   version ``ops.attention.attention_qkv_plain``.
+- :func:`attn_qkv_rope` (``csrc/attn_qkv_rope.cu``) replaces no TPU
+  kernel: EVA-02's attention (2D RoPE on q and k, q/v-only bias, no rel
+  terms) as a pre-pass and #1's warp-specialized body, bf16, head_dim 64;
+  plain version :func:`attn_qkv_rope_plain`, differentiable entry
+  :func:`rope_attention` (backward through :func:`attn_bwd`).
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain version
 only for CPU tensors; ``<wrapper>.launches`` counts kernel launches.
@@ -53,6 +58,7 @@ from beach_seg_tpu_torch.ops.attention import (
     attention_fused_plain,
     attention_packed_plain,
     attention_qkv_plain,
+    rope_rotate,
     split_qkv,
     unpack_rel_slots,
 )
@@ -74,6 +80,8 @@ _FUSED_ENTRY = {torch.bfloat16: "attn_fused_bf16", torch.float32: "attn_fused_f3
 _FUSED_PROTO = [_P] * 7 + [_I] * 5 + [ctypes.c_float, _P]
 _QKV_ENTRY = {torch.bfloat16: "attn_qkv_bf16", torch.float32: "attn_qkv_f32"}
 _QKV_PROTO = [_P] * 5 + [_I] * 6 + [ctypes.c_float, _P]
+_ROPE_ENTRY = "attn_qkv_rope_bf16"
+_ROPE_PROTO = [_P] * 5 + [_I] * 3 + [ctypes.c_float, _I, _P]
 # head dims the packed, fused and backward attention kernels take: 16, 64 and
 # 80 are instances; 8 is zero-padded to 16 (as the TPU kernel pads its
 # contraction): zero columns change no score, and the extra output columns
@@ -180,6 +188,12 @@ def attn_qkv_rel_plain(
     kidx = torch.arange(s, device=qkv4.device)
     qs = q * torch.tensor(scale, dtype=dt)
     scores = qs.float() @ k.float().transpose(-1, -2) + rel_h[..., kidx // gw] + rel_w[..., kidx % gw]
+    return _softmax_pv(scores, v, softmax).transpose(1, 2).reshape(b, s, c)
+
+
+def _softmax_pv(scores: torch.Tensor, v: torch.Tensor, softmax: str) -> torch.Tensor:
+    """fp32 scores → softmax(scores)·v in v's dtype, with the kernels'
+    rounding points: p rounded to v's dtype before PV, the division after."""
     if softmax == "stable":
         p = torch.exp(scores - scores.amax(-1, keepdim=True))
         r = p.sum(-1, keepdim=True)
@@ -188,8 +202,8 @@ def attn_qkv_rel_plain(
         r = p.sum(-1, keepdim=True) + 1e-30
     else:
         raise ValueError(f"softmax must be one of {SOFTMAX_MODES}, got {softmax!r}")
-    out = (p.to(dt).float() @ v.float()) / r
-    return out.to(dt).transpose(1, 2).reshape(b, s, c)
+    out = (p.to(v.dtype).float() @ v.float()) / r
+    return out.to(v.dtype)
 
 
 @spanned("bst.kernel.attn_qkv_rel")
@@ -235,6 +249,80 @@ def attn_qkv_rel(
 
 
 attn_qkv_rel.launches = 0
+
+
+def _rope_qkv(qkv4: torch.Tensor, qv_bias: torch.Tensor, tables: torch.Tensor, num_heads: int):
+    """q + bq and k rotated by the RoPE tables, v + bv, each rounded to
+    qkv4's dtype, as (B, nH, S, hd) heads: the RoPE kernel's pre-pass."""
+    b, s, _, c = qkv4.shape
+    dt = qkv4.dtype
+    heads = lambda t: t.reshape(b, s, num_heads, c // num_heads).transpose(1, 2)  # noqa: E731
+    q = rope_rotate(heads(qkv4[:, :, 0] + qv_bias[0].to(dt)), tables)
+    k = rope_rotate(heads(qkv4[:, :, 1]), tables)
+    return q, k, heads(qkv4[:, :, 2] + qv_bias[1].to(dt))
+
+
+def attn_qkv_rope_plain(
+    qkv4: torch.Tensor,
+    qv_bias: torch.Tensor,
+    tables: torch.Tensor,
+    scale: float,
+    num_heads: int,
+    softmax: str | None = None,
+) -> torch.Tensor:
+    """The RoPE attention kernel's function in plain PyTorch, at its rounding
+    points: q + bq, k, v + bv in the dtype; q and k rotated in fp32
+    (``ops.attention.rope_rotate``) and rounded; q·scale in the dtype; fp32
+    scores; p rounded before PV, the division after.
+
+    qkv4 (B, S, 3, C), qv_bias (2, C) (the q and v biases; k has none),
+    tables (2, S, hd/2) fp32 cos and sin → (B, S, C) merged heads."""
+    softmax = softmax or resolve_softmax(qkv4.dtype)
+    b, s, _, c = qkv4.shape
+    q, k, v = _rope_qkv(qkv4, qv_bias, tables, num_heads)
+    qs = q * torch.tensor(scale, dtype=qkv4.dtype)
+    return _softmax_pv(qs.float() @ k.float().transpose(-1, -2), v, softmax).transpose(1, 2).reshape(b, s, c)
+
+
+@spanned("bst.kernel.attn_qkv_rope")
+def attn_qkv_rope(
+    qkv4: torch.Tensor,
+    qv_bias: torch.Tensor,
+    tables: torch.Tensor,
+    scale: float,
+    num_heads: int,
+    softmax: str | None = None,
+) -> torch.Tensor:
+    """Same contract as :func:`attn_qkv_rope_plain`. CUDA tensors launch
+    the kernel (``csrc/attn_qkv_rope.cu``: a pre-pass, then #1's
+    warp-specialized body without rel terms; bf16, head_dim 64); CPU
+    tensors take the plain version."""
+    softmax = softmax or resolve_softmax(qkv4.dtype)
+    if softmax not in SOFTMAX_MODES:
+        raise ValueError(f"softmax must be one of {SOFTMAX_MODES}, got {softmax!r}")
+    if qkv4.device.type == "cpu":
+        return attn_qkv_rope_plain(qkv4, qv_bias, tables, scale, num_heads, softmax)
+    if qkv4.device.type != "cuda":
+        raise ValueError(f"attn_qkv_rope takes CPU or CUDA tensors, got {qkv4.device}")
+    b, s, three, c = qkv4.shape
+    if three != 3 or c != 64 * num_heads or qkv4.dtype != torch.bfloat16:
+        raise ValueError(f"attn_qkv_rope kernel needs bf16 and head_dim 64: {tuple(qkv4.shape)} {qkv4.dtype}, {num_heads=}")
+    _check_operands("attn_qkv_rope", qkv4, [("qkv4", qkv4, qkv4.shape), ("qv_bias", qv_bias, (2, c))],
+                    cast=[("tables", tables, (2, s, 32))])
+    tables = tables.float().contiguous()
+    lib = build.load("attn_qkv_rope", {_ROPE_ENTRY: _ROPE_PROTO})
+    out = torch.empty((b, s, c), dtype=qkv4.dtype, device=qkv4.device)
+    scratch = torch.empty((3, b * num_heads, s, 64), dtype=qkv4.dtype, device=qkv4.device)  # q, k, v rotated and biased
+    err = getattr(lib, _ROPE_ENTRY)(
+        qkv4.data_ptr(), qv_bias.data_ptr(), tables.data_ptr(), scratch.data_ptr(), out.data_ptr(), b, s, num_heads,
+        float(scale), SOFTMAX_MODES.index(softmax), torch.cuda.current_stream(qkv4.device).cuda_stream,
+    )
+    build.check(err, "attn_qkv_rope launch")
+    attn_qkv_rope.launches += 1
+    return out
+
+
+attn_qkv_rope.launches = 0
 
 
 def _check_grid(name: str, tpu: str, d: int, head_dims, s: int, hk: int, wk: int, shape) -> None:
@@ -460,6 +548,46 @@ class _QkvRelAttention(torch.autograd.Function):
     def backward(ctx, g):
         grads = _qkv_rel_bwd(*ctx.saved_tensors, g, *ctx.args, ctx.needs_input_grad[:4])
         return (*grads, None, None, None, None)
+
+
+class _RopeAttention(torch.autograd.Function):
+    """:func:`attn_qkv_rope` forward; the backward recomputes the rotated
+    q, k and the biased v (the forward's pre-pass, in plain ops), runs
+    :func:`attn_bwd` with zero rel terms over the (gh, gw) grid, and turns
+    dq and dk back through the rotation's transpose."""
+
+    @staticmethod
+    def forward(ctx, qkv4, qv_bias, tables, scale, gw, num_heads, softmax):
+        ctx.save_for_backward(qkv4, qv_bias, tables)
+        ctx.args = (scale, gw, num_heads)
+        return attn_qkv_rope(qkv4, qv_bias, tables, scale, num_heads, softmax)
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv4, qv_bias, tables = ctx.saved_tensors
+        scale, gw, nh = ctx.args
+        b, s, _, c = qkv4.shape
+        dt = qkv4.dtype
+        q, k, v = (t.reshape(b * nh, s, c // nh).contiguous() for t in _rope_qkv(qkv4, qv_bias, tables, nh))
+        zh, zw = (torch.zeros((b * nh, s, n), dtype=dt, device=qkv4.device) for n in (s // gw, gw))
+        dq, dk, dv, _, _ = attn_bwd(q, k, v, zh, zw, _heads(g.to(dt), nh), scale)
+        dq, dk = rope_rotate(dq.float(), tables, -1.0), rope_rotate(dk, tables, -1.0)
+        dqkv4 = _merge_qkv_grads(dq, dk, dv, b, nh, dt)
+        dbias = None
+        if ctx.needs_input_grad[1]:
+            dbias = torch.stack([dqkv4[:, :, 0].float().sum((0, 1)), dqkv4[:, :, 2].float().sum((0, 1))])
+            dbias = dbias.to(qv_bias.dtype)
+        return dqkv4 if ctx.needs_input_grad[0] else None, dbias, None, None, None, None, None
+
+
+def rope_attention(qkv4, qv_bias, tables, scale: float, gw: int, num_heads: int, softmax: str | None = None):
+    """EVA-02's differentiable attention: :func:`attn_qkv_rope` forward,
+    :func:`attn_bwd` backward over the (S // gw, gw) grid (the wrappers are
+    looked up when called, so they can be swapped for their plain
+    versions)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (qkv4, qv_bias)):
+        return _RopeAttention.apply(qkv4, qv_bias, tables, scale, gw, num_heads, softmax)
+    return attn_qkv_rope(qkv4, qv_bias, tables, scale, num_heads, softmax)
 
 
 def qkv_rel_attention(qkv4, qkv_bias, rh_tab, rw_tab, scale: float, gw: int, num_heads: int, softmax: str | None = None):

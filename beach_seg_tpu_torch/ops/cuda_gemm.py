@@ -38,7 +38,7 @@ from beach_seg_tpu_torch.utils.profiling import spanned
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _PROTO = {"gemm_f32x3": [_P, _P, _P, _P, _P, _I, _I, _I, _P]}
-_PARTS = "_tf32_parts"  # the attribute of a weight's base tensor that keeps its parts
+_KEPT = "_kept_copies"  # the attribute of a weight's base tensor that keeps what is made from it
 
 
 def takes(device_type: str, dtype: torch.dtype, k: int, n: int) -> bool:
@@ -64,23 +64,31 @@ def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return big, x - big
 
 
+def kept(w: torch.Tensor, what: tuple, make):
+    """``make()``'s copy of ``w``, made once and kept on ``w``'s base tensor
+    under ``what`` and ``w``'s view while ``w``'s version counter and data
+    pointer stay the same; returns it and whether it was made now. An
+    inference tensor has no version counter to stamp a copy with: it makes
+    one each call."""
+    if w.is_inference():
+        return make(), True
+    base = w if w._base is None else w._base
+    key = (what, w.storage_offset(), tuple(w.shape), tuple(w.stride()))
+    stamp = (w._version, w.data_ptr())
+    store = base.__dict__.setdefault(_KEPT, {})
+    entry = store.get(key)
+    if entry is not None and entry[0] == stamp:
+        return entry[1], False
+    store[key] = (stamp, make())
+    return store[key][1], True
+
+
 def weight_parts(w: torch.Tensor, transposed: bool) -> tuple[torch.Tensor, torch.Tensor]:
     """The TF32 parts of ``w.t()`` (``transposed``: the forward's K-major
-    operand) or of ``w`` as stored (the input gradient's), made once and kept
-    on ``w``'s base tensor while its version counter and data pointer stay
-    the same."""
-    base = w if w._base is None else w._base
-    if w.is_inference():  # no version counter: nothing to stamp a copy with
-        linear_f32.cache_builds += 1
-        return split_tf32(w.t() if transposed else w)
-    key = (transposed, w.storage_offset(), tuple(w.shape), tuple(w.stride()))
-    stamp = (w._version, w.data_ptr())
-    kept = base.__dict__.setdefault(_PARTS, {})
-    entry = kept.get(key)
-    if entry is None or entry[0] != stamp:
-        entry = kept[key] = (stamp, split_tf32(w.t() if transposed else w))
-        linear_f32.cache_builds += 1
-    return entry[1]
+    operand) or of ``w`` as stored (the input gradient's), kept (:func:`kept`)."""
+    parts, made = kept(w, ("tf32", transposed), lambda: split_tf32(w.t() if transposed else w))
+    linear_f32.cache_builds += made
+    return parts
 
 
 def linear_f32_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None,

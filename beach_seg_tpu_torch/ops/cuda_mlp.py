@@ -17,6 +17,12 @@ twin (``ln_rows``, ``lin1_gelu``, ``lin2``, ``dual_dh``, ``dln``,
 ``ln_vjp``), and the two plain versions are those chains. C = 64 or 128 (the
 debug backbone) takes one narrow SIMT kernel each.
 
+- :func:`swiglu_mlp` (``csrc/swiglu_mlp.cu``) replaces no TPU kernel: EVA-02's
+  MLP, LN(C) → silu(ln·W1 + b1) ⊙ (ln·W2 + b2) → LN over the hidden width →
+  ·W3 + b3, 6·C·M FLOP a row, as four stage kernels on the same products;
+  plain version :func:`swiglu_mlp_plain`, differentiable entry
+  :func:`fused_swiglu_mlp` (backward by autograd of the plain version).
+
 Each wrapper launches for CUDA tensors and takes its plain version only for
 CPU tensors; ``<wrapper>.launches`` counts its kernel launches
 (``ln_mlp.launches`` and ``ln_mlp_dx.launches`` one a call, the stage
@@ -30,8 +36,9 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
-from beach_seg_tpu_torch.ops import build
+from beach_seg_tpu_torch.ops import build, cuda_gemm
 from beach_seg_tpu_torch.utils.profiling import spanned
 
 _P = ctypes.c_void_p
@@ -53,6 +60,18 @@ _DX_PROTO = {
     "ln_mlp_dx_narrow_bf16": _NARROW,
 }
 NARROW_C = (64, 128)
+_SWIGLU_PROTO = {
+    **_LN_ROWS,
+    "swiglu_dual_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "swiglu_ln_wide_bf16": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "swiglu_out_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],
+}
+WIDE_MAX = 2816  # the hidden width the LN over it takes: 11 chunks of 8 a lane
+
+
+def swiglu_takes(c: int, m: int) -> bool:
+    """Whether :func:`swiglu_mlp`'s kernels take width ``c`` and hidden width ``m``."""
+    return c % 256 == 0 and c <= 1280 and m <= WIDE_MAX and m % 2 == 0
 
 
 def _gelu_f32(h: torch.Tensor, approx: bool) -> torch.Tensor:
@@ -135,6 +154,25 @@ def ln_mlp_dx_plain(x, ln_scale, ln_bias, w1, b1, w2, g, eps: float, approx: boo
     ln, mean, rstd = ln_rows_plain(x, ln_scale, ln_bias, eps)
     dh = dual_dh_plain(ln, g, w1, b1, w2, approx)
     return ln_vjp_plain(dln_plain(dh, w1), x, ln_scale, mean, rstd)
+
+
+def swiglu_dual_plain(ln, w1, b1, w2, b2):
+    """h = silu(ln·w1 + b1) ⊙ (ln·w2 + b2): fp32 products and gate, rounded to ln's dtype."""
+    g = ln.float() @ w1.float() + b1.float()
+    return (F.silu(g) * (ln.float() @ w2.float() + b2.float())).to(ln.dtype)
+
+
+def swiglu_mlp_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, ffn_scale, ffn_bias, w3, b3, eps: float) -> torch.Tensor:
+    """The SwiGLU kernel chain's function in plain PyTorch, at its rounding
+    points: W1, b1, W2, b2, W3 and b3 rounded to x's dtype, as the kernels
+    take them; LN over C in fp32 rounded to x's dtype; both products and
+    silu(g)·u in fp32, rounded; the LN over the hidden width in fp32 (two-pass
+    statistics over exactly M columns), rounded; the last product in fp32
+    plus b3, rounded."""
+    w1, b1, w2, b2, w3, b3 = (t.to(x.dtype) for t in (w1, b1, w2, b2, w3, b3))
+    ln, _, _ = ln_rows_plain(x, ln_scale, ln_bias, eps)
+    h, _, _ = ln_rows_plain(swiglu_dual_plain(ln, w1, b1, w2, b2), ffn_scale, ffn_bias, eps)
+    return lin2_plain(h, w3, b3)
 
 
 # ------------------------------------------------------------ device stages
@@ -417,3 +455,112 @@ def fused_ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float, approx: bool)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
         return _LnMlp.apply(*args, eps, approx)
     return ln_mlp(*args, eps, approx)
+
+
+# --------------------------------------------------------------- SwiGLU
+
+
+def _operand(t: torch.Tensor, dtype: torch.dtype, n: int, dim: int) -> torch.Tensor:
+    """``t`` in ``dtype``, zero-padded along ``dim`` to length ``n`` in one
+    copy, kept while ``t`` is unchanged (``cuda_gemm.kept``): a frozen weight
+    is rounded and padded once, not on every call."""
+    def make() -> torch.Tensor:
+        shape = list(t.shape)
+        shape[dim] = n
+        out = torch.zeros(shape, dtype=dtype, device=t.device)
+        out.narrow(dim, 0, t.shape[dim]).copy_(t.detach())
+        return out
+
+    out, made = cuda_gemm.kept(t, ("swiglu", dtype, n, dim), make)
+    swiglu_mlp.operand_builds += made
+    return out
+
+
+@spanned("bst.kernel.swiglu_mlp")
+def swiglu_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, ffn_scale, ffn_bias, w3, b3, eps: float) -> torch.Tensor:
+    """LN → SwiGLU → LN over the hidden width → W3 on (..., C) input (no
+    residual), as :func:`swiglu_mlp_plain`. CUDA tensors launch four stage
+    kernels (bf16 x, fp32 LN params, C % 256 == 0, C ≤ 1280, M ≤ 2816):
+    ``ln_rows`` (counted in ``ln_rows.launches``, as #2's stage); the dual
+    product ln·W1 ‖ ln·W2 with the silu·mul epilogue; the LN over exactly M
+    columns; the product with W3 and b3. The weights and biases may come in
+    any float dtype (the model hands its fp32 parameters): the kernels take
+    them rounded to bf16, and the hidden width zero-padded to a multiple of
+    64 (Mp) for the products' k steps and TMA's 16-byte row strides: W1, W2,
+    b1, b2 and the LN's parameters get zero columns and W3 zero rows, so the
+    padded units are 0 through every stage. Each rounded, padded operand is
+    made once per source tensor (:func:`_operand`; ``swiglu_mlp.operand_builds``
+    counts the copies). CPU tensors take the plain version."""
+    if not _cuda_or_cpu("swiglu_mlp", x):
+        return swiglu_mlp_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, ffn_scale, ffn_bias, w3, b3, eps)
+    c = x.shape[-1]
+    m = w1.shape[-1]
+    if not swiglu_takes(c, m):
+        raise ValueError(f"swiglu_mlp kernel needs C % 256 == 0, C <= 1280 and an even hidden width <= {WIDE_MAX}, "
+                         f"got C={c}, M={m}")
+    bf, f32 = torch.bfloat16, torch.float32
+    mp = -(-m // 64) * 64
+    shapes = [("w1", w1, (c, m)), ("b1", b1, (m,)), ("w2", w2, (c, m)), ("b2", b2, (m,)), ("ffn_scale", ffn_scale, (m,)),
+              ("ffn_bias", ffn_bias, (m,)), ("w3", w3, (m, c)), ("b3", b3, (c,))]
+    for name, t, shape in shapes:
+        if tuple(t.shape) != shape or not t.is_floating_point() or t.device != x.device:
+            raise ValueError(f"swiglu_mlp: {name} wants {shape} floats on {x.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+    w1p, w2p = _operand(w1, bf, mp, 1), _operand(w2, bf, mp, 1)
+    b1p, b2p = _operand(b1, bf, mp, 0), _operand(b2, bf, mp, 0)
+    fs, fb = _operand(ffn_scale, f32, mp, 0), _operand(ffn_bias, f32, mp, 0)
+    w3p, b3p = _operand(w3, bf, mp, 0), _operand(b3, bf, c, 0)
+    _need("swiglu_mlp", x.device, ("x", x, bf, None), ("ln_scale", ln_scale, f32, (c,)), ("ln_bias", ln_bias, f32, (c,)))
+    lib = build.load("swiglu_mlp", _SWIGLU_PROTO)
+    n = x.numel() // c
+    out = torch.empty_like(x)
+    if n:
+        st = _stream(x)
+        ln, _, _ = _launch_ln_rows(lib, x, ln_scale, ln_bias, eps)
+        h = torch.empty((n, mp), device=x.device, dtype=bf)
+        build.check(lib.swiglu_dual_bf16(ln.data_ptr(), w1p.data_ptr(), b1p.data_ptr(), w2p.data_ptr(), b2p.data_ptr(),
+                                         h.data_ptr(), n, c, mp, st), "swiglu dual launch")
+        del ln
+        hl = torch.empty_like(h)
+        build.check(lib.swiglu_ln_wide_bf16(h.data_ptr(), fs.data_ptr(), fb.data_ptr(), hl.data_ptr(), n, m, mp,
+                                            float(eps), st), "swiglu ln_wide launch")
+        del h
+        build.check(lib.swiglu_out_bf16(hl.data_ptr(), w3p.data_ptr(), b3p.data_ptr(), out.data_ptr(), n, mp, c, st),
+                    "swiglu out launch")
+    swiglu_mlp.launches += 1
+    return out
+
+
+swiglu_mlp.launches = 0
+swiglu_mlp.operand_builds = 0
+
+
+class _SwiGluMlp(torch.autograd.Function):
+    """:func:`swiglu_mlp` forward, saving the inputs only; every cotangent
+    asked for by autograd of :func:`swiglu_mlp_plain` (no tuned backward
+    kernel yet)."""
+
+    @staticmethod
+    def forward(ctx, x, ln_scale, ln_bias, w1, b1, w2, b2, ffn_scale, ffn_bias, w3, b3, eps):
+        ctx.save_for_backward(x, ln_scale, ln_bias, w1, b1, w2, b2, ffn_scale, ffn_bias, w3, b3)
+        ctx.eps = eps
+        return swiglu_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, ffn_scale, ffn_bias, w3, b3, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        need = ctx.needs_input_grad[:11]
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)]
+            out = swiglu_mlp_plain(*leaves, ctx.eps)
+            wanted = [t for t in leaves if t.requires_grad]
+            got = iter(torch.autograd.grad(out, wanted, g))
+        return (*(next(got) if t.requires_grad else None for t in leaves), None)
+
+
+def fused_swiglu_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, ffn_scale, ffn_bias, w3, b3, eps: float) -> torch.Tensor:
+    """The model's differentiable EVA-02 MLP: :func:`swiglu_mlp` forward,
+    autograd of :func:`swiglu_mlp_plain` backward (looked up when called, so
+    the forward can be swapped for its plain version)."""
+    args = (x, ln_scale, ln_bias, w1, b1, w2, b2, ffn_scale, ffn_bias, w3, b3)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _SwiGluMlp.apply(*args, eps)
+    return swiglu_mlp(*args, eps)

@@ -117,11 +117,15 @@ def param_sharding(mesh: DeviceMesh, state: dict[str, torch.Tensor]) -> dict[str
 def shard_model(model: nn.Module, mesh: DeviceMesh) -> nn.Module:
     """Put ``model`` (a ``SegGPT``) on ``mesh``: swap each parameter for this
     rank's shard and hand every module that runs a collective the mesh.
-    Raises where the model axis does not split the heads."""
+    Raises where the model axis does not split the heads, and for the
+    EVA-02 block on more than one model rank."""
     mp = model_axis_size(mesh)
-    heads = model.config.num_attention_heads
+    cfg = model.config
+    heads = cfg.num_attention_heads
     if heads % mp:
         raise ValueError(f"mesh_model={mp} does not divide the {heads} attention heads")
+    if mp > 1 and cfg.block != "vit":
+        raise ValueError(f"mesh_model={mp}: tensor parallelism of the EVA-02 block is not supported")
     full = dict(model.named_parameters())
     for name, t in param_sharding(mesh, {k: v.detach() for k, v in full.items()}).items():
         if t.shape != full[name].shape:

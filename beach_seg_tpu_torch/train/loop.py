@@ -38,7 +38,7 @@ import torch
 from beach_seg_tpu_torch.config import BeachSegConfig, num_workers
 from beach_seg_tpu_torch.data.dataset import BeachSegDataset, create_scene, iterate_batches, materialize_prompts
 from beach_seg_tpu_torch.data.prefetch import prefetch_iterator
-from beach_seg_tpu_torch.models.seggpt.config import SegGPTConfig, huge_config, painter_config
+from beach_seg_tpu_torch.models.seggpt.config import SegGPTConfig, eva02_config, huge_config, painter_config
 from beach_seg_tpu_torch.models.seggpt.convert import load_config
 from beach_seg_tpu_torch.models.seggpt.load import load_model_params
 from beach_seg_tpu_torch.models.seggpt.model import SegGPT, build_model
@@ -62,7 +62,9 @@ def config_for(conf: BeachSegConfig) -> SegGPTConfig:
     own topology wins (it describes the weights), else the ``debug``
     miniature, else ``conf.backbone``: ``"huge"`` (ViT-H: C=1280, 32 layers,
     16 heads of 80), ``"painter"`` (Painter ViT-L: 14×14 windows outside 8
-    global blocks, at every input size; a port-only backbone), and ViT-L
+    global blocks, at every input size; a port-only backbone), ``"eva02"``
+    (EVA-02-L/14's block: SwiGLU with sub-LN, 2D RoPE, q/v-only bias, patch
+    14; port-only), and ViT-L
     for ``"large"`` or any other name, as in the JAX package — on a
     (2·inpt_size, inpt_size) canvas."""
     ckpt = Path(str(conf.checkpoint))
@@ -87,6 +89,8 @@ def config_for(conf: BeachSegConfig) -> SegGPTConfig:
         return huge_config(image_size=image_size)
     if conf.backbone == "painter":
         return painter_config(image_size=image_size)
+    if conf.backbone == "eva02":
+        return eva02_config(image_size=image_size)
     return SegGPTConfig(image_size=image_size)
 
 

@@ -13,7 +13,9 @@ boundary: ``bst.predict_step`` / ``bst.train_step`` / ``bst.eval_step`` and
 their phases (``bst.predict.*``, ``bst.train.*``), the model
 (``bst.seggpt`` and ``bst.seggpt.{embed,attn,mlp,decoder,loss}``; inside a
 windowed block's ``attn``, ``bst.seggpt.window`` around the window layout
-and its inverse and ``bst.seggpt.attn_win`` around the attention), each
+and its inverse and ``bst.seggpt.attn_win`` around the attention; in an
+EVA-02 block, ``bst.seggpt.sub_ln`` around a sub-LN that runs outside the
+kernels), each
 hand-written kernel's launch wrapper (``bst.kernel.<wrapper>``), the data
 feed's wait (``bst.data.wait``), the scene engines' phases and dates
 (``bst.scene.*``), and ``bst.sync`` around each copy between the host and

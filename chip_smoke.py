@@ -269,6 +269,15 @@ GRID_CROSS = (37, 27)
 # after the stream merge and on 2·B·8 before it (blocks 0 and 1)
 PAINTER_WIN = (14, 14)
 PAINTER_ROWS = (B * 8, 2 * B * 8)
+# EVA-02-L (backbone "eva02"): the 896×448 canvas at 14-pixel patches, its
+# SwiGLU width int(1024 · 2.6667), its RoPE step (16 over the query's 32
+# columns); the RoPE attention at B and 2B rows (after and before the stream
+# merge), the SwiGLU MLP on their tokens and on a row count no tile divides
+EVA_GRID = (64, 32)
+EVA_MLP = 2730
+EVA_ROPE_STEP = 0.5
+EVA_ROWS = (B, 2 * B)
+EVA_MLP_ROWS = (B * 64 * 32, 2 * B * 64 * 32, 1000)
 C, HEADS, MLP = 1024, 16, 4096
 HD = C // HEADS
 C_H, MLP_H = 1280, 5120  # ViT-H (huge_config): 16 heads of 80
@@ -368,6 +377,7 @@ def counters():
         "attn_bwd": cuda_attn.attn_bwd, "ln_mlp_dx": cuda_mlp.ln_mlp_dx,
         "attn_packed": cuda_attn.attn_packed, "attn_fused": cuda_attn.attn_fused,
         "attn_qkv": cuda_attn.attn_qkv, **{name: getattr(cuda_mlp, name) for name in MLP_STAGES},
+        "attn_qkv_rope": cuda_attn.attn_qkv_rope, "swiglu_mlp": cuda_mlp.swiglu_mlp,
     }
 
 
@@ -1337,6 +1347,136 @@ def phase_painter_path(device) -> dict:
     return {"predict": m, "train": tr, "predict_shapes": pred_shapes, "train_shapes": train_shapes}
 
 
+def eva02_attn_bound(rows: int) -> tuple[float, str]:
+    """The RoPE attention's least time: QKᵀ and PV at the bf16 peak, or its
+    two launches' bytes (qkv in; rotated q, k and biased v out and in; the
+    output; the biases and the fp32 cos / sin tables)."""
+    s = EVA_GRID[0] * EVA_GRID[1]
+    nbytes = 2 * rows * s * C * 10 + 2 * 2 * C + 4 * 2 * s * HD // 2
+    return bound(4 * rows * s * s * C, nbytes, PEAK_BF16)
+
+
+def eva02_mlp_bound(n: int) -> tuple[float, str]:
+    """The SwiGLU MLP's least time: its three products at the bf16 peak, or
+    its four launches' bytes (x, ln, h, hl out and in at the padded width,
+    the output, W1, W2, W3, their biases and the LayerNorms' fp32 params)."""
+    mp = -(-EVA_MLP // 64) * 64
+    nbytes = 2 * n * (5 * C + 4 * mp) + 2 * (3 * C * mp + 2 * mp + C) + 4 * (2 * C + 2 * mp)
+    return bound(6 * n * C * EVA_MLP, nbytes, PEAK_BF16)
+
+
+def eva02_mlp_inputs(device, seed: int, n: int):
+    """x (n, C), the LN(C) params, W1, b1, W2, b2 (C, M), the LN(M) params,
+    W3 (M, C), b3, eps: seeded, bf16 activations and weights."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    r = lambda *sh, s=1.0: s * torch.randn(sh, generator=g, device=device)  # noqa: E731
+    bf, m = torch.bfloat16, EVA_MLP
+    return (r(n, C).to(bf), 1 + r(C, s=0.1), r(C, s=0.1), (r(C, m) / C**0.5).to(bf), r(m, s=0.1).to(bf),
+            (r(C, m) / C**0.5).to(bf), r(m, s=0.1).to(bf), 1 + r(m, s=0.1), r(m, s=0.1), (r(m, C) / m**0.5).to(bf),
+            r(C, s=0.1).to(bf), 1e-6)
+
+
+def phase_eva02_kernels(device) -> dict:
+    """EVA-02-L's two kernels at full width against their plain versions:
+    the RoPE attention (bf16, clamp: the model's mode) at EVA_ROWS rows of
+    the 64×32 grid, 16 heads of 64, with phase 3's attention limits; the
+    SwiGLU MLP at C 1024, M 2730 on EVA_MLP_ROWS rows with #2's limits
+    (MLP_BF16_REL_TOL, MLP_NORM_TOL). Each then timed beside its plain
+    version and its bound."""
+    from beach_seg_tpu_torch.ops import cuda_attn, cuda_mlp
+    from beach_seg_tpu_torch.ops.attention import rope_tables
+
+    s = EVA_GRID[0] * EVA_GRID[1]
+    tables = torch.from_numpy(rope_tables(EVA_GRID, EVA_ROPE_STEP, HD)).to(device)
+    res = {}
+    for rows in EVA_ROWS:
+        g = torch.Generator(device=device).manual_seed(40 + rows)
+        qkv = torch.randn((rows, s, 3, C), generator=g, device=device).to(torch.bfloat16)
+        qv = (0.1 * torch.randn((2, C), generator=g, device=device)).to(torch.bfloat16)
+        args = (qkv, qv, tables, HD**-0.5, HEADS, "clamp")
+        res[f"attn_err_{rows}"] = fwd_check(f"attn_qkv_rope bf16 clamp {rows} rows of {EVA_GRID}", cuda_attn.attn_qkv_rope,
+                                            cuda_attn.attn_qkv_rope_plain, args, (rows, s, C))
+        res[f"attn_ms_{rows}"] = time_ms(lambda: cuda_attn.attn_qkv_rope(*args), iters=20, warmup=2)
+        res[f"attn_plain_ms_{rows}"] = time_ms(lambda: cuda_attn.attn_qkv_rope_plain(*args), iters=2)
+        res[f"attn_bound_{rows}"] = eva02_attn_bound(rows)
+        log(f"times (ms, {rows} rows): attn_qkv_rope kernel {res[f'attn_ms_{rows}']:.4f} plain "
+            f"{res[f'attn_plain_ms_{rows}']:.4f} bound {res[f'attn_bound_{rows}'][0]:.4f} ({res[f'attn_bound_{rows}'][1]})")
+        del args, qkv
+        torch.cuda.empty_cache()
+    for n in EVA_MLP_ROWS:
+        args = eva02_mlp_inputs(device, 50 + n % 97, n)
+        got = cuda_mlp.swiglu_mlp(*args)
+        torch.cuda.synchronize()
+        res[f"mlp_err_{n}"] = mlp_out_check(f"swiglu_mlp bf16 {n} rows, C {C}, M {EVA_MLP}", got,
+                                            cuda_mlp.swiglu_mlp_plain(*args), MLP_BF16_REL_TOL)
+        del got
+        res[f"mlp_ms_{n}"] = time_ms(lambda: cuda_mlp.swiglu_mlp(*args), iters=10, warmup=2)
+        res[f"mlp_plain_ms_{n}"] = time_ms(lambda: cuda_mlp.swiglu_mlp_plain(*args), iters=2)
+        res[f"mlp_bound_{n}"] = eva02_mlp_bound(n)
+        log(f"times (ms, {n} rows): swiglu_mlp kernel {res[f'mlp_ms_{n}']:.4f} plain {res[f'mlp_plain_ms_{n}']:.4f} "
+            f"bound {res[f'mlp_bound_{n}'][0]:.4f} ({res[f'mlp_bound_{n}'][1]})")
+        del args
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_eva02_path(device, root: Path) -> dict:
+    """EVA-02-L (BeachSegConfig(backbone="eva02"), bf16, seeded random
+    weights) through predict_step and train_step as phases 5–6 run ViT-L:
+    the RoPE attention and the SwiGLU MLP (and its ``ln_rows`` stage) 24
+    times a call, and with #4 24 times a step, no other kernel of the
+    counters; pred_masks and the prompt
+    gradient against the plain versions with phases 5–6's limits; the
+    SwiGLU kernels' 8 rounded, padded operands a block made once over every
+    call and step (``swiglu_mlp.operand_builds``). Then
+    ``run_training`` (1 epoch, crops of 112 at 448, batch 8) on the
+    reference date of a scene with 2 predict dates and ``run_predict`` from
+    its EMA export on both, each through both kernels."""
+    from beach_seg_tpu_torch.config import BeachSegConfig, PredictionConfig
+    from beach_seg_tpu_torch.geo.tiff import read
+    from beach_seg_tpu_torch.infer import run_predict
+    from beach_seg_tpu_torch.ops import cuda_attn, cuda_mlp
+    from beach_seg_tpu_torch.train import run_training
+    from beach_seg_tpu_torch.train.loop import model_for_config
+
+    conf = BeachSegConfig(batch_size=B, backbone="eva02", compute_dtype="bfloat16")
+    model, cfg = model_for_config(conf, device=device, seed=0)
+    check(cfg.grid_size == EVA_GRID and cfg.mlp_dim == EVA_MLP and cfg.block == "eva02" and cfg.head_dim == HD
+          and cfg.num_hidden_layers == 24, f"EVA-02 config {cfg}")
+    fwd = {"attn_qkv_rope": 24, "swiglu_mlp": 24, "ln_rows": 24}  # the SwiGLU chain's first stage is #2's ln_rows
+    b0 = cuda_mlp.swiglu_mlp.operand_builds
+    m = phase_main_path(device, model, conf, fwd)
+    tr = phase_train_path(device, model, conf, dict(fwd, attn_bwd=24), n_steps=2)
+    builds = cuda_mlp.swiglu_mlp.operand_builds - b0
+    log(f"EVA-02 SwiGLU operands made over the predict and train phases: {builds}")
+    check(builds == 8 * 24, f"SwiGLU operands made {builds} times, want 8 a block once")
+    del model
+    torch.cuda.empty_cache()
+
+    dates = write_scene(root / "eva02_scene", n_dates=2)
+    t = time.perf_counter()
+    a0, s0 = cuda_attn.attn_qkv_rope.launches, cuda_mlp.swiglu_mlp.launches
+    run_dir = run_training(BeachSegConfig(data=root / "eva02_scene", model_training_root=root / "eva02_train",
+                                          checkpoint="random", backbone="eva02", compute_dtype="bfloat16", crop_size=112,
+                                          inpt_size=448, batch_size=B, epochs=1, num_viz_images=0))
+    trained = (cuda_attn.attn_qkv_rope.launches - a0, cuda_mlp.swiglu_mlp.launches - s0)
+    train_s = time.perf_counter() - t
+    t = time.perf_counter()
+    pred = run_predict(PredictionConfig(data=root / "eva02_scene", model_training_root=root / "eva02_pred",
+                                        train_run_dir=run_dir, use_ema=True, batch_size=B, compute_dtype="bfloat16"))
+    predicted = (cuda_attn.attn_qkv_rope.launches - a0 - trained[0], cuda_mlp.swiglu_mlp.launches - s0 - trained[1])
+    predict_s = time.perf_counter() - t
+    for date in dates[1:]:
+        ids = read(pred / "tif" / f"{date}.tif").data
+        check(ids.size > 0 and set(np.unique(ids).tolist()) <= set(range(len(conf.classes))), f"EVA-02 ids of {date}")
+    log(f"EVA-02 run_training: {train_s:.3f} s, (attn_qkv_rope, swiglu_mlp) launches {trained}; run_predict on "
+        f"{len(dates) - 1} dates: {predict_s:.3f} s, launches {predicted}")
+    check(min(trained) > 0 and trained[0] % 24 == 0 and trained[0] == trained[1], f"run_training launches {trained}")
+    check(min(predicted) > 0 and predicted[0] % 24 == 0 and predicted[0] == predicted[1], f"run_predict launches {predicted}")
+    return {"predict": m, "train": tr, "operand_builds": builds, "run_training_s": train_s, "run_predict_s": predict_s,
+            "launches_run_training": trained, "launches_run_predict": predicted}
+
+
 def phase_debug_backbone(device, dtype) -> dict:
     """The debug backbone through predict_step and train_step in ``dtype``:
     #3 (and #2 under bf16) once per layer per call, #3 and #4 (and #2, #5)
@@ -1373,7 +1513,8 @@ def plain_kernels():
              (cuda_mlp, "ln_mlp", cuda_mlp.ln_mlp_plain), (cuda_mlp, "ln_mlp_dx", cuda_mlp.ln_mlp_dx_plain),
              (cuda_attn, "attn_packed", attention.attention_packed_plain),
              (cuda_attn, "attn_fused", attention.attention_fused_plain),
-             (cuda_attn, "attn_qkv", attention.attention_qkv_plain))
+             (cuda_attn, "attn_qkv", attention.attention_qkv_plain),
+             (cuda_attn, "attn_qkv_rope", cuda_attn.attn_qkv_rope_plain), (cuda_mlp, "swiglu_mlp", cuda_mlp.swiglu_mlp_plain))
     saved = [getattr(mod, name) for mod, name, _ in names]
     for mod, name, plain in names:
         setattr(mod, name, plain)
@@ -2561,8 +2702,9 @@ def superdove_entries(kernels: list, sd: dict) -> None:
 # GOLDEN_DATES predict dates
 GOLDEN_DATES = 2  # scripts/golden_parity_torch.PREDICT_DATES, the scripts' default scene
 PLAIN_VERSIONS = {"cuda_attn": ("attn_qkv_rel_plain", "attention_packed_plain", "attention_bwd_plain",
-                                "attention_fused_plain", "attention_qkv_plain"),
-                  "cuda_mlp": ("ln_mlp_plain", "ln_mlp_dx_plain", *(f"{st}_plain" for st in MLP_STAGES)),
+                                "attention_fused_plain", "attention_qkv_plain", "attn_qkv_rope_plain"),
+                  "cuda_mlp": ("ln_mlp_plain", "ln_mlp_dx_plain", *(f"{st}_plain" for st in MLP_STAGES),
+                               "swiglu_mlp_plain"),
                   "cuda_gemm": ("linear_f32_plain",)}
 
 
@@ -2717,6 +2859,31 @@ def phase_golden_parity(device, root: Path, dates: list[str], card: str) -> dict
         check(worst[name] >= gp.IOU_MIN, f"golden parity {name}: worst per-class IoU {worst[name]} < {gp.IOU_MIN}")
     return {"seconds": seconds, "launches": launches, "rows": rows, "worst_iou": worst, "class_shares": shares,
             "head_scale": head_scale, "versions": versions, "near_ties": ties}
+
+
+def eva02_entries(kernels: list, ek: dict, ep: dict) -> None:
+    """EVA-02-L's two kernels at each row count, with their launches a
+    predict call and a train step."""
+    s = EVA_GRID[0] * EVA_GRID[1]
+    for rows in EVA_ROWS:
+        kernels.append({
+            "name": "attn_qkv_rope", "geometry": "eva02", "route": "cuda",
+            "source": "beach_seg_tpu_torch/ops/csrc/attn_qkv_rope.cu", "replaces": "none (EVA-02's attention)",
+            "launches": ep["predict"]["launches"]["attn_qkv_rope"], "launches_train": ep["train"]["launches"]["attn_qkv_rope"],
+            "max_abs_err": ek[f"attn_err_{rows}"], "ms": ek[f"attn_ms_{rows}"], "plain_ms": ek[f"attn_plain_ms_{rows}"],
+            "bound_ms": ek[f"attn_bound_{rows}"][0], "bound_by": ek[f"attn_bound_{rows}"][1], "design_name": "ws",
+            "shape": f"bf16 clamp, qkv ({rows}, {s}, 3, {C}), {HEADS} heads, RoPE, grid {EVA_GRID[0]}x{EVA_GRID[1]}",
+        })
+    for n in EVA_MLP_ROWS:
+        kernels.append({
+            "name": "swiglu_mlp", "geometry": "eva02", "route": "cuda",
+            "source": "beach_seg_tpu_torch/ops/csrc/swiglu_mlp.cu", "replaces": "none (EVA-02's SwiGLU MLP)",
+            "launches": ep["predict"]["launches"]["swiglu_mlp"], "launches_train": ep["train"]["launches"]["swiglu_mlp"],
+            "max_abs_err": ek[f"mlp_err_{n}"]["err"], "error_norm": ek[f"mlp_err_{n}"]["norm"],
+            "ms": ek[f"mlp_ms_{n}"], "plain_ms": ek[f"mlp_plain_ms_{n}"],
+            "bound_ms": ek[f"mlp_bound_{n}"][0], "bound_by": ek[f"mlp_bound_{n}"][1], "design": MLP_DESIGN,
+            "shape": f"bf16, x ({n}, {C}), M={EVA_MLP} (padded to a multiple of 64)",
+        })
 
 
 def golden_entries(kernels: list, gold: dict) -> None:
@@ -2906,6 +3073,13 @@ def main() -> int:
     t = time.perf_counter()
     pt = phase_painter_path(device)
     log(f"Painter predict and train path phase: {time.perf_counter() - t:.3f} s")
+    t = time.perf_counter()
+    ek = phase_eva02_kernels(device)
+    log(f"EVA-02 kernel phase: {time.perf_counter() - t:.3f} s")
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ep = phase_eva02_path(device, Path(tmp))
+    log(f"EVA-02 predict, train and scene phase: {time.perf_counter() - t:.3f} s")
 
     kernels = [
         {
@@ -3126,6 +3300,7 @@ def main() -> int:
         })
     superdove_entries(kernels, sd)
     golden_entries(kernels, gold)
+    eva02_entries(kernels, ek, ep)
     first["attn_packed"]["ms_hd16_bf16"] = ks["packed_ms_hd16"]
     first["attn_bwd"]["ms_hd16_bf16"] = ks["bwd_ms_hd16"]
     for name in ("attn_packed", "attn_bwd", "ln_mlp", "ln_mlp_dx"):

@@ -683,18 +683,24 @@ def test_fp32_train_step_on_card(cuda, hidden, fwd):
 @pytest.mark.parametrize("hidden,dtype,fwd,painter", [(128, torch.bfloat16, "attn_qkv_rel", {}),
                                                       (160, torch.float32, "attn_packed", {}),
                                                       (128, torch.bfloat16, "attn_qkv_rel",
-                                                       dict(window_size=3, global_attn_indexes=(1,), type_tokens=False))],
-                         ids=["hd64_bf16", "hd80_fp32", "painter_hd64_bf16"])
+                                                       dict(window_size=3, global_attn_indexes=(1,), type_tokens=False)),
+                                                      (256, torch.bfloat16, "attn_qkv_rope",
+                                                       dict(num_attention_heads=4, mlp_dim=682, block="eva02",
+                                                            use_relative_position_embeddings=False,
+                                                            pretrain_image_size=16))],
+                         ids=["hd64_bf16", "hd80_fp32", "painter_hd64_bf16", "eva02_hd64_bf16"])
 def test_warm_forward_never_waits_on_the_card(cuda, hidden, dtype, fwd, painter):
     """A 2-layer SegGPT through #1 (head_dim 64, C=128, bf16) and through #3
     (head_dim 80, fp32), and a 2-layer Painter through #1 (block 0 in 3×3
-    windows, which pad the 8×4 grid to 9×6; block 1 global), on a grid whose
-    abs-pos table is resized: once one forward has put its shape constants
-    on the card (the rel-pos indices of each grid, the resize matrices, the
-    masked-position mask), a second forward runs under sync-debug mode
-    ``"error"`` without a single operation that waits on the card."""
-    cfg = tiny_config(hidden_size=hidden, num_attention_heads=2, num_hidden_layers=2, merge_index=0,
-                      intermediate_hidden_state_indices=(1,), **painter)
+    windows, which pad the 8×4 grid to 9×6; block 1 global), and a 2-layer
+    EVA-02 through the RoPE attention and the SwiGLU MLP (C=256, head_dim
+    64, bf16), on a grid whose abs-pos table is resized: once one forward
+    has put its shape constants on the card (the rel-pos indices of each
+    grid, the resize matrices, the masked-position mask, the RoPE tables), a
+    second forward runs under sync-debug mode ``"error"`` without a single
+    operation that waits on the card."""
+    cfg = tiny_config(**{"hidden_size": hidden, "num_attention_heads": 2, "num_hidden_layers": 2, "merge_index": 0,
+                         "intermediate_hidden_state_indices": (1,), **painter})
     model = build_model(cfg, dtype, device=cuda, seed=1)
     rng = np.random.default_rng(0)
     h, w = cfg.image_size[0] // 2, cfg.image_size[1]
